@@ -1,0 +1,54 @@
+"""Carry the reference's serving state into the port.
+
+The state worth carrying is the corpus: the (V, w) embeddings and the ELL
+document matrix (``cols``, ``vals`` and the vocabulary size), as the JAX
+package's `repro.core.formats.EllDocs` holds them in numpy. The K cache
+holds nothing worth carrying: both packages start it empty and fill the
+same slots from the same query stream.
+
+    state = state_from_numpy(vecs, ell.cols, ell.vals, ell.num_vocab,
+                             device="cuda")
+    svc = WMDService.from_state(cfg, state, cache_capacity=1024)
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import EllDocs
+
+
+class WMDState(NamedTuple):
+    """Embeddings on the device and the port's host-side ELL."""
+
+    vecs: torch.Tensor   # (V, w) float32 on ``device``
+    ell: EllDocs         # cols (N, nnz) int32, vals (N, nnz) float32
+
+
+def state_from_numpy(vecs: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                     num_vocab: int, *,
+                     device: str | torch.device = "cuda") -> WMDState:
+    """Embeddings and ELL fields (numpy) -> the port's `WMDState`.
+
+    Values are copied bit for bit (float32 / int32), so both packages
+    compute on identical inputs. ``device`` defaults to the card; pass
+    ``"cpu"`` for the plain versions."""
+    vecs = np.asarray(vecs)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    if vecs.ndim != 2 or cols.shape != vals.shape or cols.ndim != 2:
+        raise ValueError(f"bad shapes: vecs {vecs.shape}, cols {cols.shape},"
+                         f" vals {vals.shape}")
+    if vecs.shape[0] != num_vocab:
+        raise ValueError(f"vecs has {vecs.shape[0]} rows, vocab is "
+                         f"{num_vocab}")
+    if cols.size and (cols.min() < 0 or cols.max() > num_vocab):
+        raise ValueError(f"cols outside [0, {num_vocab}]")
+    ell = EllDocs(cols=np.ascontiguousarray(cols, np.int32),
+                  vals=np.ascontiguousarray(vals, np.float32),
+                  num_vocab=int(num_vocab))
+    vecs_t = torch.as_tensor(np.ascontiguousarray(vecs, np.float32),
+                             device=torch.device(device))
+    return WMDState(vecs=vecs_t, ell=ell)

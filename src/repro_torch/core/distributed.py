@@ -1,0 +1,172 @@
+"""Query padding and the batched solver programs, on one device.
+
+Port of the single-device part of `repro.core.distributed`. The reference
+builds shard_map programs over a (data, model) mesh with one psum over the
+vocab shards per iteration; this slice runs on one GPU, so the vocab axis
+has one shard (S = 1) and the psum is the identity. The argument shapes
+are kept: ELL and stripes carry the leading S = 1 shard axis
+(`core.formats.rebucket_for_vocab_shards(ell, 1)`, `core.kcache`).
+
+Query padding is exact and mask-based: pad rows carry r = 1 and an
+all-zero K row (`pad_query` + the row mask in `masked_k_batch`), so they
+contribute exactly zero to every w, x and WMD.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import sparse_sinkhorn as ss
+from repro_torch.core.cost_matrix import cdist
+from repro_torch.core.sparse_sinkhorn import pad_k, safe_recip
+
+
+def pad_query(sel_idx: np.ndarray, r_sel: np.ndarray, v_r_target: int
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a query to a bucket size. Returns (sel_idx, r_sel, row_mask).
+
+    Pad rows point at word 0 with r = 1.0; the row mask zeroes their K rows
+    so they contribute nothing anywhere.
+    """
+    v_r = sel_idx.shape[0]
+    if v_r > v_r_target:
+        raise ValueError(f"query v_r {v_r} exceeds bucket {v_r_target}")
+    pad = v_r_target - v_r
+    sel_p = np.concatenate([sel_idx, np.zeros(pad, sel_idx.dtype)])
+    r_p = np.concatenate([r_sel.astype(np.float32), np.ones(pad, np.float32)])
+    mask = np.concatenate([np.ones(v_r, np.float32), np.zeros(pad, np.float32)])
+    return sel_p, r_p, mask
+
+
+def pad_query_batch(sels: Sequence[np.ndarray], rs: Sequence[np.ndarray],
+                    v_r_target: int
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Bucket Q mixed-size queries to a common v_r. Returns (Q, v_r) arrays
+    (sel_idx, r_sel, row_mask) -- each query padded by `pad_query`."""
+    padded = [pad_query(s, r, v_r_target) for s, r in zip(sels, rs)]
+    return (np.stack([p[0] for p in padded]),
+            np.stack([p[1] for p in padded]),
+            np.stack([p[2] for p in padded]))
+
+
+def masked_k_batch(vecs_sel: torch.Tensor, vecs_loc: torch.Tensor,
+                   lamb: float, row_mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched stripes: (Q, v_r, w) queries -> (Q, v_r, Vloc) K, K.*M, with
+    pad query rows zeroed. A full-fp32 matmul outside any kernel, as the
+    reference leaves it to XLA."""
+    m = torch.stack([cdist(a, vecs_loc) for a in vecs_sel])
+    k = torch.exp(-lamb * m) * row_mask[..., None]
+    return k, k * m
+
+
+def _check_placement(chunk_placement: str) -> None:
+    if chunk_placement not in ("solve", "iteration"):
+        raise ValueError(f"chunk_placement must be 'solve' or 'iteration', "
+                         f"got {chunk_placement!r}")
+
+
+def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
+                         max_iter: int, impl: str, docs_chunk: int | None,
+                         chunk_placement: str, tol: float):
+    """Batched Sinkhorn solve on (Q, v_r, V+1) stripes. Returns (wmd,
+    n_iter, delta).
+
+    ``chunk_placement="solve"`` runs the chunk loop outside the Sinkhorn
+    loop (each (query, chunk) block freezes at its own convergence; n_iter
+    and delta are per-query maxima over chunks); ``"iteration"`` chunks each
+    contraction inside the iteration-major loop. As in the reference, the
+    type1 contraction runs with r = 1 and the 1/r row scale follows it
+    (where the reference's psum sits).
+    """
+    q, v_r = r_sel.shape
+    ones_r = torch.ones_like(r_sel)
+    type1 = ss._resolve_impl("type1", impl)
+    type2 = ss._resolve_impl("type2", impl)
+    iter_chunk = docs_chunk if chunk_placement == "iteration" else None
+
+    def solve_chunk(x0_c, cols_c, vals_c):
+        def iteration(x):
+            x_part = type1(k_pad, ones_r, safe_recip(x), cols_c, vals_c,
+                           docs_chunk=iter_chunk)
+            return x_part / r_sel[:, :, None]
+
+        if tol:
+            x, delta, n_iter = ss.batched_sinkhorn_loop(
+                iteration, x0_c, max_iter=max_iter, tol=tol)
+        else:
+            x = x0_c
+            for _ in range(max_iter):
+                x = iteration(x)
+            delta = torch.zeros((q,), dtype=x0_c.dtype, device=x0_c.device)
+            n_iter = torch.full((q,), max_iter, dtype=torch.int32,
+                                device=x0_c.device)
+        wmd = type2(k_pad, km_pad, safe_recip(x), cols_c, vals_c,
+                    docs_chunk=iter_chunk)
+        return wmd, n_iter, delta
+
+    n_loc = cols_loc.shape[0]
+    x0 = torch.full((q, v_r, n_loc), 1.0 / v_r, dtype=k_pad.dtype,
+                    device=k_pad.device)
+    if chunk_placement == "solve" and docs_chunk and docs_chunk < n_loc:
+        parts = [solve_chunk(x0[:, :, s:s + docs_chunk],
+                             cols_loc[s:s + docs_chunk],
+                             vals_loc[s:s + docs_chunk])
+                 for s in range(0, n_loc, docs_chunk)]
+        wmd = torch.cat([p[0] for p in parts], dim=-1)
+        n_iter = torch.amax(torch.stack([p[1] for p in parts]), dim=0)
+        delta = torch.amax(torch.stack([p[2] for p in parts]), dim=0)
+        return wmd, n_iter, delta
+    return solve_chunk(x0, cols_loc, vals_loc)
+
+
+def build_wmd_batch_fn(*, lamb: float, max_iter: int, impl: str = "kernel",
+                       docs_chunk: int | None = None,
+                       chunk_placement: str = "solve", tol: float = 0.0,
+                       with_info: bool = False):
+    """The batched WMD solver with the precompute inside the program.
+
+    The returned fn takes (vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
+      vecs_sel (Q, v_r, w), r_sel (Q, v_r) (pad rows = 1.0),
+      row_mask (Q, v_r) (pad rows = 0.0), vecs (V, w),
+      cols_b / vals_b (1, N, nnz) -- the rebucketed ELL, S = 1
+    and returns wmd (Q, N), or (wmd, n_iter (Q,), delta (Q,)) with
+    ``with_info=True``.
+    """
+    _check_placement(chunk_placement)
+
+    def fn(vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
+        k, km = masked_k_batch(vecs_sel, vecs, lamb, row_mask)
+        out = _local_batched_solve(
+            pad_k(k), pad_k(km), r_sel, cols_b[0], vals_b[0],
+            max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
+            chunk_placement=chunk_placement, tol=tol)
+        return out if with_info else out[0]
+
+    return fn
+
+
+def build_wmd_batch_fn_stripes(*, max_iter: int, impl: str = "kernel",
+                               docs_chunk: int | None = None,
+                               chunk_placement: str = "solve",
+                               tol: float = 0.0, with_info: bool = False):
+    """The batched WMD solver on preassembled stripes (`core.kcache`).
+
+    The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b):
+      k_b, km_b (1, Q, v_r, V+1) stripes (zero pad column, pad rows zeroed),
+      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz)
+    and returns wmd (Q, N) (plus (n_iter, delta) with ``with_info=True``).
+    No ``lamb``: it is baked into the cached rows.
+    """
+    _check_placement(chunk_placement)
+
+    def fn(k_b, km_b, r_sel, cols_b, vals_b):
+        out = _local_batched_solve(
+            k_b[0], km_b[0], r_sel, cols_b[0], vals_b[0],
+            max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
+            chunk_placement=chunk_placement, tol=tol)
+        return out if with_info else out[0]
+
+    return fn

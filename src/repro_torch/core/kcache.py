@@ -1,0 +1,353 @@
+"""Cross-query precompute cache: word-id-keyed K / K.*M row store.
+
+Port of the K-row half of `repro.core.kcache` (`KCacheStats`,
+`_RowCacheBase`, `KCache`) on one device; the M-row store (`MCache`) comes
+with the retrieval cascade.
+
+Each row of the (Q, v_r, V) precompute stripes is keyed purely by
+``(word_id, lambda)``; nothing query-specific enters until the per-query
+1/r scale inside the solver. Zipf query streams repeat most rows across
+batches, so the store keeps them resident and the per-batch precompute cost
+drops from O(Q * v_r * V * w) to O(misses * V * w).
+
+Layout. Rows live in two device buffers of shape
+
+    (S, capacity + 1, V + 1)      S = 1 vocab shard on one GPU
+
+with the reference's two pad tricks, so assembly is a pure slot-gather
+``k_buf[:, slots]``:
+
+  * the trailing column of every row is the zero pad column that ELL pad
+    slots gather (no `pad_k` on the hot path);
+  * row index ``capacity`` is a reserved all-zero row that pad *query* rows
+    (row_mask == 0) point at, so masking is a host-side ``np.where`` on the
+    (Q, v_r) slot map.
+
+Bookkeeping is host-side: exact LRU over a monotone tick, with the current
+batch's rows pinned so a miss never evicts a row the same batch hits.
+Misses are computed in fixed ``rows_bucket`` chunks (pad ids point at word
+0) by `kernels.ops.cdist_kexp_rows` (``kexp_impl="kernel"``: the CUDA kernel
+on the card, its plain version on the CPU) or `core.sinkhorn.precompute_rows`
+(``kexp_impl="jnp"``, the plain matmul spelling; the value keeps the
+reference's name). Both compute a row from its own embedding and the
+vocabulary alone, in a fixed order, so a row's bits do not depend on its
+chunk-mates: cached rows are bitwise equal to recomputed rows and solver
+output is bitwise identical with the cache on or off.
+
+Batches whose unique-id count exceeds ``capacity`` (and every call when
+``capacity == 0`` or ``use_cache=False``) take the *transient* path: the
+same dedup, row compute and slot-gather from a throwaway store -- the
+cache-off baseline, bitwise equal to the cached path by construction.
+
+Invalidation: `ensure_lamb` drops the whole store when lambda changes;
+`invalidate_ids` drops the rows of words whose embeddings changed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.sinkhorn import precompute_rows
+
+
+@dataclasses.dataclass
+class KCacheStats:
+    """Cumulative counters (unique rows, not query-row slots)."""
+
+    lookups: int = 0        # stripes_for_batch calls
+    hit_rows: int = 0       # unique ids served from resident rows
+    miss_rows: int = 0      # unique ids computed fresh
+    evictions: int = 0
+    bypasses: int = 0       # calls that skipped the store entirely
+    invalidations: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hit_rows + self.miss_rows
+        return self.hit_rows / total if total else 0.0
+
+
+class _RowCacheBase:
+    """Host-side bookkeeping: exact LRU over a monotone tick with the
+    current batch's rows pinned, free-list slot allocation, full and scoped
+    invalidation, registry mirroring. Subclasses own the device buffers and
+    the row compute; they set ``capacity``, ``stats`` and ``_m`` before
+    calling `_reset_map`."""
+
+    def _mirror(self, name: str, n: float = 1) -> None:
+        """Mirror a KCacheStats bump into the registry (no-op unattached)."""
+        if self._m is not None:
+            self._m[name].inc(n)
+            self._m["resident"].set(len(self._slot_of))
+
+    def _reset_map(self):
+        self._slot_of: dict[int, int] = {}
+        self._id_of = np.full(self.capacity, -1, np.int64)
+        self._last_used = np.zeros(self.capacity, np.int64)
+        self._free = list(range(self.capacity - 1, -1, -1))  # pop() -> 0,1,..
+        self._tick = 0
+
+    @property
+    def resident(self) -> int:
+        return len(self._slot_of)
+
+    def invalidate(self):
+        """Drop every cached row (all ids become misses)."""
+        self._reset_map()
+        self.stats.invalidations += 1
+        self._mirror("invalidations")
+
+    def invalidate_ids(self, word_ids) -> int:
+        """Drop exactly the rows for ``word_ids``; returns how many were
+        resident (the scoped invalidation for embedding updates)."""
+        dropped = 0
+        for wid in word_ids:
+            s = self._slot_of.pop(int(wid), None)
+            if s is None:
+                continue
+            self._id_of[s] = -1
+            self._last_used[s] = 0
+            self._free.append(s)
+            dropped += 1
+        if dropped:
+            self.stats.invalidations += 1
+            self._mirror("invalidations")
+        return dropped
+
+    def _alloc_slots(self, n: int) -> list[int]:
+        """Free slots first, then exact-LRU eviction among rows not touched
+        this tick (the current batch's hits are pinned by construction)."""
+        slots = []
+        while self._free and len(slots) < n:
+            slots.append(self._free.pop())
+        need = n - len(slots)
+        if need:
+            evictable = (self._id_of >= 0) & (self._last_used < self._tick)
+            cand = np.nonzero(evictable)[0]
+            order = cand[np.argsort(self._last_used[cand], kind="stable")]
+            for s in order[:need]:
+                del self._slot_of[int(self._id_of[s])]
+                self._id_of[s] = -1
+            self.stats.evictions += need
+            self._mirror("evictions", need)
+            slots.extend(int(s) for s in order[:need])
+        return slots
+
+
+def _row_stripes(ids: torch.Tensor, vecs: torch.Tensor, b2: torch.Tensor, *,
+                 lamb: float, kexp_impl: str
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m,) word ids -> (K, K.*M) rows in cache layout (1, m, V+1): the
+    appended zero column is the ELL pad column."""
+    if kexp_impl == "kernel":
+        from repro_torch.kernels import ops
+        k, km = ops.cdist_kexp_rows(vecs[ids], vecs, lamb=lamb)
+    else:
+        k, km = precompute_rows(ids, vecs, lamb, b2=b2)
+
+    def layout(x):
+        return torch.nn.functional.pad(x, (0, 1))[None]
+
+    return layout(k), layout(km)
+
+
+class KCache(_RowCacheBase):
+    """Device-resident (word_id, lambda)-keyed K / K.*M row cache.
+
+    Args:
+      capacity:    resident row slots; 0 disables the store (every call takes
+                   the transient path -- the exact cache-off baseline).
+      vecs:        (V, w) float32 embeddings, numpy or a tensor; moved to
+                   ``device``.
+      lamb:        entropy regularization the rows are keyed under.
+      device:      where the buffers and the row compute live ("cuda" by
+                   default; pass "cpu" for the plain versions).
+      rows_bucket: fixed chunk size of the miss compute (the
+                   bit-reproducibility guarantee above).
+      kexp_impl:   "kernel" (`kernels.ops.cdist_kexp_rows`, the default) or
+                   "jnp" (`core.sinkhorn.precompute_rows`).
+      metrics:     optional `repro_torch.obs.MetricsRegistry`; when set,
+                   every KCacheStats counter is mirrored into ``wmd_kcache_*``
+                   registry metrics at the same mutation sites.
+    """
+
+    num_shards = 1
+
+    def __init__(self, capacity: int, vecs, lamb: float, *,
+                 device: str | torch.device = "cuda",
+                 rows_bucket: int = 128, kexp_impl: str = "kernel",
+                 metrics=None):
+        if kexp_impl not in ("jnp", "kernel"):
+            raise ValueError(f"kexp_impl must be 'jnp' or 'kernel', "
+                             f"got {kexp_impl!r}")
+        self.capacity = int(capacity)
+        self.lamb = float(lamb)
+        self.rows_bucket = int(rows_bucket)
+        self.kexp_impl = kexp_impl
+        self.device = torch.device(device)
+        self._vecs = torch.as_tensor(vecs, dtype=torch.float32,
+                                     device=self.device).contiguous()
+        self.vocab = self.vloc = self._vecs.shape[0]
+        self._b2 = torch.sum(self._vecs * self._vecs, dim=-1)
+        self._alloc_buffers()
+        self.stats = KCacheStats()
+        self._m = None
+        if metrics is not None:
+            self._m = {
+                "lookups": metrics.counter(
+                    "wmd_kcache_lookups_total",
+                    "stripes_for_batch calls"),
+                "hit_rows": metrics.counter(
+                    "wmd_kcache_hit_rows_total",
+                    "unique rows served from the resident store"),
+                "miss_rows": metrics.counter(
+                    "wmd_kcache_miss_rows_total",
+                    "unique rows computed fresh"),
+                "evictions": metrics.counter(
+                    "wmd_kcache_evictions_total", "LRU evictions"),
+                "bypasses": metrics.counter(
+                    "wmd_kcache_bypasses_total",
+                    "calls that skipped the resident store"),
+                "invalidations": metrics.counter(
+                    "wmd_kcache_invalidations_total",
+                    "full or scoped row invalidations"),
+                "resident": metrics.gauge(
+                    "wmd_kcache_resident_rows",
+                    "rows currently resident"),
+            }
+        self._reset_map()
+
+    def _alloc_buffers(self):
+        """All-zero row buffers (+1 row: the reserved zero row pad query
+        rows gather)."""
+        shape = (self.num_shards, self.capacity + 1, self.vloc + 1)
+        self._k_buf = torch.zeros(shape, dtype=torch.float32,
+                                  device=self.device)
+        self._km_buf = torch.zeros_like(self._k_buf)
+
+    def invalidate(self, lamb: float | None = None):
+        """Drop every cached row (all ids become misses). Pass ``lamb`` to
+        re-key the store under a new regularization strength."""
+        if lamb is not None:
+            self.lamb = float(lamb)
+        super().invalidate()
+
+    def ensure_lamb(self, lamb: float):
+        """Invalidate iff ``lamb`` differs from the store's key."""
+        if float(lamb) != self.lamb:
+            self.invalidate(lamb)
+
+    def _compute_chunks(self, ids: np.ndarray):
+        """Yield (chunk_len, k_rows, km_rows) over fixed rows_bucket chunks
+        (pad ids point at word 0; their rows are discarded by the caller)."""
+        rb = self.rows_bucket
+        for lo in range(0, len(ids), rb):
+            chunk = ids[lo:lo + rb]
+            ids_p = np.zeros(rb, np.int64)
+            ids_p[:len(chunk)] = chunk
+            k_r, km_r = _row_stripes(
+                torch.from_numpy(ids_p).to(self.device), self._vecs,
+                self._b2, lamb=self.lamb, kexp_impl=self.kexp_impl)
+            yield len(chunk), k_r, km_r
+
+    def stripes_for_batch(self, sel_b: np.ndarray, row_mask: np.ndarray, *,
+                          use_cache: bool = True):
+        """Assemble the batch's precompute stripes, computing only missing
+        rows.
+
+        Args:
+          sel_b:    (Q, v_r) int word ids (pad slots point at word 0).
+          row_mask: (Q, v_r) f32, 0.0 on pad query rows.
+          use_cache: False forces the transient path (the cache-off
+                     baseline) without reading or mutating the store.
+
+        Returns (k_stripes, km_stripes, info): (1, Q, v_r, V+1) device
+        stripe pairs for `core.distributed.build_wmd_batch_fn_stripes`
+        (slice ``[0]`` for `sinkhorn_wmd_sparse_batch_stripes`), and a
+        per-call info dict (unique / hits / misses / hit_rate / cached).
+        """
+        sel_b = np.asarray(sel_b)
+        ids = np.unique(sel_b)                       # sorted: stable dedup
+        self.stats.lookups += 1
+        self._mirror("lookups")
+        cached = use_cache and 0 < len(ids) <= self.capacity
+        if not cached:
+            return self._transient(ids, sel_b, row_mask, use_cache)
+        self._tick += 1
+        slot_arr = np.array([self._slot_of.get(int(i), -1) for i in ids],
+                            np.int64)
+        hit = slot_arr >= 0
+        self._last_used[slot_arr[hit]] = self._tick  # pin the batch's hits
+        miss_ids = ids[~hit]
+        if len(miss_ids):
+            new_slots = self._alloc_slots(len(miss_ids))
+            try:
+                rb = self.rows_bucket
+                for lo, (n_c, k_r, km_r) in zip(
+                        range(0, len(miss_ids), rb),
+                        self._compute_chunks(miss_ids)):
+                    # the chunk's pad rows are dropped here (the reference
+                    # aims them out of bounds of its scatter instead)
+                    slots_t = torch.as_tensor(new_slots[lo:lo + n_c],
+                                              device=self.device)
+                    self._k_buf[:, slots_t] = k_r[:, :n_c]
+                    self._km_buf[:, slots_t] = km_r[:, :n_c]
+            except BaseException:
+                # a failed row compute must not poison the map: the new ids
+                # were never (fully) written, so their slots go back to the
+                # free list unmapped. Evicted victims stay evicted (a later
+                # miss recomputes them); only unsubstantiated residency
+                # would break exactness. The update is in place, so the
+                # buffers themselves survive.
+                self._free.extend(new_slots)
+                raise
+            for i, s in zip(miss_ids, new_slots):
+                self._slot_of[int(i)] = s
+                self._id_of[s] = int(i)
+                self._last_used[s] = self._tick
+            slot_arr[~hit] = new_slots
+        n_hit, n_miss = int(hit.sum()), len(miss_ids)
+        self.stats.hit_rows += n_hit
+        self.stats.miss_rows += n_miss
+        if self._m is not None:
+            self._mirror("hit_rows", n_hit)
+            self._mirror("miss_rows", n_miss)
+        slots_b = slot_arr[np.searchsorted(ids, sel_b)]
+        # pad query rows gather the reserved zero row (index capacity)
+        slots_b = np.where(np.asarray(row_mask) > 0, slots_b, self.capacity)
+        k_s, km_s = self._gather(self._k_buf, self._km_buf, slots_b)
+        return k_s, km_s, {"unique": len(ids), "hits": n_hit,
+                           "misses": n_miss,
+                           "hit_rate": n_hit / len(ids), "cached": True}
+
+    def _gather(self, k_buf, km_buf, slots_b: np.ndarray):
+        """Slot-gather (Q, v_r) slots -> (1, Q, v_r, V+1) K and K.*M."""
+        idx = torch.from_numpy(slots_b.astype(np.int64)).to(self.device)
+        return k_buf[:, idx], km_buf[:, idx]
+
+    def _transient(self, ids, sel_b, row_mask, use_cache):
+        """Compute every unique row fresh into a throwaway store (cache off,
+        or the batch's unique ids exceed capacity). Identical dedup, row
+        compute and slot-gather as the resident path."""
+        if use_cache and self.capacity > 0:
+            # capacity overflow: real misses of an enabled store; a disabled
+            # or bypassed store only counts a bypass
+            self.stats.miss_rows += len(ids)
+            self._mirror("miss_rows", len(ids))
+        self.stats.bypasses += 1
+        self._mirror("bypasses")
+        parts = [(k_r[:, :n_c], km_r[:, :n_c])
+                 for n_c, k_r, km_r in self._compute_chunks(ids)]
+        zero = torch.zeros((self.num_shards, 1, self.vloc + 1),
+                           dtype=torch.float32, device=self.device)
+        k_t = torch.cat([p[0] for p in parts] + [zero], dim=1)
+        km_t = torch.cat([p[1] for p in parts] + [zero], dim=1)
+        zero_row = k_t.shape[1] - 1
+        pos_b = np.where(np.asarray(row_mask) > 0,
+                         np.searchsorted(ids, sel_b), zero_row)
+        k_s, km_s = self._gather(k_t, km_t, pos_b)
+        return k_s, km_s, {"unique": len(ids), "hits": 0,
+                           "misses": len(ids), "hit_rate": 0.0,
+                           "cached": False}

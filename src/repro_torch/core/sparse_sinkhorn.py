@@ -1,0 +1,293 @@
+"""PASWD: the paper's sparse Sinkhorn-WMD with fused SDDMM-SpMM, batched.
+
+Port of the batched half of `repro.core.sparse_sinkhorn`. The document-
+frequency matrix is doc-major padded ELL (`core.formats`); the SDDMM samples
+only the nnz dot products and the fusion reuses one gather of K columns for
+both contractions:
+
+    SDDMM : w[q,j,k] = sum_i K[q, i, cols[j,k]] * u[q,i,j]
+            v[q,j,k] = vals[j,k] / w[q,j,k]
+    SpMM  : x[q,i,j] = (1/r[q,i]) * sum_k K[q, i, cols[j,k]] * v[q,j,k]
+
+type2 (final distance) swaps the SpMM operand to K.*M and reduces over i:
+WMD[q,j] = sum_i u[q,i,j] * sum_k (K.*M)[q, i, cols[j,k]] * v[q,j,k].
+
+Three execution paths, selected by ``impl`` (`_resolve_impl`):
+  * "kernel"  -- `repro_torch.kernels.ops`: the CUDA kernels for CUDA
+                 tensors, their plain versions for CPU tensors. The default.
+  * "fused"   -- one gather per iteration, plain PyTorch (the paper's
+                 fused baseline and the parity oracle of the kernel route).
+  * "unfused" -- separate SDDMM / SpMM with independent gathers (the
+                 paper's pre-fusion baseline).
+
+All paths consume K with one trailing zero column, so ELL pad slots
+(col == V) contribute exactly zero. Mixed-size queries ride the exact
+mask-based padding of `core.distributed`: pad rows carry r = 1 and a zeroed
+K row, so they contribute exactly zero to every w, x and WMD.
+
+``docs_chunk`` cache-blocks the solve over doc chunks: docs are independent
+OT problems, so the chunk loop sits outside the whole Sinkhorn loop. Every
+output element's reduction runs over one doc (v_r or nnz), never across
+docs, so chunked results are bitwise equal to unchunked ones.
+
+Early exit: `batched_sinkhorn_loop` freezes a query once its relative
+iterate delta drops below ``tol``; with ``tol = 0.0`` no query ever freezes,
+and the solvers run the plain fixed loop instead.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.cost_matrix import cdist
+from repro_torch.kernels._pad import pad_axis
+
+_IMPLS = ("fused", "unfused", "kernel")
+
+# Reciprocal guard: K = exp(-lamb*M) underflows f32 for far word pairs, and
+# the u = 1/x nonlinearity amplifies it to inf*0 = nan. Clamping the
+# denominator at TINY is exact for healthy values and replaces inf by a huge
+# finite number otherwise.
+TINY = 1e-30
+
+
+def safe_recip(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(x, min=TINY)
+
+
+def pad_k(k: torch.Tensor) -> torch.Tensor:
+    """Append a zero column on the vocab (last) axis: gathers of the ELL pad
+    id (== V) read zeros."""
+    return torch.nn.functional.pad(k, (0, 1))
+
+
+class BatchedSinkhornPrecompute(NamedTuple):
+    """Per-query iteration-invariant stripes, stacked on a leading Q axis."""
+
+    K: torch.Tensor   # (Q, v_r, V) exp(-lambda * M), pad rows zeroed
+    KM: torch.Tensor  # (Q, v_r, V) K .* M
+    r: torch.Tensor   # (Q, v_r) pad rows carry 1.0
+
+
+def precompute_batch(sel_idx: torch.Tensor, r_sel: torch.Tensor,
+                     vecs: torch.Tensor, lamb: float,
+                     row_mask: torch.Tensor | None = None
+                     ) -> BatchedSinkhornPrecompute:
+    """Batched K / K.*M stripes for Q queries bucketed to a common v_r.
+    sel_idx (Q, v_r) word ids (pad slots point at word 0), r_sel (Q, v_r),
+    vecs (V, w), row_mask (Q, v_r) 1.0 real / 0.0 pad (None = all real)."""
+    m = torch.stack([cdist(a, vecs) for a in vecs[sel_idx.long()]])
+    k = torch.exp(-lamb * m)
+    if row_mask is not None:
+        k = k * row_mask[..., None]
+    return BatchedSinkhornPrecompute(K=k, KM=k * m, r=r_sel)
+
+
+def gather_k_batch(k_pad: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """One batched gather serving all Q queries: (Q, v_r, V+1), (N, nnz) ->
+    (Q, N, nnz, v_r), batch dims (q, n) leading for both contractions."""
+    return k_pad.transpose(1, 2)[:, cols]
+
+
+def _chunk_over_docs(f, u: torch.Tensor, cols: torch.Tensor,
+                     vals: torch.Tensor, docs_chunk: int | None,
+                     pad_col: int) -> torch.Tensor:
+    """Apply ``f(u_c, cols_c, vals_c)`` over N-chunks of ``docs_chunk`` docs.
+
+    ``f`` maps a doc slice to an output whose LAST axis is the doc axis. A
+    non-dividing N is padded with ELL pad slots (col = pad_col -> zero K
+    column, val = 0) and the pad docs are sliced off the output.
+    """
+    n = cols.shape[0]
+    if not docs_chunk or docs_chunk >= n:   # None and 0 both mean unchunked
+        return f(u, cols, vals)
+    cols = pad_axis(cols, 0, docs_chunk, value=pad_col)
+    vals = pad_axis(vals, 0, docs_chunk)
+    u = pad_axis(u, 2, docs_chunk)
+    outs = [f(u[:, :, s:s + docs_chunk], cols[s:s + docs_chunk],
+              vals[s:s + docs_chunk])
+            for s in range(0, cols.shape[0], docs_chunk)]
+    return torch.cat(outs, dim=-1)[..., :n]
+
+
+def sddmm_batch(k_pad, u, cols, vals):
+    """Batched sampled dense-dense matmul with its own gather (unfused)."""
+    kg = gather_k_batch(k_pad, cols)                 # gather #1
+    w = torch.einsum("qnki,qin->qnk", kg, u)
+    return torch.where(vals[None] != 0.0, vals[None] * safe_recip(w), 0.0)
+
+
+def spmm_batch(kor_pad, v, cols):
+    """Batched SpMM -- re-gathers K (the unfused baseline's second gather)."""
+    kg = gather_k_batch(kor_pad, cols)               # gather #2
+    return torch.einsum("qnki,qnk->qin", kg, v)
+
+
+def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
+                           docs_chunk: int | None = None) -> torch.Tensor:
+    """Batched fused iteration body: (Q, v_r, N) <- one gather, two einsums.
+
+    k_pad (Q, v_r, V+1), r_sel (Q, v_r), u (Q, v_r, N), cols/vals (N, nnz).
+    """
+    def chunk(u_c, cols_c, vals_c):
+        kg = gather_k_batch(k_pad, cols_c)           # the ONLY gather
+        w = torch.einsum("qnki,qin->qnk", kg, u_c)
+        v = torch.where(vals_c[None] != 0.0,
+                        vals_c[None] * safe_recip(w), 0.0)
+        x = torch.einsum("qnki,qnk->qin", kg, v)
+        return x / r_sel[:, :, None]
+
+    return _chunk_over_docs(chunk, u, cols, vals, docs_chunk,
+                            pad_col=k_pad.shape[-1] - 1)
+
+
+def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
+                           docs_chunk: int | None = None) -> torch.Tensor:
+    """Batched fused final distance: (Q, N) WMD, reduced as
+    sum_k v * <(K.*M) col, u> (the reference's order)."""
+    def chunk(u_c, cols_c, vals_c):
+        kg = gather_k_batch(k_pad, cols_c)
+        kmg = gather_k_batch(km_pad, cols_c)
+        w = torch.einsum("qnki,qin->qnk", kg, u_c)
+        v = torch.where(vals_c[None] != 0.0,
+                        vals_c[None] * safe_recip(w), 0.0)
+        wm = torch.einsum("qnki,qin->qnk", kmg, u_c)
+        return torch.sum(wm * v, dim=-1)             # (Q, docs)
+
+    return _chunk_over_docs(chunk, u, cols, vals, docs_chunk,
+                            pad_col=k_pad.shape[-1] - 1)
+
+
+def _unfused_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None):
+    del docs_chunk  # the baseline stays deliberately unblocked
+    v = sddmm_batch(k_pad, u, cols, vals)
+    return spmm_batch(k_pad / r_sel[..., None], v, cols)
+
+
+def _unfused_final_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
+    # the unfused baseline shares the fused final distance, unblocked
+    del docs_chunk
+    return sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals)
+
+
+def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None):
+    # the kernel's native cache blocking IS its doc tile: docs_chunk maps
+    # onto docs_blk instead of an outer loop (None/0 = default tile)
+    from repro_torch.kernels import ops
+    kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
+    return ops.sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, **kw)
+
+
+def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
+    from repro_torch.kernels import ops
+    kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
+    return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, **kw)
+
+
+def _resolve_impl(kind: str, impl: str):
+    """The ONE impl dispatch table of the batched solvers (shared with
+    `core.distributed`). kind: "type1" (signature (k_pad, r_sel, u, cols,
+    vals)) or "type2" ((k_pad, km_pad, u, cols, vals)); both also accept
+    ``docs_chunk=``."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    table = {"kernel": (_kernel_type1_batch, _kernel_type2_batch),
+             "fused": (sddmm_spmm_type1_batch, sddmm_spmm_type2_batch),
+             "unfused": (_unfused_batch, _unfused_final_batch)}[impl]
+    return table[0] if kind == "type1" else table[1]
+
+
+def batched_sinkhorn_loop(iteration, x0: torch.Tensor, *, max_iter: int,
+                          tol: float = 0.0):
+    """Early-exit Sinkhorn loop with per-query freeze masks.
+
+    ``iteration`` maps x -> x_new for the whole (Q, v_r, N) batch. A query
+    whose relative iterate delta drops below ``tol`` is frozen (its x block
+    stops being written); the loop ends when every query has converged or
+    at ``max_iter``. With ``tol = 0.0`` no query ever freezes, so the
+    result equals the fixed-``max_iter`` loop exactly.
+
+    Returns (x, delta, n_iter): final iterate, per-query relative |dx|_inf,
+    and per-query executed iteration counts (Q,) int32.
+    """
+    q = x0.shape[0]
+    x = x0
+    delta = torch.full((q,), float("inf"), dtype=x0.dtype, device=x0.device)
+    n_iter = torch.zeros((q,), dtype=torch.int32, device=x0.device)
+    for _ in range(max_iter):
+        active = delta >= tol                              # (Q,)
+        if not bool(active.any()):
+            break
+        x_new = iteration(x)
+        # relative delta: x spans a huge dynamic range, so an absolute
+        # norm would never cross tol for strongly regularized K
+        rel = torch.amax(torch.abs(x_new - x) / (torch.abs(x) + 1e-30),
+                         dim=(1, 2))
+        x = torch.where(active[:, None, None], x_new, x)
+        delta = torch.where(active, rel, delta)
+        n_iter = n_iter + active.to(n_iter.dtype)
+    return x, delta, n_iter
+
+
+def sinkhorn_wmd_sparse_batch(sel_idx: torch.Tensor, r_sel: torch.Tensor,
+                              cols: torch.Tensor, vals: torch.Tensor,
+                              vecs: torch.Tensor, lamb: float, max_iter: int,
+                              row_mask: torch.Tensor | None = None,
+                              impl: str = "kernel",
+                              docs_chunk: int | None = None,
+                              tol: float = 0.0) -> torch.Tensor:
+    """Multi-query sparse PASWD Sinkhorn-WMD. Returns (Q, N) distances.
+
+    sel_idx/r_sel/row_mask (Q, v_r) bucketed queries (`core.distributed.
+    pad_query_batch`), cols/vals (N, nnz) ELL, vecs (V, w). ``impl``,
+    ``docs_chunk`` and ``tol`` as in the module docstring.
+    """
+    pre = precompute_batch(sel_idx, r_sel, vecs, lamb, row_mask)
+    return _solve_batch_stripes(pad_k(pre.K), pad_k(pre.KM), pre.r,
+                                cols, vals, max_iter=max_iter, impl=impl,
+                                docs_chunk=docs_chunk, tol=tol)
+
+
+def _solve_batch_stripes(k_pad, km_pad, r_sel, cols, vals, *, max_iter: int,
+                         impl: str, docs_chunk: int | None,
+                         tol: float) -> torch.Tensor:
+    """Shared solver core on preassembled (Q, v_r, V+1) stripes (zero pad
+    column already appended)."""
+    q, v_r = r_sel.shape
+    n = cols.shape[0]
+    type1 = _resolve_impl("type1", impl)
+    type2 = _resolve_impl("type2", impl)
+    x0 = torch.full((q, v_r, n), 1.0 / v_r, dtype=k_pad.dtype,
+                    device=k_pad.device)
+
+    def solve_chunk(x0_c, cols_c, vals_c):
+        def iteration(x):
+            return type1(k_pad, r_sel, safe_recip(x), cols_c, vals_c)
+
+        if tol:
+            x, _, _ = batched_sinkhorn_loop(iteration, x0_c,
+                                            max_iter=max_iter, tol=tol)
+        else:
+            x = x0_c
+            for _ in range(max_iter):
+                x = iteration(x)
+        return type2(k_pad, km_pad, safe_recip(x), cols_c, vals_c)
+
+    return _chunk_over_docs(solve_chunk, x0, cols, vals, docs_chunk,
+                            pad_col=k_pad.shape[-1] - 1)
+
+
+def sinkhorn_wmd_sparse_batch_stripes(k_pad: torch.Tensor,
+                                      km_pad: torch.Tensor,
+                                      r_sel: torch.Tensor, cols: torch.Tensor,
+                                      vals: torch.Tensor, max_iter: int,
+                                      impl: str = "kernel",
+                                      docs_chunk: int | None = None,
+                                      tol: float = 0.0) -> torch.Tensor:
+    """Batched solver on preassembled stripes k_pad / km_pad (Q, v_r, V+1)
+    (zero pad column in place, pad query rows zeroed) and r_sel (Q, v_r).
+    Returns (Q, N); same math as `sinkhorn_wmd_sparse_batch`."""
+    return _solve_batch_stripes(k_pad, km_pad, r_sel, cols, vals,
+                                max_iter=max_iter, impl=impl,
+                                docs_chunk=docs_chunk, tol=tol)

@@ -1,0 +1,116 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exports a plain C interface (pointers and the
+stream as ``void*``, sizes as ``int``, the launch's ``cudaGetLastError()``
+as the return value), so the build includes no PyTorch header and takes
+seconds. Libraries go to ``build/repro_torch/`` at the repository root,
+named by a hash of the source and flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is built at import: the first launch (or
+`build`) compiles.
+
+``--use_fast_math`` is deliberately absent: approximate division and
+reciprocals would break the exact-zero contracts of the pad conventions
+(``v = val / 1e-30`` times a zero K column must give exactly 0).
+
+``launches`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show which kernels its
+main path went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("sddmm_spmm", "kexp")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launches: collections.Counter = collections.Counter()
+ptxas_log: dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built at first use and need the CUDA toolkit")
+
+
+def _target(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every named source that is not built yet, one nvcc process
+    per source, all started together; load the libraries. Returns the
+    seconds each compile took (0.0 for a library already built)."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            if name in _libs:
+                continue
+            out = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           tmp, out, time.perf_counter())
+        seconds = {name: 0.0 for name in names}
+        failed = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            ptxas_log[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_target(name)))
+        return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = _libs[name]
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if the C launcher reported a CUDA error; else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    launches[name] += 1

@@ -1,0 +1,134 @@
+// Fused cost-matrix rows -> (K, K*M) for the K-cache misses, sm_90a, plain
+// CUDA C++.
+//
+// Replaces the Pallas TPU kernel `cdist_kexp_rows`
+// (src/repro/kernels/kexp.py:93, body `_kexp_kernel` :43). `cdist_kexp`
+// (:58) has the same body and will reuse this kernel behind its own wrapper.
+//
+// What it computes, for miss rows a (m, w) against the vocabulary b (V, w):
+//   M = sqrt(max(|a_i|^2 + |b_j|^2 - 2 <a_i, b_j>, 0))
+//   K = exp(-lamb * M),  KM = K * M
+// M never reaches memory: only K and K*M (each (m, V), row-major) are
+// written.
+//
+// Design: a tiled SIMT fp32 product. A block of 256 threads owns a 64x64
+// output tile; it stages 64x16 tiles of a and b in shared memory and each
+// thread accumulates a 4x4 sub-tile in registers. Threads 0..63 and 64..127
+// also accumulate |a_i|^2 and |b_j|^2 of the tile's rows and columns from
+// the same shared tiles. The epilogue forms M, K and K*M in registers.
+//
+// What bounds it on an H100: the 2*m*V*w fp32 operations (at m = 128,
+// V = 100,000, w = 300 that is 7.7 GFLOP against 67 TFLOP/s of non-tensor
+// fp32), ahead of the bytes (b once, 120 MB, plus K and K*M, 102 MB). This
+// first version uses no tensor cores and no TF32: TF32 would move K far
+// from the reference (the expansion cancels near the diagonal). A
+// tensor-core redesign in 3xTF32 or a wgmma pipeline is later work.
+//
+// Exactness: every dot product and every norm is one thread's fma chain over
+// k = 0..w-1 in order (zero-padded tail steps add exact zeros); there is no
+// split-K and no atomics. A row's bits therefore depend only on its own
+// embedding and the vocabulary, never on the other rows of the call: the
+// K cache's bitwise on == off contract rests on that. A row's own word
+// comes out as exactly M = 0, K = 1: |a|^2, |b|^2 and <a, b> run the same
+// fma chain over the same values, so the expansion cancels exactly, where
+// a matmul spelling with separately summed norms leaves fp32 round-off
+// (measured up to M = 2.5e-2 at w = 300 with cuBLAS). Compiled without
+// --use_fast_math (expf and sqrtf stay the accurate versions).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 64;    // output rows and columns per block
+constexpr int kDepth = 16;   // w-slice staged per step
+constexpr int kThreads = 256;
+constexpr int kSub = 4;      // 4x4 outputs per thread
+
+__global__ void __launch_bounds__(kThreads)
+kexp_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ k_out, float* __restrict__ km_out,
+                 int m, int v, int w, float lamb) {
+  __shared__ float as[kDepth][kTile + 1];
+  __shared__ float bs[kDepth][kTile + 1];
+  __shared__ float a2s[kTile];
+  __shared__ float b2s[kTile];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;            // columns tx + 16 * jj
+  const int ty = tid / 16;            // rows ty + 16 * ii
+  const int row0 = blockIdx.y * kTile;
+  const int col0 = blockIdx.x * kTile;
+
+  float acc[kSub][kSub];
+#pragma unroll
+  for (int ii = 0; ii < kSub; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < kSub; ++jj) acc[ii][jj] = 0.f;
+  float norm = 0.f;                   // |a|^2 (tid < 64) or |b|^2 (< 128)
+
+  for (int k0 = 0; k0 < w; k0 += kDepth) {
+    for (int e = tid; e < kTile * kDepth; e += kThreads) {
+      const int rr = e / kDepth, kk = e % kDepth;
+      const int gk = k0 + kk;
+      const int ga = row0 + rr, gb = col0 + rr;
+      as[kk][rr] = (ga < m && gk < w) ? a[(size_t)ga * w + gk] : 0.f;
+      bs[kk][rr] = (gb < v && gk < w) ? b[(size_t)gb * w + gk] : 0.f;
+    }
+    __syncthreads();
+    if (tid < 2 * kTile) {
+#pragma unroll
+      for (int kk = 0; kk < kDepth; ++kk) {
+        const float x = tid < kTile ? as[kk][tid] : bs[kk][tid - kTile];
+        norm += x * x;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float ar[kSub], br[kSub];
+#pragma unroll
+      for (int ii = 0; ii < kSub; ++ii) ar[ii] = as[kk][ty + 16 * ii];
+#pragma unroll
+      for (int jj = 0; jj < kSub; ++jj) br[jj] = bs[kk][tx + 16 * jj];
+#pragma unroll
+      for (int ii = 0; ii < kSub; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < kSub; ++jj) acc[ii][jj] += ar[ii] * br[jj];
+    }
+    __syncthreads();
+  }
+  if (tid < kTile) a2s[tid] = norm;
+  else if (tid < 2 * kTile) b2s[tid - kTile] = norm;
+  __syncthreads();
+
+#pragma unroll
+  for (int ii = 0; ii < kSub; ++ii) {
+    const int row = row0 + ty + 16 * ii;
+    if (row >= m) continue;
+    const float a2 = a2s[ty + 16 * ii];
+#pragma unroll
+    for (int jj = 0; jj < kSub; ++jj) {
+      const int col = col0 + tx + 16 * jj;
+      if (col >= v) continue;
+      const float d2 = a2 + b2s[tx + 16 * jj] - 2.f * acc[ii][jj];
+      // max(d2, 0) that, like the reference's maximum, keeps a NaN
+      const float dist = sqrtf(d2 < 0.f ? 0.f : d2);
+      const float kv = expf(-lamb * dist);
+      const size_t at = (size_t)row * v + col;
+      k_out[at] = kv;
+      km_out[at] = kv * dist;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int cdist_kexp_rows(const void* a, const void* b, void* k,
+                               void* km, int m, int v, int w, float lamb,
+                               void* stream) {
+  if (m <= 0 || v <= 0 || w <= 0 || (m + kTile - 1) / kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((v + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  kexp_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)k, (float*)km, m, v, w, lamb);
+  return (int)cudaGetLastError();
+}

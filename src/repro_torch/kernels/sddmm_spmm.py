@@ -1,0 +1,134 @@
+"""Batched fused SDDMM-SpMM: the CUDA kernels and their plain versions.
+
+Port of the Pallas kernels `repro.kernels.sddmm_spmm.sddmm_spmm_type1_batch`
+and `sddmm_spmm_type2_batch`. For each query q, doc j and ELL slot s:
+
+    kcol = K[q, :, cols[j, s]]                 one gather per slot
+    w    = <kcol, u[q, :, j]>                  SDDMM dot
+    v    = vals[j, s] / max(w, TINY)           (0 where vals == 0)
+    acc += kcol * v                            SpMM, same column (type1)
+    acc += (K.*M)[q, :, cols[j, s]] * v        (type2)
+
+type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
+<u[q, :, j], acc>. ``sddmm_spmm_type{1,2}_batch`` launch the CUDA kernels
+in ``csrc/sddmm_spmm.cu`` (CUDA tensors only);
+``sddmm_spmm_type{1,2}_batch_plain`` are the gather + einsum spellings of
+the same math, used for CPU tensors and as the kernels' comparison on the
+card. `repro_torch.kernels.ops` chooses between them by device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+TINY = 1e-30  # see core.sparse_sinkhorn.safe_recip
+
+# v_r rows a warp can hold (4 per lane); the kernels refuse larger buckets
+MAX_V_R = 128
+
+
+def _gather(k_pad: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(Q, v_r, V+1), (N, nnz) -> (Q, N, nnz, v_r): one gather for all Q."""
+    return k_pad.transpose(1, 2)[:, cols]
+
+
+def _sampled_v(kg: torch.Tensor, u: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    w = torch.einsum("qnki,qin->qnk", kg, u)
+    return torch.where(vals[None] != 0.0,
+                       vals[None] / torch.clamp(w, min=TINY), 0.0)
+
+
+def sddmm_spmm_type1_batch_plain(k_pad, r_sel, u, cols, vals):
+    """Plain version of the type1 kernel: (Q, v_r, N) iterate."""
+    kg = _gather(k_pad, cols)
+    v = _sampled_v(kg, u, vals)
+    return torch.einsum("qnki,qnk->qin", kg, v) / r_sel[:, :, None]
+
+
+def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
+    """Plain version of the type2 kernel: (Q, N) distances, reduced in the
+    kernel's order (K.*M accumulation first, then the u contraction)."""
+    v = _sampled_v(_gather(k_pad, cols), u, vals)
+    acc = torch.einsum("qnki,qnk->qin", _gather(km_pad, cols), v)
+    return torch.sum(u * acc, dim=1)
+
+
+def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
+           cols: torch.Tensor, docs_blk: int) -> None:
+    dev = k_pad.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{dev}")
+    for arg, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} on {t.device}, k_pad on {dev}")
+        want = torch.int32 if arg == "cols" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    q, v_r, n = u.shape
+    if k_pad.dim() != 3 or k_pad.shape[:2] != (q, v_r):
+        raise ValueError(f"{name}: k_pad {tuple(k_pad.shape)} does not "
+                         f"match u {tuple(u.shape)}")
+    if cols.dim() != 2 or cols.shape[0] != n:
+        raise ValueError(f"{name}: cols {tuple(cols.shape)} does not match "
+                         f"N = {n}")
+    if not 0 < v_r <= MAX_V_R:
+        raise ValueError(f"{name}: v_r = {v_r} outside (0, {MAX_V_R}]")
+    if docs_blk <= 0:
+        raise ValueError(f"{name}: docs_blk must be positive, got {docs_blk}")
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _launch(name: str, ptrs, q, v_r, vp1, n, nnz, docs_blk) -> None:
+    fn = getattr(_build.library("sddmm_spmm"), name)
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check_launch(name, fn(*ptrs, q, v_r, vp1, n, nnz, docs_blk,
+                                 stream))
+
+
+def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
+                           docs_blk: int = 8) -> torch.Tensor:
+    """CUDA type1 kernel. k_pad (Q, v_r, V+1) with the zero pad column,
+    r_sel (Q, v_r), u (Q, v_r, N), cols int32 / vals f32 (N, nnz) with every
+    col in [0, V]. Returns x (Q, v_r, N). ``docs_blk`` documents per block."""
+    name = "sddmm_spmm_type1_batch"
+    _check(name, {"k_pad": k_pad, "r_sel": r_sel, "u": u, "cols": cols,
+                  "vals": vals}, k_pad, u, cols, docs_blk)
+    q, v_r, n = u.shape
+    if r_sel.shape != (q, v_r) or vals.shape != cols.shape:
+        raise ValueError(f"{name}: r_sel {tuple(r_sel.shape)} / vals "
+                         f"{tuple(vals.shape)} shape mismatch")
+    x = torch.empty_like(u)
+    if q and n:
+        _launch(name, (k_pad.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
+                       cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
+                q, v_r, k_pad.shape[2], n, cols.shape[1], docs_blk)
+    return x
+
+
+def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
+                           docs_blk: int = 8) -> torch.Tensor:
+    """CUDA type2 kernel: the fused final distance. Returns wmd (Q, N)."""
+    name = "sddmm_spmm_type2_batch"
+    _check(name, {"k_pad": k_pad, "km_pad": km_pad, "u": u, "cols": cols,
+                  "vals": vals}, k_pad, u, cols, docs_blk)
+    q, v_r, n = u.shape
+    if km_pad.shape != k_pad.shape or vals.shape != cols.shape:
+        raise ValueError(f"{name}: km_pad {tuple(km_pad.shape)} / vals "
+                         f"{tuple(vals.shape)} shape mismatch")
+    wmd = torch.empty((q, n), dtype=torch.float32, device=u.device)
+    if q and n:
+        _launch(name, (k_pad.data_ptr(), km_pad.data_ptr(), u.data_ptr(),
+                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+                q, v_r, k_pad.shape[2], n, cols.shape[1], docs_blk)
+    return wmd

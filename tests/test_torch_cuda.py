@@ -1,0 +1,160 @@
+"""Card tests of the port's CUDA kernels: each kernel against its plain
+PyTorch version on the same CUDA tensors.
+
+Marked ``cuda``; every test decides inside its body whether a card is
+present and skips when there is none (never at import, so all pytest
+workers collect the same tests). Run on a machine with an NVIDIA GPU:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch  # noqa: F401  (precision pins)
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _problem(seed, q, v_r, v, n, nnz, pad_rows=2, filler=1):
+    """Stripes with pad query rows (zero K, r = 1), Q-filler (all-zero K),
+    ELL pad slots (col V, val 0) and a zero pad column."""
+    rng = np.random.default_rng(seed)
+    k = rng.random((q, v_r, v + 1)).astype(np.float32)
+    k[:, :, v] = 0.0
+    k[:, v_r - pad_rows:] = 0.0
+    k[q - filler:] = 0.0
+    km = (k * rng.random(k.shape).astype(np.float32) * 3).astype(np.float32)
+    r = rng.random((q, v_r)).astype(np.float32) + 0.1
+    r[:, v_r - pad_rows:] = 1.0
+    u = (rng.random((q, v_r, n)) * 2 + 0.1).astype(np.float32)
+    cols = np.full((n, nnz), v, np.int32)
+    vals = np.zeros((n, nnz), np.float32)
+    for j in range(n):
+        m = int(rng.integers(1, nnz + 1))
+        cols[j, :m] = rng.choice(v, m, replace=False)
+        vals[j, :m] = rng.random(m).astype(np.float32) + 0.05
+    return k, km, r, u, cols, vals
+
+
+@pytest.mark.parametrize("shape", [(3, 11, 320, 45, 16), (4, 32, 1000, 70, 24),
+                                   (2, 40, 257, 9, 8), (5, 128, 300, 33, 8)])
+@pytest.mark.parametrize("docs_blk", [1, 7, 8, 64])
+def test_sddmm_spmm_batch_kernels_match_plain(shape, docs_blk):
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    q, v_r, v, n, nnz = shape
+    arrs = [torch.from_numpy(a).to(dev) for a in _problem(0, *shape)]
+    k, km, r, u, cols, vals = arrs
+    x = sk.sddmm_spmm_type1_batch(k, r, u, cols, vals, docs_blk=docs_blk)
+    x_ref = sk.sddmm_spmm_type1_batch_plain(k, r, u, cols, vals)
+    torch.cuda.synchronize()
+    # sums over v_r and nnz run in another order: fp32 reassociation
+    torch.testing.assert_close(x, x_ref, rtol=1e-4, atol=1e-6)
+    d = sk.sddmm_spmm_type2_batch(k, km, u, cols, vals, docs_blk=docs_blk)
+    d_ref = sk.sddmm_spmm_type2_batch_plain(k, km, u, cols, vals)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, d_ref, rtol=1e-4, atol=1e-6)
+    # pad query rows and the Q-filler come out as exact zeros
+    assert torch.all(x[:, v_r - 2:] == 0) and torch.all(x[q - 1] == 0)
+    assert torch.all(d[q - 1] == 0)
+
+
+def test_sddmm_spmm_kernel_bits_do_not_depend_on_docs_blk():
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    arrs = [torch.from_numpy(a).to(dev) for a in _problem(1, 4, 32, 500, 61, 16)]
+    k, km, r, u, cols, vals = arrs
+    xs = [sk.sddmm_spmm_type1_batch(k, r, u, cols, vals, docs_blk=b)
+          for b in (1, 8, 61)]
+    ds = [sk.sddmm_spmm_type2_batch(k, km, u, cols, vals, docs_blk=b)
+          for b in (1, 8, 61)]
+    for x in xs[1:]:
+        assert torch.equal(x, xs[0])
+    for d in ds[1:]:
+        assert torch.equal(d, ds[0])
+
+
+@pytest.mark.parametrize("m,v,w", [(13, 320, 24), (128, 1000, 300),
+                                   (64, 64, 16), (1, 77, 5)])
+def test_cdist_kexp_rows_kernel_matches_plain(m, v, w):
+    dev = _card()
+    from repro_torch.kernels import kexp
+    rng = np.random.default_rng(2)
+    b = torch.from_numpy(rng.normal(scale=1.3, size=(v, w))
+                         .astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.choice(v, m, replace=False)).to(dev)
+    a = b[ids].contiguous()
+    k, km = kexp.cdist_kexp_rows(a, b, lamb=1.0)
+    k_ref, km_ref = kexp.cdist_kexp_rows_plain(a, b, lamb=1.0)
+    torch.cuda.synchronize()
+    # near the diagonal |a|^2 + |b|^2 - 2ab cancels to round-off in both
+    # spellings (M(i, i) ~ 1e-2 instead of 0 at w = 300), so K there
+    # differs by up to a few 1e-2 absolute; elsewhere only the
+    # reassociated dot products differ
+    m_ref = torch.where(k_ref > 0, km_ref / k_ref, 0.0)
+    near = m_ref < 1.0
+    assert torch.all((k - k_ref).abs()[near] <= 5e-2)
+    torch.testing.assert_close(k[~near], k_ref[~near], rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(km[~near], km_ref[~near], rtol=1e-3,
+                               atol=0.0)
+
+
+def test_kexp_row_bits_do_not_depend_on_chunk_mates():
+    dev = _card()
+    from repro_torch.kernels import kexp
+    rng = np.random.default_rng(3)
+    b = torch.from_numpy(rng.normal(size=(700, 300)).astype(np.float32)) \
+        .to(dev)
+    ids_a = torch.arange(0, 128, device=dev)
+    ids_b = torch.cat([torch.arange(64, 128, device=dev),
+                       torch.arange(300, 364, device=dev)])
+    ka, kma = kexp.cdist_kexp_rows(b[ids_a].contiguous(), b, lamb=1.0)
+    kb, kmb = kexp.cdist_kexp_rows(b[ids_b].contiguous(), b, lamb=1.0)
+    # rows 64..127 sit at positions 64.. in the first call, 0.. in the second
+    assert torch.equal(ka[64:], kb[:64]) and torch.equal(kma[64:], kmb[:64])
+
+
+def test_ops_dispatch_launches_on_cuda_and_counts():
+    dev = _card()
+    from repro_torch.kernels import _build, ops
+    arrs = [torch.from_numpy(a).to(dev) for a in _problem(4, 2, 8, 50, 10, 8)]
+    k, km, r, u, cols, vals = arrs
+    _build.reset_launches()
+    ops.sddmm_spmm_type1_batch(k, r, u, cols, vals)
+    ops.sddmm_spmm_type2_batch(k, km, u, cols, vals)
+    ops.cdist_kexp_rows(torch.ones(3, 4, device=dev),
+                        torch.ones(9, 4, device=dev), lamb=1.0)
+    torch.cuda.synchronize()
+    assert _build.launches["sddmm_spmm_type1_batch"] == 1
+    assert _build.launches["sddmm_spmm_type2_batch"] == 1
+    assert _build.launches["cdist_kexp_rows"] == 1
+
+
+def test_service_kernel_route_matches_fused_on_card():
+    dev = _card()
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    from repro_torch.serving import WMDService
+    data = make_corpus(vocab_size=2048, embed_dim=32, num_docs=200,
+                       num_queries=1, seed=5)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=32, num_docs=200,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=6)
+    rs = [next(stream) for _ in range(5)]
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                     cache_capacity=256)
+    d = svc.query_batch(rs)
+    d_off = svc.query_batch(rs, use_cache=False)
+    np.testing.assert_array_equal(d, d_off)
+    base = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                      cache_capacity=256, impl="fused", kexp_impl="jnp")
+    np.testing.assert_allclose(d, base.query_batch(rs), rtol=2e-3,
+                               atol=1e-5)

@@ -1,0 +1,202 @@
+"""The port's `WMDService(device="cpu")` against the JAX package's
+`WMDService(mesh=make_mesh((1, 1), ...))` on the golden corpus recipe:
+the stripes (K cache), transient and legacy routes within the reference's
+engine tolerance (``rtol=2e-3, atol=1e-5``), top-k ids equal, the port's
+own bitwise contracts, and the serving launcher on the CPU."""
+import functools
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.sinkhorn_wmd import WMDConfig as JConfig
+from repro.launch.mesh import make_mesh
+from repro.serving import WMDService as JService
+from repro_torch.configs.sinkhorn_wmd import WMDConfig
+from repro_torch.convert import state_from_numpy
+from repro_torch.core import formats as tf
+from repro_torch.core.guards import InvalidQueryError
+from repro_torch.serving import WMDService
+
+LAMB, MAX_ITER, V_R_BUCKET, TOP_K = 1.0, 8, 12, 5
+TOL = dict(rtol=2e-3, atol=1e-5)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@functools.lru_cache(maxsize=1)
+def _corpus():
+    """The golden corpus (`tests/test_golden.py::_corpus`), numpy only."""
+    rng = np.random.default_rng(1234)
+    v, w, n, q = 96, 8, 24, 3
+    vecs = rng.normal(size=(v, w)).astype(np.float32)
+    c = np.zeros((v, n), np.float32)
+    for j in range(n):
+        widx = rng.choice(v, rng.integers(3, 10), replace=False)
+        c[widx, j] = rng.random(widx.size).astype(np.float32)
+        c[:, j] /= c[:, j].sum()
+    rs = []
+    for i in range(q):
+        r = np.zeros(v, np.float32)
+        idx = rng.choice(v, 5 + 2 * i, replace=False)   # mixed v_r
+        r[idx] = rng.random(idx.size).astype(np.float32) + 0.1
+        r /= r.sum()
+        rs.append(r)
+    return vecs, tf.ell_from_dense(c), rs
+
+
+def _cfg(cls):
+    vecs, ell, _ = _corpus()
+    return cls(name="golden", vocab_size=vecs.shape[0], embed_dim=8,
+               num_docs=ell.num_docs, nnz_max=ell.nnz_max, v_r=V_R_BUCKET,
+               lamb=LAMB, max_iter=MAX_ITER)
+
+
+def _svc(**kw):
+    vecs, ell, _ = _corpus()
+    return WMDService(cfg=_cfg(WMDConfig), vecs=vecs, ell=ell, device="cpu",
+                      **kw)
+
+
+@functools.lru_cache(maxsize=1)
+def _reference():
+    """Live JAX outputs of the golden service routes."""
+    vecs, ell, rs = _corpus()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    svc = JService(mesh=mesh, cfg=_cfg(JConfig), vecs=vecs, ell=ell,
+                   cache_capacity=64, prune_chunk=8, bound_docs_chunk=None)
+    out = {"service_stripes": svc.query_batch(rs),
+           "service_transient": svc.query_batch(rs, use_cache=False)}
+    out["topk_idx"], out["topk_dist"] = svc.top_k_batch(rs, TOP_K)
+    legacy = JService(mesh=mesh, cfg=_cfg(JConfig), vecs=vecs, ell=ell)
+    out["service_legacy"] = legacy.query_batch(rs)
+    return out
+
+
+@pytest.mark.parametrize("route", ["service_stripes", "service_transient",
+                                   "service_legacy"])
+def test_service_routes_match_live_jax(route):
+    _, _, rs = _corpus()
+    if route == "service_legacy":
+        svc = _svc()
+        got = svc.query_batch(rs)
+        assert svc.last_batch_stats["route"] == "legacy_fused"
+    else:
+        svc = _svc(cache_capacity=64)
+        got = svc.query_batch(rs, use_cache=(route == "service_stripes"))
+        assert svc.last_batch_stats["cached"] == (route == "service_stripes")
+    want = _reference()[route]
+    assert got.shape == want.shape == (3, 24) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "fused", "unfused"])
+def test_top_k_batch_ids_match_live_jax(impl):
+    _, _, rs = _corpus()
+    idx, dist = _svc(cache_capacity=64, impl=impl).top_k_batch(rs, TOP_K)
+    np.testing.assert_array_equal(idx, _reference()["topk_idx"])
+    np.testing.assert_allclose(dist, _reference()["topk_dist"], **TOL)
+
+
+def test_cache_on_off_transient_bitwise_and_hits():
+    _, _, rs = _corpus()
+    svc = _svc(cache_capacity=64)
+    first = svc.query_batch(rs)
+    assert svc.last_batch_stats["misses"] > 0
+    again = svc.query_batch(rs)
+    assert svc.last_batch_stats["hit_rate"] == 1.0
+    off = svc.query_batch(rs, use_cache=False)
+    transient = _svc().query_batch(rs, use_cache=True)      # capacity 0
+    small = _svc(cache_capacity=8).query_batch(rs)            # overflow
+    for d in (again, off, transient, small):
+        np.testing.assert_array_equal(d, first)
+    assert svc.cache_stats.hit_rows > 0 and svc.cache_resident > 0
+
+
+def test_chunked_service_equals_unchunked_bitwise():
+    _, _, rs = _corpus()
+    svc = _svc(cache_capacity=64)
+    base = svc.query_batch(rs)
+    for dc in (5, 7):
+        np.testing.assert_array_equal(svc.query_batch(rs, docs_chunk=dc),
+                                      base)
+    np.testing.assert_array_equal(_svc(cache_capacity=64, docs_chunk=7)
+                                  .query_batch(rs), base)
+
+
+def test_query_and_sequential_match_batch():
+    _, _, rs = _corpus()
+    svc = _svc(cache_capacity=64)
+    batch = svc.query_batch(rs)
+    np.testing.assert_allclose(svc.query_batch_sequential(rs), batch, **TOL)
+    idx, dist = svc.top_k(rs[1], TOP_K)
+    np.testing.assert_array_equal(idx, _reference()["topk_idx"][1])
+    assert svc.query(rs[0]).shape == (24,)
+
+
+def test_lambda_change_invalidates_the_cache():
+    _, _, rs = _corpus()
+    svc = _svc(cache_capacity=64)
+    svc.query_batch(rs)
+    svc.cfg = WMDConfig(**{**svc.cfg.__dict__, "lamb": 0.5})
+    d_half = svc.query_batch(rs)
+    assert svc.last_batch_stats["hits"] == 0
+    assert svc.cache_stats.invalidations == 1
+    fresh = _svc(cache_capacity=64)
+    fresh.cfg = svc.cfg
+    np.testing.assert_array_equal(fresh.query_batch(rs), d_half)
+
+
+def test_from_state_and_guards():
+    vecs, ell, rs = _corpus()
+    state = state_from_numpy(vecs, ell.cols, ell.vals, ell.num_vocab,
+                             device="cpu")
+    svc = WMDService.from_state(_cfg(WMDConfig), state, cache_capacity=64)
+    assert svc.device == torch.device("cpu")
+    np.testing.assert_array_equal(svc.query_batch(rs),
+                                  _svc(cache_capacity=64).query_batch(rs))
+    with pytest.raises(InvalidQueryError):
+        svc.query_batch([np.zeros(vecs.shape[0], np.float32)])
+    with pytest.raises(InvalidQueryError):
+        svc.query_batch([np.ones(3, np.float32)])
+    assert svc.query_batch([]).shape == (0, 24)
+
+
+def test_unported_parts_raise_not_implemented():
+    _, _, rs = _corpus()
+    svc = _svc()
+    for call in (lambda: svc.top_k_batch(rs, 3, prune=True),
+                 lambda: svc.top_k(rs[0], 3, prune=True),
+                 lambda: svc.top_k_scan_batch(rs, 3),
+                 lambda: svc.query_batch_bounds(rs),
+                 lambda: svc.top_k_batch_bounds(rs, 3),
+                 lambda: svc.async_service(),
+                 lambda: svc.add_docs([0], [[(0, 1.0)]]),
+                 lambda: WMDService.from_live(None, None, None, None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_default_device_is_the_card():
+    vecs, ell, _ = _corpus()
+    if torch.cuda.is_available():
+        svc = WMDService(cfg=_cfg(WMDConfig), vecs=vecs, ell=ell)
+        assert svc.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="GPU"):
+        WMDService(cfg=_cfg(WMDConfig), vecs=vecs, ell=ell)
+
+
+@pytest.mark.parametrize("flags", [["--batch-queries"], []])
+def test_serve_launcher_runs_on_cpu(flags):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "sinkhorn-wmd", "--smoke", "--device", "cpu", "--num-queries", "3",
+         *flags], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("top5 docs") == 3
