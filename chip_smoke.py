@@ -21,7 +21,31 @@ Phases (any failure exits non-zero before the result line is printed):
      the legacy route (cache off), and the dense oracle
      `sinkhorn_wmd_dense` on a 64-doc slice (see `_compare` for the
      tolerances of routes whose K rows come from another spelling);
-  5. each kernel against its plain PyTorch version at the main path's
+  6. the pruned path at paper_5k: `WMDService(device="cuda",
+     cache_capacity=1024, mcache_capacity=1024)` with its defaults (impl,
+     kexp_impl, bound_impl and lc_impl all "kernel", prune_chunk 64)
+     answers `top_k_batch(prune=True)` with k = 10 on the two batches of
+     phase 3, then batch 1 again with rerank="union". The launch counts,
+     read around exactly those three calls, must be: type1 15 x and type2
+     1 x the rerank programs, one lc_rwmd_bound_batch (tier 1) and one
+     rwmd_bound_batch (tier 2) per call, one cdist per 128-row chunk of M
+     misses and one cdist_kexp_rows per 128-row chunk of K misses of each
+     K-cache lookup (all read from last_prune_stats and mcache_stats);
+  7. correctness of the pruned path: the exhaustive scan == pruned ==
+     union, bitwise; the tier toggles (tier0=False, lc_impl=None) give the
+     same bits; the pruned answer is the top-k of phase 3's full
+     `query_batch` rows, bitwise; the same ids as the all-plain service
+     (every impl "fused", kexp_impl "jnp"), distances by `_compare`,
+     near-ties that the two routes order differently printed and held to
+     that tolerance (`_check_plain_topk`); the kernel bounds
+     (`query_batch_bounds`) <= the kernel route's distances on all
+     16 x 5,000 pairs, and within rtol 1e-5, atol 1e-6 of the plain
+     min-SDDMM on the same M stripes; then, where the time goes: batch 2
+     once more through `query_batch` and both pruned reranks, warm, under
+     torch.profiler: wall time, the device's busy time and idle share, and
+     the largest device entries;
+  5. (run last, so that its launch column reads the runs of phases 3 and
+     6) each kernel against its plain PyTorch version at the main path's
      shapes, with its time (CUDA events), the plain version's time, a
      library yardstick where one exists, and the bound: the larger of the
      bytes the function must move over 3.35 TB/s and its fp32 operations
@@ -72,6 +96,42 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _device_busy(call):
+    """Run ``call`` (warm) once on the host clock, then once under
+    torch.profiler. Returns (wall ms, wall ms under the profiler, summed
+    device ms, the five largest device entries) from the device events of
+    the trace (kernels and copies, one stream, no overlap); the device ms
+    is None, with the reason in place of the entries, when the trace holds
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed_call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall = timed_call()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof = timed_call()
+        dev = [(e.self_device_time_total / 1e3, e.key, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    except Exception as e:                  # a measurement, not the path
+        return wall, float("nan"), None, f"profiler failed: {e!r}"
+    busy = sum(ms for ms, _, _ in dev)
+    if busy <= 0:
+        return wall, wall_prof, None, "the trace holds no device events"
+    return wall, wall_prof, busy, ", ".join(
+        f"{key[:40]} {ms:.2f} ms x{count}"
+        for ms, key, count in sorted(dev, reverse=True)[:5])
+
+
 def _shares_word(batch, ell):
     """(Q, N) mask: doc j holds one of query q's words."""
     import numpy as np
@@ -102,6 +162,37 @@ def _compare(what, got, want, share):
                                atol=1e-5)
 
 
+def _check_plain_topk(what, idx, dist, idx_q, d_full, d_plain, share):
+    """The pruned kernel route against the pruned all-plain route: the same
+    ids in the same order, distances by `_compare`. The two routes'
+    distances differ by up to a few 1e-3 (see `_compare`), so docs whose
+    distances lie that close may swap places, or trade the k-th place with
+    a doc just outside the top k: such a query is printed with both routes'
+    distances of the docs that moved, and accepted only if, in each route,
+    those docs lie within the relative tolerance of `_compare` of each
+    other."""
+    import numpy as np
+    rows = np.arange(idx.shape[0])[:, None]
+    _compare(f"{what}, pruned kernel route vs pruned all-plain route",
+             dist, d_plain[rows, idx], share[rows, idx])
+    for qi in np.nonzero((idx != idx_q).any(axis=1))[0]:
+        pos = np.nonzero(idx[qi] != idx_q[qi])[0]
+        moved = np.union1d(idx[qi, pos], idx_q[qi, pos])
+        outside = np.setxor1d(idx[qi], idx_q[qi])
+        print(f"[check] {what}, query {qi}: the routes order docs "
+              f"{moved.tolist()} differently at places {pos.tolist()} "
+              f"(in one top-k only: {outside.tolist()}): kernel route d "
+              f"{d_full[qi, moved].tolist()}, plain route d "
+              f"{d_plain[qi, moved].tolist()}")
+        for d_row in (d_full[qi], d_plain[qi]):
+            band = d_row[moved]
+            _check(bool(band.max() - band.min() <= TOL_SELF_RTOL * band.max()),
+                   f"{what}, query {qi}: ids differ beyond a near-tie")
+    print(f"[check] {what}: pruned ids equal to the all-plain route's, in "
+          f"order, except for near-ties on "
+          f"{int((idx != idx_q).any(axis=1).sum())} queries")
+
+
 def _ptxas_summary(log: str) -> list[str]:
     keep = ("Compiling entry", "Used", "spill")
     return [ln.strip() for ln in log.splitlines()
@@ -121,7 +212,11 @@ def main() -> int:
     from repro_torch.core import sparse_sinkhorn as ss
     from repro_torch.core.sinkhorn import select_query, sinkhorn_wmd_dense
     from repro_torch.data.corpus import make_corpus, zipf_query_stream
-    from repro_torch.kernels import _build, kexp, ops, sddmm_spmm
+    from repro_torch.core import rwmd as rwmd_core
+    from repro_torch.core.cascade import min_cost_vectors
+    from repro_torch.kernels import (_build, cdist, kexp, lcrwmd, ops,
+                                     sddmm_spmm)
+    from repro_torch.kernels import rwmd as krwmd
     from repro_torch.serving import WMDService
 
     dev = torch.device("cuda")
@@ -194,6 +289,7 @@ def main() -> int:
                            cache_capacity=1024, impl="fused")
     plain = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
                        cache_capacity=1024, impl="fused", kexp_impl="jnp")
+    plain_d = []
     for i, (d, batch) in enumerate(((d1, batch1), (d2, batch2))):
         b = same_rows.query_batch(batch)
         print(f"[check] batch {i + 1}, kernels vs plain engine (impl fused) "
@@ -201,8 +297,9 @@ def main() -> int:
               f"{float((np.abs(d - b) / b).max()):.3g}, held to rtol 2e-3 "
               f"atol 1e-5")
         np.testing.assert_allclose(d, b, **TOL_ENGINE)
+        plain_d.append(plain.query_batch(batch))
         _compare(f"batch {i + 1}, kernel route vs all-plain route (impl "
-                 f"fused, kexp_impl jnp)", d, plain.query_batch(batch),
+                 f"fused, kexp_impl jnp)", d, plain_d[-1],
                  _shares_word(batch, data.ell))
     again = svc.query_batch(batch1)
     off = svc.query_batch(batch1, use_cache=False)
@@ -228,6 +325,142 @@ def main() -> int:
         vecs_d, cfg.lamb, cfg.max_iter).cpu().numpy() for i in range(3)])
     _compare(f"dense oracle on {docs} docs x 3 queries", d1[:3, :docs],
              dense, _shares_word(batch1[:3], data.ell)[:, :docs])
+    del same_rows, legacy, c, vals
+
+    # -- 6. the pruned path ----------------------------------------------------
+    k_top = 10
+    svc6 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
+                      cache_capacity=1024, mcache_capacity=1024)
+    _check(svc6.device.type == "cuda" and svc6.bound_impl == "kernel"
+           and svc6.lc_impl == "kernel" and svc6.impl == "kernel"
+           and svc6.kexp_impl == "kernel" and svc6.prune_chunk == 64,
+           "pruned-path service defaults changed")
+    torch.cuda.reset_peak_memory_stats()
+    calls = (("batch 1, per_query", batch1, "per_query"),
+             ("batch 2, per_query", batch2, "per_query"),
+             ("batch 1, union", batch1, "union"))
+    runs = []
+    _build.reset_launches()
+    for what, batch, rerank in calls:
+        m_miss0 = svc6.mcache_stats.miss_rows
+        t0 = time.perf_counter()
+        out = svc6.top_k_batch(batch, k_top, prune=True, rerank=rerank)
+        dt = time.perf_counter() - t0
+        runs.append((what, out, dt, dict(svc6.last_prune_stats),
+                     svc6.mcache_stats.miss_rows - m_miss0))
+    launches6 = dict(_build.launches)
+    peak6 = torch.cuda.max_memory_allocated()
+    rb = svc6.cache_rows_bucket
+    programs = sum(r[3]["rerank_programs"] for r in runs)
+    want6 = {"sddmm_spmm_type1_batch": cfg.max_iter * programs,
+             "sddmm_spmm_type2_batch": programs,
+             "lc_rwmd_bound_batch": len(calls),
+             "rwmd_bound_batch": len(calls),
+             "cdist": sum(math.ceil(r[4] / rb) for r in runs),
+             "cdist_kexp_rows": sum(math.ceil(m / rb) for r in runs
+                                    for m in r[3]["kcache_misses"])}
+    want6 = {k: v for k, v in want6.items() if v}
+    print(f"[pruned] launches {launches6}, expected {want6}")
+    _check(launches6 == want6, f"pruned-path launch counts {launches6} != "
+           f"{want6}")
+    for name in ("cdist", "rwmd_bound_batch", "lc_rwmd_bound_batch",
+                 "sddmm_spmm_type1_batch", "sddmm_spmm_type2_batch"):
+        _check(launches6.get(name, 0) > 0, f"{name} never launched on the "
+               f"pruned path")
+    for what, (idx, dist), dt, ps, m_miss in runs:
+        print(f"[pruned] {what}: Q=16, k={k_top} in {dt * 1e3:.1f} ms "
+              f"({16 / dt:.1f} queries/s); bound_s {ps['bound_s']:.4f}, "
+              f"rerank_s {ps['rerank_s']:.4f}; solves_avoided "
+              f"{ps['solves_avoided']:.4f}, exact_solves "
+              f"{ps['exact_solves']}, rerank_programs "
+              f"{ps['rerank_programs']}; M misses {m_miss}, K misses "
+              f"{sum(ps['kcache_misses'])}")
+        for t in ps["tiers"]:
+            print(f"[pruned]   tier {t['tier']}: {t['seconds'] * 1e3:.2f} "
+                  f"ms, survivors {t['survivors']}, cascade survivors "
+                  f"{t['cascade_survivors']} (avoided "
+                  f"{t['cascade_solves_avoided']:.4f})")
+    print(f"[pruned] peak device memory {peak6 / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, phase 6)")
+
+    # -- 7. correctness of the pruned path -------------------------------------
+    (idx_p1, d_p1), (idx_p2, d_p2), (idx_u1, d_u1) = (r[1] for r in runs)
+    for idx, dist in ((idx_p1, d_p1), (idx_p2, d_p2)):
+        _check(idx.shape == (16, k_top) and np.isfinite(dist).all()
+               and (dist > 0).all(), "pruned top-k not finite and positive")
+    idx_s1, d_s1 = svc6.top_k_scan_batch(batch1, k_top)
+    _check(np.array_equal(idx_s1, idx_p1) and np.array_equal(d_s1, d_p1)
+           and np.array_equal(idx_u1, idx_p1) and np.array_equal(d_u1, d_p1),
+           "scan / pruned / union not bitwise equal")
+    print(f"[check] batch 1: top_k_scan_batch == pruned == union, bitwise "
+          f"(scan: {svc6.last_prune_stats['rerank_programs']} programs)")
+    for field, value in (("tier0", False), ("lc_impl", None)):
+        saved = getattr(svc6, field)
+        setattr(svc6, field, value)
+        try:
+            idx_t, d_t = svc6.top_k_batch(batch1, k_top, prune=True)
+            avoided = svc6.last_prune_stats["solves_avoided"]
+        finally:
+            setattr(svc6, field, saved)
+        _check(np.array_equal(idx_t, idx_p1) and np.array_equal(d_t, d_p1),
+               f"{field}={value} changed the pruned answer")
+        print(f"[check] {field}={value}: same bits (solves_avoided "
+              f"{avoided:.4f})")
+    for i, (d, idx, dist) in enumerate(((d1, idx_p1, d_p1),
+                                        (d2, idx_p2, d_p2))):
+        _check(np.array_equal(idx, WMDService._top_k(d, k_top))
+               and np.array_equal(dist, np.take_along_axis(d, idx, -1)),
+               f"batch {i + 1}: pruned top-k is not the top-k of the full "
+               f"query_batch rows")
+    print("[check] pruned top-k == top-k of phase 3's query_batch rows, "
+          "bitwise (ids and distances)")
+    plain6 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
+                        cache_capacity=1024, mcache_capacity=1024,
+                        impl="fused", kexp_impl="jnp", bound_impl="fused",
+                        lc_impl="fused")
+    for i, (batch, idx, dist, d_full, d_plain) in enumerate(
+            ((batch1, idx_p1, d_p1, d1, plain_d[0]),
+             (batch2, idx_p2, d_p2, d2, plain_d[1]))):
+        idx_q, _ = plain6.top_k_batch(batch, k_top, prune=True)
+        _check_plain_topk(f"batch {i + 1}", idx, dist, idx_q, d_full,
+                          d_plain, _shares_word(batch, data.ell))
+    del plain6
+    sel_1, _, mask_1 = svc6._padded_query_batch(batch1)
+    m_pad, _ = svc6._mcache.m_stripes_for_batch(sel_1, mask_1)
+    cols_e, vals_e = svc6._ell_cols_d, svc6._ell_vals_d
+    lb_plain = rwmd_core.rwmd_bound_batch(
+        m_pad, cols_e, vals_e, impl="fused",
+        docs_chunk=svc6.bound_docs_chunk)[:16].cpu().numpy()
+    for i, (batch, d) in enumerate(((batch1, d1), (batch2, d2))):
+        lb = svc6.query_batch_bounds(batch)
+        slack = lb - (d * (1 + 1e-5) + 1e-6)
+        print(f"[check] batch {i + 1}: kernel bounds <= kernel distances on "
+              f"{lb.size} pairs: max(bound - d(1+1e-5) - 1e-6) = "
+              f"{slack.max():.3g}; bound / distance: mean "
+              f"{float((lb / d).mean()):.4f}, max {float((lb / d).max()):.4f}")
+        _check(bool((slack <= 0).all()), "a bound exceeds its distance")
+        if i == 0:
+            print(f"[check] kernel bounds vs plain min-SDDMM on the same M "
+                  f"stripes: max abs {np.abs(lb - lb_plain).max():.3g}")
+            np.testing.assert_allclose(lb, lb_plain, rtol=1e-5, atol=1e-6)
+    del m_pad
+
+    # -- where the time goes: the device's busy share of warm calls ----------
+    for what, call in (
+            ("query_batch, batch 2 (phase 3 path)",
+             lambda: svc.query_batch(batch2)),
+            ("pruned per_query, batch 2", lambda: svc6.top_k_batch(
+                batch2, k_top, prune=True)),
+            ("pruned union, batch 2", lambda: svc6.top_k_batch(
+                batch2, k_top, prune=True, rerank="union"))):
+        wall, wall_prof, busy, kernels = _device_busy(call)
+        if busy is None:
+            print(f"[idle] {what}: {wall:.2f} ms wall; device time not "
+                  f"measured ({kernels})")
+            continue
+        print(f"[idle] {what}: {wall:.2f} ms wall ({wall_prof:.2f} ms under "
+              f"the profiler), device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall:.3f}; largest device entries: {kernels}")
 
     # -- 5. the kernels at the main path's shapes ------------------------------
     sel_b, r_b, mask_b = svc._padded_query_batch(batch1)
@@ -322,6 +555,115 @@ def main() -> int:
            nbytes=4 * (m * w + v * w + 2 * m * v),
            flops=2 * m * v * w + 2 * (m + v) * w + 8 * m * v,
            library_fn=lambda: torch.cdist(a, vecs_d), plain_reps=10)
+
+    # cdist (#7): the M rows of the bound tiers, one 128-row miss chunk
+    m_k = cdist.cdist(a, vecs_d)
+    m_p = cdist.cdist_plain(a, vecs_d)
+    torch.cuda.synchronize()
+    live = k_k > 0
+    _check(torch.equal(km_k[live], (k_k * m_k)[live]),
+           "K*M of the kexp kernel is not K * M of the cdist kernel")
+    _check(bool((m_k[torch.arange(m, device=dev), ids] == 0).all()),
+           "cdist: a row's own word is not exactly 0")
+    near_m = m_p < 1.0
+    _check(bool(((m_k - m_p).abs()[near_m] <= 5e-2).all()),
+           "cdist: M near the diagonal off by more than 5e-2")
+    torch.testing.assert_close(m_k[~near_m], m_p[~near_m], rtol=1e-4,
+                               atol=1e-5)
+    print(f"[kernels] cdist: K*M(kexp) == K(kexp) * M(cdist) bitwise on "
+          f"{int(live.sum())} entries; own words exactly 0; "
+          f"{int(near_m.sum())} near-diagonal entries (abs 5e-2, largest "
+          f"plain M there {float(m_p[near_m].max()):.3g}), the rest rtol "
+          f"1e-4, atol 1e-5")
+    launches.update({k: v for k, v in launches6.items()
+                     if k not in launches})
+    record("cdist", "src/repro_torch/kernels/csrc/kexp.cu",
+           "src/repro/kernels/cdist.py:41", [m_k], [m_p],
+           lambda: cdist.cdist(a, vecs_d), lambda: cdist.cdist_plain(a, vecs_d),
+           nbytes=4 * (m * w + v * w + m * v),
+           flops=2 * m * v * w + 2 * (m + v) * w + 4 * m * v,
+           library_fn=lambda: torch.cdist(a, vecs_d), plain_reps=10)
+    del k_k, km_k, k_p, km_p, m_k, m_p
+    # rwmd_bound_batch (#8) at the tier-2 shape: Q = 16, v_r = 32, the 256
+    # docs of batch 1's subset (the cascade's own choice, recomputed from
+    # its tier-0 and tier-1 bounds)
+    sel_b, r_b, mask_b = svc6._padded_query_batch(batch1)
+    m_pad, _ = svc6._mcache.m_stripes_for_batch(sel_b, mask_b)
+    _, tiers = svc6._cascade_bounds(sel_b, r_b, mask_b)
+    key = np.maximum(tiers[0]["bounds"], tiers[1]["bounds"]).min(axis=0)
+    subset = np.sort(np.argsort(key, kind="stable")[:4 * svc6.prune_chunk])
+    sub_t = torch.from_numpy(subset).to(dev)
+    cols_s = cols_e[sub_t].contiguous()
+    vals_s = vals_e[sub_t].contiguous()
+    live_s = vals_s != 0
+    nnz_s = int(live_s.sum())
+    uniq_s = int(torch.unique(cols_s[live_s]).numel())
+    lb_k = ops.rwmd_bound_batch(m_pad, cols_s, vals_s)
+    lb_p = rwmd_core.rwmd_bound_batch(m_pad, cols_s, vals_s, impl="fused")
+    torch.cuda.synchronize()
+    _check(np.array_equal(lb_k.cpu().numpy(),
+                          tiers[1]["bounds"][:16][:, subset]),
+           "tier 2 (#8) differs from tier 1 (#9) on the subset")
+    torch.testing.assert_close(lb_k, lb_p, rtol=1e-5, atol=1e-6)
+    record("rwmd_bound_batch", "src/repro_torch/kernels/csrc/rwmd.cu",
+           "src/repro/kernels/rwmd.py:62", [lb_k], [lb_p],
+           lambda: krwmd.rwmd_bound_batch(m_pad, cols_s, vals_s),
+           lambda: krwmd.rwmd_bound_batch_plain(m_pad, cols_s, vals_s),
+           nbytes=4 * (q * v_r * uniq_s + 2 * cols_s.numel() + q * 256),
+           flops=q * nnz_s * (v_r + 1), plain_reps=10)
+    # ... and at the bounds tier's shape, all N docs of the original ELL
+    # (printed, not in the JSON line); the plain version runs chunked by
+    # bound_docs_chunk
+    bdc = svc6.bound_docs_chunk
+    n_e, nnz_e = cols_e.shape
+    live_e = vals_e != 0
+    nnz_real_e = int(live_e.sum())
+    uniq_e = int(torch.unique(cols_e[live_e]).numel())
+    lb_full = krwmd.rwmd_bound_batch(m_pad, cols_e, vals_e, docs_blk=bdc)
+    lb_full_p = rwmd_core.rwmd_bound_batch(m_pad, cols_e, vals_e,
+                                           impl="fused", docs_chunk=bdc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ops._finite(lb_full), lb_full_p, rtol=1e-5,
+                               atol=1e-6)
+    full_ms = _timed(lambda: krwmd.rwmd_bound_batch(m_pad, cols_e, vals_e,
+                                                    docs_blk=bdc), 10)
+    full_plain_ms = _timed(lambda: rwmd_core.rwmd_bound_batch(
+        m_pad, cols_e, vals_e, impl="fused", docs_chunk=bdc), 3, warmup=1)
+    full_bound, full_by = _bound(
+        4 * (q * v_r * uniq_e + 2 * n_e * nnz_e + q * n_e),
+        q * nnz_real_e * (v_r + 1))
+    print(f"[kernels] rwmd_bound_batch at all N = {n_e} (query_batch_bounds): "
+          f"{full_ms:.4f} ms, plain (chunked {bdc}) {full_plain_ms:.4f} ms, "
+          f"bound {full_bound:.4f} ms ({full_by}), max abs err "
+          f"{float((ops._finite(lb_full) - lb_full_p).abs().max()):.3g}")
+    # lc_rwmd_bound_batch (#9): tier 1 over all N; must equal #8 bitwise
+    minm = min_cost_vectors(m_pad)
+    lc_k = lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e, docs_blk=bdc)
+    lc_p = lcrwmd.lc_rwmd_bound_batch_plain(minm, cols_e, vals_e)
+    torch.cuda.synchronize()
+    _check(torch.equal(lc_k, lb_full), "lc_rwmd_bound_batch (#9) is not "
+           "bitwise equal to rwmd_bound_batch (#8)")
+    print("[kernels] lc_rwmd_bound_batch == rwmd_bound_batch, bitwise, on "
+          f"all {q} x {n_e} pairs")
+    torch.testing.assert_close(lc_k, lc_p, rtol=1e-5, atol=1e-6)
+    # the library yardstick: the same function as one sparse product, the
+    # corpus as a CSR (N, V+1) matrix of its nonzero slots
+    csr = torch.sparse_csr_tensor(
+        torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                   torch.cumsum(live_e.sum(dim=1), 0)]),
+        cols_e[live_e].long(), vals_e[live_e], size=(n_e, v + 1))
+    minm_t = minm.T.contiguous()
+    lib = torch.sparse.mm(csr, minm_t).T
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lib, lc_p, rtol=1e-5, atol=1e-6)
+    record("lc_rwmd_bound_batch", "src/repro_torch/kernels/csrc/rwmd.cu",
+           "src/repro/kernels/lcrwmd.py:60", [lc_k], [lc_p],
+           lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e,
+                                              docs_blk=bdc),
+           lambda: lcrwmd.lc_rwmd_bound_batch_plain(minm, cols_e, vals_e),
+           nbytes=4 * (q * uniq_e + 2 * n_e * nnz_e + q * n_e),
+           flops=2 * q * nnz_real_e,
+           library_fn=lambda: torch.sparse.mm(csr, minm_t), plain_reps=10)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

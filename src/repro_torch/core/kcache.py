@@ -1,8 +1,7 @@
 """Cross-query precompute cache: word-id-keyed K / K.*M row store.
 
-Port of the K-row half of `repro.core.kcache` (`KCacheStats`,
-`_RowCacheBase`, `KCache`) on one device; the M-row store (`MCache`) comes
-with the retrieval cascade.
+Port of `repro.core.kcache` (`KCacheStats`, `_RowCacheBase`, `KCache` and
+the bound tiers' M-row store `MCache`) on one device.
 
 Each row of the (Q, v_r, V) precompute stripes is keyed purely by
 ``(word_id, lambda)``; nothing query-specific enters until the per-query
@@ -49,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.rwmd import _m_row_block, assemble_m_stripes
 from repro_torch.core.sinkhorn import precompute_rows
 
 
@@ -351,3 +351,154 @@ class KCache(_RowCacheBase):
         return k_s, km_s, {"unique": len(ids), "hits": 0,
                            "misses": len(ids), "hit_rate": 0.0,
                            "cached": False}
+
+
+class MCache(_RowCacheBase):
+    """Device-resident word-id-keyed M-row cache for the bound tiers.
+
+    Same LRU, pinning, ``rows_bucket`` and rollback machinery as `KCache`,
+    over ONE (capacity + 1, V + 1) buffer: rows are keyed by ``word_id``
+    alone (M is pure geometry, no lambda), and row index ``capacity`` is a
+    reserved **+inf** row that pad query rows gather (the doc-side min must
+    never be won by a pad row -- the opposite sign of the K store's
+    reserved zero row). Misses go through `core.rwmd._m_row_block` in fixed
+    ``rows_bucket`` chunks, the spelling of the transient assembly
+    (`core.rwmd.assemble_m_stripes`), so cache on / off stripes are bitwise
+    equal by construction.
+
+    Unlike the reference, whose M rows have one spelling shared with its K
+    rows (`m_rows`), this store takes ``kexp_impl`` and computes M the way
+    the service's K cache computes K: "kernel" with `kernels.ops.cdist`
+    (on the card, the distance epilogue of the CUDA kernel whose exp
+    epilogue makes the K and K.*M rows), "jnp" with `core.sinkhorn.m_rows`.
+    The bound's soundness argument (``rwmd <= the engine's distance``, see
+    `core.rwmd`) needs the M rows to be bit for bit the M that the K rows
+    exponentiate; a matmul-spelled M beside kernel-made K rows would differ
+    by up to 2.5e-2 on a word's own column (measured at w = 300).
+
+    Args:
+      capacity:    resident row slots; 0 disables the store.
+      vecs:        (V, w) float32 embeddings, numpy or a tensor; moved to
+                   ``device``.
+      device:      where the buffer and the row compute live ("cuda" by
+                   default).
+      rows_bucket: fixed chunk of the miss compute (must match the
+                   service's, for the on / off bitwise contract).
+      kexp_impl:   "kernel" (default) or "jnp", as above.
+      metrics:     optional `repro_torch.obs.MetricsRegistry` ->
+                   ``wmd_mcache_*``.
+    """
+
+    def __init__(self, capacity: int, vecs, *,
+                 device: str | torch.device = "cuda",
+                 rows_bucket: int = 128, kexp_impl: str = "kernel",
+                 metrics=None):
+        if kexp_impl not in ("jnp", "kernel"):
+            raise ValueError(f"kexp_impl must be 'jnp' or 'kernel', "
+                             f"got {kexp_impl!r}")
+        self.capacity = int(capacity)
+        self.rows_bucket = int(rows_bucket)
+        self.kexp_impl = kexp_impl
+        self.device = torch.device(device)
+        self._vecs = torch.as_tensor(vecs, dtype=torch.float32,
+                                     device=self.device).contiguous()
+        self.vocab = self._vecs.shape[0]
+        self._b2 = torch.sum(self._vecs * self._vecs, dim=-1)
+        self._m_buf = torch.full((self.capacity + 1, self.vocab + 1),
+                                 float("inf"), dtype=torch.float32,
+                                 device=self.device)
+        self.stats = KCacheStats()
+        self._m = None
+        if metrics is not None:
+            self._m = {
+                "lookups": metrics.counter(
+                    "wmd_mcache_lookups_total",
+                    "m_stripes_for_batch calls"),
+                "hit_rows": metrics.counter(
+                    "wmd_mcache_hit_rows_total",
+                    "unique M rows served from the resident store"),
+                "miss_rows": metrics.counter(
+                    "wmd_mcache_miss_rows_total",
+                    "unique M rows computed fresh"),
+                "evictions": metrics.counter(
+                    "wmd_mcache_evictions_total", "LRU evictions"),
+                "bypasses": metrics.counter(
+                    "wmd_mcache_bypasses_total",
+                    "calls that skipped the resident store"),
+                "invalidations": metrics.counter(
+                    "wmd_mcache_invalidations_total",
+                    "full or scoped M-row invalidations"),
+                "resident": metrics.gauge(
+                    "wmd_mcache_resident_rows",
+                    "M rows currently resident"),
+            }
+        self._reset_map()
+
+    def m_stripes_for_batch(self, sel_b: np.ndarray, row_mask: np.ndarray, *,
+                            use_cache: bool = True):
+        """Assemble the batch's (Q, v_r, V+1) M stripes, computing only
+        missing rows. Mirrors `KCache.stripes_for_batch`; the transient path
+        IS `core.rwmd.assemble_m_stripes`. Returns (m_pad, info)."""
+        sel_b = np.asarray(sel_b)
+        ids = np.unique(sel_b)                       # sorted: stable dedup
+        self.stats.lookups += 1
+        self._mirror("lookups")
+        cached = use_cache and 0 < len(ids) <= self.capacity
+        if not cached:
+            if use_cache and self.capacity > 0:
+                self.stats.miss_rows += len(ids)
+                self._mirror("miss_rows", len(ids))
+            self.stats.bypasses += 1
+            self._mirror("bypasses")
+            m_pad = assemble_m_stripes(sel_b, row_mask, self._vecs,
+                                       b2=self._b2,
+                                       rows_bucket=self.rows_bucket,
+                                       impl=self.kexp_impl)
+            return m_pad, {"unique": len(ids), "hits": 0,
+                           "misses": len(ids), "hit_rate": 0.0,
+                           "cached": False}
+        self._tick += 1
+        slot_arr = np.array([self._slot_of.get(int(i), -1) for i in ids],
+                            np.int64)
+        hit = slot_arr >= 0
+        self._last_used[slot_arr[hit]] = self._tick  # pin the batch's hits
+        miss_ids = ids[~hit]
+        if len(miss_ids):
+            new_slots = self._alloc_slots(len(miss_ids))
+            try:
+                rb = self.rows_bucket
+                for lo in range(0, len(miss_ids), rb):
+                    chunk = miss_ids[lo:lo + rb]
+                    ids_p = np.zeros(rb, np.int64)   # pad ids: word 0
+                    ids_p[:len(chunk)] = chunk
+                    rows = _m_row_block(
+                        torch.from_numpy(ids_p).to(self.device), self._vecs,
+                        self._b2, impl=self.kexp_impl)
+                    slots_t = torch.as_tensor(new_slots[lo:lo + len(chunk)],
+                                              device=self.device)
+                    self._m_buf[slots_t] = rows[:len(chunk)]
+            except BaseException:
+                # same rollback contract as the K store: never leave
+                # unsubstantiated residency behind (the update is in place,
+                # so the buffer itself survives)
+                self._free.extend(new_slots)
+                raise
+            for i, s in zip(miss_ids, new_slots):
+                self._slot_of[int(i)] = s
+                self._id_of[s] = int(i)
+                self._last_used[s] = self._tick
+            slot_arr[~hit] = new_slots
+        n_hit, n_miss = int(hit.sum()), len(miss_ids)
+        self.stats.hit_rows += n_hit
+        self.stats.miss_rows += n_miss
+        if self._m is not None:
+            self._mirror("hit_rows", n_hit)
+            self._mirror("miss_rows", n_miss)
+        slots_b = slot_arr[np.searchsorted(ids, sel_b)]
+        # pad query rows gather the reserved +inf row (index capacity)
+        slots_b = np.where(np.asarray(row_mask) > 0, slots_b, self.capacity)
+        idx = torch.from_numpy(slots_b.astype(np.int64)).to(self.device)
+        return self._m_buf[idx], {"unique": len(ids), "hits": n_hit,
+                                  "misses": n_miss,
+                                  "hit_rate": n_hit / len(ids),
+                                  "cached": True}

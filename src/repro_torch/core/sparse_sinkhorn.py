@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core.cost_matrix import cdist
 from repro_torch.kernels._pad import pad_axis
+from repro_torch.kernels.sddmm_spmm import slot_combine, slot_dots
 
 _IMPLS = ("fused", "unfused", "kernel")
 
@@ -114,28 +115,30 @@ def _chunk_over_docs(f, u: torch.Tensor, cols: torch.Tensor,
 def sddmm_batch(k_pad, u, cols, vals):
     """Batched sampled dense-dense matmul with its own gather (unfused)."""
     kg = gather_k_batch(k_pad, cols)                 # gather #1
-    w = torch.einsum("qnki,qin->qnk", kg, u)
+    w = slot_dots(kg, u)
     return torch.where(vals[None] != 0.0, vals[None] * safe_recip(w), 0.0)
 
 
 def spmm_batch(kor_pad, v, cols):
     """Batched SpMM -- re-gathers K (the unfused baseline's second gather)."""
     kg = gather_k_batch(kor_pad, cols)               # gather #2
-    return torch.einsum("qnki,qnk->qin", kg, v)
+    return slot_combine(kg, v)
 
 
 def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
                            docs_chunk: int | None = None) -> torch.Tensor:
-    """Batched fused iteration body: (Q, v_r, N) <- one gather, two einsums.
+    """Batched fused iteration body: (Q, v_r, N) <- one gather, two
+    contractions (`kernels.sddmm_spmm.slot_dots` / `slot_combine`: a
+    (q, doc) cell's bits do not depend on Q).
 
     k_pad (Q, v_r, V+1), r_sel (Q, v_r), u (Q, v_r, N), cols/vals (N, nnz).
     """
     def chunk(u_c, cols_c, vals_c):
         kg = gather_k_batch(k_pad, cols_c)           # the ONLY gather
-        w = torch.einsum("qnki,qin->qnk", kg, u_c)
+        w = slot_dots(kg, u_c)
         v = torch.where(vals_c[None] != 0.0,
                         vals_c[None] * safe_recip(w), 0.0)
-        x = torch.einsum("qnki,qnk->qin", kg, v)
+        x = slot_combine(kg, v)
         return x / r_sel[:, :, None]
 
     return _chunk_over_docs(chunk, u, cols, vals, docs_chunk,
@@ -149,10 +152,10 @@ def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
     def chunk(u_c, cols_c, vals_c):
         kg = gather_k_batch(k_pad, cols_c)
         kmg = gather_k_batch(km_pad, cols_c)
-        w = torch.einsum("qnki,qin->qnk", kg, u_c)
+        w = slot_dots(kg, u_c)
         v = torch.where(vals_c[None] != 0.0,
                         vals_c[None] * safe_recip(w), 0.0)
-        wm = torch.einsum("qnki,qin->qnk", kmg, u_c)
+        wm = slot_dots(kmg, u_c)
         return torch.sum(wm * v, dim=-1)             # (Q, docs)
 
     return _chunk_over_docs(chunk, u, cols, vals, docs_chunk,

@@ -1,0 +1,61 @@
+"""Euclidean cost-matrix rows: the CUDA kernel and its plain version.
+
+Port of the Pallas kernel `repro.kernels.cdist.cdist`, the M-row compute of
+the bound tiers (`core.rwmd._m_row_block`, `core.kcache.MCache`): for rows
+a (m, w) against the vocabulary b (V, w),
+
+    M = sqrt(max(|a|^2 + |b|^2 - 2ab, 0))      (m, V)
+    squared=True: max(|a|^2 + |b|^2 - 2ab, 0)
+
+`cdist` launches the distance epilogue of ``csrc/kexp.cu`` (CUDA tensors
+only): the same tile loop and M expression as `kexp.cdist_kexp_rows`, so
+its M is bit for bit the M that the K-row kernel exponentiates.
+`cdist_plain` is the same expansion as one fp32 matmul, used for CPU
+tensors and as the kernel's comparison on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def cdist_plain(a: torch.Tensor, b: torch.Tensor, *,
+                squared: bool = False) -> torch.Tensor:
+    a2 = torch.sum(a * a, dim=-1)[:, None]
+    b2 = torch.sum(b * b, dim=-1)[None, :]
+    d2 = torch.clamp(a2 + b2 - 2.0 * (a @ b.T), min=0.0)
+    return d2 if squared else torch.sqrt(d2)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def cdist(a: torch.Tensor, b: torch.Tensor, *,
+          squared: bool = False) -> torch.Tensor:
+    """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> M (m, V)."""
+    name = "cdist"
+    for arg, t in (("a", a), ("b", b)):
+        if t.device.type != "cuda" or t.device != a.device:
+            raise ValueError(f"{name}: {arg} must be on a's CUDA device, got "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous matrix")
+    m, w = a.shape
+    v = b.shape[0]
+    if b.shape[1] != w:
+        raise ValueError(f"{name}: widths differ, a {tuple(a.shape)} vs b "
+                         f"{tuple(b.shape)}")
+    out = torch.empty((m, v), dtype=torch.float32, device=a.device)
+    if m and v:
+        fn = _build.library("kexp").cdist_rows
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, v, w,
+                 int(squared), torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(name, err)
+    return out

@@ -1,34 +1,42 @@
-// Fused cost-matrix rows -> (K, K*M) for the K-cache misses, sm_90a, plain
-// CUDA C++.
+// Cost-matrix rows against the vocabulary, sm_90a, plain CUDA C++: one tile
+// loop, two epilogues.
 //
-// Replaces the Pallas TPU kernel `cdist_kexp_rows`
-// (src/repro/kernels/kexp.py:93, body `_kexp_kernel` :43). `cdist_kexp`
-// (:58) has the same body and will reuse this kernel behind its own wrapper.
+// Replaces two Pallas TPU kernels:
+//   * `cdist_kexp_rows` (src/repro/kernels/kexp.py:93, body `_kexp_kernel`
+//     :43), the K-cache misses: the exp epilogue. `cdist_kexp` (:58) has
+//     the same body and will reuse it behind its own wrapper;
+//   * `cdist` (src/repro/kernels/cdist.py:41, body `_cdist_kernel` :27),
+//     the M-cache misses of the bound tiers: the distance epilogue.
 //
-// What it computes, for miss rows a (m, w) against the vocabulary b (V, w):
-//   M = sqrt(max(|a_i|^2 + |b_j|^2 - 2 <a_i, b_j>, 0))
-//   K = exp(-lamb * M),  KM = K * M
-// M never reaches memory: only K and K*M (each (m, V), row-major) are
-// written.
+// What it computes, for rows a (m, w) against the vocabulary b (V, w):
+//   M = sqrt(max(|a_i|^2 + |b_j|^2 - 2 <a_i, b_j>, 0))   (or M^2, squared)
+//   exp epilogue:      K = exp(-lamb * M),  KM = K * M   (M never written)
+//   distance epilogue: M (or max(d^2, 0))
+// Outputs are (m, V) row-major.
 //
 // Design: a tiled SIMT fp32 product. A block of 256 threads owns a 64x64
 // output tile; it stages 64x16 tiles of a and b in shared memory and each
 // thread accumulates a 4x4 sub-tile in registers. Threads 0..63 and 64..127
 // also accumulate |a_i|^2 and |b_j|^2 of the tile's rows and columns from
-// the same shared tiles. The epilogue forms M, K and K*M in registers.
+// the same shared tiles. Both epilogues are instances of one kernel
+// template, so they run the same tile loop and the same M expression
+// (`clamped_d2`): the distance epilogue's M is bit for bit the M that the
+// exp epilogue exponentiates. The bound tiers' soundness rests on that (the
+// doc-side RWMD must see the geometry the engine's K*M encodes).
 //
 // What bounds it on an H100: the 2*m*V*w fp32 operations (at m = 128,
 // V = 100,000, w = 300 that is 7.7 GFLOP against 67 TFLOP/s of non-tensor
-// fp32), ahead of the bytes (b once, 120 MB, plus K and K*M, 102 MB). This
-// first version uses no tensor cores and no TF32: TF32 would move K far
-// from the reference (the expansion cancels near the diagonal). A
-// tensor-core redesign in 3xTF32 or a wgmma pipeline is later work.
+// fp32), ahead of the bytes (b once, 120 MB, plus the outputs: K and K*M,
+// 102 MB; or M alone, 51 MB). This first version uses no tensor cores and
+// no TF32: TF32 would move K far from the reference (the expansion cancels
+// near the diagonal). A tensor-core redesign in 3xTF32 or a wgmma pipeline
+// is later work.
 //
 // Exactness: every dot product and every norm is one thread's fma chain over
 // k = 0..w-1 in order (zero-padded tail steps add exact zeros); there is no
 // split-K and no atomics. A row's bits therefore depend only on its own
 // embedding and the vocabulary, never on the other rows of the call: the
-// K cache's bitwise on == off contract rests on that. A row's own word
+// row caches' bitwise on == off contracts rest on that. A row's own word
 // comes out as exactly M = 0, K = 1: |a|^2, |b|^2 and <a, b> run the same
 // fma chain over the same values, so the expansion cancels exactly, where
 // a matmul spelling with separately summed norms leaves fp32 round-off
@@ -44,9 +52,19 @@ constexpr int kDepth = 16;   // w-slice staged per step
 constexpr int kThreads = 256;
 constexpr int kSub = 4;      // 4x4 outputs per thread
 
+enum Epilogue { kExp = 0, kDist = 1, kDistSquared = 2 };
+
+// |a|^2 + |b|^2 - 2ab clamped at 0 by a max that, like the reference's
+// maximum, keeps a NaN
+__device__ __forceinline__ float clamped_d2(float a2, float b2, float ab) {
+  const float d2 = a2 + b2 - 2.f * ab;
+  return d2 < 0.f ? 0.f : d2;
+}
+
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads)
-kexp_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ k_out, float* __restrict__ km_out,
+cost_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ out0, float* __restrict__ out1,
                  int m, int v, int w, float lamb) {
   __shared__ float as[kDepth][kTile + 1];
   __shared__ float bs[kDepth][kTile + 1];
@@ -109,15 +127,34 @@ kexp_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (int jj = 0; jj < kSub; ++jj) {
       const int col = col0 + tx + 16 * jj;
       if (col >= v) continue;
-      const float d2 = a2 + b2s[tx + 16 * jj] - 2.f * acc[ii][jj];
-      // max(d2, 0) that, like the reference's maximum, keeps a NaN
-      const float dist = sqrtf(d2 < 0.f ? 0.f : d2);
-      const float kv = expf(-lamb * dist);
+      const float d2 = clamped_d2(a2, b2s[tx + 16 * jj], acc[ii][jj]);
       const size_t at = (size_t)row * v + col;
-      k_out[at] = kv;
-      km_out[at] = kv * dist;
+      if (kEpi == kDistSquared) {
+        out0[at] = d2;
+      } else {
+        const float dist = sqrtf(d2);
+        if (kEpi == kDist) {
+          out0[at] = dist;
+        } else {
+          const float kv = expf(-lamb * dist);
+          out0[at] = kv;
+          out1[at] = kv * dist;
+        }
+      }
     }
   }
+}
+
+template <int kEpi>
+int launch(const void* a, const void* b, void* out0, void* out1, int m,
+           int v, int w, float lamb, void* stream) {
+  if (m <= 0 || v <= 0 || w <= 0 || (m + kTile - 1) / kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((v + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  cost_rows_kernel<kEpi><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)out0, (float*)out1, m, v, w,
+      lamb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -125,10 +162,12 @@ kexp_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
 extern "C" int cdist_kexp_rows(const void* a, const void* b, void* k,
                                void* km, int m, int v, int w, float lamb,
                                void* stream) {
-  if (m <= 0 || v <= 0 || w <= 0 || (m + kTile - 1) / kTile > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((v + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  kexp_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)k, (float*)km, m, v, w, lamb);
-  return (int)cudaGetLastError();
+  return launch<kExp>(a, b, k, km, m, v, w, lamb, stream);
+}
+
+extern "C" int cdist_rows(const void* a, const void* b, void* out, int m,
+                          int v, int w, int squared, void* stream) {
+  return squared ? launch<kDistSquared>(a, b, out, nullptr, m, v, w, 0.f,
+                                        stream)
+                 : launch<kDist>(a, b, out, nullptr, m, v, w, 0.f, stream);
 }

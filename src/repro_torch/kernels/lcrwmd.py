@@ -1,0 +1,59 @@
+"""Batched LC-RWMD sparse dot: the CUDA kernel and its plain version.
+
+Port of the Pallas kernel `repro.kernels.lcrwmd.lc_rwmd_bound_batch`, tier
+1 of the retrieval cascade. The per-vocab-word min-cost vector
+``minm[q, c] = min_i M[q, i, c]`` is taken once per query outside
+(`core.cascade.min_cost_vectors`), so a doc costs one sparse dot:
+
+    lb[q, j] = sum_s vals[j, s] * minm[q, cols[j, s]]    (vals != 0)
+
+An all-pad filler query has an all-+inf minm row and comes out +inf, which
+`kernels.ops` finite-izes to 0.
+
+`lc_rwmd_bound_batch` launches ``csrc/rwmd.cu`` (CUDA tensors only); it
+shares its accumulation step with the min-SDDMM kernel, so the two are
+bitwise equal. `lc_rwmd_bound_batch_plain` is the gather + slot sum spelling
+of `core.cascade`, sharing `kernels.rwmd.slot_dot` with the min-SDDMM's
+plain version for the same reason.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwmd import check_ell, slot_dot
+
+
+def lc_rwmd_bound_batch_plain(minm: torch.Tensor, cols: torch.Tensor,
+                              vals: torch.Tensor) -> torch.Tensor:
+    return slot_dot(minm[:, cols], vals)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
+                        vals: torch.Tensor, *, docs_blk: int = 8
+                        ) -> torch.Tensor:
+    """CUDA LC sparse dot. minm (Q, V+1) f32, cols int32 / vals f32
+    (N, nnz) with every col in [0, V]. Returns the raw (Q, N) bounds.
+    ``docs_blk`` documents per block (results do not depend on it)."""
+    name = "lc_rwmd_bound_batch"
+    check_ell(name, minm, cols, vals, docs_blk)
+    if minm.dim() != 2:
+        raise ValueError(f"{name}: minm must be (Q, V+1), got "
+                         f"{tuple(minm.shape)}")
+    q, vp1 = minm.shape
+    n, nnz = cols.shape
+    lb = torch.empty((q, n), dtype=torch.float32, device=minm.device)
+    if q and n:
+        fn = _build.library("rwmd").lc_rwmd_bound_batch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(minm.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                 lb.data_ptr(), q, vp1, n, nnz, docs_blk,
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(name, err)
+    return lb

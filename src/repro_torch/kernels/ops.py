@@ -1,9 +1,9 @@
 """Public entry points of the ported kernels: dispatch by device.
 
-Port of `repro.kernels.ops` (the batched SDDMM-SpMM and the row kexp). A
-CUDA tensor goes to the hand-written kernel, which launches or raises;
-a CPU tensor goes to the kernel's plain PyTorch version. Nothing catches a
-build or launch failure and falls back.
+Port of `repro.kernels.ops` (the batched SDDMM-SpMM, the row kexp, cdist
+and the two RWMD bounds). A CUDA tensor goes to the hand-written kernel,
+which launches or raises; a CPU tensor goes to the kernel's plain PyTorch
+version. Nothing catches a build or launch failure and falls back.
 
 Padding rules differ from the TPU wrappers on purpose: the CUDA kernels
 mask their own ragged edges (any v_r up to 128, any Q, N and nnz), so v_r,
@@ -11,13 +11,20 @@ Q and docs are not padded to tile multiples here and no (Q, v_r, V+1)
 stripe is ever copied for alignment. What remains of the reference's rules
 is the caller's: K carries its zero pad column (ELL pad slots gather it),
 pad query rows carry r = 1 and an all-zero K row, and Q-filler queries an
-all-zero K, all of which the kernels turn into exact zeros.
+all-zero K, all of which the kernels turn into exact zeros. The bound wrappers keep
+the reference's other sign: pad query rows of M carry +inf (a pad row must
+never win the min), and an all-pad filler query's +inf bounds are
+finite-ized to 0 here, on both devices (its engine distance is exactly 0,
+so a 0 bound can never prune it).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cdist as _cdist
 from repro_torch.kernels import kexp as _kexp
+from repro_torch.kernels import lcrwmd as _lcrwmd
+from repro_torch.kernels import rwmd as _rwmd
 from repro_torch.kernels import sddmm_spmm as _sddmm_spmm
 
 
@@ -57,3 +64,42 @@ def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *,
         return _kexp.cdist_kexp_rows(a.contiguous(), b.contiguous(),
                                      lamb=lamb)
     return _kexp.cdist_kexp_rows_plain(a, b, lamb=lamb)
+
+
+def cdist(a: torch.Tensor, b: torch.Tensor, *,
+          squared: bool = False) -> torch.Tensor:
+    """Euclidean cost rows a (m, w) against b (V, w) -> (m, V) (the M-row
+    compute of the bound tiers); ``squared`` skips the sqrt."""
+    if a.is_cuda:
+        return _cdist.cdist(a.contiguous(), b.contiguous(), squared=squared)
+    return _cdist.cdist_plain(a, b, squared=squared)
+
+
+def _finite(lb: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(lb), lb, 0.0)
+
+
+def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
+                     vals: torch.Tensor, *, docs_blk: int = 8
+                     ) -> torch.Tensor:
+    """Batched doc-side RWMD min-SDDMM: m_pad (Q, v_r, V+1) with +inf pad
+    query rows, cols/vals (N, nnz) -> (Q, N) bounds, filler queries 0.
+    ``docs_blk`` is the kernel's doc tile (results do not depend on it)."""
+    if m_pad.is_cuda:
+        return _finite(_rwmd.rwmd_bound_batch(
+            m_pad.contiguous(), cols.contiguous(), vals.contiguous(),
+            docs_blk=docs_blk))
+    return _finite(_rwmd.rwmd_bound_batch_plain(m_pad, cols, vals))
+
+
+def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
+                        vals: torch.Tensor, *, docs_blk: int = 8
+                        ) -> torch.Tensor:
+    """Batched LC-RWMD sparse dot: minm (Q, V+1), cols/vals (N, nnz) ->
+    (Q, N) bounds, filler queries 0; bitwise equal to `rwmd_bound_batch`
+    on the M stripes minm was reduced from."""
+    if minm.is_cuda:
+        return _finite(_lcrwmd.lc_rwmd_bound_batch(
+            minm.contiguous(), cols.contiguous(), vals.contiguous(),
+            docs_blk=docs_blk))
+    return _finite(_lcrwmd.lc_rwmd_bound_batch_plain(minm, cols, vals))

@@ -51,6 +51,28 @@ def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals):
                         for k, km, uu in zip(k_pad, km_pad, u)])
 
 
+def rwmd_bound_batch(m_pad, cols, vals):
+    """Oracle for the doc-side RWMD min-SDDMM: densify the ELL, take the
+    per-vocab-word min over query rows of the full M stripe, and contract
+    with the dense doc frequencies -- no gather, no slot loop. Pad query
+    rows carry +inf (never win the min); all-pad filler queries come out
+    inf/NaN and are finite-ized to 0, as on the production paths."""
+    num_vocab = m_pad.shape[-1] - 1
+    c = _ell_to_dense(cols, vals, num_vocab)                  # (V, N)
+    mins = torch.amin(m_pad[:, :, :num_vocab], dim=1)         # (Q, V)
+    lb = torch.einsum("qv,vn->qn", mins, c)
+    return torch.where(torch.isfinite(lb), lb, 0.0)
+
+
+def lc_rwmd_bound_batch(minm, cols, vals):
+    """Oracle for the LC-RWMD sparse dot: the (Q, V) min-cost vectors
+    against the densified ELL as one dense matmul."""
+    num_vocab = minm.shape[-1] - 1
+    c = _ell_to_dense(cols, vals, num_vocab)                  # (V, N)
+    lb = minm[:, :num_vocab] @ c
+    return torch.where(torch.isfinite(lb), lb, 0.0)
+
+
 def cdist(a, b, *, squared: bool = False):
     """Oracle: direct elementwise |a_i - b_j|."""
     d2 = torch.sum((a[:, None, :] - b[None, :, :]) ** 2, dim=-1)

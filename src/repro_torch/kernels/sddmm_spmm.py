@@ -12,7 +12,7 @@ and `sddmm_spmm_type2_batch`. For each query q, doc j and ELL slot s:
 type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
 <u[q, :, j], acc>. ``sddmm_spmm_type{1,2}_batch`` launch the CUDA kernels
 in ``csrc/sddmm_spmm.cu`` (CUDA tensors only);
-``sddmm_spmm_type{1,2}_batch_plain`` are the gather + einsum spellings of
+``sddmm_spmm_type{1,2}_batch_plain`` are the gather + matmul spellings of
 the same math, used for CPU tensors and as the kernels' comparison on the
 card. `repro_torch.kernels.ops` chooses between them by device.
 """
@@ -35,9 +35,24 @@ def _gather(k_pad: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return k_pad.transpose(1, 2)[:, cols]
 
 
+# The two contractions of the plain spellings, written as batched matmuls
+# over the (q, n) cells: a cell's bits then do not depend on Q (einsum takes
+# another path at Q = 1), which the pruned rerank's (1, chunk) == (Q, chunk)
+# contract needs on every device, as the kernels give it.
+
+def slot_dots(kg: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """w[q, n, k] = sum_i kg[q, n, k, i] * u[q, i, n] -> (Q, N, nnz)."""
+    return torch.matmul(kg, u.transpose(1, 2)[..., None])[..., 0]
+
+
+def slot_combine(kg: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x[q, i, n] = sum_k kg[q, n, k, i] * v[q, n, k] -> (Q, v_r, N)."""
+    return torch.matmul(v[:, :, None, :], kg)[:, :, 0, :].transpose(1, 2)
+
+
 def _sampled_v(kg: torch.Tensor, u: torch.Tensor,
                vals: torch.Tensor) -> torch.Tensor:
-    w = torch.einsum("qnki,qin->qnk", kg, u)
+    w = slot_dots(kg, u)
     return torch.where(vals[None] != 0.0,
                        vals[None] / torch.clamp(w, min=TINY), 0.0)
 
@@ -46,14 +61,14 @@ def sddmm_spmm_type1_batch_plain(k_pad, r_sel, u, cols, vals):
     """Plain version of the type1 kernel: (Q, v_r, N) iterate."""
     kg = _gather(k_pad, cols)
     v = _sampled_v(kg, u, vals)
-    return torch.einsum("qnki,qnk->qin", kg, v) / r_sel[:, :, None]
+    return slot_combine(kg, v) / r_sel[:, :, None]
 
 
 def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
     """Plain version of the type2 kernel: (Q, N) distances, reduced in the
     kernel's order (K.*M accumulation first, then the u contraction)."""
     v = _sampled_v(_gather(k_pad, cols), u, vals)
-    acc = torch.einsum("qnki,qnk->qin", _gather(km_pad, cols), v)
+    acc = slot_combine(_gather(km_pad, cols), v)
     return torch.sum(u * acc, dim=1)
 
 

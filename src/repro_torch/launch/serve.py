@@ -2,13 +2,17 @@
 
     python -m repro_torch.launch.serve --arch sinkhorn-wmd [--smoke]
         [--batch-queries] [--num-queries N] [--impl kernel|fused|unfused]
-        [--docs-chunk D] [--tol T] [--top-k K] [--device cuda|cpu]
+        [--docs-chunk D] [--tol T] [--top-k K] [--prune]
+        [--device cuda|cpu]
 
 Builds the synthetic corpus of the configuration (``--smoke``: the tiny
 smoke config; default: ``paper_5k``), serves its queries through
 `repro_torch.serving.WMDService` and prints each query's nearest docs and
 the latency. ``--batch-queries`` solves all queries in one batched call
 (timed after a first warm call), otherwise each query is served on its own.
+``--prune`` serves top-k through the retrieval cascade (bound tiers, then
+the exact rerank of the candidates; the same answer as the full scan) over
+the whole query set in one call and prints the solves avoided.
 Runs on the card unless ``--device cpu`` is given. The language-model
 architectures of the reference launcher are not ported yet.
 """
@@ -34,6 +38,10 @@ def main(argv=None):
                     help="early-exit tolerance (0 = fixed max_iter)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="docs listed per query (0 = 5)")
+    ap.add_argument("--prune", action="store_true",
+                    help="top-k through the retrieval cascade (bound tiers "
+                         "+ exact rerank; the full scan's answer) and "
+                         "print the solves avoided")
     ap.add_argument("--device", default="cuda",
                     help="torch device the service runs on")
     args = ap.parse_args(argv)
@@ -58,16 +66,23 @@ def main(argv=None):
                      device=args.device, impl=args.impl,
                      docs_chunk=args.docs_chunk or None, tol=args.tol)
     k = args.top_k or 5
-    if args.batch_queries:
-        svc.top_k_batch(data.queries, k)       # first call outside timing
+    if args.batch_queries or args.prune:
+        # first call outside timing
+        svc.top_k_batch(data.queries, k, prune=args.prune)
         t0 = time.perf_counter()
-        idx_b, dist_b = svc.top_k_batch(data.queries, k)
+        idx_b, dist_b = svc.top_k_batch(data.queries, k, prune=args.prune)
         dt = time.perf_counter() - t0
         for i in range(len(idx_b)):
             print(f"[serve-wmd] query {i}: top{k} docs {idx_b[i].tolist()} "
                   f"d={np.round(dist_b[i], 3).tolist()}")
-        print(f"[serve-wmd] batched Q={len(idx_b)} on {svc.device}: "
-              f"{dt * 1e3:.1f} ms ({len(idx_b) / dt:.1f} queries/s)")
+        msg = (f"[serve-wmd] {'pruned' if args.prune else 'batched'} "
+               f"Q={len(idx_b)} on {svc.device}: {dt * 1e3:.1f} ms "
+               f"({len(idx_b) / dt:.1f} queries/s)")
+        if args.prune:
+            ps = svc.last_prune_stats
+            msg += (f", solves avoided {ps['solves_avoided']:.1%} "
+                    f"({ps['exact_solves']}/{ps['scan_solves']})")
+        print(msg)
         return
     for i, r in enumerate(data.queries):
         t0 = time.perf_counter()

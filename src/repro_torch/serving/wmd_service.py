@@ -25,26 +25,54 @@ Service API
   query_batch_sequential(rs) -- the per-query loop (oracle / baseline).
   top_k(r, k) / top_k_batch(rs, k) -- nearest-k doc ids + distances, with
       the reference's tie-deterministic selection.
+      With ``prune=True`` the retrieval cascade runs instead: every doc is
+      scored by the enabled bound tiers (tier 0, the centroid screen of
+      `core.cascade`; tier 1, LC-RWMD over all N through the
+      ``lc_impl`` kernel; tier 2, the doc-side RWMD of `core.rwmd` on the
+      ``tier2_cap`` most promising docs through the ``bound_impl`` kernel;
+      the M rows from the M cache), docs are visited in ascending-bound
+      order in fixed ``prune_chunk`` blocks, and the exact rerank (one
+      stripes program per block, K rows from the K cache) stops once the
+      next block's bounds exceed the running k-th distance. Pruned top-k
+      returns the bitwise-identical set as `top_k_scan_batch`.
+      ``rerank="per_query"`` solves (1, chunk) programs per query,
+      ``"union"`` one (Q, chunk) program per shared candidate block; both
+      give the same bits.
+  top_k_scan_batch(rs, k) -- the pruned path's oracle: every doc through
+      the same bound-ordered (1, chunk) programs, no pruning.
+  query_batch_bounds(rs) / top_k_batch_bounds(rs, k) -- the degraded
+      tier: (Q, N) doc-side RWMD lower bounds (one min-SDDMM, no Sinkhorn
+      iterations), and the nearest-k by bound.
 
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-queue item that brings it): ``prune=True`` and `top_k_scan_batch` (the
-retrieval cascade), the bounds tier (`query_batch_bounds`,
-`top_k_batch_bounds`), `from_live` and the corpus mutators (the live
-corpus), and `async_service` (the async front-end).
+queue item that brings it): `from_live` and the corpus mutators (the live
+corpus, whose pruned paths come with it) and `async_service` (the async
+front-end).
 
 Knobs (constructor fields): ``impl`` ("kernel" default: the CUDA kernels on
 the card, their plain versions on the CPU; "fused" / "unfused" are the
 paper's baselines), ``docs_chunk``, ``tol``, ``cache_capacity``,
-``cache_rows_bucket``, ``kexp_impl`` ("kernel" default, or "jnp": the plain
-matmul spelling; the value names are the reference's), ``guards``,
-``metrics``. ``device`` replaces the reference's ``mesh``: "cuda" by
-default; a default service on a machine without a card raises.
+``cache_rows_bucket`` (also the M rows' bucket), ``kexp_impl`` ("kernel"
+default, or "jnp": the plain matmul spelling; the value names are the
+reference's; the M rows of the bound tiers follow it, see
+`core.kcache.MCache`), ``prune_chunk``, ``prune_margin`` (a doc is pruned
+only when ``bound * (1 - margin)`` exceeds the k-th exact distance),
+``bound_impl`` and ``lc_impl`` ("kernel" default, or "fused": the plain
+spelling; ``lc_impl=None`` disables tier 1), ``bound_docs_chunk``,
+``mcache_capacity``, ``tier0``, ``tier2_cap`` (None = 4 x prune_chunk,
+0 disables tier 2), ``guards``, ``metrics``. ``device`` replaces the
+reference's ``mesh``: "cuda" by default; a default service on a machine
+without a card raises.
 
-Observability: ``cache_stats`` (cumulative), ``cache_resident`` and
-``last_batch_stats`` (``precompute_s`` / ``solve_s`` phase split and the
-batch's hit_rate on the stripes route; ``solve_s`` with
-``phases_separable=False`` on the legacy route). Host times are taken after
-a device synchronize.
+Observability: ``cache_stats`` / ``mcache_stats`` (cumulative),
+``cache_resident`` / ``mcache_resident``, ``last_batch_stats``
+(``precompute_s`` / ``solve_s`` phase split and the batch's hit_rate on the
+stripes route; ``solve_s`` with ``phases_separable=False`` on the legacy
+route) and ``last_prune_stats`` (the reference's fields: solves, programs,
+``bound_s`` / ``rerank_s``, the per-tier funnel ``tiers``; and
+``kcache_misses``, the K-row misses of each K-cache lookup of the call, in
+order, from which a run can count the miss-row launches). Host times are
+taken after a device synchronize.
 """
 from __future__ import annotations
 
@@ -58,12 +86,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import sinkhorn_wmd as wmd_cfg
+from repro_torch.core import cascade as cascade_core
 from repro_torch.core import formats
 from repro_torch.core import guards as _guards
+from repro_torch.core import rwmd as rwmd_core
 from repro_torch.core.distributed import (build_wmd_batch_fn,
                                           build_wmd_batch_fn_stripes,
                                           pad_query_batch)
-from repro_torch.core.kcache import KCache
+from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
 
 
@@ -99,6 +129,14 @@ class WMDService:
     cache_capacity: int = 0
     cache_rows_bucket: int = 128
     kexp_impl: str = "kernel"
+    prune_chunk: int = 64
+    prune_margin: float = 1e-3
+    bound_impl: str = "kernel"
+    bound_docs_chunk: int | None = 256
+    mcache_capacity: int = 0
+    tier0: bool = True
+    lc_impl: str | None = "kernel"
+    tier2_cap: int | None = None
     guards: bool = True
     metrics: object | None = None       # repro_torch.obs.MetricsRegistry
 
@@ -138,6 +176,25 @@ class WMDService:
                               rows_bucket=self.cache_rows_bucket,
                               kexp_impl=self.kexp_impl,
                               metrics=self.metrics)
+        # M rows of the bound tiers: same LRU machinery, keyed by word id
+        # alone, spelled like the K rows (see MCache). Its transient path IS
+        # assemble_m_stripes, so capacity 0 changes only the amortization.
+        self._mcache = MCache(self.mcache_capacity, self._vecs_d,
+                              device=self.device,
+                              rows_bucket=self.cache_rows_bucket,
+                              kexp_impl=self.kexp_impl, metrics=self.metrics)
+        # the bound tiers run on the original ELL, as in the reference
+        self._ell_cols_d = torch.from_numpy(self.ell.cols).to(self.device)
+        self._ell_vals_d = torch.from_numpy(self.ell.vals).to(self.device)
+        # rerank blocks index the resident rebucketed ELL on the device;
+        # row N is a pad doc (every slot the pad id, val 0: it solves to 0)
+        self._rerank_cols_d = torch.nn.functional.pad(
+            self._cols_d[0], (0, 0, 0, 1), value=self._rb.num_vocab)
+        self._rerank_vals_d = torch.nn.functional.pad(self._vals_d[0],
+                                                      (0, 0, 0, 1))
+        self._rerank_chunk = max(self.prune_chunk, 1)
+        # tier-0 moments of the corpus, computed on the first pruned call
+        self._cent: tuple | None = None
         # numeric-guard state: the underflow gate needs the largest
         # embedding norm; docs with zero mass legitimately solve to 0
         self._max_vec_norm = float(np.sqrt(
@@ -145,6 +202,7 @@ class WMDService:
             if vecs_np.size else 0.0
         self._empty_doc_mask = np.asarray(self.ell.vals.sum(axis=-1) == 0)
         self.last_batch_stats: dict = {}
+        self.last_prune_stats: dict = {}
         self._engine_lock = threading.RLock()
 
     def _sync(self) -> None:
@@ -169,23 +227,13 @@ class WMDService:
         _not_ported("WMDService.compact (live corpus)",
                     "item 'Live corpus'")
 
-    def query_batch_bounds(self, rs):
-        _not_ported("WMDService.query_batch_bounds (the bounds tier)",
-                    "item 'The retrieval cascade'")
-
-    def top_k_batch_bounds(self, rs, k: int = 10):
-        _not_ported("WMDService.top_k_batch_bounds (the bounds tier)",
-                    "item 'The retrieval cascade'")
-
-    def top_k_scan_batch(self, rs, k: int = 10, **kw):
-        _not_ported("WMDService.top_k_scan_batch (pruned top-k oracle)",
-                    "item 'The retrieval cascade'")
-
     @_serialized
     def invalidate_embedding_rows(self, word_ids) -> int:
         """Scoped cache invalidation for embedding updates: drops exactly
-        the K/K.*M rows of ``word_ids``; returns how many were resident."""
-        return self._kcache.invalidate_ids(word_ids)
+        the rows of ``word_ids`` from both row stores (K/K.*M and M);
+        returns the total rows dropped."""
+        return (self._kcache.invalidate_ids(word_ids)
+                + self._mcache.invalidate_ids(word_ids))
 
     # -- numeric guards -------------------------------------------------------
 
@@ -214,13 +262,15 @@ class WMDService:
         rowmax = torch.amax(torch.abs(km_s), dim=(0, -1)).cpu().numpy()
         _guards.check_km_rows(rowmax, mask_b, lamb=self.cfg.lamb)
 
-    def _check_result(self, d, *, what: str) -> None:
+    def _check_result(self, d, *, what: str,
+                      empty_doc_mask: np.ndarray | None = None) -> None:
         if not self.guards:
             return
+        if empty_doc_mask is None:
+            empty_doc_mask = self._empty_doc_mask
         _guards.check_distances(d, lamb=self.cfg.lamb,
                                 risk=self._underflow_risk(),
-                                empty_doc_mask=self._empty_doc_mask,
-                                what=what)
+                                empty_doc_mask=empty_doc_mask, what=what)
 
     @property
     def cache_stats(self):
@@ -231,6 +281,16 @@ class WMDService:
     def cache_resident(self) -> int:
         """Word-id rows currently resident in the cross-query cache."""
         return self._kcache.resident
+
+    @property
+    def mcache_stats(self):
+        """Cumulative M-row cache counters of the bound tiers."""
+        return self._mcache.stats
+
+    @property
+    def mcache_resident(self) -> int:
+        """M rows currently resident in the bound tiers' cache."""
+        return self._mcache.resident
 
     # -- solver programs ------------------------------------------------------
 
@@ -359,19 +419,402 @@ class WMDService:
 
     def top_k(self, r: np.ndarray, k: int = 10, *, prune: bool = False,
               **kw) -> tuple[np.ndarray, np.ndarray]:
-        """Nearest-k docs for one query."""
+        """Nearest-k docs for one query (``prune=True``: the cascade, see
+        `top_k_batch`)."""
         idx, dist = self.top_k_batch([r], k, prune=prune, **kw)
         return idx[0], dist[0]
 
     def top_k_batch(self, rs: Sequence[np.ndarray], k: int = 10, *,
-                    prune: bool = False, **kw
-                    ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched nearest-k: (Q, k) doc ids + distances. `query_batch`
-        followed by the tie-deterministic selection; ``**kw`` forwards
-        impl / docs_chunk / use_cache."""
+                    prune: bool = False, rerank: str = "per_query",
+                    **kw) -> tuple[np.ndarray, np.ndarray]:
+        """Batched nearest-k: (Q, k) doc ids + distances.
+
+        Default: `query_batch` followed by the tie-deterministic selection;
+        ``**kw`` forwards impl / docs_chunk / use_cache. With ``prune=True``
+        the retrieval cascade runs instead (see the module docstring), with
+        ``rerank`` "per_query" or "union", and returns the bitwise-identical
+        set as `top_k_scan_batch` while skipping the pruned docs' solves
+        (stats in ``last_prune_stats``); ``**kw`` then forwards impl /
+        use_cache / prune_chunk / prune_margin."""
+        if rerank not in ("per_query", "union"):
+            raise ValueError(f"rerank must be per_query|union, "
+                             f"got {rerank!r}")
+        if rerank == "union" and not prune:
+            raise ValueError("rerank='union' is a pruned-rerank strategy; "
+                             "pass prune=True")
         if prune:
-            _not_ported("top_k_batch(prune=True) (the pruned cascade)",
-                        "item 'The retrieval cascade'")
+            if rerank == "union":
+                return self._top_k_union(rs, k, **kw)
+            return self._top_k_pruned(rs, k, exhaustive=False, **kw)
         d = self.query_batch(rs, **kw)
         idx = self._top_k(d, k)
         return idx, np.take_along_axis(d, idx, axis=-1)
+
+    def top_k_scan_batch(self, rs: Sequence[np.ndarray], k: int = 10,
+                         **kw) -> tuple[np.ndarray, np.ndarray]:
+        """The pruned path's exactness oracle: solve EVERY doc through the
+        same bound-ordered, fixed-shape (1, chunk) programs, then select.
+        Bitwise identical to ``top_k_batch(prune=True)``: identical programs
+        on identical inputs for the shared prefix, sound bounds for the
+        pruned suffix."""
+        return self._top_k_pruned(rs, k, exhaustive=True, **kw)
+
+    # -- the retrieval cascade ------------------------------------------------
+
+    def _bounds_for_batch(self, sel_b: np.ndarray, mask_b: np.ndarray, *,
+                          use_cache: bool = True) -> np.ndarray:
+        """(Q_pow2, v_r) padded queries -> (Q_pow2, N) doc-side RWMD bounds
+        over the whole corpus: M stripes from the M cache, one min-SDDMM.
+        The bounds tier's bound; the pruned paths use `_cascade_bounds`."""
+        m_pad, _ = self._mcache.m_stripes_for_batch(sel_b, mask_b,
+                                                    use_cache=use_cache)
+        lb = rwmd_core.rwmd_bound_batch(
+            m_pad, self._ell_cols_d, self._ell_vals_d,
+            impl=self.bound_impl, docs_chunk=self.bound_docs_chunk)
+        return lb.cpu().numpy()
+
+    def _base_centroids(self):
+        """Cached tier-0 moments of the corpus (computed once)."""
+        if self._cent is None:
+            self._cent = cascade_core.doc_centroids(
+                self._ell_cols_d, self._ell_vals_d, self._vecs_d)
+        return self._cent
+
+    def _cascade_bounds(self, sel_b: np.ndarray, r_b: np.ndarray,
+                        mask_b: np.ndarray, *, use_cache: bool = True
+                        ) -> tuple[np.ndarray, list]:
+        """Run the enabled bound tiers over the corpus and compose them.
+
+        Returns ``(combined, tiers)``: combined (Q_pow2, N) is the
+        elementwise max of every enabled tier's bounds (a max of lower
+        bounds is a lower bound; with every tier off it is all zeros, and
+        the pruned path degenerates to the exhaustive scan, same bits).
+        ``tiers`` holds per-tier (name, bounds, seconds) for `_tier_stats`.
+        Tier 0 is one (Q, dim) x (dim, N) matmul over the cached moments;
+        tier 1 reduces the M stripes to min-cost vectors once per query and
+        scores every doc with one sparse dot; tier 2 re-derives the
+        doc-side RWMD on the ``tier2_cap`` most promising docs (by the
+        min-over-queries combined bound, one subset for all queries) --
+        equal to tier 1 where both run, so it covers LC-disabled configs."""
+        tiers: list[dict] = []
+        n = int(self._ell_cols_d.shape[0])
+        qp = sel_b.shape[0]
+        combined = np.zeros((qp, n), np.float32)
+        if self.tier0:
+            t0 = time.perf_counter()
+            g, m = self._base_centroids()
+            b = cascade_core.centroid_bound_batch(
+                *(torch.from_numpy(x).to(self.device)
+                  for x in (sel_b, r_b, mask_b)),
+                self._vecs_d, g, m).cpu().numpy()
+            tiers.append({"tier": "centroid", "bounds": b,
+                          "seconds": time.perf_counter() - t0})
+            combined = np.maximum(combined, b)
+        if self.lc_impl is not None or self.tier2_cap != 0:
+            m_pad, _ = self._mcache.m_stripes_for_batch(
+                sel_b, mask_b, use_cache=use_cache)
+        if self.lc_impl is not None:
+            t0 = time.perf_counter()
+            minm = cascade_core.min_cost_vectors(m_pad)
+            b = cascade_core.lc_rwmd_bound_batch(
+                minm, self._ell_cols_d, self._ell_vals_d,
+                impl=self.lc_impl,
+                docs_chunk=self.bound_docs_chunk).cpu().numpy()
+            tiers.append({"tier": "lc_rwmd", "bounds": b,
+                          "seconds": time.perf_counter() - t0})
+            combined = np.maximum(combined, b)
+        t2 = (4 * self._rerank_chunk if self.tier2_cap is None
+              else self.tier2_cap)
+        t2 = min(t2, n)
+        if t2 > 0:
+            t0 = time.perf_counter()
+            key = combined.min(axis=0)
+            subset = np.sort(np.argsort(key, kind="stable")[:t2])
+            sub_t = torch.from_numpy(subset).to(self.device)
+            lb2 = rwmd_core.rwmd_bound_batch(
+                m_pad, self._ell_cols_d[sub_t], self._ell_vals_d[sub_t],
+                impl=self.bound_impl, docs_chunk=None).cpu().numpy()
+            b = np.zeros_like(combined)
+            b[:, subset] = lb2
+            tiers.append({"tier": "rwmd", "bounds": b,
+                          "seconds": time.perf_counter() - t0})
+            combined = np.maximum(combined, b)
+        return combined, tiers
+
+    @staticmethod
+    def _tier_stats(tiers: list, thresholds: np.ndarray, q: int, n: int,
+                    margin: float) -> list[dict]:
+        """Post-hoc per-tier survivor counts against the FINAL per-query
+        thresholds: how many (query, doc) cells each tier's bound alone
+        fails to prune (the rerank loop's ``bound * (1 - margin) <=
+        threshold`` test), plus the cumulative survivors of the tiers
+        composed so far -- the cascade's funnel."""
+        out = []
+        cum = None
+        for t in tiers:
+            b = t["bounds"][:q]
+            cum = b if cum is None else np.maximum(cum, b)
+            alive = b * (1.0 - margin) <= thresholds[:, None]
+            alive_cum = cum * (1.0 - margin) <= thresholds[:, None]
+            cells = max(q * n, 1)
+            out.append({
+                "tier": t["tier"], "seconds": t["seconds"],
+                "survivors": int(alive.sum()),
+                "solves_avoided": 1.0 - int(alive.sum()) / cells,
+                "cascade_survivors": int(alive_cum.sum()),
+                "cascade_solves_avoided":
+                    1.0 - int(alive_cum.sum()) / cells,
+            })
+        return out
+
+    def _solve_docs(self, fn, k_s, km_s, r_q: torch.Tensor,
+                    doc_ids: np.ndarray, chunk: int) -> np.ndarray:
+        """Exact distances of the stripes batch against a doc subset via ONE
+        fixed-shape (Q, chunk) stripes program (Q = 1 per query, the pow2
+        batch on the union path). The block's ELL rows are gathered on the
+        device from the resident ELL; a short block is filled with the pad
+        doc (row N: every slot the pad id, val 0, solved to 0) and sliced
+        off. Per-doc bits do not depend on chunk-mates, position or
+        Q-mates (each (q, doc) cell reduces over its own nnz / v_r axes, in
+        the kernels as in the plain engine), which makes pruned == scan ==
+        union a bitwise statement."""
+        m = doc_ids.size
+        idx = np.full(chunk, self._rerank_cols_d.shape[0] - 1, np.int64)
+        idx[:m] = doc_ids
+        idx_t = torch.from_numpy(idx).to(self.device)
+        d = fn(k_s, km_s, r_q, self._rerank_cols_d[idx_t][None],
+               self._rerank_vals_d[idx_t][None])
+        return d.cpu().numpy()[:, :m]
+
+    def _prune_setup(self, rs, prune_chunk, prune_margin):
+        """Shared prologue of the pruned paths: (chunk, margin, q, sel_b,
+        r_b, mask_b)."""
+        self._validate_queries(rs)
+        chunk = (self._rerank_chunk if prune_chunk is None
+                 else max(prune_chunk, 1))
+        margin = self.prune_margin if prune_margin is None else prune_margin
+        sel_b, r_b, mask_b = self._padded_query_batch(rs)
+        return chunk, margin, len(rs), sel_b, r_b, mask_b
+
+    @_serialized
+    def _top_k_pruned(self, rs: Sequence[np.ndarray], k: int, *,
+                      exhaustive: bool, impl: str | None = None,
+                      use_cache: bool | None = None,
+                      prune_chunk: int | None = None,
+                      prune_margin: float | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Shared core of the pruned top-k and its exhaustive-scan oracle.
+
+        Per query: visit docs in ascending-bound order in fixed ``chunk``
+        blocks; solve each block with one (1, chunk) stripes program (K
+        rows from the K cache); once k docs are solved, drop every doc
+        whose ``bound * (1 - margin)`` exceeds the running k-th exact
+        distance -- ascending order makes the survivors a prefix, so the
+        first empty block ends the query. ``exhaustive`` disables the drop
+        (same programs, same order). A pruned doc's exact distance is
+        >= bound > threshold *strictly*, so it cannot displace or tie any
+        selected doc."""
+        n = self.ell.num_docs
+        k_eff = min(k, n)
+        if len(rs) == 0:
+            return (np.zeros((0, k_eff), np.int64),
+                    np.zeros((0, k_eff), np.float32))
+        chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
+            rs, prune_chunk, prune_margin)
+        use = use_cache is not False
+        t0 = time.perf_counter()
+        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
+                                               use_cache=use)
+        bounds = combined[:q]
+        t_bound = time.perf_counter() - t0
+        self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
+        fn = self._stripe_fn(impl or self.impl, None)  # chunk IS the block
+        idx_out = np.empty((q, k_eff), np.int64)
+        d_out = np.empty((q, k_eff), np.float32)
+        solves = programs = hits = 0
+        k_misses = []
+        r_d = torch.from_numpy(r_b).to(self.device)
+        t0 = time.perf_counter()
+        for i in range(q):
+            k_s, km_s, info = self._kcache.stripes_for_batch(
+                sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
+            self._check_km(km_s, mask_b[i:i + 1])
+            hits += info["hits"]
+            k_misses.append(info["misses"])
+            lb = bounds[i]
+            order = np.argsort(lb, kind="stable")      # ascending bounds
+            solved_d = np.full(n, np.inf, np.float32)
+            n_solved = 0
+            threshold = np.inf
+            pos = 0
+            while pos < n:
+                block = order[pos:pos + chunk]
+                if not exhaustive and n_solved >= k_eff:
+                    # bounds ascend within the block, so the survivors are
+                    # its prefix; an empty prefix proves every remaining
+                    # doc is outside the top-k
+                    block = block[lb[block] * (1.0 - margin) <= threshold]
+                    if block.size == 0:
+                        break
+                solved_d[block] = self._solve_docs(
+                    fn, k_s, km_s, r_d[i:i + 1], block, chunk)[0]
+                solves += block.size
+                programs += 1
+                n_solved += block.size
+                pos += block.size
+                if n_solved >= k_eff:
+                    cur = self._top_k(solved_d, k_eff)
+                    threshold = float(solved_d[cur[-1]])
+            sel = self._top_k(solved_d, k_eff)
+            idx_out[i] = sel
+            d_out[i] = solved_d[sel]
+        t_rerank = time.perf_counter() - t0
+        self._record_prune(q, n, k_eff, chunk, margin, exhaustive,
+                           "per_query", solves, programs, t_bound, t_rerank,
+                           tiers, d_out, k_misses)
+        total = hits + sum(k_misses)
+        self.last_batch_stats = {
+            "hit_rate": hits / total if total else 0.0,
+            "precompute_s": t_bound, "solve_s": t_rerank,
+        }
+        self._check_result(d_out, what="top_k distances",
+                           empty_doc_mask=self._empty_doc_mask[idx_out])
+        return idx_out, d_out
+
+    def _record_prune(self, q, n, k_eff, chunk, margin, exhaustive, rerank,
+                      solves, programs, t_bound, t_rerank, tiers, d_out,
+                      k_misses) -> None:
+        final_thresh = (d_out[:, -1].astype(np.float32) if k_eff
+                        else np.full(q, np.inf, np.float32))
+        self.last_prune_stats = {
+            "queries": q, "docs": n, "k": k_eff, "chunk": chunk,
+            "margin": margin, "exhaustive": exhaustive, "rerank": rerank,
+            "exact_solves": solves, "scan_solves": q * n,
+            "solves_avoided": 1.0 - solves / (q * n),
+            "rerank_programs": programs,
+            "bound_s": t_bound, "rerank_s": t_rerank,
+            "tiers": self._tier_stats(tiers, final_thresh, q, n, margin),
+            "kcache_misses": k_misses,
+        }
+
+    @_serialized
+    def _top_k_union(self, rs: Sequence[np.ndarray], k: int, *,
+                     impl: str | None = None,
+                     use_cache: bool | None = None,
+                     prune_chunk: int | None = None,
+                     prune_margin: float | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Union rerank: the offline bulk strategy -- one (Q, chunk) stripes
+        program per candidate block instead of Q (1, chunk) programs.
+
+        All queries share one block schedule: among docs still *needed* by
+        at least one query, visit the lowest min-over-queries bound first,
+        and every program solves the block for the whole batch. A doc is
+        needed by query q until q has k exact distances and
+        ``bound_q(doc) * (1 - margin) > threshold_q``; thresholds only
+        tighten, so the loop ends at the first round with no needed doc.
+        Bitwise identical to the per-query rerank: per-cell bits do not
+        depend on the program's shape or the K rows' batch, and pruning is
+        sound and strict."""
+        n = self.ell.num_docs
+        k_eff = min(k, n)
+        if len(rs) == 0:
+            return (np.zeros((0, k_eff), np.int64),
+                    np.zeros((0, k_eff), np.float32))
+        chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
+            rs, prune_chunk, prune_margin)
+        use = use_cache is not False
+        t0 = time.perf_counter()
+        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
+                                               use_cache=use)
+        lb = combined[:q]                                     # (q, N)
+        t_bound = time.perf_counter() - t0
+        self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
+        fn = self._stripe_fn(impl or self.impl, None)
+        # ONE stripes assembly for the whole batch (rows are
+        # bit-reproducible either way)
+        k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
+                                                         use_cache=use)
+        self._check_km(km_s, mask_b)
+        r_all = torch.from_numpy(r_b).to(self.device)        # (Q_pow2, v_r)
+        min_lb = lb.min(axis=0)                   # union visit order key
+        solved_d = np.full((q, n), np.inf, np.float32)
+        unsolved = np.ones(n, bool)
+        thresholds = np.full(q, np.inf, np.float32)
+        n_solved = 0
+        programs = 0
+        t0 = time.perf_counter()
+        while True:
+            if n_solved >= k_eff:
+                need = unsolved & (lb * (1.0 - margin)
+                                   <= thresholds[:, None]).any(axis=0)
+            else:
+                # until every query has k exact distances, every unsolved
+                # doc is a candidate (thresholds are still +inf)
+                need = unsolved
+            cand = np.nonzero(need)[0]
+            if cand.size == 0:
+                break
+            block = cand[np.argsort(min_lb[cand], kind="stable")][:chunk]
+            solved_d[:, block] = self._solve_docs(fn, k_s, km_s, r_all,
+                                                  block, chunk)[:q]
+            unsolved[block] = False
+            programs += 1
+            n_solved += block.size
+            if n_solved >= k_eff:
+                for i in range(q):
+                    cur = self._top_k(solved_d[i], k_eff)
+                    thresholds[i] = solved_d[i][cur[-1]]
+        t_rerank = time.perf_counter() - t0
+        idx_out = np.empty((q, k_eff), np.int64)
+        d_out = np.empty((q, k_eff), np.float32)
+        for i in range(q):
+            sel = self._top_k(solved_d[i], k_eff)
+            idx_out[i] = sel
+            d_out[i] = solved_d[i][sel]
+        solves = q * (n - int(unsolved.sum()))
+        self._record_prune(q, n, k_eff, chunk, margin, False, "union",
+                           solves, programs, t_bound, t_rerank, tiers,
+                           d_out, [info["misses"]])
+        self.last_batch_stats = {
+            "hit_rate": info.get("hit_rate", 0.0),
+            "precompute_s": t_bound, "solve_s": t_rerank,
+        }
+        self._check_result(d_out, what="top_k distances",
+                           empty_doc_mask=self._empty_doc_mask[idx_out])
+        return idx_out, d_out
+
+    # -- degraded tier: bound-only answers ------------------------------------
+
+    @_serialized
+    def query_batch_bounds(self, rs: Sequence[np.ndarray]) -> np.ndarray:
+        """Degraded tier: (Q, N) doc-side RWMD *lower bounds* instead of
+        exact distances -- the brownout answer. One min-SDDMM over the
+        corpus, no Sinkhorn iterations; a sound lower bound at any budget
+        (see `core.rwmd`)."""
+        if len(rs) == 0:
+            return np.zeros((0, self.ell.num_docs), np.float32)
+        self._validate_queries(rs)
+        q = len(rs)
+        sel_b, _, mask_b = self._padded_query_batch(rs)
+        t0 = time.perf_counter()
+        lb = self._bounds_for_batch(sel_b, mask_b)[:q]
+        t_bound = time.perf_counter() - t0
+        self.last_batch_stats = {"precompute_s": t_bound, "solve_s": 0.0,
+                                 "degraded": True}
+        if self.guards:
+            _guards.check_finite(lb, "rwmd bounds", lamb=self.cfg.lamb)
+        return lb
+
+    @_serialized
+    def top_k_batch_bounds(self, rs: Sequence[np.ndarray], k: int = 10
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """Degraded top-k: nearest-k by RWMD bound only (no rerank), with
+        the exact paths' tie-deterministic selection."""
+        lb = self.query_batch_bounds(rs)
+        k_eff = min(k, lb.shape[-1])
+        if len(rs) == 0:
+            return (np.zeros((0, k_eff), np.int64),
+                    np.zeros((0, k_eff), np.float32))
+        idx = self._top_k(lb, k_eff)
+        return idx, np.take_along_axis(lb, idx, axis=-1)

@@ -158,3 +158,148 @@ def test_service_kernel_route_matches_fused_on_card():
                       cache_capacity=256, impl="fused", kexp_impl="jnp")
     np.testing.assert_allclose(d, base.query_batch(rs), rtol=2e-3,
                                atol=1e-5)
+
+
+# -- slice 2: the bound tiers' kernels (cdist, rwmd_bound_batch, lc) ----------
+
+def _near(d2_ref):
+    # a row against its own word: the plain spelling keeps the expansion's
+    # round-off (M up to ~2.5e-2 at w = 300), the kernel cancels exactly
+    return d2_ref < 1.0
+
+
+@pytest.mark.parametrize("m,v,w", [(13, 320, 24), (128, 1000, 300),
+                                   (64, 64, 16), (1, 77, 5), (70, 2049, 33)])
+@pytest.mark.parametrize("squared", [False, True])
+def test_cdist_kernel_matches_plain(m, v, w, squared):
+    dev = _card()
+    from repro_torch.kernels import cdist
+    rng = np.random.default_rng(7)
+    b = torch.from_numpy(rng.normal(scale=1.3, size=(v, w))
+                         .astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.choice(v, m, replace=False)).to(dev)
+    a = b[ids].contiguous()
+    got = cdist.cdist(a, b, squared=squared)
+    want = cdist.cdist_plain(a, b, squared=squared)
+    d2 = cdist.cdist_plain(a, b, squared=True)
+    torch.cuda.synchronize()
+    near = _near(d2)
+    # the norms and products are summed in another order (rtol 1e-4,
+    # atol 1e-5); near the diagonal the plain spelling's round-off
+    assert torch.all((got - want).abs()[near] <= (1e-3 if squared else 5e-2))
+    torch.testing.assert_close(got[~near], want[~near], rtol=1e-4,
+                               atol=1e-5)
+    # a row's own word is exactly 0
+    assert torch.all(got[torch.arange(m, device=dev), ids] == 0.0)
+
+
+def test_cdist_m_is_the_m_that_kexp_exponentiates():
+    """The distance epilogue shares the exp epilogue's tile loop and M
+    expression: K.*M == K * M bitwise wherever K has not underflowed."""
+    dev = _card()
+    from repro_torch.kernels import cdist, kexp
+    rng = np.random.default_rng(8)
+    b = torch.from_numpy(rng.normal(size=(3000, 300)).astype(np.float32)) \
+        .to(dev)
+    a = b[torch.arange(100, 228, device=dev)].contiguous()
+    m = cdist.cdist(a, b)
+    k, km = kexp.cdist_kexp_rows(a, b, lamb=1.0)
+    torch.cuda.synchronize()
+    live = k > 0
+    assert int(live.sum()) > 0
+    assert torch.equal(km[live], (k * m)[live])
+    assert torch.equal(torch.sqrt(cdist.cdist(a, b, squared=True)), m)
+
+
+def _bound_problem(seed, q, v_r, v, n, nnz, pad_rows=2):
+    """M stripes with +inf pad rows and an all-+inf filler query (the
+    last), ELL pad slots and an empty doc (the last)."""
+    rng = np.random.default_rng(seed)
+    m = (rng.random((q, v_r, v + 1)) * 4).astype(np.float32)
+    m[:, :, v] = 0.0
+    m[:, v_r - pad_rows:] = np.inf
+    m[q - 1] = np.inf
+    cols = np.full((n, nnz), v, np.int32)
+    vals = np.zeros((n, nnz), np.float32)
+    for j in range(n - 1):
+        c = int(rng.integers(1, nnz + 1))
+        cols[j, :c] = rng.choice(v, c, replace=False)
+        vals[j, :c] = rng.random(c).astype(np.float32) + 0.05
+    return m, cols, vals
+
+
+@pytest.mark.parametrize("shape", [(3, 11, 320, 45, 16), (4, 32, 1000, 70, 24),
+                                   (2, 40, 257, 9, 8), (5, 128, 300, 33, 8)])
+@pytest.mark.parametrize("docs_blk", [1, 7, 8, 256])
+def test_rwmd_kernels_match_plain_and_each_other(shape, docs_blk):
+    dev = _card()
+    from repro_torch.core.cascade import min_cost_vectors
+    from repro_torch.kernels import lcrwmd, ops
+    from repro_torch.kernels import rwmd as kr
+    m, cols, vals = (torch.from_numpy(a).to(dev)
+                     for a in _bound_problem(0, *shape))
+    minm = min_cost_vectors(m)
+    lb = kr.rwmd_bound_batch(m, cols, vals, docs_blk=docs_blk)
+    lc = lcrwmd.lc_rwmd_bound_batch(minm, cols, vals, docs_blk=docs_blk)
+    torch.cuda.synchronize()
+    # the same min and the same accumulation step: bitwise equal
+    assert torch.equal(lb, lc)
+    fin = ops.rwmd_bound_batch(m, cols, vals, docs_blk=docs_blk)
+    plain = ops._finite(kr.rwmd_bound_batch_plain(m, cols, vals))
+    # slot sums in another order (fma chain vs torch's sum)
+    torch.testing.assert_close(fin, plain, rtol=1e-5, atol=1e-6)
+    plain_lc = ops._finite(lcrwmd.lc_rwmd_bound_batch_plain(minm, cols, vals))
+    assert torch.equal(plain, plain_lc)
+    # the filler query and the empty doc score exactly 0
+    assert torch.all(fin[-1] == 0) and torch.all(fin[:, -1] == 0)
+    assert torch.isfinite(fin).all()
+
+
+def test_rwmd_kernel_bits_do_not_depend_on_docs_blk():
+    dev = _card()
+    from repro_torch.kernels import lcrwmd
+    from repro_torch.kernels import rwmd as kr
+    m, cols, vals = (torch.from_numpy(a).to(dev)
+                     for a in _bound_problem(1, 4, 32, 500, 61, 16))
+    minm = torch.amin(m, dim=1)
+    lbs = [kr.rwmd_bound_batch(m, cols, vals, docs_blk=b) for b in (1, 8, 61)]
+    lcs = [lcrwmd.lc_rwmd_bound_batch(minm, cols, vals, docs_blk=b)
+           for b in (1, 8, 300)]
+    for x in lbs[1:] + lcs:
+        assert torch.equal(x, lbs[0])
+
+
+def test_pruned_service_on_card_is_exact_and_counts_launches():
+    dev = _card()
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    from repro_torch.kernels import _build
+    from repro_torch.serving import WMDService
+    data = make_corpus(vocab_size=2048, embed_dim=32, num_docs=300,
+                       num_queries=1, seed=9)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=32, num_docs=300,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=10)
+    rs = [next(stream) for _ in range(5)]
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                     cache_capacity=256, mcache_capacity=256, prune_chunk=16)
+    _build.reset_launches()
+    idx, d = svc.top_k_batch(rs, 5, prune=True)
+    launches = dict(_build.launches)
+    ps = svc.last_prune_stats
+    assert launches["sddmm_spmm_type2_batch"] == ps["rerank_programs"]
+    assert launches["sddmm_spmm_type1_batch"] == 10 * ps["rerank_programs"]
+    assert launches["lc_rwmd_bound_batch"] == 1
+    assert launches["rwmd_bound_batch"] == 1
+    # one miss chunk (<= 128 rows) per lookup that missed
+    assert launches["cdist"] == 1
+    assert launches["cdist_kexp_rows"] == sum(
+        1 for x in ps["kcache_misses"] if x)
+    for other in (svc.top_k_scan_batch(rs, 5),
+                  svc.top_k_batch(rs, 5, prune=True, rerank="union")):
+        np.testing.assert_array_equal(other[0], idx)
+        np.testing.assert_array_equal(other[1], d)
+    lb = svc.query_batch_bounds(rs)
+    full = svc.query_batch(rs)
+    assert np.all(lb <= full * (1 + 1e-5) + 1e-6)
+    np.testing.assert_array_equal(idx, svc._top_k(full, 5))

@@ -71,6 +71,11 @@ def _reference():
     out = {"service_stripes": svc.query_batch(rs),
            "service_transient": svc.query_batch(rs, use_cache=False)}
     out["topk_idx"], out["topk_dist"] = svc.top_k_batch(rs, TOP_K)
+    out["pruned"] = svc.top_k_batch(rs, TOP_K, prune=True)
+    out["union"] = svc.top_k_batch(rs, TOP_K, prune=True, rerank="union")
+    out["scan"] = svc.top_k_scan_batch(rs, TOP_K)
+    out["bounds_topk"] = svc.top_k_batch_bounds(rs, TOP_K)
+    out["bounds"] = svc.query_batch_bounds(rs)
     legacy = JService(mesh=mesh, cfg=_cfg(JConfig), vecs=vecs, ell=ell)
     out["service_legacy"] = legacy.query_batch(rs)
     return out
@@ -99,6 +104,61 @@ def test_top_k_batch_ids_match_live_jax(impl):
     idx, dist = _svc(cache_capacity=64, impl=impl).top_k_batch(rs, TOP_K)
     np.testing.assert_array_equal(idx, _reference()["topk_idx"])
     np.testing.assert_allclose(dist, _reference()["topk_dist"], **TOL)
+
+
+def _shares_word(rs, ell):
+    """(Q, N) mask: doc j holds one of query q's words."""
+    live = ell.vals != 0
+    return np.stack([(np.isin(ell.cols, np.nonzero(r)[0]) & live).any(1)
+                     for r in rs])
+
+
+@pytest.mark.parametrize("route", ["pruned", "union", "scan", "bounds_topk"])
+def test_cascade_routes_match_live_jax(route):
+    """The golden service settings (tests/test_golden.py:107): the same doc
+    ids as the reference, distances within the engine tolerance."""
+    _, _, rs = _corpus()
+    svc = _svc(cache_capacity=64, prune_chunk=8, bound_docs_chunk=None)
+    call = {"pruned": lambda: svc.top_k_batch(rs, TOP_K, prune=True),
+            "union": lambda: svc.top_k_batch(rs, TOP_K, prune=True,
+                                             rerank="union"),
+            "scan": lambda: svc.top_k_scan_batch(rs, TOP_K),
+            "bounds_topk": lambda: svc.top_k_batch_bounds(rs, TOP_K)}[route]
+    idx, dist = call()
+    want_idx, want_dist = _reference()[route]
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_allclose(dist, want_dist, **TOL)
+    if route != "bounds_topk":
+        np.testing.assert_array_equal(idx, _reference()["topk_idx"])
+
+
+def test_query_batch_bounds_match_live_jax():
+    """On the same M stripes the bounds agree within the bound tolerance
+    (``rtol=1e-5, atol=1e-6``). Against the reference service, which makes
+    its own M rows, so do pairs whose doc holds none of the query's words;
+    a pair sharing a word reads M on that word's own column, where each
+    package keeps its own round-off of the expansion |a|^2 + |b|^2 - 2ab
+    (of order sqrt(eps * |a|^2) ~ 1e-3 at w = 8, times the slot's mass),
+    so those pairs are held to an absolute 1e-3."""
+    import jax.numpy as jnp
+    from repro.core.rwmd import rwmd_bound_batch as jbound
+    vecs, ell, rs = _corpus()
+    svc = _svc(bound_docs_chunk=None)
+    lb = svc.query_batch_bounds(rs)
+    assert lb.shape == (3, 24) and svc.last_batch_stats["degraded"]
+    sel_b, _, mask_b = svc._padded_query_batch(rs)
+    m_pad, _ = svc._mcache.m_stripes_for_batch(sel_b, mask_b)
+    same_m = np.asarray(jbound(jnp.asarray(m_pad.numpy()),
+                               jnp.asarray(ell.cols), jnp.asarray(ell.vals)))
+    np.testing.assert_allclose(lb, same_m[:3], rtol=1e-5, atol=1e-6)
+    want = _reference()["bounds"]
+    share = _shares_word(rs, ell)
+    np.testing.assert_allclose(lb[~share], want[~share], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lb[share], want[share], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(
+        _svc(bound_docs_chunk=5, bound_impl="fused").query_batch_bounds(rs),
+        lb)
 
 
 def test_cache_on_off_transient_bitwise_and_hits():
@@ -166,15 +226,11 @@ def test_from_state_and_guards():
 
 
 def test_unported_parts_raise_not_implemented():
-    _, _, rs = _corpus()
     svc = _svc()
-    for call in (lambda: svc.top_k_batch(rs, 3, prune=True),
-                 lambda: svc.top_k(rs[0], 3, prune=True),
-                 lambda: svc.top_k_scan_batch(rs, 3),
-                 lambda: svc.query_batch_bounds(rs),
-                 lambda: svc.top_k_batch_bounds(rs, 3),
-                 lambda: svc.async_service(),
+    for call in (lambda: svc.async_service(),
                  lambda: svc.add_docs([0], [[(0, 1.0)]]),
+                 lambda: svc.remove_docs([0]),
+                 lambda: svc.compact(),
                  lambda: WMDService.from_live(None, None, None, None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -190,7 +246,8 @@ def test_default_device_is_the_card():
         WMDService(cfg=_cfg(WMDConfig), vecs=vecs, ell=ell)
 
 
-@pytest.mark.parametrize("flags", [["--batch-queries"], []])
+@pytest.mark.parametrize("flags", [["--batch-queries"], [],
+                                   ["--top-k", "5", "--prune"]])
 def test_serve_launcher_runs_on_cpu(flags):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run(
@@ -200,3 +257,4 @@ def test_serve_launcher_runs_on_cpu(flags):
         timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("top5 docs") == 3
+    assert ("solves avoided" in out.stdout) == ("--prune" in flags)
