@@ -44,9 +44,24 @@ Phases (any failure exits non-zero before the result line is printed):
      once more through `query_batch` and both pruned reranks, warm, under
      torch.profiler: wall time, the device's busy time and idle share, and
      the largest device entries;
-  5. (run last, so that its launch column reads the runs of phases 3 and
-     6) each kernel against its plain PyTorch version at the main path's
-     shapes, with its time (CUDA events), the plain version's time, a
+  8. the per-query path at paper_5k: a fresh `WMDService(device="cuda")`
+     with its defaults (impl and kexp_impl "kernel", no cache) answers
+     `top_k(r, 10)` for each of batch 1's 16 queries, then
+     `query_batch_sequential(batch2)`: the per-query program
+     (`core.distributed.build_wmd_fn`). The launch counts, read around
+     exactly those calls, must be one cdist_kexp, 15 sddmm_spmm_type1 and
+     one sddmm_spmm_type2 a query and nothing else; `query(r)` must equal
+     phase 3's `query_batch` rows bitwise on all 32 queries (and top_k
+     their top-k); the all-plain per-query service (impl "fused",
+     kexp_impl "jnp") and the dense oracle on the 64-doc slice by
+     `_compare`; `sinkhorn_wmd_converged` for one query (n_iter, delta;
+     bitwise the fixed fused loop at that n_iter); the per-query wall
+     time, queries/s and the `[idle]` line of one warm `query(r)`;
+  5. (run last, so that its launch column reads the runs of phases 3, 6
+     and 8) each kernel against its plain PyTorch version at the main
+     path's shapes (the per-query kernels #5, #1, #2 at one query's: v_r
+     32; #1 / #2 also bitwise against #3 / #4 at Q = 1, #5 against #6's
+     rows), with its time (CUDA events), the plain version's time, a
      library yardstick where one exists, and the bound: the larger of the
      bytes the function must move over 3.35 TB/s and its fp32 operations
      over 67 TFLOP/s (H100 SXM data sheet, 700 W).
@@ -210,6 +225,8 @@ def main() -> int:
     import repro_torch  # noqa: F401  (precision pins)
     from repro_torch.configs.sinkhorn_wmd import config
     from repro_torch.core import sparse_sinkhorn as ss
+    from repro_torch.core.convergence import sinkhorn_wmd_converged
+    from repro_torch.core.distributed import pad_query
     from repro_torch.core.sinkhorn import select_query, sinkhorn_wmd_dense
     from repro_torch.data.corpus import make_corpus, zipf_query_stream
     from repro_torch.core import rwmd as rwmd_core
@@ -462,6 +479,84 @@ def main() -> int:
               f"the profiler), device busy {busy:.2f} ms, idle share "
               f"{1 - busy / wall:.3f}; largest device entries: {kernels}")
 
+    # -- 8. the per-query path ------------------------------------------------
+    svc8 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell)
+    _check(svc8.device.type == "cuda" and svc8.impl == "kernel"
+           and svc8.kexp_impl == "kernel" and svc8.cache_capacity == 0,
+           "per-query service defaults changed")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    top1, times1 = [], []
+    for r in batch1:
+        t0 = time.perf_counter()
+        top1.append(svc8.top_k(r, k_top))
+        times1.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    d_seq2 = svc8.query_batch_sequential(batch2)
+    t_seq2 = time.perf_counter() - t0
+    launches8 = dict(_build.launches)
+    peak8 = torch.cuda.max_memory_allocated()
+    nq = len(batch1) + len(batch2)
+    want8 = {"cdist_kexp": nq, "sddmm_spmm_type1": cfg.max_iter * nq,
+             "sddmm_spmm_type2": nq}
+    print(f"[per-query] launches {launches8}, expected {want8}")
+    _check(launches8 == want8, f"per-query launch counts {launches8} != "
+           f"{want8}")
+    warm = times1[1:]
+    print(f"[per-query] top_k(r, {k_top}), batch 1: first query "
+          f"{times1[0] * 1e3:.2f} ms; the other {len(warm)}: mean "
+          f"{np.mean(warm) * 1e3:.3f} ms, median {np.median(warm) * 1e3:.3f}"
+          f" ms, {len(warm) / sum(warm):.1f} queries/s")
+    print(f"[per-query] query_batch_sequential, batch 2: Q=16 in "
+          f"{t_seq2 * 1e3:.1f} ms ({t_seq2 / 16 * 1e3:.3f} ms a query, "
+          f"{16 / t_seq2:.1f} queries/s); peak device memory "
+          f"{peak8 / 2**30:.2f} GiB")
+    d_seq1 = np.stack([svc8.query(r) for r in batch1])
+    _check(np.array_equal(d_seq1, d1) and np.array_equal(d_seq2, d2),
+           "query(r) is not bitwise phase 3's query_batch row")
+    for i, (idx, dist) in enumerate(top1):
+        _check(np.array_equal(idx, WMDService._top_k(d1[i], k_top))
+               and np.array_equal(dist, d1[i][idx]),
+               f"top_k(r), batch 1 query {i}: not the top-k of its row")
+    print("[check] per-query: query(r) == phase 3's query_batch rows, "
+          "bitwise, on all 32 queries; top_k(r) == their top-k, bitwise")
+    plain8 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, impl="fused",
+                        kexp_impl="jnp")
+    d_plain8 = plain8.query_batch_sequential(batch1)
+    share1 = _shares_word(batch1, data.ell)
+    _compare("batch 1, per-query kernel route vs per-query all-plain route "
+             "(impl fused, kexp_impl jnp)", d_seq1, d_plain8, share1)
+    _compare(f"per-query kernel route vs dense oracle on {docs} docs x 3 "
+             f"queries", d_seq1[:3, :docs], dense, share1[:3, :docs])
+    del plain8
+    sel0, r0 = (torch.from_numpy(x).to(dev) for x in select_query(batch1[0]))
+    cols8, vals8 = svc8._cols_d[0], svc8._vals_d[0]
+    conv = sinkhorn_wmd_converged(sel0, r0, cols8, vals8, vecs_d, cfg.lamb,
+                                  cfg.max_iter, tol=1e-6)
+    fixed = ss.sinkhorn_wmd_sparse(sel0, r0, cols8, vals8, vecs_d, cfg.lamb,
+                                   int(conv.n_iter), impl="fused")
+    _check(conv.wmd.shape == (cfg.num_docs,)
+           and bool(torch.isfinite(conv.wmd).all())
+           and torch.equal(conv.wmd, fixed),
+           "sinkhorn_wmd_converged is not the fixed loop at its n_iter")
+    rel = float(np.max(np.abs(conv.wmd.cpu().numpy() - d_plain8[0])
+                       / d_plain8[0]))
+    print(f"[check] sinkhorn_wmd_converged, batch 1 query 0, tol 1e-6: "
+          f"n_iter {int(conv.n_iter)} of {cfg.max_iter}, delta "
+          f"{float(conv.delta):.3g}; bitwise the fixed fused loop at that "
+          f"n_iter; max rel vs the all-plain per-query route {rel:.3g}")
+    wall, wall_prof, busy, kernels = _device_busy(
+        lambda: svc8.query(batch2[0]))
+    if busy is None:
+        print(f"[idle] per-query query(r): {wall:.2f} ms wall; device time "
+              f"not measured ({kernels})")
+    else:
+        print(f"[idle] per-query query(r): {wall:.2f} ms wall "
+              f"({wall_prof:.2f} ms under the profiler), device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; largest "
+              f"device entries: {kernels}")
+    del svc8
+
     # -- 5. the kernels at the main path's shapes ------------------------------
     sel_b, r_b, mask_b = svc._padded_query_batch(batch1)
     k_s, km_s, _ = svc._kcache.stripes_for_batch(sel_b, mask_b)
@@ -527,7 +622,75 @@ def main() -> int:
            nbytes=4 * (2 * rows * uniq + rows * n + 2 * n * nnz + q * n),
            flops=q * nnz_real * (4 * v_r + 1) + 2 * rows * n)
     del d_k, d_p, k_s, km_s, x, u
-    m, w, v = 128, cfg.embed_dim, cfg.vocab_size
+    launches.update(launches8)
+    # the per-query kernels (#5, #1, #2) at batch 1 query 0's shapes: its
+    # v_r = 32 stripe (pad rows masked) and a realistic iterate
+    sel_p, r_p, mask_p = pad_query(*select_query(batch1[0]), cfg.v_r)
+    a1 = vecs_d[torch.from_numpy(sel_p.astype(np.int64)).to(dev)]
+    m1, w, v = a1.shape[0], cfg.embed_dim, cfg.vocab_size
+    k5, km5 = kexp.cdist_kexp(a1, vecs_d, lamb=cfg.lamb)
+    k5p, km5p = kexp.cdist_kexp_plain(a1, vecs_d, lamb=cfg.lamb)
+    k6, km6 = kexp.cdist_kexp_rows(a1, vecs_d, lamb=cfg.lamb)
+    torch.cuda.synchronize()
+    _check(torch.equal(k5, k6) and torch.equal(km5, km6),
+           "cdist_kexp (#5) rows are not cdist_kexp_rows (#6) rows")
+    near5 = (km5p / k5p) < 1.0
+    _check(bool(((k5 - k5p).abs()[near5] <= 5e-2).all()),
+           "cdist_kexp: K near the diagonal off by more than 5e-2")
+    torch.testing.assert_close(k5[~near5], k5p[~near5], rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(km5[~near5], km5p[~near5], rtol=1e-3,
+                               atol=0.0)
+    print(f"[kernels] cdist_kexp: rows == cdist_kexp_rows rows, bitwise; "
+          f"{int(near5.sum())} near-diagonal entries (abs 5e-2), the rest "
+          f"rtol 1e-3")
+    record("cdist_kexp", "src/repro_torch/kernels/csrc/kexp.cu",
+           "src/repro/kernels/kexp.py:58", [k5, km5], [k5p, km5p],
+           lambda: kexp.cdist_kexp(a1, vecs_d, lamb=cfg.lamb),
+           lambda: kexp.cdist_kexp_plain(a1, vecs_d, lamb=cfg.lamb),
+           nbytes=4 * (m1 * w + v * w + 2 * m1 * v),
+           flops=2 * m1 * v * w + 2 * (m1 + v) * w + 8 * m1 * v,
+           library_fn=lambda: torch.cdist(a1, vecs_d), plain_reps=10)
+    mask_t = torch.from_numpy(mask_p).to(dev)[:, None]
+    k1, km1 = ss.pad_k(k5 * mask_t), ss.pad_k(km5 * mask_t)
+    r1 = torch.from_numpy(r_p).to(dev)
+    del k5, km5, k5p, km5p, k6, km6
+    x1 = torch.full((v_r, n), 1.0 / v_r, device=dev)
+    for _ in range(3):                        # a realistic iterate
+        x1 = ops.sddmm_spmm_type1(k1, r1, ss.safe_recip(x1), cols, vals)
+    u1 = ss.safe_recip(x1)
+    x_k = sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals)
+    x_p = sddmm_spmm.sddmm_spmm_type1_plain(k1, r1, u1, cols, vals)
+    x_b = sddmm_spmm.sddmm_spmm_type1_batch(k1[None], r1[None], u1[None],
+                                            cols, vals)[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(x_k, x_b), "sddmm_spmm_type1 (#1) is not "
+           "sddmm_spmm_type1_batch (#3) at Q = 1, bitwise")
+    torch.testing.assert_close(x_k, x_p, **TOL_KERNEL)
+    record("sddmm_spmm_type1", src, "src/repro/kernels/sddmm_spmm.py:126",
+           [x_k], [x_p],
+           lambda: sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals),
+           lambda: sddmm_spmm.sddmm_spmm_type1_plain(k1, r1, u1, cols, vals),
+           nbytes=4 * (v_r * uniq + v_r + 2 * v_r * n + 2 * n * nnz),
+           flops=nnz_real * (4 * v_r + 1) + v_r * n)
+    d_k = sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals)
+    d_p = sddmm_spmm.sddmm_spmm_type2_plain(k1, km1, u1, cols, vals)
+    d_b = sddmm_spmm.sddmm_spmm_type2_batch(k1[None], km1[None], u1[None],
+                                            cols, vals)[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(d_k, d_b), "sddmm_spmm_type2 (#2) is not "
+           "sddmm_spmm_type2_batch (#4) at Q = 1, bitwise")
+    torch.testing.assert_close(d_k, d_p, **TOL_KERNEL)
+    record("sddmm_spmm_type2", src, "src/repro/kernels/sddmm_spmm.py:154",
+           [d_k], [d_p],
+           lambda: sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals),
+           lambda: sddmm_spmm.sddmm_spmm_type2_plain(k1, km1, u1, cols,
+                                                     vals),
+           nbytes=4 * (2 * v_r * uniq + v_r * n + 2 * n * nnz + n),
+           flops=nnz_real * (4 * v_r + 1) + 2 * v_r * n)
+    print("[kernels] sddmm_spmm_type1 / type2 (one query) == the batched "
+          "kernels at Q = 1, bitwise")
+    del k1, km1, x1, u1, x_k, x_p, x_b, d_k, d_p, d_b
+    m = 128
     ids = torch.from_numpy(np.unique(sel_b)[:m].astype(np.int64)).to(dev)
     a = vecs_d[ids].contiguous()
     k_k, km_k = kexp.cdist_kexp_rows(a, vecs_d, lamb=cfg.lamb)

@@ -1,15 +1,22 @@
-"""Query padding and the batched solver programs, on one device.
+"""Query padding and the solver programs (per query and batched), on one
+device.
 
 Port of the single-device part of `repro.core.distributed`. The reference
 builds shard_map programs over a (data, model) mesh with one psum over the
-vocab shards per iteration; this slice runs on one GPU, so the vocab axis
+vocab shards per iteration; this port runs on one GPU, so the vocab axis
 has one shard (S = 1) and the psum is the identity. The argument shapes
 are kept: ELL and stripes carry the leading S = 1 shard axis
 (`core.formats.rebucket_for_vocab_shards(ell, 1)`, `core.kcache`).
 
 Query padding is exact and mask-based: pad rows carry r = 1 and an
-all-zero K row (`pad_query` + the row mask in `masked_k_batch`), so they
-contribute exactly zero to every w, x and WMD.
+all-zero K row (`pad_query` + the row mask in `masked_k` /
+`masked_k_batch`), so they contribute exactly zero to every w, x and WMD.
+
+`build_wmd_fn` is the per-query program (`WMDService.query`): the query's
+stripe precompute (``kexp_impl``), ``max_iter`` type1 iterations and the
+type2 distance. With ``use_kernel`` and ``kexp_impl="kernel"`` on the card
+it launches kernels #5, #1 (``max_iter`` times) and #2, and its distances
+are bit for bit those the batched kernel route gives the same query.
 """
 from __future__ import annotations
 
@@ -51,6 +58,28 @@ def pad_query_batch(sels: Sequence[np.ndarray], rs: Sequence[np.ndarray],
             np.stack([p[2] for p in padded]))
 
 
+def masked_k(vecs_sel: torch.Tensor, vecs_loc: torch.Tensor, lamb: float,
+             row_mask: torch.Tensor, kexp_impl: str = "kernel"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One query's stripes: (v_r, w) query words -> (v_r, Vloc) K, K.*M with
+    pad query rows zeroed. ``kexp_impl="kernel"``: `kernels.ops.cdist_kexp`
+    (the CUDA kernel on the card), then the row mask -- for a mask of 0 / 1
+    (K.*M) * mask == (K * mask) * M, the reference's order; ``"jnp"``: the
+    matmul spelling of `core.cost_matrix.cdist`, as the reference leaves
+    it to XLA."""
+    mask = row_mask[:, None]
+    if kexp_impl == "kernel":
+        from repro_torch.kernels import ops
+        k, km = ops.cdist_kexp(vecs_sel, vecs_loc, lamb=lamb)
+        return k * mask, km * mask
+    if kexp_impl != "jnp":
+        raise ValueError(f"kexp_impl must be 'jnp' or 'kernel', got "
+                         f"{kexp_impl!r}")
+    m = cdist(vecs_sel, vecs_loc)
+    k = torch.exp(-lamb * m) * mask
+    return k, k * m
+
+
 def masked_k_batch(vecs_sel: torch.Tensor, vecs_loc: torch.Tensor,
                    lamb: float, row_mask: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +89,50 @@ def masked_k_batch(vecs_sel: torch.Tensor, vecs_loc: torch.Tensor,
     m = torch.stack([cdist(a, vecs_loc) for a in vecs_sel])
     k = torch.exp(-lamb * m) * row_mask[..., None]
     return k, k * m
+
+
+def _local_solve(vecs_sel, r_sel, row_mask, vecs_loc, cols_loc, vals_loc, *,
+                 lamb: float, max_iter: int, use_kernel: bool,
+                 kexp_impl: str) -> torch.Tensor:
+    """The per-query program on its doc slice and vocab stripe (here all of
+    both). Returns the (N_local,) WMD. As in the reference, the type1
+    contraction runs with r = 1 and the 1/r row scale follows it, where the
+    vocab psum sits (the identity at S = 1); acc / 1 is exact, so this is
+    bitwise the same as dividing inside."""
+    k, km = masked_k(vecs_sel, vecs_loc, lamb, row_mask, kexp_impl)
+    k_pad, km_pad = pad_k(k), pad_k(km)
+    v_r = r_sel.shape[0]
+    ones_r = torch.ones_like(r_sel)
+    impl = "kernel" if use_kernel else "fused"
+    type1 = ss._resolve_impl("type1", impl, False)
+    type2 = ss._resolve_impl("type2", impl, False)
+    x = torch.full((v_r, cols_loc.shape[0]), 1.0 / v_r, dtype=k.dtype,
+                   device=k.device)
+    for _ in range(max_iter):
+        x = type1(k_pad, ones_r, safe_recip(x), cols_loc, vals_loc) \
+            / r_sel[:, None]
+    return type2(k_pad, km_pad, safe_recip(x), cols_loc, vals_loc)
+
+
+def build_wmd_fn(*, lamb: float, max_iter: int, use_kernel: bool = False,
+                 kexp_impl: str = "kernel"):
+    """The per-query WMD solver.
+
+    The returned fn takes (vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
+      vecs_sel (v_r, w) query word embeddings (`pad_query` rows),
+      r_sel (v_r,) (pad rows = 1.0), row_mask (v_r,) (pad rows = 0.0),
+      vecs (V, w), cols_b / vals_b (1, N, nnz) -- the rebucketed ELL, S = 1
+    and returns wmd (N,). ``use_kernel`` keeps the reference's name: the
+    type1 / type2 contractions through `kernels.ops` (the CUDA kernels for
+    CUDA tensors), else the fused plain spelling. ``kexp_impl`` chooses the
+    stripe precompute (`masked_k`).
+    """
+    def fn(vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
+        return _local_solve(vecs_sel, r_sel, row_mask, vecs, cols_b[0],
+                            vals_b[0], lamb=lamb, max_iter=max_iter,
+                            use_kernel=use_kernel, kexp_impl=kexp_impl)
+
+    return fn
 
 
 def _check_placement(chunk_placement: str) -> None:
@@ -83,8 +156,8 @@ def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
     """
     q, v_r = r_sel.shape
     ones_r = torch.ones_like(r_sel)
-    type1 = ss._resolve_impl("type1", impl)
-    type2 = ss._resolve_impl("type2", impl)
+    type1 = ss._resolve_impl("type1", impl, True)
+    type2 = ss._resolve_impl("type2", impl, True)
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
 
     def solve_chunk(x0_c, cols_c, vals_c):

@@ -105,3 +105,26 @@ def sinkhorn_wmd_dense(sel_idx: torch.Tensor, r_sel: torch.Tensor,
     w = pre.K.T @ u
     v = c * torch.where(c != 0.0, _safe_recip(w), 0.0)
     return torch.sum(u * (pre.KM @ v), dim=0)
+
+
+def sinkhorn_wmd_dense_history(sel_idx: torch.Tensor, r_sel: torch.Tensor,
+                               c: torch.Tensor, vecs: torch.Tensor,
+                               lamb: float, max_iter: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Like `sinkhorn_wmd_dense` but also returns the per-iteration
+    |x_t - x_{t-1}|_inf, (max_iter,), for convergence studies
+    (`core.convergence`)."""
+    pre = precompute(sel_idx, r_sel, vecs, lamb)
+    x = torch.full((r_sel.shape[0], c.shape[1]), 1.0 / r_sel.shape[0],
+                   dtype=torch.float32, device=c.device)
+    deltas = []
+    for _ in range(max_iter):
+        x_new, _ = _iterate_dense(pre, c, x)
+        deltas.append(torch.amax(torch.abs(x_new - x)))
+        x = x_new
+    u = _safe_recip(x)
+    w = pre.K.T @ u
+    v = c * torch.where(c != 0.0, _safe_recip(w), 0.0)
+    hist = (torch.stack(deltas) if deltas
+            else torch.zeros((0,), dtype=torch.float32, device=c.device))
+    return torch.sum(u * (pre.KM @ v), dim=0), hist

@@ -1,9 +1,10 @@
-"""PASWD: the paper's sparse Sinkhorn-WMD with fused SDDMM-SpMM, batched.
+"""PASWD: the paper's sparse Sinkhorn-WMD with fused SDDMM-SpMM.
 
-Port of the batched half of `repro.core.sparse_sinkhorn`. The document-
-frequency matrix is doc-major padded ELL (`core.formats`); the SDDMM samples
-only the nnz dot products and the fusion reuses one gather of K columns for
-both contractions:
+Port of `repro.core.sparse_sinkhorn`: the single-query solver
+(`sinkhorn_wmd_sparse`) and the batched engine (`sinkhorn_wmd_sparse_batch`).
+The document-frequency matrix is doc-major padded ELL (`core.formats`); the
+SDDMM samples only the nnz dot products and the fusion reuses one gather of
+K columns for both contractions:
 
     SDDMM : w[q,j,k] = sum_i K[q, i, cols[j,k]] * u[q,i,j]
             v[q,j,k] = vals[j,k] / w[q,j,k]
@@ -12,13 +13,18 @@ both contractions:
 type2 (final distance) swaps the SpMM operand to K.*M and reduces over i:
 WMD[q,j] = sum_i u[q,i,j] * sum_k (K.*M)[q, i, cols[j,k]] * v[q,j,k].
 
-Three execution paths, selected by ``impl`` (`_resolve_impl`):
+Three execution paths, selected by ``impl`` (`_resolve_impl`, one table
+for the single-query and the batched solvers):
   * "kernel"  -- `repro_torch.kernels.ops`: the CUDA kernels for CUDA
                  tensors, their plain versions for CPU tensors. The default.
   * "fused"   -- one gather per iteration, plain PyTorch (the paper's
                  fused baseline and the parity oracle of the kernel route).
   * "unfused" -- separate SDDMM / SpMM with independent gathers (the
                  paper's pre-fusion baseline).
+
+The single-query plain spellings are the batched ones at Q = 1 (a (doc)
+cell's bits do not depend on Q), so one query gives the same bits through
+either solver on every device, as the kernels do on the card.
 
 All paths consume K with one trailing zero column, so ELL pad slots
 (col == V) contribute exactly zero. Mixed-size queries ride the exact
@@ -41,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.cost_matrix import cdist
+from repro_torch.core.sinkhorn import SinkhornPrecompute, precompute
 from repro_torch.kernels._pad import pad_axis
 from repro_torch.kernels.sddmm_spmm import slot_combine, slot_dots
 
@@ -162,6 +169,43 @@ def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
                             pad_col=k_pad.shape[-1] - 1)
 
 
+# -- the single-query half: the batched spellings at Q = 1 -------------------
+
+def gather_k(k_pad: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Gather K columns per ELL slot: (v_r, V+1), (N, nnz) -> (N, nnz, v_r)."""
+    return gather_k_batch(k_pad[None], cols)[0]
+
+
+def sddmm(k_pad, u, cols, vals):
+    """Sampled dense-dense matmul: v[j,k] = vals[j,k] / (K^T u)[cols[j,k], j],
+    with its own gather (unfused)."""
+    return sddmm_batch(k_pad[None], u[None], cols, vals)[0]
+
+
+def spmm(kor_pad, v, cols):
+    """x[i,j] = sum_k K_over_r[i, cols[j,k]] * v[j,k] -- re-gathers K."""
+    return spmm_batch(kor_pad[None], v[None], cols)[0]
+
+
+def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals) -> torch.Tensor:
+    """Fused iteration body of one query: one gather feeds both
+    contractions. k_pad (v_r, V+1), r_sel (v_r,), u (v_r, N) -> (v_r, N)."""
+    return sddmm_spmm_type1_batch(k_pad[None], r_sel[None], u[None], cols,
+                                  vals)[0]
+
+
+def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals) -> torch.Tensor:
+    """Fused final distance of one query: (N,) WMD."""
+    return sddmm_spmm_type2_batch(k_pad[None], km_pad[None], u[None], cols,
+                                  vals)[0]
+
+
+def _type1_unfused(k_pad, r_sel, u, cols, vals) -> torch.Tensor:
+    # independent gathers: the paper's pre-fusion baseline
+    v = sddmm(k_pad, u, cols, vals)
+    return spmm(k_pad / r_sel[:, None], v, cols)
+
+
 def _unfused_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None):
     del docs_chunk  # the baseline stays deliberately unblocked
     v = sddmm_batch(k_pad, u, cols, vals)
@@ -188,17 +232,73 @@ def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
     return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, **kw)
 
 
-def _resolve_impl(kind: str, impl: str):
-    """The ONE impl dispatch table of the batched solvers (shared with
-    `core.distributed`). kind: "type1" (signature (k_pad, r_sel, u, cols,
-    vals)) or "type2" ((k_pad, km_pad, u, cols, vals)); both also accept
-    ``docs_chunk=``."""
+def _resolve_impl(kind: str, impl: str, batched: bool = True):
+    """The ONE impl dispatch table, shared by the single-query and batched
+    solvers (and `core.distributed`). kind: "type1" (signature (k_pad,
+    r_sel, u, cols, vals)) or "type2" ((k_pad, km_pad, u, cols, vals));
+    the batched ones also accept ``docs_chunk=``."""
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-    table = {"kernel": (_kernel_type1_batch, _kernel_type2_batch),
-             "fused": (sddmm_spmm_type1_batch, sddmm_spmm_type2_batch),
-             "unfused": (_unfused_batch, _unfused_final_batch)}[impl]
-    return table[0] if kind == "type1" else table[1]
+    if impl == "kernel":
+        from repro_torch.kernels import ops
+        table = {("type1", False): ops.sddmm_spmm_type1,
+                 ("type2", False): ops.sddmm_spmm_type2,
+                 ("type1", True): _kernel_type1_batch,
+                 ("type2", True): _kernel_type2_batch}
+    elif impl == "fused":
+        table = {("type1", False): sddmm_spmm_type1,
+                 ("type2", False): sddmm_spmm_type2,
+                 ("type1", True): sddmm_spmm_type1_batch,
+                 ("type2", True): sddmm_spmm_type2_batch}
+    else:
+        # the unfused baseline shares the fused final distance
+        table = {("type1", False): _type1_unfused,
+                 ("type2", False): sddmm_spmm_type2,
+                 ("type1", True): _unfused_batch,
+                 ("type2", True): _unfused_final_batch}
+    return table[(kind, batched)]
+
+
+def _iteration(impl: str, pre_kpad: torch.Tensor, r_sel: torch.Tensor,
+               x: torch.Tensor, cols: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    return _resolve_impl("type1", impl, False)(
+        pre_kpad, r_sel, safe_recip(x), cols, vals)
+
+
+def _final(impl: str, k_pad: torch.Tensor, km_pad: torch.Tensor,
+           u: torch.Tensor, cols: torch.Tensor,
+           vals: torch.Tensor) -> torch.Tensor:
+    return _resolve_impl("type2", impl, False)(k_pad, km_pad, u, cols, vals)
+
+
+def sinkhorn_wmd_sparse(sel_idx: torch.Tensor, r_sel: torch.Tensor,
+                        cols: torch.Tensor, vals: torch.Tensor,
+                        vecs: torch.Tensor, lamb: float, max_iter: int,
+                        impl: str = "kernel") -> torch.Tensor:
+    """Sparse PASWD Sinkhorn-WMD of one query. Returns (N,) distances.
+
+    sel_idx (v_r,) nonzero-word ids of the query (`core.sinkhorn.
+    select_query`), r_sel (v_r,) its frequencies, cols/vals (N, nnz) ELL
+    (pad id == V, pad val 0), vecs (V, w); ``impl`` as in the module
+    docstring.
+    """
+    pre = precompute(sel_idx, r_sel, vecs, lamb)
+    return sinkhorn_wmd_sparse_pre(pre, cols, vals, max_iter, impl)
+
+
+def sinkhorn_wmd_sparse_pre(pre: SinkhornPrecompute, cols: torch.Tensor,
+                            vals: torch.Tensor, max_iter: int,
+                            impl: str = "kernel") -> torch.Tensor:
+    """Single-query solver core on precomputed matrices."""
+    k_pad = pad_k(pre.K)
+    km_pad = pad_k(pre.KM)
+    v_r = pre.r.shape[0]
+    x = torch.full((v_r, cols.shape[0]), 1.0 / v_r, dtype=pre.K.dtype,
+                   device=pre.K.device)
+    for _ in range(max_iter):
+        x = _iteration(impl, k_pad, pre.r, x, cols, vals)
+    return _final(impl, k_pad, km_pad, safe_recip(x), cols, vals)
 
 
 def batched_sinkhorn_loop(iteration, x0: torch.Tensor, *, max_iter: int,
@@ -259,8 +359,8 @@ def _solve_batch_stripes(k_pad, km_pad, r_sel, cols, vals, *, max_iter: int,
     column already appended)."""
     q, v_r = r_sel.shape
     n = cols.shape[0]
-    type1 = _resolve_impl("type1", impl)
-    type2 = _resolve_impl("type2", impl)
+    type1 = _resolve_impl("type1", impl, True)
+    type2 = _resolve_impl("type2", impl, True)
     x0 = torch.full((q, v_r, n), 1.0 / v_r, dtype=k_pad.dtype,
                     device=k_pad.device)
 

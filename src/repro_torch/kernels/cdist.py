@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, kexp
 
 
 def cdist_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -37,19 +37,7 @@ def cdist(a: torch.Tensor, b: torch.Tensor, *,
           squared: bool = False) -> torch.Tensor:
     """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> M (m, V)."""
     name = "cdist"
-    for arg, t in (("a", a), ("b", b)):
-        if t.device.type != "cuda" or t.device != a.device:
-            raise ValueError(f"{name}: {arg} must be on a's CUDA device, got "
-                             f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous matrix")
-    m, w = a.shape
-    v = b.shape[0]
-    if b.shape[1] != w:
-        raise ValueError(f"{name}: widths differ, a {tuple(a.shape)} vs b "
-                         f"{tuple(b.shape)}")
+    m, w, v = kexp.check_rows(name, a, b)
     out = torch.empty((m, v), dtype=torch.float32, device=a.device)
     if m and v:
         fn = _build.library("kexp").cdist_rows

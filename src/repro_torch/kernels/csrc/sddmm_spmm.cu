@@ -1,9 +1,12 @@
-// Batched fused SDDMM-SpMM for the Sinkhorn-WMD iteration (type1) and the
-// final distance (type2), sm_90a, plain CUDA C++.
+// Fused SDDMM-SpMM for the Sinkhorn-WMD iteration (type1) and the final
+// distance (type2), single-query and batched, sm_90a, plain CUDA C++.
 //
-// Replaces the Pallas TPU kernels `sddmm_spmm_type1_batch` and
-// `sddmm_spmm_type2_batch` (src/repro/kernels/sddmm_spmm.py:239 and :272,
-// bodies `_type1_batch_kernel` :182 and `_type2_batch_kernel` :209).
+// Replaces four Pallas TPU kernels:
+//   * `sddmm_spmm_type1_batch` / `sddmm_spmm_type2_batch`
+//     (src/repro/kernels/sddmm_spmm.py:239 and :272, bodies
+//     `_type1_batch_kernel` :182 and `_type2_batch_kernel` :209), Q queries;
+//   * `sddmm_spmm_type1` / `sddmm_spmm_type2` (:126 and :154, bodies
+//     `_type1_kernel` :71 and `_type2_kernel` :97), one query.
 //
 // What it computes, for query q and document j, over the ELL slots s of j:
 //   w   = <K[q, :, cols[j,s]], u[q, :, j]>             (SDDMM dot)
@@ -16,15 +19,20 @@
 // (R rows, R = ceil(v_r / 32) <= 4). The K column of a slot is loaded once
 // into registers and feeds both the dot (a warp butterfly reduction) and
 // the accumulation, as the TPU kernel's single VMEM gather does. A block of
-// min(docs_blk, 8) warps walks the docs_blk documents of its tile; the grid
-// is (ceil(N / docs_blk), Q).
+// min(docs_blk, 8) warps walks the docs_blk documents of its tile. That
+// step (`doc_tile`) is one device function; two grids call it: the batched
+// grid (ceil(N / docs_blk), Q) and the single-query grid ceil(N / docs_blk).
+// A single-query launch is therefore the batched launch at Q = 1, bit for
+// bit.
 //
 // What bounds it on an H100: memory traffic. Per slot it reads v_r floats
 // of K (and of K*M for type2) at stride V+1 (the reference layout
 // (Q, v_r, V+1)), so each lane touches its own 32-byte sector: the loads
 // move 8x the useful bytes. The arithmetic is 4 flops per row per slot,
 // far below the fp32 rate. A vocab-major copy of K would make a column one
-// 128-byte line; that is a later optimisation, not done here.
+// 128-byte line; that is a later optimisation, not done here. At Q = 1
+// (one query's 12.8 MB stripe, resident in the 50 MB L2) the work is too
+// small to fill the card for long: launch and latency bound it.
 //
 // Exactness: every output element is one warp's fixed-order sum, with no
 // atomics and no dependence on docs_blk or on other documents, so the
@@ -50,26 +58,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// One query's documents j0 .. j_end-1, one warp per document: the shared
+// per-(query, doc) step of the single-query and the batched grids. Pointers
+// are the query's own: k / km (v_r, vp1), r (v_r), u and x (v_r, n), wmd (n).
 template <int R, bool kType2>
-__global__ void sddmm_spmm_batch_kernel(
-    const float* __restrict__ k,     // (Q, v_r, vp1)
-    const float* __restrict__ km,    // (Q, v_r, vp1), type2 only
-    const float* __restrict__ r,     // (Q, v_r), type1 only
-    const float* __restrict__ u,     // (Q, v_r, N)
-    const int* __restrict__ cols,    // (N, nnz)
-    const float* __restrict__ vals,  // (N, nnz)
-    float* __restrict__ out,         // type1 x (Q, v_r, N); type2 wmd (Q, N)
-    int v_r, int vp1, int n, int nnz, int docs_blk) {
-  const int q = blockIdx.y;
+__device__ __forceinline__ void doc_tile(
+    const float* __restrict__ kq, const float* __restrict__ kmq,
+    const float* __restrict__ rq, const float* __restrict__ uq,
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    float* __restrict__ outq, int v_r, int vp1, int n, int nnz, int j0,
+    int j_end) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
-  const int j0 = blockIdx.x * docs_blk;
-  const int j_end = min(j0 + docs_blk, n);
-  const float* kq = k + (size_t)q * v_r * vp1;
-  const float* kmq = kType2 ? km + (size_t)q * v_r * vp1 : nullptr;
-  const float* uq = u + (size_t)q * v_r * n;
-
   for (int j = j0 + warp; j < j_end; j += warps) {
     float uj[R], acc[R];
 #pragma unroll
@@ -108,38 +109,89 @@ __global__ void sddmm_spmm_batch_kernel(
 #pragma unroll
       for (int t = 0; t < R; ++t) part += uj[t] * acc[t];
       const float d = warp_sum(part);
-      if (lane == 0) out[(size_t)q * n + j] = d;
+      if (lane == 0) outq[j] = d;
     } else {
 #pragma unroll
       for (int t = 0; t < R; ++t) {
         const int i = lane + t * kWarp;
-        if (i < v_r)
-          out[((size_t)q * v_r + i) * n + j] = acc[t] / r[(size_t)q * v_r + i];
+        if (i < v_r) outq[(size_t)i * n + j] = acc[t] / rq[i];
       }
     }
   }
 }
 
+// The batched grid, (ceil(N / docs_blk), Q): block (tile, q) walks query
+// q's documents of its tile.
+template <int R, bool kType2>
+__global__ void sddmm_spmm_batch_kernel(
+    const float* __restrict__ k,     // (Q, v_r, vp1)
+    const float* __restrict__ km,    // (Q, v_r, vp1), type2 only
+    const float* __restrict__ r,     // (Q, v_r), type1 only
+    const float* __restrict__ u,     // (Q, v_r, N)
+    const int* __restrict__ cols,    // (N, nnz)
+    const float* __restrict__ vals,  // (N, nnz)
+    float* __restrict__ out,         // type1 x (Q, v_r, N); type2 wmd (Q, N)
+    int v_r, int vp1, int n, int nnz, int docs_blk) {
+  const size_t q = blockIdx.y;
+  const size_t stripe = (size_t)v_r * vp1;
+  const int j0 = blockIdx.x * docs_blk;
+  doc_tile<R, kType2>(k + q * stripe, kType2 ? km + q * stripe : nullptr,
+                      kType2 ? nullptr : r + q * v_r, u + q * v_r * n, cols,
+                      vals, out + (kType2 ? q * n : q * v_r * n), v_r, vp1,
+                      n, nnz, j0, min(j0 + docs_blk, n));
+}
+
+// The single-query grid, ceil(N / docs_blk) blocks: one query's (v_r, vp1)
+// stripes, r (v_r), u (v_r, N) -> x (v_r, N) or wmd (N). The same step as
+// the batched grid, so its output is the batched grid's at Q = 1, bit for
+// bit.
+template <int R, bool kType2>
+__global__ void sddmm_spmm_query_kernel(
+    const float* __restrict__ k, const float* __restrict__ km,
+    const float* __restrict__ r, const float* __restrict__ u,
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    float* __restrict__ out, int v_r, int vp1, int n, int nnz,
+    int docs_blk) {
+  const int j0 = blockIdx.x * docs_blk;
+  doc_tile<R, kType2>(k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, j0,
+                      min(j0 + docs_blk, n));
+}
+
+template <int R, bool kType2>
+void launch_grid(bool batched, dim3 grid, dim3 block, cudaStream_t stream,
+                 const float* k, const float* km, const float* r,
+                 const float* u, const int* cols, const float* vals,
+                 float* out, int v_r, int vp1, int n, int nnz, int docs_blk) {
+  if (batched)
+    sddmm_spmm_batch_kernel<R, kType2><<<grid, block, 0, stream>>>(
+        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+  else
+    sddmm_spmm_query_kernel<R, kType2><<<grid, block, 0, stream>>>(
+        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+}
+
+// batched: the (tiles, q) grid; else the single-query grid (q == 1).
 template <bool kType2>
 int launch(const float* k, const float* km, const float* r, const float* u,
-           const int* cols, const float* vals, float* out, int q, int v_r,
-           int vp1, int n, int nnz, int docs_blk, cudaStream_t stream) {
-  if (q <= 0 || n <= 0 || v_r <= 0 || v_r > 4 * kWarp || docs_blk <= 0 ||
-      q > 65535)
+           const int* cols, const float* vals, float* out, int q,
+           bool batched, int v_r, int vp1, int n, int nnz, int docs_blk,
+           cudaStream_t stream) {
+  if (q <= 0 || q > 65535 || (!batched && q != 1) || n <= 0 || v_r <= 0 ||
+      v_r > 4 * kWarp || docs_blk <= 0)
     return (int)cudaErrorInvalidValue;
   const int warps = docs_blk < kMaxWarpsPerBlock ? docs_blk : kMaxWarpsPerBlock;
   const dim3 grid((n + docs_blk - 1) / docs_blk, q);
   const dim3 block(warps * kWarp);
   const int rows = (v_r + kWarp - 1) / kWarp;
   if (rows == 1)
-    sddmm_spmm_batch_kernel<1, kType2><<<grid, block, 0, stream>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch_grid<1, kType2>(batched, grid, block, stream, k, km, r, u, cols,
+                           vals, out, v_r, vp1, n, nnz, docs_blk);
   else if (rows == 2)
-    sddmm_spmm_batch_kernel<2, kType2><<<grid, block, 0, stream>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch_grid<2, kType2>(batched, grid, block, stream, k, km, r, u, cols,
+                           vals, out, v_r, vp1, n, nnz, docs_blk);
   else
-    sddmm_spmm_batch_kernel<4, kType2><<<grid, block, 0, stream>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch_grid<4, kType2>(batched, grid, block, stream, k, km, r, u, cols,
+                           vals, out, v_r, vp1, n, nnz, docs_blk);
   return (int)cudaGetLastError();
 }
 
@@ -152,7 +204,7 @@ extern "C" int sddmm_spmm_type1_batch(const void* k, const void* r,
                                       int docs_blk, void* stream) {
   return launch<false>((const float*)k, nullptr, (const float*)r,
                        (const float*)u, (const int*)cols, (const float*)vals,
-                       (float*)x, q, v_r, vp1, n, nnz, docs_blk,
+                       (float*)x, q, true, v_r, vp1, n, nnz, docs_blk,
                        (cudaStream_t)stream);
 }
 
@@ -163,6 +215,26 @@ extern "C" int sddmm_spmm_type2_batch(const void* k, const void* km,
                                       int docs_blk, void* stream) {
   return launch<true>((const float*)k, (const float*)km, nullptr,
                       (const float*)u, (const int*)cols, (const float*)vals,
-                      (float*)wmd, q, v_r, vp1, n, nnz, docs_blk,
+                      (float*)wmd, q, true, v_r, vp1, n, nnz, docs_blk,
+                      (cudaStream_t)stream);
+}
+
+extern "C" int sddmm_spmm_type1(const void* k, const void* r, const void* u,
+                                const void* cols, const void* vals, void* x,
+                                int v_r, int vp1, int n, int nnz,
+                                int docs_blk, void* stream) {
+  return launch<false>((const float*)k, nullptr, (const float*)r,
+                       (const float*)u, (const int*)cols, (const float*)vals,
+                       (float*)x, 1, false, v_r, vp1, n, nnz, docs_blk,
+                       (cudaStream_t)stream);
+}
+
+extern "C" int sddmm_spmm_type2(const void* k, const void* km, const void* u,
+                                const void* cols, const void* vals, void* wmd,
+                                int v_r, int vp1, int n, int nnz,
+                                int docs_blk, void* stream) {
+  return launch<true>((const float*)k, (const float*)km, nullptr,
+                      (const float*)u, (const int*)cols, (const float*)vals,
+                      (float*)wmd, 1, false, v_r, vp1, n, nnz, docs_blk,
                       (cudaStream_t)stream);
 }

@@ -1,9 +1,11 @@
 """Public entry points of the ported kernels: dispatch by device.
 
-Port of `repro.kernels.ops` (the batched SDDMM-SpMM, the row kexp, cdist
-and the two RWMD bounds). A CUDA tensor goes to the hand-written kernel,
-which launches or raises; a CPU tensor goes to the kernel's plain PyTorch
-version. Nothing catches a build or launch failure and falls back.
+Port of `repro.kernels.ops`: the single-query and batched SDDMM-SpMM, the
+vocab-chunked one-device driver `sddmm_spmm_chunked`, the stripe and row
+kexp, cdist and the two RWMD bounds. A CUDA tensor goes to the
+hand-written kernel, which launches or raises; a CPU tensor goes to the
+kernel's plain PyTorch version. Nothing catches a build or launch failure
+and falls back.
 
 Padding rules differ from the TPU wrappers on purpose: the CUDA kernels
 mask their own ragged edges (any v_r up to 128, any Q, N and nnz), so v_r,
@@ -26,6 +28,48 @@ from repro_torch.kernels import kexp as _kexp
 from repro_torch.kernels import lcrwmd as _lcrwmd
 from repro_torch.kernels import rwmd as _rwmd
 from repro_torch.kernels import sddmm_spmm as _sddmm_spmm
+
+
+def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
+                     u: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                     *, docs_blk: int = 8) -> torch.Tensor:
+    """Fused Sinkhorn iteration body of one query: k_pad (v_r, V+1) with
+    the zero pad column, r_sel (v_r,), u (v_r, N), cols/vals (N, nnz) ->
+    x (v_r, N)."""
+    if k_pad.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type1(
+            k_pad.contiguous(), r_sel.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals)
+
+
+def sddmm_spmm_type2(k_pad: torch.Tensor, km_pad: torch.Tensor,
+                     u: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                     *, docs_blk: int = 8) -> torch.Tensor:
+    """Fused final distance of one query -> (N,) WMD."""
+    if k_pad.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type2(
+            k_pad.contiguous(), km_pad.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals)
+
+
+def sddmm_spmm_chunked(k_chunks: torch.Tensor, r_sel: torch.Tensor,
+                       u: torch.Tensor, cols_chunks: torch.Tensor,
+                       vals_chunks: torch.Tensor, *,
+                       docs_blk: int = 8) -> torch.Tensor:
+    """Vocab-chunked type1 on one device, the layout of the vocab-sharded
+    engine (`core.formats.rebucket_for_vocab_shards`): k_chunks
+    (S, v_r, Vc+1), cols_chunks / vals_chunks (S, N, nnz_c) with ids local
+    to the chunk. The S partial x's (type1 with r = 1) are summed in chunk
+    order and divided by r once, as the reference's scan does; the sum is
+    reordered against the monolithic type1 (rtol 1e-4, not bitwise)."""
+    ones_r = torch.ones_like(r_sel)
+    x = torch.zeros_like(u)
+    for k_c, cols_c, vals_c in zip(k_chunks, cols_chunks, vals_chunks):
+        x = x + sddmm_spmm_type1(k_c, ones_r, u, cols_c, vals_c,
+                                 docs_blk=docs_blk)
+    return x / r_sel[:, None]
 
 
 def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
@@ -54,6 +98,15 @@ def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
             cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
     return _sddmm_spmm.sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols,
                                                     vals)
+
+
+def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *,
+               lamb: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused precompute of one query's stripe: a (v_r, w) query words,
+    b (V, w) -> (K, K.*M), each (v_r, V)."""
+    if a.is_cuda:
+        return _kexp.cdist_kexp(a.contiguous(), b.contiguous(), lamb=lamb)
+    return _kexp.cdist_kexp_plain(a, b, lamb=lamb)
 
 
 def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *,

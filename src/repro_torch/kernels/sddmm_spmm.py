@@ -1,7 +1,9 @@
-"""Batched fused SDDMM-SpMM: the CUDA kernels and their plain versions.
+"""Fused SDDMM-SpMM, single-query and batched: the CUDA kernels and their
+plain versions.
 
-Port of the Pallas kernels `repro.kernels.sddmm_spmm.sddmm_spmm_type1_batch`
-and `sddmm_spmm_type2_batch`. For each query q, doc j and ELL slot s:
+Port of the Pallas kernels `repro.kernels.sddmm_spmm.sddmm_spmm_type1/2`
+(one query) and `sddmm_spmm_type1/2_batch` (Q queries). For each query q,
+doc j and ELL slot s:
 
     kcol = K[q, :, cols[j, s]]                 one gather per slot
     w    = <kcol, u[q, :, j]>                  SDDMM dot
@@ -10,11 +12,14 @@ and `sddmm_spmm_type2_batch`. For each query q, doc j and ELL slot s:
     acc += (K.*M)[q, :, cols[j, s]] * v        (type2)
 
 type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
-<u[q, :, j], acc>. ``sddmm_spmm_type{1,2}_batch`` launch the CUDA kernels
-in ``csrc/sddmm_spmm.cu`` (CUDA tensors only);
-``sddmm_spmm_type{1,2}_batch_plain`` are the gather + matmul spellings of
-the same math, used for CPU tensors and as the kernels' comparison on the
-card. `repro_torch.kernels.ops` chooses between them by device.
+<u[q, :, j], acc>. ``sddmm_spmm_type{1,2}_batch`` and
+``sddmm_spmm_type{1,2}`` launch the CUDA kernels in ``csrc/sddmm_spmm.cu``
+(CUDA tensors only); the single-query ones take one query's (v_r, V+1)
+stripe and run the batched kernels' per-(query, doc) step, so their output
+is the batched one's at Q = 1, bit for bit. The ``*_plain`` functions are
+the gather + matmul spellings of the same math (the single-query ones the
+batched at Q = 1), used for CPU tensors and as the kernels' comparison on
+the card. `repro_torch.kernels.ops` chooses between them by device.
 """
 from __future__ import annotations
 
@@ -72,6 +77,18 @@ def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
     return torch.sum(u * acc, dim=1)
 
 
+def sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals):
+    """Plain version of the single-query type1 kernel: (v_r, N) iterate."""
+    return sddmm_spmm_type1_batch_plain(k_pad[None], r_sel[None], u[None],
+                                        cols, vals)[0]
+
+
+def sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals):
+    """Plain version of the single-query type2 kernel: (N,) distances."""
+    return sddmm_spmm_type2_batch_plain(k_pad[None], km_pad[None], u[None],
+                                        cols, vals)[0]
+
+
 def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
            cols: torch.Tensor, docs_blk: int) -> None:
     dev = k_pad.device
@@ -99,16 +116,15 @@ def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"{name}: docs_blk must be positive, got {docs_blk}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-def _launch(name: str, ptrs, q, v_r, vp1, n, nnz, docs_blk) -> None:
+def _launch(name: str, ptrs, *sizes) -> None:
+    """Launch ``name`` on 6 pointers and the int sizes: (q,) v_r, vp1, n,
+    nnz, docs_blk (the single-query entry points take no q)."""
     fn = getattr(_build.library("sddmm_spmm"), name)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * len(sizes)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    _build.check_launch(name, fn(*ptrs, q, v_r, vp1, n, nnz, docs_blk,
-                                 stream))
+    _build.check_launch(name, fn(*ptrs, *sizes, stream))
 
 
 def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
@@ -146,4 +162,49 @@ def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
         _launch(name, (k_pad.data_ptr(), km_pad.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
                 q, v_r, k_pad.shape[2], n, cols.shape[1], docs_blk)
+    return wmd
+
+
+def _one_query(name: str, u: torch.Tensor) -> None:
+    if u.dim() != 2:
+        raise ValueError(f"{name}: u must be one query's (v_r, N), got "
+                         f"{tuple(u.shape)}")
+
+
+def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
+                     docs_blk: int = 8) -> torch.Tensor:
+    """CUDA single-query type1 kernel: k_pad (v_r, V+1), r_sel (v_r,),
+    u (v_r, N), cols int32 / vals f32 (N, nnz) -> x (v_r, N)."""
+    name = "sddmm_spmm_type1"
+    _one_query(name, u)
+    _check(name, {"k_pad": k_pad, "r_sel": r_sel, "u": u, "cols": cols,
+                  "vals": vals}, k_pad[None], u[None], cols, docs_blk)
+    v_r, n = u.shape
+    if r_sel.shape != (v_r,) or vals.shape != cols.shape:
+        raise ValueError(f"{name}: r_sel {tuple(r_sel.shape)} / vals "
+                         f"{tuple(vals.shape)} shape mismatch")
+    x = torch.empty_like(u)
+    if n:
+        _launch(name, (k_pad.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
+                       cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
+                v_r, k_pad.shape[1], n, cols.shape[1], docs_blk)
+    return x
+
+
+def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
+                     docs_blk: int = 8) -> torch.Tensor:
+    """CUDA single-query type2 kernel: the fused final distance, (N,)."""
+    name = "sddmm_spmm_type2"
+    _one_query(name, u)
+    _check(name, {"k_pad": k_pad, "km_pad": km_pad, "u": u, "cols": cols,
+                  "vals": vals}, k_pad[None], u[None], cols, docs_blk)
+    v_r, n = u.shape
+    if km_pad.shape != k_pad.shape or vals.shape != cols.shape:
+        raise ValueError(f"{name}: km_pad {tuple(km_pad.shape)} / vals "
+                         f"{tuple(vals.shape)} shape mismatch")
+    wmd = torch.empty((n,), dtype=torch.float32, device=u.device)
+    if n:
+        _launch(name, (k_pad.data_ptr(), km_pad.data_ptr(), u.data_ptr(),
+                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+                v_r, k_pad.shape[1], n, cols.shape[1], docs_blk)
     return wmd

@@ -9,7 +9,10 @@ Builds the synthetic corpus of the configuration (``--smoke``: the tiny
 smoke config; default: ``paper_5k``), serves its queries through
 `repro_torch.serving.WMDService` and prints each query's nearest docs and
 the latency. ``--batch-queries`` solves all queries in one batched call
-(timed after a first warm call), otherwise each query is served on its own.
+(timed after a first warm call); otherwise each query is served on its own
+by `WMDService.top_k`, the per-query program (kernels #5, #1 and #2 on the
+card), after a first untimed query, and the loop ends with the mean
+per-query time and queries/s.
 ``--prune`` serves top-k through the retrieval cascade (bound tiers, then
 the exact rerank of the candidates; the same answer as the full scan) over
 the whole query set in one call and prints the solves avoided.
@@ -84,12 +87,18 @@ def main(argv=None):
                     f"({ps['exact_solves']}/{ps['scan_solves']})")
         print(msg)
         return
+    svc.top_k(data.queries[0], k)               # first call outside timing
+    total = 0.0
     for i, r in enumerate(data.queries):
         t0 = time.perf_counter()
         idx, dist = svc.top_k(r, k)
         dt = time.perf_counter() - t0
+        total += dt
         print(f"[serve-wmd] query {i}: top{k} docs {idx.tolist()} "
               f"d={np.round(dist, 3).tolist()} ({dt * 1e3:.1f} ms)")
+    q = len(data.queries)
+    print(f"[serve-wmd] per-query Q={q} on {svc.device}: "
+          f"{total / q * 1e3:.2f} ms a query ({q / total:.1f} queries/s)")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Batched Sinkhorn-WMD query service on one GPU.
+"""Sinkhorn-WMD query service on one GPU.
 
 Port of the single-device serving path of `repro.serving.wmd_service`. The
 corpus (embeddings + ELL, rebucketed to one vocab shard) is loaded onto the
@@ -6,9 +6,17 @@ device once; queries are solved by the fused SDDMM-SpMM engine.
 
 Service API
 -----------
-  query(r)                  -- one (V,) histogram -> (N,) distances. Runs
-      the batched engine at Q = 1, so a singleton goes through the same
-      kernels as a batch.
+  query(r)                  -- one (V,) histogram -> (N,) distances through
+      the per-query program (`core.distributed.build_wmd_fn`, as the
+      reference): the query is padded to the v_r bucket, its stripe is
+      computed (``kexp_impl``: kernel #5 `cdist_kexp` by default), then
+      ``max_iter`` type1 iterations and the type2 distance
+      (``impl="kernel"``: kernels #1 and #2; any other impl: the fused
+      plain spelling, the reference's per-query program). It uses neither
+      the K cache nor the batched engine; on the card its distances are
+      bit for bit the batched kernel route's rows (the K rows of #5 are
+      #6's, the single-query kernels share #3 / #4's step). ``tol`` does
+      not apply: the per-query program runs ``max_iter`` iterations.
   query_batch(rs, impl=..., docs_chunk=..., use_cache=...) -- Q histograms
       -> (Q, N). Queries are padded to the service's v_r bucket (exact
       mask-based padding, `core.distributed.pad_query_batch`) and admitted
@@ -22,9 +30,10 @@ Service API
           to the cached path;
         * legacy (cache disabled, no routing request): the precompute runs
           inside the solve (`build_wmd_batch_fn`, `masked_k_batch`).
-  query_batch_sequential(rs) -- the per-query loop (oracle / baseline).
+  query_batch_sequential(rs) -- `query` over the list (oracle / baseline).
   top_k(r, k) / top_k_batch(rs, k) -- nearest-k doc ids + distances, with
-      the reference's tie-deterministic selection.
+      the reference's tie-deterministic selection; `top_k` without
+      pruning runs `query`, `top_k_batch` runs `query_batch`.
       With ``prune=True`` the retrieval cascade runs instead: every doc is
       scored by the enabled bound tiers (tier 0, the centroid screen of
       `core.cascade`; tier 1, LC-RWMD over all N through the
@@ -51,7 +60,8 @@ front-end).
 
 Knobs (constructor fields): ``impl`` ("kernel" default: the CUDA kernels on
 the card, their plain versions on the CPU; "fused" / "unfused" are the
-paper's baselines), ``docs_chunk``, ``tol``, ``cache_capacity``,
+paper's baselines, and both give the per-query program its fused
+spelling), ``docs_chunk``, ``tol``, ``cache_capacity``,
 ``cache_rows_bucket`` (also the M rows' bucket), ``kexp_impl`` ("kernel"
 default, or "jnp": the plain matmul spelling; the value names are the
 reference's; the M rows of the bound tiers follow it, see
@@ -92,6 +102,7 @@ from repro_torch.core import guards as _guards
 from repro_torch.core import rwmd as rwmd_core
 from repro_torch.core.distributed import (build_wmd_batch_fn,
                                           build_wmd_batch_fn_stripes,
+                                          build_wmd_fn, pad_query,
                                           pad_query_batch)
 from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
@@ -166,6 +177,7 @@ class WMDService:
         self._rb = formats.rebucket_for_vocab_shards(self.ell, 1)
         self._cols_d = torch.from_numpy(self._rb.cols).to(self.device)
         self._vals_d = torch.from_numpy(self._rb.vals).to(self.device)
+        self._single_fns: dict[tuple, object] = {}
         self._batch_fns: dict[tuple, object] = {}
         self._stripe_fns: dict[tuple, object] = {}
         if self.metrics is None:
@@ -294,6 +306,18 @@ class WMDService:
 
     # -- solver programs ------------------------------------------------------
 
+    def _single_fn(self):
+        """The per-query program, keyed by (impl, kexp_impl, lamb) so that a
+        mutated knob never serves a stale program."""
+        key = (self.impl, self.kexp_impl, self.cfg.lamb)
+        fn = self._single_fns.get(key)
+        if fn is None:
+            fn = build_wmd_fn(lamb=self.cfg.lamb, max_iter=self.cfg.max_iter,
+                              use_kernel=self.impl == "kernel",
+                              kexp_impl=self.kexp_impl)
+            self._single_fns[key] = fn
+        return fn
+
     def _batch_fn(self, impl: str, docs_chunk: int | None):
         """Single-program batched solver (precompute inside), keyed like the
         reference's so a mutated tol / cfg.lamb never serves a stale fn."""
@@ -322,8 +346,19 @@ class WMDService:
     @_serialized
     def query(self, r: np.ndarray) -> np.ndarray:
         """r: (V,) sparse query histogram -> (N,) distances, through the
-        batched engine at Q = 1."""
-        return self.query_batch([r])[0]
+        per-query program (see the module docstring)."""
+        self._validate_queries([r])
+        sel_idx, r_sel = select_query(r)
+        sel_p, r_p, mask = pad_query(sel_idx, r_sel, self.cfg.v_r)
+        vecs_sel = self._vecs_d[torch.from_numpy(
+            sel_p.astype(np.int64)).to(self.device)]
+        wmd = self._single_fn()(vecs_sel,
+                                torch.from_numpy(r_p).to(self.device),
+                                torch.from_numpy(mask).to(self.device),
+                                self._vecs_d, self._cols_d, self._vals_d)
+        wmd = wmd.cpu().numpy()
+        self._check_result(wmd, what="query distances")
+        return wmd
 
     @_serialized
     def query_batch(self, rs: Sequence[np.ndarray],
@@ -419,10 +454,16 @@ class WMDService:
 
     def top_k(self, r: np.ndarray, k: int = 10, *, prune: bool = False,
               **kw) -> tuple[np.ndarray, np.ndarray]:
-        """Nearest-k docs for one query (``prune=True``: the cascade, see
-        `top_k_batch`)."""
-        idx, dist = self.top_k_batch([r], k, prune=prune, **kw)
-        return idx[0], dist[0]
+        """Nearest-k docs for one query through `query` (``prune=True``:
+        the cascade, see `top_k_batch`, which takes ``**kw``)."""
+        if prune:
+            idx, dist = self.top_k_batch([r], k, prune=True, **kw)
+            return idx[0], dist[0]
+        if kw:
+            raise TypeError(f"top_k without prune takes no {sorted(kw)}")
+        d = self.query(r)
+        idx = self._top_k(d, k)
+        return idx, d[idx]
 
     def top_k_batch(self, rs: Sequence[np.ndarray], k: int = 10, *,
                     prune: bool = False, rerank: str = "per_query",

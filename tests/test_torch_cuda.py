@@ -303,3 +303,124 @@ def test_pruned_service_on_card_is_exact_and_counts_launches():
     full = svc.query_batch(rs)
     assert np.all(lb <= full * (1 + 1e-5) + 1e-6)
     np.testing.assert_array_equal(idx, svc._top_k(full, 5))
+
+
+# -- slice 3: the per-query program's kernels (#1, #2, #5) -------------------
+
+@pytest.mark.parametrize("shape", [(11, 320, 45, 16), (32, 1000, 70, 24),
+                                   (40, 257, 9, 8), (128, 300, 33, 8)])
+@pytest.mark.parametrize("docs_blk", [1, 7, 8, 64])
+def test_single_query_kernels_match_plain(shape, docs_blk):
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    v_r = shape[0]
+    k, km, r, u, cols, vals = (torch.from_numpy(a).to(dev) for a in
+                               _problem(5, 1, *shape, filler=0))
+    k, km, r, u = k[0], km[0], r[0], u[0]
+    x = sk.sddmm_spmm_type1(k, r, u, cols, vals, docs_blk=docs_blk)
+    d = sk.sddmm_spmm_type2(k, km, u, cols, vals, docs_blk=docs_blk)
+    x_ref = sk.sddmm_spmm_type1_plain(k, r, u, cols, vals)
+    d_ref = sk.sddmm_spmm_type2_plain(k, km, u, cols, vals)
+    torch.cuda.synchronize()
+    # sums over v_r and nnz run in another order: fp32 reassociation
+    torch.testing.assert_close(x, x_ref, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(d, d_ref, rtol=1e-4, atol=1e-6)
+    assert x.shape == (v_r, shape[2]) and d.shape == (shape[2],)
+    assert torch.all(x[v_r - 2:] == 0)     # pad query rows: exact zeros
+
+
+def test_single_query_kernels_are_the_batched_ones_at_q1_bitwise():
+    """#1 / #2 share #3 / #4's per-(query, doc) step: a query's output is
+    the batched kernels' row for it, bit for bit, at any docs_blk."""
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, km, r, u, cols, vals = (torch.from_numpy(a).to(dev) for a in
+                               _problem(6, 4, 32, 500, 61, 16))
+    xb = sk.sddmm_spmm_type1_batch(k, r, u, cols, vals)
+    db = sk.sddmm_spmm_type2_batch(k, km, u, cols, vals)
+    for q in range(4):
+        for blk in (1, 8, 61):
+            x = sk.sddmm_spmm_type1(k[q], r[q], u[q], cols, vals,
+                                    docs_blk=blk)
+            d = sk.sddmm_spmm_type2(k[q], km[q], u[q], cols, vals,
+                                    docs_blk=blk)
+            assert torch.equal(x, xb[q]) and torch.equal(d, db[q])
+
+
+@pytest.mark.parametrize("m,v,w", [(32, 1000, 300), (19, 320, 24),
+                                   (5, 77, 5), (70, 2049, 33)])
+def test_cdist_kexp_kernel_matches_plain_and_the_row_kernel(m, v, w):
+    dev = _card()
+    from repro_torch.kernels import kexp
+    rng = np.random.default_rng(11)
+    b = torch.from_numpy(rng.normal(scale=1.3, size=(v, w))
+                         .astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.choice(v, m, replace=False)).to(dev)
+    a = b[ids].contiguous()
+    k, km = kexp.cdist_kexp(a, b, lamb=1.0)
+    k_rows, km_rows = kexp.cdist_kexp_rows(a, b, lamb=1.0)
+    k_ref, km_ref = kexp.cdist_kexp_plain(a, b, lamb=1.0)
+    torch.cuda.synchronize()
+    # the same tile loop and epilogue on another tile: the same bits
+    assert torch.equal(k, k_rows) and torch.equal(km, km_rows)
+    # near the diagonal the plain spelling keeps the expansion's round-off
+    m_ref = torch.where(k_ref > 0, km_ref / k_ref, 0.0)
+    near = m_ref < 1.0
+    assert torch.all((k - k_ref).abs()[near] <= 5e-2)
+    torch.testing.assert_close(k[~near], k_ref[~near], rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(km[~near], km_ref[~near], rtol=1e-3,
+                               atol=0.0)
+    assert torch.all(k[torch.arange(m, device=dev), ids] == 1.0)
+
+
+def test_chunked_driver_on_card_matches_monolithic():
+    dev = _card()
+    from repro_torch.core import formats
+    from repro_torch.kernels import ops
+    v, n, shards = 512, 70, 4
+    k, _, r, u, cols, vals = _problem(7, 1, 24, v, n, 16, filler=0)
+    c = np.zeros((v, n), np.float32)
+    for j in range(n):
+        live = vals[j] != 0
+        c[cols[j][live], j] = vals[j][live]
+    ell = formats.ell_from_dense(c)
+    rb = formats.rebucket_for_vocab_shards(ell, shards)
+    vloc = v // shards
+    k_chunks = np.stack([np.pad(k[0][:, s * vloc:(s + 1) * vloc],
+                                ((0, 0), (0, 1))) for s in range(shards)])
+    to = lambda a: torch.from_numpy(a).to(dev)        # noqa: E731
+    got = ops.sddmm_spmm_chunked(to(k_chunks), to(r[0]), to(u[0]),
+                                 to(rb.cols), to(rb.vals))
+    full = ops.sddmm_spmm_type1(to(k[0]), to(r[0]), to(u[0]),
+                                to(ell.cols), to(ell.vals))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, full, rtol=1e-4, atol=1e-6)
+
+
+def test_service_query_is_the_batched_row_bitwise_and_counts_launches():
+    dev = _card()
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    from repro_torch.kernels import _build
+    from repro_torch.serving import WMDService
+    data = make_corpus(vocab_size=2048, embed_dim=32, num_docs=200,
+                       num_queries=1, seed=12)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=32, num_docs=200,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=13)
+    rs = [next(stream) for _ in range(5)]
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                     cache_capacity=256)
+    rows = svc.query_batch(rs)
+    _build.reset_launches()
+    single = np.stack([svc.query(r) for r in rs])
+    launches = dict(_build.launches)
+    assert launches == {"cdist_kexp": 5, "sddmm_spmm_type1": 50,
+                        "sddmm_spmm_type2": 5}
+    np.testing.assert_array_equal(single, rows)
+    # a cache-less service: the transient stripes route gives the same bits
+    off = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev)
+    for r, row in zip(rs, rows):
+        np.testing.assert_array_equal(off.query(r), row)
+        np.testing.assert_array_equal(
+            off.query_batch([r], use_cache=False)[0], row)

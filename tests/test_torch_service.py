@@ -258,3 +258,4 @@ def test_serve_launcher_runs_on_cpu(flags):
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("top5 docs") == 3
     assert ("solves avoided" in out.stdout) == ("--prune" in flags)
+    assert ("per-query Q=3" in out.stdout) == (flags == [])
