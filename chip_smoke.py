@@ -13,8 +13,9 @@ Phases (any failure exits non-zero before the result line is printed):
      `WMDService(device="cuda", cache_capacity=1024)` with its defaults
      (impl="kernel", kexp_impl="kernel") answers two Zipf batches of
      Q = 16 (19 words a query); the kernels' launch counts, read around
-     exactly those two calls, must be 15 type1 and 1 type2 launches per
-     batch and one cdist_kexp_rows launch per 128-row miss chunk;
+     exactly those two calls, must be 15 type1 and 1 type2 launches and
+     one vocab-major K copy (k_vocab_major) per batch and one
+     cdist_kexp_rows launch per 128-row miss chunk;
   4. correctness of what came out: the same batches through the plain
      engine on the same K rows (impl="fused"), through the all-plain route
      (impl="fused", kexp_impl="jnp"), cache on == use_cache=False bitwise,
@@ -27,7 +28,9 @@ Phases (any failure exits non-zero before the result line is printed):
      answers `top_k_batch(prune=True)` with k = 10 on the two batches of
      phase 3, then batch 1 again with rerank="union". The launch counts,
      read around exactly those three calls, must be: type1 15 x and type2
-     1 x the rerank programs, one lc_rwmd_bound_batch (tier 1) and one
+     1 x the rerank programs, one k_vocab_major per stripe set (each
+     query's on the per-query rerank, the batch's on the union rerank),
+     one lc_rwmd_bound_batch (tier 1) and one
      rwmd_bound_batch (tier 2) per call, one cdist per 128-row chunk of M
      misses and one cdist_kexp_rows per 128-row chunk of K misses of each
      K-cache lookup (all read from last_prune_stats and mcache_stats);
@@ -42,8 +45,9 @@ Phases (any failure exits non-zero before the result line is printed):
      16 x 5,000 pairs, and within rtol 1e-5, atol 1e-6 of the plain
      min-SDDMM on the same M stripes; then, where the time goes: batch 2
      once more through `query_batch` and both pruned reranks, warm, under
-     torch.profiler: wall time, the device's busy time and idle share, and
-     the largest device entries;
+     torch.profiler: wall time, the device's busy time and idle share, the
+     largest device entries, and the K copies in the trace, which must be
+     one per stripe set;
   8. the per-query path at paper_5k: a fresh `WMDService(device="cuda")`
      with its defaults (impl and kexp_impl "kernel", no cache) answers
      `top_k(r, 10)` for each of batch 1's 16 queries, then
@@ -60,11 +64,13 @@ Phases (any failure exits non-zero before the result line is printed):
   5. (run last, so that its launch column reads the runs of phases 3, 6
      and 8) each kernel against its plain PyTorch version at the main
      path's shapes (the per-query kernels #5, #1, #2 at one query's: v_r
-     32; #1 / #2 also bitwise against #3 / #4 at Q = 1, #5 against #6's
-     rows), with its time (CUDA events), the plain version's time, a
-     library yardstick where one exists, and the bound: the larger of the
-     bytes the function must move over 3.35 TB/s and its fp32 operations
-     over 67 TFLOP/s (H100 SXM data sheet, 700 W).
+     32; #3 bitwise against #1 on each of the 16 queries, #1 / #2 against
+     #3 / #4 at Q = 1, #5 against #6's rows, #9 against #8; the K copy
+     beside #3, and #9 beside `torch.sparse.mm`), with its time (CUDA
+     events), the plain version's time, a library yardstick where one
+     exists, and the bound: the larger of the bytes the function must move
+     over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
+     sheet, 700 W).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -105,19 +111,40 @@ def _timed(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call: the summed device time of every kernel
+    and copy that ``reps`` calls launch, from a torch.profiler trace, over
+    ``reps``. Unlike `_timed`, it leaves out the host time between launches
+    that a small kernel's CUDA-event time holds when the host, not the
+    device, sets the pace. NaN when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else float("nan")
+
+
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _device_busy(call):
+def _device_busy(call, marks=()):
     """Run ``call`` (warm) once on the host clock, then once under
     torch.profiler. Returns (wall ms, wall ms under the profiler, summed
-    device ms, the five largest device entries) from the device events of
-    the trace (kernels and copies, one stream, no overlap); the device ms
-    is None, with the reason in place of the entries, when the trace holds
-    no device time."""
+    device ms, the five largest device entries, {mark: (count, ms)} of the
+    device entries whose name holds each of ``marks``) from the device
+    events of the trace (kernels and copies, one stream, no overlap); the
+    device ms is None, with the reason in place of the entries, when the
+    trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -138,13 +165,15 @@ def _device_busy(call):
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     except Exception as e:                  # a measurement, not the path
-        return wall, float("nan"), None, f"profiler failed: {e!r}"
+        return wall, float("nan"), None, f"profiler failed: {e!r}", {}
     busy = sum(ms for ms, _, _ in dev)
     if busy <= 0:
-        return wall, wall_prof, None, "the trace holds no device events"
+        return wall, wall_prof, None, "the trace holds no device events", {}
+    marked = {m: (sum(c for _, k, c in dev if m in k),
+                  sum(ms for ms, k, _ in dev if m in k)) for m in marks}
     return wall, wall_prof, busy, ", ".join(
         f"{key[:40]} {ms:.2f} ms x{count}"
-        for ms, key, count in sorted(dev, reverse=True)[:5])
+        for ms, key, count in sorted(dev, reverse=True)[:5]), marked
 
 
 def _shares_word(batch, ell):
@@ -285,7 +314,8 @@ def main() -> int:
     chunks = sum(math.ceil(s["misses"] / svc.cache_rows_bucket)
                  for s in (stats1, stats2))
     want = {"sddmm_spmm_type1_batch": 2 * cfg.max_iter,
-            "sddmm_spmm_type2_batch": 2, "cdist_kexp_rows": chunks}
+            "sddmm_spmm_type2_batch": 2, "cdist_kexp_rows": chunks,
+            "k_vocab_major": 2}
     print(f"[main] launches {launches}, expected {want}")
     _check(launches == want, f"launch counts {launches} != {want}")
     _check(all(v > 0 for v in launches.values()), "a kernel never launched")
@@ -369,8 +399,13 @@ def main() -> int:
     peak6 = torch.cuda.max_memory_allocated()
     rb = svc6.cache_rows_bucket
     programs = sum(r[3]["rerank_programs"] for r in runs)
+    # one vocab-major K copy per stripe set: a query's on the per-query
+    # rerank, the batch's on the union rerank
+    stripe_sets = sum(len(batch) if rerank == "per_query" else 1
+                      for _, batch, rerank in calls)
     want6 = {"sddmm_spmm_type1_batch": cfg.max_iter * programs,
              "sddmm_spmm_type2_batch": programs,
+             "k_vocab_major": stripe_sets,
              "lc_rwmd_bound_batch": len(calls),
              "rwmd_bound_batch": len(calls),
              "cdist": sum(math.ceil(r[4] / rb) for r in runs),
@@ -381,7 +416,8 @@ def main() -> int:
     _check(launches6 == want6, f"pruned-path launch counts {launches6} != "
            f"{want6}")
     for name in ("cdist", "rwmd_bound_batch", "lc_rwmd_bound_batch",
-                 "sddmm_spmm_type1_batch", "sddmm_spmm_type2_batch"):
+                 "sddmm_spmm_type1_batch", "sddmm_spmm_type2_batch",
+                 "k_vocab_major"):
         _check(launches6.get(name, 0) > 0, f"{name} never launched on the "
                f"pruned path")
     for what, (idx, dist), dt, ps, m_miss in runs:
@@ -463,21 +499,30 @@ def main() -> int:
     del m_pad
 
     # -- where the time goes: the device's busy share of warm calls ----------
-    for what, call in (
+    # the trace also counts the vocab-major K copies (one per stripe set: the
+    # batch's, each query's on the per-query rerank) beside #3's launches
+    marks = ("::vocab_major_kernel", "type1_vm_kernel")
+    for what, call, copies in (
             ("query_batch, batch 2 (phase 3 path)",
-             lambda: svc.query_batch(batch2)),
+             lambda: svc.query_batch(batch2), 1),
             ("pruned per_query, batch 2", lambda: svc6.top_k_batch(
-                batch2, k_top, prune=True)),
+                batch2, k_top, prune=True), len(batch2)),
             ("pruned union, batch 2", lambda: svc6.top_k_batch(
-                batch2, k_top, prune=True, rerank="union"))):
-        wall, wall_prof, busy, kernels = _device_busy(call)
+                batch2, k_top, prune=True, rerank="union"), 1)):
+        wall, wall_prof, busy, kernels, marked = _device_busy(call, marks)
         if busy is None:
             print(f"[idle] {what}: {wall:.2f} ms wall; device time not "
                   f"measured ({kernels})")
             continue
         print(f"[idle] {what}: {wall:.2f} ms wall ({wall_prof:.2f} ms under "
               f"the profiler), device busy {busy:.2f} ms, idle share "
-              f"{1 - busy / wall:.3f}; largest device entries: {kernels}")
+              f"{1 - busy / wall:.3f}; largest device entries: {kernels}; "
+              f"K copies x{marked[marks[0]][0]} "
+              f"({marked[marks[0]][1]:.3f} ms), #3 "
+              f"x{marked[marks[1]][0]} ({marked[marks[1]][1]:.3f} ms)")
+        _check(marked[marks[0]][0] == copies, f"{what}: "
+               f"{marked[marks[0]][0]} K copies in the trace, expected "
+               f"{copies} (one per stripe set)")
 
     # -- 8. the per-query path ------------------------------------------------
     svc8 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell)
@@ -545,7 +590,7 @@ def main() -> int:
           f"n_iter {int(conv.n_iter)} of {cfg.max_iter}, delta "
           f"{float(conv.delta):.3g}; bitwise the fixed fused loop at that "
           f"n_iter; max rel vs the all-plain per-query route {rel:.3g}")
-    wall, wall_prof, busy, kernels = _device_busy(
+    wall, wall_prof, busy, kernels, _ = _device_busy(
         lambda: svc8.query(batch2[0]))
     if busy is None:
         print(f"[idle] per-query query(r): {wall:.2f} ms wall; device time "
@@ -594,20 +639,49 @@ def main() -> int:
               f"{err:.3g}")
 
     src = "src/repro_torch/kernels/csrc/sddmm_spmm.cu"
-    x_k = sddmm_spmm.sddmm_spmm_type1_batch(k_pad, r, u, cols, vals)
-    x_p = sddmm_spmm.sddmm_spmm_type1_batch_plain(k_pad, r, u, cols, vals)
+    rows = q * v_r
+    # the vocab-major K copy (once per stripe set) and #3 on it
+    k_vm = sddmm_spmm.k_vocab_major(k_pad)
+    k_vm_p = sddmm_spmm.k_vocab_major_plain(k_pad)
+    torch.cuda.synchronize()
+    _check(torch.equal(k_vm, k_vm_p), "k_vocab_major is not the transpose")
+    record("k_vocab_major", src, "src/repro/kernels/sddmm_spmm.py:239",
+           [k_vm], [k_vm_p], lambda: sddmm_spmm.k_vocab_major(k_pad),
+           lambda: sddmm_spmm.k_vocab_major_plain(k_pad),
+           nbytes=4 * 2 * rows * k_pad.shape[-1], flops=0,
+           library_fn=lambda: k_pad.transpose(1, 2).contiguous(),
+           plain_reps=10)
+    del k_vm_p
+    x_k = sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals)
+    x_p = sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r, u, cols, vals)
+    x_1 = [sddmm_spmm.sddmm_spmm_type1(k_pad[i], r[i], u[i], cols, vals)
+           for i in range(q)]
     torch.cuda.synchronize()
     torch.testing.assert_close(x_k, x_p, **TOL_KERNEL)
-    rows = q * v_r
+    for i in range(q):
+        _check(torch.equal(x_k[i], x_1[i]), f"sddmm_spmm_type1_batch (#3) "
+               f"is not sddmm_spmm_type1 (#1) on query {i}, bitwise")
+    print(f"[kernels] sddmm_spmm_type1_batch (#3, vocab-major) == "
+          f"sddmm_spmm_type1 (#1, reference layout) on each of the {q} "
+          f"queries, bitwise")
     record("sddmm_spmm_type1_batch", src,
            "src/repro/kernels/sddmm_spmm.py:239", [x_k], [x_p],
-           lambda: sddmm_spmm.sddmm_spmm_type1_batch(k_pad, r, u, cols,
-                                                     vals),
-           lambda: sddmm_spmm.sddmm_spmm_type1_batch_plain(k_pad, r, u, cols,
-                                                           vals),
+           lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols,
+                                                        vals),
+           lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r, u,
+                                                              cols, vals),
            nbytes=4 * (rows * uniq + rows + 2 * rows * n + 2 * n * nnz),
            flops=q * nnz_real * (4 * v_r + 1) + rows * n)
-    del x_k, x_p
+    ms3, ms_copy = results[-1]["ms"], results[-2]["ms"]
+    dev3 = _device_ms(lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm(
+        k_vm, r, u, cols, vals))
+    dev_copy = _device_ms(lambda: sddmm_spmm.k_vocab_major(k_pad))
+    print(f"[kernels] device time (profiler): #3 {dev3:.4f} ms, K copy "
+          f"{dev_copy:.4f} ms")
+    print(f"[kernels] a batch's Sinkhorn loop: {cfg.max_iter} x #3 + one K "
+          f"copy = {cfg.max_iter * ms3 + ms_copy:.4f} ms "
+          f"({cfg.max_iter} x {ms3:.4f} + {ms_copy:.4f})")
+    del x_k, x_p, x_1, k_vm
     d_k = sddmm_spmm.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals)
     d_p = sddmm_spmm.sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols,
                                                   vals)
@@ -799,13 +873,18 @@ def main() -> int:
           f"{full_ms:.4f} ms, plain (chunked {bdc}) {full_plain_ms:.4f} ms, "
           f"bound {full_bound:.4f} ms ({full_by}), max abs err "
           f"{float((ops._finite(lb_full) - lb_full_p).abs().max()):.3g}")
-    # lc_rwmd_bound_batch (#9): tier 1 over all N; must equal #8 bitwise
+    # lc_rwmd_bound_batch (#9): tier 1 over all N, with the blocks the
+    # cascade launches (sized from Q); must equal #8 bitwise, as must a
+    # launch walking bound_docs_chunk docs a block
     minm = min_cost_vectors(m_pad)
-    lc_k = lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e, docs_blk=bdc)
+    _check(minm.T.is_contiguous(), "min_cost_vectors is not vocab-major")
+    lc_k = lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e)
+    lc_b = lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e, docs_blk=bdc)
     lc_p = lcrwmd.lc_rwmd_bound_batch_plain(minm, cols_e, vals_e)
     torch.cuda.synchronize()
-    _check(torch.equal(lc_k, lb_full), "lc_rwmd_bound_batch (#9) is not "
-           "bitwise equal to rwmd_bound_batch (#8)")
+    _check(torch.equal(lc_k, lb_full) and torch.equal(lc_b, lb_full),
+           "lc_rwmd_bound_batch (#9) is not bitwise equal to "
+           "rwmd_bound_batch (#8)")
     print("[kernels] lc_rwmd_bound_batch == rwmd_bound_batch, bitwise, on "
           f"all {q} x {n_e} pairs")
     torch.testing.assert_close(lc_k, lc_p, rtol=1e-5, atol=1e-6)
@@ -821,12 +900,28 @@ def main() -> int:
     torch.testing.assert_close(lib, lc_p, rtol=1e-5, atol=1e-6)
     record("lc_rwmd_bound_batch", "src/repro_torch/kernels/csrc/rwmd.cu",
            "src/repro/kernels/lcrwmd.py:60", [lc_k], [lc_p],
-           lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e,
-                                              docs_blk=bdc),
+           lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e),
            lambda: lcrwmd.lc_rwmd_bound_batch_plain(minm, cols_e, vals_e),
            nbytes=4 * (q * uniq_e + 2 * n_e * nnz_e + q * n_e),
            flops=2 * q * nnz_real_e,
            library_fn=lambda: torch.sparse.mm(csr, minm_t), plain_reps=10)
+    lc = results[-1]
+    dev_lc = _device_ms(lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e,
+                                                           vals_e))
+    dev_lib = _device_ms(lambda: torch.sparse.mm(csr, minm_t))
+    # a row-major minm costs the wrapper a vocab-major copy
+    minm_rm = minm.contiguous()
+    dev_rm = _device_ms(lambda: lcrwmd.lc_rwmd_bound_batch(minm_rm, cols_e,
+                                                           vals_e))
+    ms_rm = _timed(lambda: lcrwmd.lc_rwmd_bound_batch(minm_rm, cols_e,
+                                                      vals_e), 20)
+    print(f"[kernels] lc_rwmd_bound_batch vs torch.sparse.mm, each on its "
+          f"layout made outside (minm vocab-major, as min_cost_vectors "
+          f"makes it; minm.T): CUDA events {lc['ms']:.4f} vs "
+          f"{lc['library_ms']:.4f} ms ({lc['library_ms'] / lc['ms']:.2f}x); "
+          f"device time (profiler) {dev_lc:.4f} vs {dev_lib:.4f} ms "
+          f"({dev_lib / dev_lc:.2f}x); on a row-major minm (the copy in the "
+          f"call) {ms_rm:.4f} ms events, {dev_rm:.4f} ms device")
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

@@ -84,8 +84,11 @@ def centroid_bound_batch(sel_b: torch.Tensor, r_b: torch.Tensor,
 
 def min_cost_vectors(m_pad: torch.Tensor) -> torch.Tensor:
     """(Q, v_r, V+1) M stripes -> (Q, V+1) per-vocab-word min-cost vectors
-    (pad query rows are +inf and never win; the min is exact)."""
-    return torch.amin(m_pad, dim=1)
+    (pad query rows are +inf and never win; the min is exact). Laid out
+    vocab-major in memory (the transpose of a contiguous (V+1, Q) tensor),
+    the layout the LC kernel reads, so that it needs no copy of its own:
+    the reduction runs along the stripes' rows, then one (Q, V+1) copy."""
+    return torch.amin(m_pad, dim=1).T.contiguous().T
 
 
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
@@ -97,12 +100,12 @@ def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
     impl: "fused" (plain gather + slot sum) or "kernel"
     (`kernels.ops.lc_rwmd_bound_batch`: the CUDA kernel on the card, the
     plain spelling on the CPU). docs_chunk: the plain path's doc chunks
-    (bitwise equal to unchunked), the kernel's doc tile."""
+    (bitwise equal to unchunked); the kernel sizes its own blocks (a warp
+    a document for up to 32 queries), so the kernel route ignores it."""
     if impl not in _LC_IMPLS:
         raise ValueError(f"impl must be one of {_LC_IMPLS}, got {impl!r}")
     if impl == "kernel":
-        kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
-        return ops.lc_rwmd_bound_batch(minm, cols, vals, **kw)
+        return ops.lc_rwmd_bound_batch(minm, cols, vals)
     q, n = minm.shape[0], cols.shape[0]
     u_dummy = torch.zeros((q, 1, n), dtype=minm.dtype, device=minm.device)
     lb = _chunk_over_docs(

@@ -143,9 +143,11 @@ def _check_placement(chunk_placement: str) -> None:
 
 def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
                          max_iter: int, impl: str, docs_chunk: int | None,
-                         chunk_placement: str, tol: float):
+                         chunk_placement: str, tol: float, k_vm=None):
     """Batched Sinkhorn solve on (Q, v_r, V+1) stripes. Returns (wmd,
-    n_iter, delta).
+    n_iter, delta). ``k_vm``: the kernel route's vocab-major copy of k_pad
+    when the caller made it (`vocab_major_stripes`); else it is made here,
+    once for every chunk and iteration.
 
     ``chunk_placement="solve"`` runs the chunk loop outside the Sinkhorn
     loop (each (query, chunk) block freezes at its own convergence; n_iter
@@ -156,7 +158,7 @@ def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
     """
     q, v_r = r_sel.shape
     ones_r = torch.ones_like(r_sel)
-    type1 = ss._resolve_impl("type1", impl, True)
+    type1 = ss.batched_type1(impl, k_pad, k_vm)
     type2 = ss._resolve_impl("type2", impl, True)
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
 
@@ -227,19 +229,31 @@ def build_wmd_batch_fn_stripes(*, max_iter: int, impl: str = "kernel",
                                tol: float = 0.0, with_info: bool = False):
     """The batched WMD solver on preassembled stripes (`core.kcache`).
 
-    The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b):
+    The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b, k_vm=None):
       k_b, km_b (1, Q, v_r, V+1) stripes (zero pad column, pad rows zeroed),
-      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz)
+      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz), k_vm the
+      `vocab_major_stripes` of k_b (a caller that runs several programs on
+      one stripe set makes it once; None: the program makes it)
     and returns wmd (Q, N) (plus (n_iter, delta) with ``with_info=True``).
     No ``lamb``: it is baked into the cached rows.
     """
     _check_placement(chunk_placement)
 
-    def fn(k_b, km_b, r_sel, cols_b, vals_b):
+    def fn(k_b, km_b, r_sel, cols_b, vals_b, k_vm=None):
         out = _local_batched_solve(
             k_b[0], km_b[0], r_sel, cols_b[0], vals_b[0],
             max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
-            chunk_placement=chunk_placement, tol=tol)
+            chunk_placement=chunk_placement, tol=tol, k_vm=k_vm)
         return out if with_info else out[0]
 
     return fn
+
+
+def vocab_major_stripes(k_b: torch.Tensor, impl: str):
+    """The vocab-major copy (Q, V+1, v_r) of the (1, Q, v_r, V+1) K
+    stripes that the kernel route's type1 reads, or None for the plain
+    impls (they read k_b as it is)."""
+    if impl != "kernel":
+        return None
+    from repro_torch.kernels import ops
+    return ops.k_vocab_major(k_b[0])

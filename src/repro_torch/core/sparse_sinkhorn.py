@@ -42,6 +42,7 @@ and the solvers run the plain fixed loop instead.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -218,12 +219,17 @@ def _unfused_final_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
     return sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals)
 
 
-def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None):
+def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None,
+                        k_vm=None):
     # the kernel's native cache blocking IS its doc tile: docs_chunk maps
-    # onto docs_blk instead of an outer loop (None/0 = default tile)
+    # onto docs_blk instead of an outer loop (None/0 = default tile). k_vm:
+    # the vocab-major copy of k_pad (`batched_type1` makes it once per
+    # stripe set); without it this call makes its own.
     from repro_torch.kernels import ops
     kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
-    return ops.sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, **kw)
+    if k_vm is None:
+        return ops.sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, **kw)
+    return ops.sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, **kw)
 
 
 def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
@@ -257,6 +263,21 @@ def _resolve_impl(kind: str, impl: str, batched: bool = True):
                  ("type1", True): _unfused_batch,
                  ("type2", True): _unfused_final_batch}
     return table[(kind, batched)]
+
+
+def batched_type1(impl: str, k_pad: torch.Tensor,
+                  k_vm: torch.Tensor | None = None):
+    """The batched type1 of ``impl`` for a loop over one stripe set k_pad
+    (Q, v_r, V+1). The kernel route reads the vocab-major copy of k_pad,
+    made here once (or ``k_vm``, when the caller already made it), never
+    once per launch; the plain impls read k_pad as it is."""
+    type1 = _resolve_impl("type1", impl, True)
+    if impl != "kernel":
+        return type1
+    if k_vm is None:
+        from repro_torch.kernels import ops
+        k_vm = ops.k_vocab_major(k_pad)
+    return functools.partial(type1, k_vm=k_vm)
 
 
 def _iteration(impl: str, pre_kpad: torch.Tensor, r_sel: torch.Tensor,
@@ -359,7 +380,7 @@ def _solve_batch_stripes(k_pad, km_pad, r_sel, cols, vals, *, max_iter: int,
     column already appended)."""
     q, v_r = r_sel.shape
     n = cols.shape[0]
-    type1 = _resolve_impl("type1", impl, True)
+    type1 = batched_type1(impl, k_pad)
     type2 = _resolve_impl("type2", impl, True)
     x0 = torch.full((q, v_r, n), 1.0 / v_r, dtype=k_pad.dtype,
                     device=k_pad.device)

@@ -38,6 +38,7 @@ launches: collections.Counter = collections.Counter()
 ptxas_log: dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 
@@ -106,6 +107,19 @@ def library(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _libs[name]
     return lib
+
+
+def function(source: str, name: str, argtypes: list):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` with its argument
+    types set (once: a launch then pays only for the call) and an int
+    return value (the launch's cudaError)."""
+    fn = _fns.get((source, name))
+    if fn is None:
+        fn = getattr(library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(source, name)] = fn
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

@@ -40,9 +40,7 @@ def cdist(a: torch.Tensor, b: torch.Tensor, *,
     m, w, v = kexp.check_rows(name, a, b)
     out = torch.empty((m, v), dtype=torch.float32, device=a.device)
     if m and v:
-        fn = _build.library("kexp").cdist_rows
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn = _build.function("kexp", "cdist_rows", _ARGTYPES)
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, v, w,
                  int(squared), torch.cuda.current_stream().cuda_stream)
         _build.check_launch(name, err)

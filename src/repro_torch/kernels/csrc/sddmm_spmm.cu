@@ -1,5 +1,6 @@
 // Fused SDDMM-SpMM for the Sinkhorn-WMD iteration (type1) and the final
-// distance (type2), single-query and batched, sm_90a, plain CUDA C++.
+// distance (type2), single-query and batched, sm_90a, plain CUDA C++; and
+// the vocab-major copy of the K stripes that the batched type1 reads.
 //
 // Replaces four Pallas TPU kernels:
 //   * `sddmm_spmm_type1_batch` / `sddmm_spmm_type2_batch`
@@ -15,32 +16,48 @@
 //   acc += KM[q, :, cols[j,s]] * v     type2
 // type1 writes x[q, :, j] = acc / r[q, :]; type2 writes wmd[q, j] = <u, acc>.
 //
-// Design: one warp per (q, j); lane l holds query-word rows l, l+32, ...
-// (R rows, R = ceil(v_r / 32) <= 4). The K column of a slot is loaded once
-// into registers and feeds both the dot (a warp butterfly reduction) and
-// the accumulation, as the TPU kernel's single VMEM gather does. A block of
-// min(docs_blk, 8) warps walks the docs_blk documents of its tile. That
-// step (`doc_tile`) is one device function; two grids call it: the batched
-// grid (ceil(N / docs_blk), Q) and the single-query grid ceil(N / docs_blk).
-// A single-query launch is therefore the batched launch at Q = 1, bit for
-// bit.
+// One warp per (q, j); lane l holds query-word rows l, l+32, ... (R rows,
+// R = ceil(v_r / 32) <= 4). The K column of a slot is loaded once into
+// registers and feeds both the dot (a warp butterfly reduction) and the
+// accumulation, as the TPU kernel's single VMEM gather does. The per-slot
+// arithmetic (`slot_dot_part`, `warp_sum`, `slot_v`, `slot_accumulate`,
+// explicitly rounded) is shared by two tiles that differ only in where a
+// column comes from and how many slots are in flight:
 //
-// What bounds it on an H100: memory traffic. Per slot it reads v_r floats
-// of K (and of K*M for type2) at stride V+1 (the reference layout
-// (Q, v_r, V+1)), so each lane touches its own 32-byte sector: the loads
-// move 8x the useful bytes. The arithmetic is 4 flops per row per slot,
-// far below the fp32 rate. A vocab-major copy of K would make a column one
-// 128-byte line; that is a later optimisation, not done here. At Q = 1
-// (one query's 12.8 MB stripe, resident in the 50 MB L2) the work is too
-// small to fill the card for long: launch and latency bound it.
+//  * `doc_tile` reads K in the reference layout (Q, v_r, V+1): a column is
+//    v_r floats at stride V+1, one 32-byte sector per lane (8x the useful
+//    bytes), one slot at a time. #4 (batched grid), #1 and #2 (the
+//    single-query grid, so a single-query launch is the batched launch at
+//    Q = 1, bit for bit) run it.
+//  * `type1_vm_kernel`, #3, reads the vocab-major copy (Q, V+1, v_r) that
+//    `vocab_major_kernel` makes once per stripe set (the solve loop's or
+//    the rerank's, never once per launch): a column is one 128-byte line at
+//    v_r = 32. A warp lists its document's live slots in shared memory, 32
+//    slots a stage, and walks the list G = 8 / R slots at a time: G column
+//    loads in flight, the G dots summed at once by a reduce-scatter that
+//    pairs lanes as `warp_sum` does (the same bits, 9 shuffles instead of
+//    40 at G = 8), one division a lane group, and the G columns folded into
+//    acc strictly in slot order.
+//
+// What bounds them on an H100. The arithmetic is 4 flops per row per slot,
+// far below the fp32 rate; `doc_tile` is bound by memory traffic. #3 moves
+// 1/8 of doc_tile's sectors (the touched K columns are about 3.4 MB a query
+// at paper_5k, L2-resident); what is left is the issue rate of its
+// per-slot instructions and the latency of each warp's chain, which the
+// slots in flight and the reduce-scatter shorten. The copy moves the whole
+// stripe set once (205 MB read and written at Q = 16): a tiled transpose
+// at the HBM rate. At Q = 1 (one query's 12.8 MB stripe, resident in the
+// 50 MB L2) the work is too small to fill the card for long: launch and
+// latency bound #1 and #2.
 //
 // Exactness: every output element is one warp's fixed-order sum, with no
 // atomics and no dependence on docs_blk or on other documents, so the
-// port's bitwise contracts (chunked == unchunked, cache on == off) hold.
-// Pad slots (vals == 0) are skipped: they add exactly +0. Pad query rows
-// (all-zero K, r = 1) and Q-filler queries (all-zero K, so w = 0 and
-// v = val / 1e-30 times a zero column) come out as exact zeros. Compiled
-// without --use_fast_math: IEEE division is part of that contract.
+// port's bitwise contracts (chunked == unchunked, cache on == off) hold,
+// and #3 equals #1 query by query. Pad slots (vals == 0) are skipped: they
+// add exactly +0. Pad query rows (all-zero K, r = 1) and Q-filler queries
+// (all-zero K, so w = 0 and v = val / 1e-30 times a zero column) come out
+// as exact zeros. Compiled without --use_fast_math: IEEE division is part
+// of that contract.
 
 #include <cuda_runtime.h>
 
@@ -49,18 +66,73 @@ namespace {
 constexpr float kTiny = 1e-30f;
 constexpr int kWarp = 32;
 constexpr int kMaxWarpsPerBlock = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+// -- the per-slot arithmetic every tile shares ------------------------------
 
 __device__ __forceinline__ float warp_sum(float x) {
   // xor butterfly: every lane ends with the same bits (fp add commutes)
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
+    x += __shfl_xor_sync(kFull, x, off);
   return x;
 }
 
-// One query's documents j0 .. j_end-1, one warp per document: the shared
-// per-(query, doc) step of the single-query and the batched grids. Pointers
-// are the query's own: k / km (v_r, vp1), r (v_r), u and x (v_r, n), wmd (n).
+// this lane's share of <a, b> over its R rows
+template <int R>
+__device__ __forceinline__ float slot_dot_part(const float (&a)[R],
+                                               const float (&b)[R]) {
+  float part = 0.f;
+#pragma unroll
+  for (int t = 0; t < R; ++t) part = __fmaf_rn(a[t], b[t], part);
+  return part;
+}
+
+// val / max(w, TINY), with a max that, like the reference's maximum, keeps
+// a NaN
+__device__ __forceinline__ float slot_v(float val, float w) {
+  return __fdiv_rn(val, w < kTiny ? kTiny : w);
+}
+
+template <int R>
+__device__ __forceinline__ void slot_accumulate(float (&acc)[R],
+                                                const float (&col)[R],
+                                                float v) {
+#pragma unroll
+  for (int t = 0; t < R; ++t) acc[t] = __fmaf_rn(col[t], v, acc[t]);
+}
+
+template <int R>
+__device__ __forceinline__ void load_u(float (&uj)[R], float (&acc)[R],
+                                       const float* __restrict__ uq, int v_r,
+                                       int n, int j) {
+  const int lane = threadIdx.x % kWarp;
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int i = lane + t * kWarp;
+    uj[t] = i < v_r ? uq[(size_t)i * n + j] : 0.f;
+    acc[t] = 0.f;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_x(const float (&acc)[R],
+                                        const float* __restrict__ rq,
+                                        float* __restrict__ xq, int v_r,
+                                        int n, int j) {
+  const int lane = threadIdx.x % kWarp;
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int i = lane + t * kWarp;
+    if (i < v_r) xq[(size_t)i * n + j] = __fdiv_rn(acc[t], rq[i]);
+  }
+}
+
+// -- reference layout: #1, #2, #4 -------------------------------------------
+
+// One query's documents j0 .. j_end-1, one warp per document, K in the
+// reference layout. Pointers are the query's own: k / km (v_r, vp1),
+// r (v_r), u and x (v_r, n), wmd (n).
 template <int R, bool kType2>
 __device__ __forceinline__ void doc_tile(
     const float* __restrict__ kq, const float* __restrict__ kmq,
@@ -73,12 +145,7 @@ __device__ __forceinline__ void doc_tile(
   const int warps = blockDim.x / kWarp;
   for (int j = j0 + warp; j < j_end; j += warps) {
     float uj[R], acc[R];
-#pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const int i = lane + t * kWarp;
-      uj[t] = i < v_r ? uq[(size_t)i * n + j] : 0.f;
-      acc[t] = 0.f;
-    }
+    load_u<R>(uj, acc, uq, v_r, n, j);
     const int* cj = cols + (size_t)j * nnz;
     const float* vj = vals + (size_t)j * nnz;
     for (int s = 0; s < nnz; ++s) {
@@ -86,67 +153,56 @@ __device__ __forceinline__ void doc_tile(
       if (val == 0.f) continue;              // pad slot: adds exactly +0
       const size_t c = (size_t)cj[s];
       float kc[R];
-      float part = 0.f;
 #pragma unroll
       for (int t = 0; t < R; ++t) {
         const int i = lane + t * kWarp;
         kc[t] = i < v_r ? kq[(size_t)i * vp1 + c] : 0.f;
-        part += kc[t] * uj[t];
       }
-      const float w = warp_sum(part);
-      // max(w, TINY) that, like the reference's maximum, keeps a NaN
-      const float v = val / (w < kTiny ? kTiny : w);
+      const float v = slot_v(val, warp_sum(slot_dot_part<R>(kc, uj)));
+      if (kType2) {
+        float kmc[R];
 #pragma unroll
-      for (int t = 0; t < R; ++t) {
-        const int i = lane + t * kWarp;
-        float col = kc[t];
-        if (kType2) col = i < v_r ? kmq[(size_t)i * vp1 + c] : 0.f;
-        acc[t] += col * v;
+        for (int t = 0; t < R; ++t) {
+          const int i = lane + t * kWarp;
+          kmc[t] = i < v_r ? kmq[(size_t)i * vp1 + c] : 0.f;
+        }
+        slot_accumulate<R>(acc, kmc, v);
+      } else {
+        slot_accumulate<R>(acc, kc, v);
       }
     }
     if (kType2) {
-      float part = 0.f;
-#pragma unroll
-      for (int t = 0; t < R; ++t) part += uj[t] * acc[t];
-      const float d = warp_sum(part);
+      const float d = warp_sum(slot_dot_part<R>(uj, acc));
       if (lane == 0) outq[j] = d;
     } else {
-#pragma unroll
-      for (int t = 0; t < R; ++t) {
-        const int i = lane + t * kWarp;
-        if (i < v_r) outq[(size_t)i * n + j] = acc[t] / rq[i];
-      }
+      store_x<R>(acc, rq, outq, v_r, n, j);
     }
   }
 }
 
-// The batched grid, (ceil(N / docs_blk), Q): block (tile, q) walks query
-// q's documents of its tile.
-template <int R, bool kType2>
-__global__ void sddmm_spmm_batch_kernel(
+// #4, the batched type2 grid, (ceil(N / docs_blk), Q): block (tile, q)
+// walks query q's documents of its tile.
+template <int R>
+__global__ void type2_batch_kernel(
     const float* __restrict__ k,     // (Q, v_r, vp1)
-    const float* __restrict__ km,    // (Q, v_r, vp1), type2 only
-    const float* __restrict__ r,     // (Q, v_r), type1 only
+    const float* __restrict__ km,    // (Q, v_r, vp1)
     const float* __restrict__ u,     // (Q, v_r, N)
     const int* __restrict__ cols,    // (N, nnz)
     const float* __restrict__ vals,  // (N, nnz)
-    float* __restrict__ out,         // type1 x (Q, v_r, N); type2 wmd (Q, N)
+    float* __restrict__ wmd,         // (Q, N)
     int v_r, int vp1, int n, int nnz, int docs_blk) {
   const size_t q = blockIdx.y;
   const size_t stripe = (size_t)v_r * vp1;
   const int j0 = blockIdx.x * docs_blk;
-  doc_tile<R, kType2>(k + q * stripe, kType2 ? km + q * stripe : nullptr,
-                      kType2 ? nullptr : r + q * v_r, u + q * v_r * n, cols,
-                      vals, out + (kType2 ? q * n : q * v_r * n), v_r, vp1,
-                      n, nnz, j0, min(j0 + docs_blk, n));
+  doc_tile<R, true>(k + q * stripe, km + q * stripe, nullptr,
+                    u + q * v_r * n, cols, vals, wmd + q * n, v_r, vp1, n,
+                    nnz, j0, min(j0 + docs_blk, n));
 }
 
-// The single-query grid, ceil(N / docs_blk) blocks: one query's (v_r, vp1)
-// stripes, r (v_r), u (v_r, N) -> x (v_r, N) or wmd (N). The same step as
-// the batched grid, so its output is the batched grid's at Q = 1, bit for
-// bit.
+// #1 / #2, the single-query grid, ceil(N / docs_blk) blocks: one query's
+// (v_r, vp1) stripes, r (v_r), u (v_r, N) -> x (v_r, N) or wmd (N).
 template <int R, bool kType2>
-__global__ void sddmm_spmm_query_kernel(
+__global__ void query_kernel(
     const float* __restrict__ k, const float* __restrict__ km,
     const float* __restrict__ r, const float* __restrict__ u,
     const int* __restrict__ cols, const float* __restrict__ vals,
@@ -157,55 +213,223 @@ __global__ void sddmm_spmm_query_kernel(
                       min(j0 + docs_blk, n));
 }
 
-template <int R, bool kType2>
-void launch_grid(bool batched, dim3 grid, dim3 block, cudaStream_t stream,
-                 const float* k, const float* km, const float* r,
-                 const float* u, const int* cols, const float* vals,
-                 float* out, int v_r, int vp1, int n, int nnz, int docs_blk) {
-  if (batched)
-    sddmm_spmm_batch_kernel<R, kType2><<<grid, block, 0, stream>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
-  else
-    sddmm_spmm_query_kernel<R, kType2><<<grid, block, 0, stream>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+// -- vocab-major: #3 and its K copy -----------------------------------------
+
+// The G slots' warp sums at once (G a power of two <= 32): a reduce-scatter
+// that pairs lanes exactly as warp_sum's butterfly does (own + partner's at
+// xor distance 16, 8, ..., 1), so every slot's sum has warp_sum's bits. The
+// first log2(G) levels halve the slots a lane carries instead of
+// duplicating them; lane l ends with the sum of slot l >> (5 - log2 G).
+// G - 1 + 5 - log2(G) shuffles instead of 5 G.
+template <int G>
+__device__ __forceinline__ float warp_sum_scatter(float (&p)[G]) {
+  const int lane = threadIdx.x % kWarp;
+  int off = kWarp / 2;
+#pragma unroll
+  for (int m = G; m > 1; m >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int k = 0; k < m / 2; ++k) {
+      const float keep = upper ? p[k + m / 2] : p[k];
+      const float send = upper ? p[k] : p[k + m / 2];
+      p[k] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+  float x = p[0];
+#pragma unroll
+  for (; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
 }
 
-// batched: the (tiles, q) grid; else the single-query grid (q == 1).
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+// #3, the batched type1 grid (ceil(N / docs_blk), Q) on the vocab-major
+// copy: block (tile, q) walks query q's documents of its tile, one warp a
+// document. The warp loads its document's slots 32 at a time (one
+// coalesced load of cols and of vals, a slot a lane) and compacts the live
+// ones, in slot order, into its shared-memory list (pad slots, val 0, add
+// exactly +0 and are dropped). It then walks the list G = 8 / R slots at a
+// time: G column loads in flight, the G dots reduced at once
+// (`warp_sum_scatter`), lane group g computing slot g's v, and the G
+// columns folded into acc in slot order.
+template <int R>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
+type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
+                const float* __restrict__ r,     // (Q, v_r)
+                const float* __restrict__ u,     // (Q, v_r, N)
+                const int* __restrict__ cols,    // (N, nnz)
+                const float* __restrict__ vals,  // (N, nnz)
+                float* __restrict__ x,           // (Q, v_r, N)
+                int v_r, int vp1, int n, int nnz, int docs_blk) {
+  constexpr int G = 8 / R;
+  constexpr int kShift = 5 - log2i(G);       // lane >> kShift: its slot
+  __shared__ int s_col[kMaxWarpsPerBlock][kWarp];
+  __shared__ float s_val[kMaxWarpsPerBlock][kWarp];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int my_g = lane >> kShift;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  const size_t q = blockIdx.y;
+  const float* kq = kvm + q * vp1 * v_r;
+  const float* rq = r + q * v_r;
+  const float* uq = u + q * v_r * n;
+  float* xq = x + q * v_r * n;
+  int* sc = s_col[warp];
+  float* sv = s_val[warp];
+  const int j0 = blockIdx.x * docs_blk;
+  const int j_end = min(j0 + docs_blk, n);
+  for (int j = j0 + warp; j < j_end; j += warps) {
+    float uj[R], acc[R];
+    load_u<R>(uj, acc, uq, v_r, n, j);
+    const int* cj = cols + (size_t)j * nnz;
+    const float* vj = vals + (size_t)j * nnz;
+    for (int s0 = 0; s0 < nnz; s0 += kWarp) {
+      const int s = s0 + lane;
+      const int c = s < nnz ? cj[s] : 0;
+      const float val = s < nnz ? vj[s] : 0.f;
+      const unsigned live = __ballot_sync(kFull, val != 0.f);
+      const int count = __popc(live);
+      if (val != 0.f) {
+        const int at = __popc(live & below);
+        sc[at] = c;
+        sv[at] = val;
+      }
+      __syncwarp();
+      for (int k = 0; k < count; k += G) {
+        float col[G][R], part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const bool ok = k + g < count;
+          const size_t cc = ok ? (size_t)sc[k + g] : 0;
+#pragma unroll
+          for (int t = 0; t < R; ++t) {
+            const int i = lane + t * kWarp;
+            col[g][t] = ok && i < v_r ? kq[cc * v_r + i] : 0.f;
+          }
+          part[g] = slot_dot_part<R>(col[g], uj);
+        }
+        const float w = warp_sum_scatter<G>(part);
+        const int mine = k + my_g;
+        const float v_mine = mine < count ? slot_v(sv[mine], w) : 0.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float v = __shfl_sync(kFull, v_mine, g << kShift);
+          if (k + g < count) slot_accumulate<R>(acc, col[g], v);
+        }
+      }
+      __syncwarp();                          // the next stage overwrites
+    }
+    store_x<R>(acc, rq, xq, v_r, n, j);
+  }
+}
+
+// (B, rows, cols) -> (B, cols, rows) through 32 x 32 tiles in shared
+// memory, reads along cols and writes along rows both coalesced: the K
+// stripes (Q, v_r, V+1) -> the vocab-major copy (Q, V+1, v_r). Block
+// (x, y, z), of kWarp x kTileRows threads, moves tile (x, y) of batch z.
+constexpr int kTileRows = 8;
+
+__global__ void vocab_major_kernel(const float* __restrict__ src,
+                                   float* __restrict__ dst, int rows,
+                                   int cols) {
+  __shared__ float tile[kWarp][kWarp + 1];
+  const size_t off = (size_t)blockIdx.z * rows * cols;
+  const int c0 = blockIdx.x * kWarp;
+  const int r0 = blockIdx.y * kWarp;
+  for (int dy = threadIdx.y; dy < kWarp; dy += kTileRows) {
+    const int rr = r0 + dy, cc = c0 + threadIdx.x;
+    if (rr < rows && cc < cols)
+      tile[dy][threadIdx.x] = src[off + (size_t)rr * cols + cc];
+  }
+  __syncthreads();
+  for (int dy = threadIdx.y; dy < kWarp; dy += kTileRows) {
+    const int cc = c0 + dy, rr = r0 + threadIdx.x;
+    if (cc < cols && rr < rows)
+      dst[off + (size_t)cc * rows + rr] = tile[threadIdx.x][dy];
+  }
+}
+
+// -- launchers ---------------------------------------------------------------
+
+bool bad_shape(int q, int v_r, int n, int docs_blk) {
+  return q <= 0 || q > 65535 || n <= 0 || v_r <= 0 || v_r > 4 * kWarp ||
+         docs_blk <= 0;
+}
+
+dim3 tile_grid(int n, int docs_blk, int q) {
+  return dim3((n + docs_blk - 1) / docs_blk, q);
+}
+
+dim3 tile_block(int docs_blk) {
+  return dim3((docs_blk < kMaxWarpsPerBlock ? docs_blk : kMaxWarpsPerBlock) *
+              kWarp);
+}
+
+int rows_per_lane(int v_r) { return (v_r + kWarp - 1) / kWarp; }
+
 template <bool kType2>
-int launch(const float* k, const float* km, const float* r, const float* u,
-           const int* cols, const float* vals, float* out, int q,
-           bool batched, int v_r, int vp1, int n, int nnz, int docs_blk,
-           cudaStream_t stream) {
-  if (q <= 0 || q > 65535 || (!batched && q != 1) || n <= 0 || v_r <= 0 ||
-      v_r > 4 * kWarp || docs_blk <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int warps = docs_blk < kMaxWarpsPerBlock ? docs_blk : kMaxWarpsPerBlock;
-  const dim3 grid((n + docs_blk - 1) / docs_blk, q);
-  const dim3 block(warps * kWarp);
-  const int rows = (v_r + kWarp - 1) / kWarp;
+int launch_query(const float* k, const float* km, const float* r,
+                 const float* u, const int* cols, const float* vals,
+                 float* out, int v_r, int vp1, int n, int nnz, int docs_blk,
+                 cudaStream_t st) {
+  if (bad_shape(1, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, 1), block = tile_block(docs_blk);
+  const int rows = rows_per_lane(v_r);
   if (rows == 1)
-    launch_grid<1, kType2>(batched, grid, block, stream, k, km, r, u, cols,
-                           vals, out, v_r, vp1, n, nnz, docs_blk);
+    query_kernel<1, kType2><<<grid, block, 0, st>>>(
+        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
   else if (rows == 2)
-    launch_grid<2, kType2>(batched, grid, block, stream, k, km, r, u, cols,
-                           vals, out, v_r, vp1, n, nnz, docs_blk);
+    query_kernel<2, kType2><<<grid, block, 0, st>>>(
+        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
   else
-    launch_grid<4, kType2>(batched, grid, block, stream, k, km, r, u, cols,
-                           vals, out, v_r, vp1, n, nnz, docs_blk);
+    query_kernel<4, kType2><<<grid, block, 0, st>>>(
+        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int sddmm_spmm_type1_batch(const void* k, const void* r,
+// #3 on the vocab-major copy kvm (Q, V+1, v_r).
+extern "C" int sddmm_spmm_type1_batch(const void* kvm, const void* r,
                                       const void* u, const void* cols,
                                       const void* vals, void* x, int q,
                                       int v_r, int vp1, int n, int nnz,
                                       int docs_blk, void* stream) {
-  return launch<false>((const float*)k, nullptr, (const float*)r,
-                       (const float*)u, (const int*)cols, (const float*)vals,
-                       (float*)x, q, true, v_r, vp1, n, nnz, docs_blk,
-                       (cudaStream_t)stream);
+  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* kp = (const float*)kvm;
+  const float* rp = (const float*)r;
+  const float* up = (const float*)u;
+  const int* cp = (const int*)cols;
+  const float* vp = (const float*)vals;
+  float* xp = (float*)x;
+  const int rows = rows_per_lane(v_r);
+  if (rows == 1)
+    type1_vm_kernel<1><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
+                                               vp1, n, nnz, docs_blk);
+  else if (rows == 2)
+    type1_vm_kernel<2><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
+                                               vp1, n, nnz, docs_blk);
+  else
+    type1_vm_kernel<4><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
+                                               vp1, n, nnz, docs_blk);
+  return (int)cudaGetLastError();
+}
+
+// The vocab-major copy: src (b, rows, cols) -> dst (b, cols, rows).
+extern "C" int k_vocab_major(const void* src, void* dst, int b, int rows,
+                             int cols, void* stream) {
+  if (b <= 0 || b > 65535 || rows <= 0 || cols <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + kWarp - 1) / kWarp, (rows + kWarp - 1) / kWarp, b);
+  vocab_major_kernel<<<grid, dim3(kWarp, kTileRows), 0,
+                       (cudaStream_t)stream>>>((const float*)src,
+                                               (float*)dst, rows, cols);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int sddmm_spmm_type2_batch(const void* k, const void* km,
@@ -213,28 +437,44 @@ extern "C" int sddmm_spmm_type2_batch(const void* k, const void* km,
                                       const void* vals, void* wmd, int q,
                                       int v_r, int vp1, int n, int nnz,
                                       int docs_blk, void* stream) {
-  return launch<true>((const float*)k, (const float*)km, nullptr,
-                      (const float*)u, (const int*)cols, (const float*)vals,
-                      (float*)wmd, q, true, v_r, vp1, n, nnz, docs_blk,
-                      (cudaStream_t)stream);
+  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* kp = (const float*)k;
+  const float* kmp = (const float*)km;
+  const float* up = (const float*)u;
+  const int* cp = (const int*)cols;
+  const float* vp = (const float*)vals;
+  float* out = (float*)wmd;
+  const int rows = rows_per_lane(v_r);
+  if (rows == 1)
+    type2_batch_kernel<1><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
+                                                  v_r, vp1, n, nnz, docs_blk);
+  else if (rows == 2)
+    type2_batch_kernel<2><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
+                                                  v_r, vp1, n, nnz, docs_blk);
+  else
+    type2_batch_kernel<4><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
+                                                  v_r, vp1, n, nnz, docs_blk);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int sddmm_spmm_type1(const void* k, const void* r, const void* u,
                                 const void* cols, const void* vals, void* x,
                                 int v_r, int vp1, int n, int nnz,
                                 int docs_blk, void* stream) {
-  return launch<false>((const float*)k, nullptr, (const float*)r,
-                       (const float*)u, (const int*)cols, (const float*)vals,
-                       (float*)x, 1, false, v_r, vp1, n, nnz, docs_blk,
-                       (cudaStream_t)stream);
+  return launch_query<false>((const float*)k, nullptr, (const float*)r,
+                             (const float*)u, (const int*)cols,
+                             (const float*)vals, (float*)x, v_r, vp1, n, nnz,
+                             docs_blk, (cudaStream_t)stream);
 }
 
 extern "C" int sddmm_spmm_type2(const void* k, const void* km, const void* u,
                                 const void* cols, const void* vals, void* wmd,
                                 int v_r, int vp1, int n, int nnz,
                                 int docs_blk, void* stream) {
-  return launch<true>((const float*)k, (const float*)km, nullptr,
-                      (const float*)u, (const int*)cols, (const float*)vals,
-                      (float*)wmd, 1, false, v_r, vp1, n, nnz, docs_blk,
-                      (cudaStream_t)stream);
+  return launch_query<true>((const float*)k, (const float*)km, nullptr,
+                            (const float*)u, (const int*)cols,
+                            (const float*)vals, (float*)wmd, v_r, vp1, n, nnz,
+                            docs_blk, (cudaStream_t)stream);
 }

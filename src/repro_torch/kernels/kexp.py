@@ -67,9 +67,7 @@ def _kexp(name: str, a: torch.Tensor, b: torch.Tensor,
     k = torch.empty((m, v), dtype=torch.float32, device=a.device)
     km = torch.empty_like(k)
     if m and v:
-        fn = getattr(_build.library("kexp"), name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn = _build.function("kexp", name, _ARGTYPES)
         err = fn(a.data_ptr(), b.data_ptr(), k.data_ptr(), km.data_ptr(),
                  m, v, w, float(lamb), torch.cuda.current_stream().cuda_stream)
         _build.check_launch(name, err)

@@ -10,8 +10,8 @@ Port of the Pallas kernel `repro.kernels.lcrwmd.lc_rwmd_bound_batch`, tier
 An all-pad filler query has an all-+inf minm row and comes out +inf, which
 `kernels.ops` finite-izes to 0.
 
-`lc_rwmd_bound_batch` launches ``csrc/rwmd.cu`` (CUDA tensors only); it
-shares its accumulation step with the min-SDDMM kernel, so the two are
+`lc_rwmd_bound_batch` launches ``csrc/rwmd.cu`` (CUDA tensors only) on minm
+read vocab-major, (V+1, Q); it shares its accumulation step with the min-SDDMM kernel, so the two are
 bitwise equal. `lc_rwmd_bound_batch_plain` is the gather + slot sum spelling
 of `core.cascade`, sharing `kernels.rwmd.slot_dot` with the min-SDDMM's
 plain version for the same reason.
@@ -31,29 +31,35 @@ def lc_rwmd_bound_batch_plain(minm: torch.Tensor, cols: torch.Tensor,
     return slot_dot(minm[:, cols], vals)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
-                        vals: torch.Tensor, *, docs_blk: int = 8
+                        vals: torch.Tensor, *, docs_blk: int | None = None
                         ) -> torch.Tensor:
     """CUDA LC sparse dot. minm (Q, V+1) f32, cols int32 / vals f32
     (N, nnz) with every col in [0, V]. Returns the raw (Q, N) bounds.
-    ``docs_blk`` documents per block (results do not depend on it)."""
+
+    The kernel reads minm vocab-major, from ``minm.T`` (V+1, Q): free when
+    minm lies so in memory, as `core.cascade.min_cost_vectors` makes it;
+    a copy here otherwise. A block holds 4 warps, one document a warp at a
+    time for up to 32 queries, whatever Q. ``docs_blk`` is the docs a block
+    walks, rounded up to a multiple of 4 (None: 4). Results do not depend
+    on it."""
     name = "lc_rwmd_bound_batch"
-    check_ell(name, minm, cols, vals, docs_blk)
+    docs_blk = 1 if docs_blk is None else docs_blk
     if minm.dim() != 2:
         raise ValueError(f"{name}: minm must be (Q, V+1), got "
                          f"{tuple(minm.shape)}")
-    q, vp1 = minm.shape
+    minm_vm = minm.T.contiguous()            # (V+1, Q)
+    check_ell(name, minm_vm, cols, vals, docs_blk)
+    q = minm.shape[0]
     n, nnz = cols.shape
     lb = torch.empty((q, n), dtype=torch.float32, device=minm.device)
     if q and n:
-        fn = _build.library("rwmd").lc_rwmd_bound_batch
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err = fn(minm.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                 lb.data_ptr(), q, vp1, n, nnz, docs_blk,
-                 torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(name, err)
+        fn = _build.function("rwmd", name, _ARGTYPES)
+        _build.check_launch(name, fn(
+            minm_vm.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            lb.data_ptr(), q, n, nnz, docs_blk,
+            torch.cuda.current_stream().cuda_stream))
     return lb

@@ -10,7 +10,11 @@ and falls back.
 Padding rules differ from the TPU wrappers on purpose: the CUDA kernels
 mask their own ragged edges (any v_r up to 128, any Q, N and nnz), so v_r,
 Q and docs are not padded to tile multiples here and no (Q, v_r, V+1)
-stripe is ever copied for alignment. What remains of the reference's rules
+stripe is ever copied for alignment. One copy is made for layout: the
+batched type1 reads K vocab-major (`k_vocab_major`,
+`sddmm_spmm_type1_batch_vm`), and the solve loops and reranks make that
+copy once per stripe set, on both devices (on the CPU it feeds the same
+gather as the reference layout). What remains of the reference's rules
 is the caller's: K carries its zero pad column (ELL pad slots gather it),
 pad query rows carry r = 1 and an all-zero K row, and Q-filler queries an
 all-zero K, all of which the kernels turn into exact zeros. The bound wrappers keep
@@ -72,19 +76,41 @@ def sddmm_spmm_chunked(k_chunks: torch.Tensor, r_sel: torch.Tensor,
     return x / r_sel[:, None]
 
 
+def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
+    """The vocab-major copy (Q, V+1, v_r) of K stripes (Q, v_r, V+1) that
+    the batched type1 reads: a caller that runs several type1 launches on
+    one stripe set (a Sinkhorn loop, a rerank) makes it once."""
+    if k_pad.is_cuda:
+        return _sddmm_spmm.k_vocab_major(k_pad.contiguous())
+    return _sddmm_spmm.k_vocab_major_plain(k_pad)
+
+
+def sddmm_spmm_type1_batch_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
+                              u: torch.Tensor, cols: torch.Tensor,
+                              vals: torch.Tensor, *,
+                              docs_blk: int = 8) -> torch.Tensor:
+    """Batched fused iteration body on the vocab-major copy k_vm
+    (Q, V+1, v_r) of `k_vocab_major`; otherwise `sddmm_spmm_type1_batch`,
+    bit for bit."""
+    if k_vm.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type1_batch_vm(
+            k_vm.contiguous(), r_sel.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols,
+                                                       vals)
+
+
 def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
                            vals: torch.Tensor, *,
                            docs_blk: int = 8) -> torch.Tensor:
     """Batched fused iteration body: k_pad (Q, v_r, V+1), r_sel (Q, v_r),
     u (Q, v_r, N), cols/vals (N, nnz) -> x (Q, v_r, N). ``docs_blk`` is the
-    kernel's doc tile (results do not depend on it)."""
-    if k_pad.is_cuda:
-        return _sddmm_spmm.sddmm_spmm_type1_batch(
-            k_pad.contiguous(), r_sel.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type1_batch_plain(k_pad, r_sel, u, cols,
-                                                    vals)
+    kernel's doc tile (results do not depend on it). Makes the vocab-major
+    copy of k_pad for this one call: loops take `k_vocab_major` once and
+    call `sddmm_spmm_type1_batch_vm`."""
+    return sddmm_spmm_type1_batch_vm(k_vocab_major(k_pad), r_sel, u, cols,
+                                     vals, docs_blk=docs_blk)
 
 
 def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
@@ -146,13 +172,14 @@ def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
 
 
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
-                        vals: torch.Tensor, *, docs_blk: int = 8
+                        vals: torch.Tensor, *, docs_blk: int | None = None
                         ) -> torch.Tensor:
     """Batched LC-RWMD sparse dot: minm (Q, V+1), cols/vals (N, nnz) ->
     (Q, N) bounds, filler queries 0; bitwise equal to `rwmd_bound_batch`
-    on the M stripes minm was reduced from."""
+    on the M stripes minm was reduced from. The kernel reads minm
+    vocab-major (see `kernels.lcrwmd`); ``docs_blk`` does not change the
+    result."""
     if minm.is_cuda:
         return _finite(_lcrwmd.lc_rwmd_bound_batch(
-            minm.contiguous(), cols.contiguous(), vals.contiguous(),
-            docs_blk=docs_blk))
+            minm, cols.contiguous(), vals.contiguous(), docs_blk=docs_blk))
     return _finite(_lcrwmd.lc_rwmd_bound_batch_plain(minm, cols, vals))

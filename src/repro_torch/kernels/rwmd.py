@@ -91,9 +91,7 @@ def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
     n, nnz = cols.shape
     lb = torch.empty((q, n), dtype=torch.float32, device=m_pad.device)
     if q and n:
-        fn = _build.library("rwmd").rwmd_bound_batch
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn = _build.function("rwmd", "rwmd_bound_batch", _ARGTYPES)
         err = fn(m_pad.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                  lb.data_ptr(), q, v_r, vp1, n, nnz, docs_blk,
                  torch.cuda.current_stream().cuda_stream)

@@ -12,13 +12,22 @@ doc j and ELL slot s:
     acc += (K.*M)[q, :, cols[j, s]] * v        (type2)
 
 type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
-<u[q, :, j], acc>. ``sddmm_spmm_type{1,2}_batch`` and
-``sddmm_spmm_type{1,2}`` launch the CUDA kernels in ``csrc/sddmm_spmm.cu``
-(CUDA tensors only); the single-query ones take one query's (v_r, V+1)
-stripe and run the batched kernels' per-(query, doc) step, so their output
-is the batched one's at Q = 1, bit for bit. The ``*_plain`` functions are
-the gather + matmul spellings of the same math (the single-query ones the
-batched at Q = 1), used for CPU tensors and as the kernels' comparison on
+<u[q, :, j], acc>. The functions without ``_plain`` launch the CUDA kernels
+in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
+
+  * ``sddmm_spmm_type1_batch_vm`` (#3) reads K vocab-major, (Q, V+1, v_r),
+    the copy `k_vocab_major` makes once per stripe set (a column is then
+    one 128-byte line); ``sddmm_spmm_type1_batch`` is the reference layout's
+    entry, the copy and #3 in one call;
+  * ``sddmm_spmm_type2_batch`` (#4) and the single-query
+    ``sddmm_spmm_type{1,2}`` (#1, #2: one query's (v_r, V+1) stripe) read
+    the reference layout (Q, v_r, V+1). All four share one per-slot step,
+    so #1 is #3 query by query and #2 is #4 at Q = 1, bit for bit.
+
+The ``*_plain`` functions are the gather + matmul spellings of the same
+math (the single-query ones the batched at Q = 1; the vocab-major one
+gathers ``k_vm[:, cols]``, the very tensor `_gather` builds from the
+reference layout), used for CPU tensors and as the kernels' comparison on
 the card. `repro_torch.kernels.ops` chooses between them by device.
 """
 from __future__ import annotations
@@ -62,11 +71,25 @@ def _sampled_v(kg: torch.Tensor, u: torch.Tensor,
                        vals[None] / torch.clamp(w, min=TINY), 0.0)
 
 
-def sddmm_spmm_type1_batch_plain(k_pad, r_sel, u, cols, vals):
-    """Plain version of the type1 kernel: (Q, v_r, N) iterate."""
-    kg = _gather(k_pad, cols)
+def _type1_from_gather(kg, r_sel, u, vals):
     v = _sampled_v(kg, u, vals)
     return slot_combine(kg, v) / r_sel[:, :, None]
+
+
+def sddmm_spmm_type1_batch_plain(k_pad, r_sel, u, cols, vals):
+    """Plain version of the type1 kernel: (Q, v_r, N) iterate."""
+    return _type1_from_gather(_gather(k_pad, cols), r_sel, u, vals)
+
+
+def k_vocab_major_plain(k_pad: torch.Tensor) -> torch.Tensor:
+    """(Q, v_r, V+1) -> the vocab-major copy (Q, V+1, v_r)."""
+    return k_pad.transpose(1, 2).contiguous()
+
+
+def sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols, vals):
+    """Plain version of #3 on the vocab-major copy k_vm (Q, V+1, v_r):
+    gathers ``k_vm[:, cols]``, bitwise the reference layout's `_gather`."""
+    return _type1_from_gather(k_vm[:, cols], r_sel, u, vals)
 
 
 def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
@@ -89,12 +112,17 @@ def sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals):
                                         cols, vals)[0]
 
 
-def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
-           cols: torch.Tensor, docs_blk: int) -> None:
-    dev = k_pad.device
-    if dev.type != "cuda":
+def _cuda_tensor(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"{dev}")
+                         f"{t.device}")
+
+
+def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
+           cols: torch.Tensor, docs_blk: int, vocab_major: bool = False
+           ) -> None:
+    _cuda_tensor(name, k_pad)
+    dev = k_pad.device
     for arg, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {arg} on {t.device}, k_pad on {dev}")
@@ -104,9 +132,10 @@ def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     q, v_r, n = u.shape
-    if k_pad.dim() != 3 or k_pad.shape[:2] != (q, v_r):
-        raise ValueError(f"{name}: k_pad {tuple(k_pad.shape)} does not "
-                         f"match u {tuple(u.shape)}")
+    k_qr = (k_pad.shape[0], k_pad.shape[2]) if vocab_major else k_pad.shape[:2]
+    if k_pad.dim() != 3 or k_qr != (q, v_r):
+        raise ValueError(f"{name}: k {tuple(k_pad.shape)} does not match "
+                         f"u {tuple(u.shape)}")
     if cols.dim() != 2 or cols.shape[0] != n:
         raise ValueError(f"{name}: cols {tuple(cols.shape)} does not match "
                          f"N = {n}")
@@ -119,32 +148,63 @@ def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
 def _launch(name: str, ptrs, *sizes) -> None:
     """Launch ``name`` on 6 pointers and the int sizes: (q,) v_r, vp1, n,
     nnz, docs_blk (the single-query entry points take no q)."""
-    fn = getattr(_build.library("sddmm_spmm"), name)
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * len(sizes)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function("sddmm_spmm", name,
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(sizes)
+                         + [ctypes.c_void_p])
     stream = torch.cuda.current_stream().cuda_stream
     _build.check_launch(name, fn(*ptrs, *sizes, stream))
 
 
-def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
-                           docs_blk: int = 8) -> torch.Tensor:
-    """CUDA type1 kernel. k_pad (Q, v_r, V+1) with the zero pad column,
-    r_sel (Q, v_r), u (Q, v_r, N), cols int32 / vals f32 (N, nnz) with every
-    col in [0, V]. Returns x (Q, v_r, N). ``docs_blk`` documents per block."""
+def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
+    """CUDA copy of the K stripes (Q, v_r, V+1) f32 into the vocab-major
+    layout (Q, V+1, v_r) that #3 reads: a tiled transpose, one launch."""
+    name = "k_vocab_major"
+    _cuda_tensor(name, k_pad)
+    if k_pad.dtype != torch.float32 or k_pad.dim() != 3:
+        raise TypeError(f"{name}: k_pad must be (Q, v_r, V+1) float32, got "
+                        f"{tuple(k_pad.shape)} {k_pad.dtype}")
+    if not k_pad.is_contiguous():
+        raise ValueError(f"{name}: k_pad must be contiguous")
+    q, v_r, vp1 = k_pad.shape
+    k_vm = torch.empty((q, vp1, v_r), dtype=torch.float32,
+                       device=k_pad.device)
+    if k_pad.numel():
+        fn = _build.function("sddmm_spmm", name,
+                             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p])
+        _build.check_launch(name, fn(
+            k_pad.data_ptr(), k_vm.data_ptr(), q, v_r, vp1,
+            torch.cuda.current_stream().cuda_stream))
+    return k_vm
+
+
+def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
+                              docs_blk: int = 8) -> torch.Tensor:
+    """CUDA type1 kernel (#3) on the vocab-major copy k_vm (Q, V+1, v_r)
+    with the zero pad row V, r_sel (Q, v_r), u (Q, v_r, N), cols int32 /
+    vals f32 (N, nnz) with every col in [0, V]. Returns x (Q, v_r, N).
+    ``docs_blk`` documents per block."""
     name = "sddmm_spmm_type1_batch"
-    _check(name, {"k_pad": k_pad, "r_sel": r_sel, "u": u, "cols": cols,
-                  "vals": vals}, k_pad, u, cols, docs_blk)
+    _check(name, {"k_vm": k_vm, "r_sel": r_sel, "u": u, "cols": cols,
+                  "vals": vals}, k_vm, u, cols, docs_blk, vocab_major=True)
     q, v_r, n = u.shape
     if r_sel.shape != (q, v_r) or vals.shape != cols.shape:
         raise ValueError(f"{name}: r_sel {tuple(r_sel.shape)} / vals "
                          f"{tuple(vals.shape)} shape mismatch")
     x = torch.empty_like(u)
     if q and n:
-        _launch(name, (k_pad.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
+        _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
-                q, v_r, k_pad.shape[2], n, cols.shape[1], docs_blk)
+                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk)
     return x
+
+
+def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
+                           docs_blk: int = 8) -> torch.Tensor:
+    """#3 on K in the reference layout k_pad (Q, v_r, V+1), zero pad
+    column: the vocab-major copy, then `sddmm_spmm_type1_batch_vm`."""
+    return sddmm_spmm_type1_batch_vm(k_vocab_major(k_pad), r_sel, u, cols,
+                                     vals, docs_blk=docs_blk)
 
 
 def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,

@@ -211,14 +211,16 @@ def test_cdist_m_is_the_m_that_kexp_exponentiates():
     assert torch.equal(torch.sqrt(cdist.cdist(a, b, squared=True)), m)
 
 
-def _bound_problem(seed, q, v_r, v, n, nnz, pad_rows=2):
+def _bound_problem(seed, q, v_r, v, n, nnz, pad_rows=2, filler=True):
     """M stripes with +inf pad rows and an all-+inf filler query (the
-    last), ELL pad slots and an empty doc (the last)."""
+    last, unless ``filler`` is False), ELL pad slots and an empty doc (the
+    last)."""
     rng = np.random.default_rng(seed)
     m = (rng.random((q, v_r, v + 1)) * 4).astype(np.float32)
     m[:, :, v] = 0.0
     m[:, v_r - pad_rows:] = np.inf
-    m[q - 1] = np.inf
+    if filler:
+        m[q - 1] = np.inf
     cols = np.full((n, nnz), v, np.int32)
     vals = np.zeros((n, nnz), np.float32)
     for j in range(n - 1):
@@ -424,3 +426,102 @@ def test_service_query_is_the_batched_row_bitwise_and_counts_launches():
         np.testing.assert_array_equal(off.query(r), row)
         np.testing.assert_array_equal(
             off.query_batch([r], use_cache=False)[0], row)
+
+
+# -- slice 4: the redesigned #3 (vocab-major) and #9 --------------------------
+
+@pytest.mark.parametrize("v_r", [20, 32, 40, 128])
+@pytest.mark.parametrize("q", [1, 3, 16])
+@pytest.mark.parametrize("nnz", [16, 100])
+def test_type1_vocab_major_is_the_single_query_kernel_bitwise(v_r, q, nnz):
+    """#3 on the vocab-major copy == #1 on each query's reference-layout
+    stripe, bitwise: the two tiles share the per-slot step. N = 45 is no
+    multiple of the doc tile; nnz 100 spans four 32-slot stages; pad query
+    rows, a filler query (Q > 1) and ELL pad slots are in the problem."""
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, _, r, u, cols, vals = (torch.from_numpy(a).to(dev)
+                              for a in _problem(20, q, v_r, 320, 45, nnz,
+                                                filler=int(q > 1)))
+    k_vm = sk.k_vocab_major(k)
+    x = sk.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals)
+    singles = [sk.sddmm_spmm_type1(k[i], r[i], u[i], cols, vals)
+               for i in range(q)]
+    torch.cuda.synchronize()
+    assert torch.equal(k_vm, k.transpose(1, 2).contiguous())
+    for i in range(q):
+        assert torch.equal(x[i], singles[i])
+    torch.testing.assert_close(
+        x, sk.sddmm_spmm_type1_batch_plain(k, r, u, cols, vals), rtol=1e-4,
+        atol=1e-6)
+    assert torch.all(x[:, v_r - 2:] == 0)
+    if q > 1:
+        assert torch.all(x[q - 1] == 0)
+
+
+def test_type1_vocab_major_bits_do_not_depend_on_docs_blk():
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, _, r, u, cols, vals = (torch.from_numpy(a).to(dev)
+                              for a in _problem(21, 3, 40, 500, 61, 40))
+    k_vm = sk.k_vocab_major(k)
+    xs = [sk.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals, docs_blk=b)
+          for b in (1, 7, 8, 61, 300)]
+    torch.cuda.synchronize()
+    for x in xs[1:]:
+        assert torch.equal(x, xs[0])
+
+
+@pytest.mark.parametrize("q", [1, 3, 17, 33])
+@pytest.mark.parametrize("nnz", [16, 144, 301])
+def test_lc_kernel_is_the_rwmd_kernel_bitwise(q, nnz):
+    """#9 (all queries a block, vocab-major minm) == #8, bitwise, past one
+    query group (Q = 33 > 32), with pad slots, a filler query (the last, for
+    Q > 1), an empty doc, nnz a multiple of 4 (16-byte staging) or not,
+    nnz past one shared-memory stage, and several docs_blk."""
+    dev = _card()
+    from repro_torch.core.cascade import min_cost_vectors
+    from repro_torch.kernels import lcrwmd, ops
+    from repro_torch.kernels import rwmd as kr
+    m, cols, vals = (torch.from_numpy(a).to(dev)
+                     for a in _bound_problem(22, q, 32, 1000, 300, nnz,
+                                             filler=q > 1))
+    minm = min_cost_vectors(m)
+    lb = kr.rwmd_bound_batch(m, cols, vals)
+    lcs = [lcrwmd.lc_rwmd_bound_batch(minm, cols, vals, docs_blk=b)
+           for b in (None, 1, 7, 256, 300)]
+    torch.cuda.synchronize()
+    for lc in lcs:
+        assert torch.equal(lc, lb)
+    plain = ops._finite(lcrwmd.lc_rwmd_bound_batch_plain(minm, cols, vals))
+    torch.testing.assert_close(ops._finite(lcs[0]), plain, rtol=1e-5,
+                               atol=1e-6)
+    assert torch.all(ops._finite(lcs[0])[:, -1] == 0)
+
+
+def test_service_copies_k_once_per_stripe_set_on_card():
+    dev = _card()
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    from repro_torch.kernels import _build
+    from repro_torch.serving import WMDService
+    data = make_corpus(vocab_size=2048, embed_dim=32, num_docs=300,
+                       num_queries=1, seed=23)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=32, num_docs=300,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=24)
+    rs = [next(stream) for _ in range(5)]
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                     cache_capacity=256, mcache_capacity=256, prune_chunk=16)
+    _build.reset_launches()
+    full = svc.query_batch(rs)
+    assert _build.launches["k_vocab_major"] == 1
+    assert _build.launches["sddmm_spmm_type1_batch"] == 10
+    for rerank, sets in (("per_query", len(rs)), ("union", 1)):
+        _build.reset_launches()
+        idx, d = svc.top_k_batch(rs, 5, prune=True, rerank=rerank)
+        programs = svc.last_prune_stats["rerank_programs"]
+        assert _build.launches["k_vocab_major"] == sets
+        assert _build.launches["sddmm_spmm_type1_batch"] == 10 * programs
+        np.testing.assert_array_equal(idx, svc._top_k(full, 5))
+        np.testing.assert_array_equal(d, np.take_along_axis(full, idx, -1))
