@@ -14,8 +14,8 @@ Phases (any failure exits non-zero before the result line is printed):
      (impl="kernel", kexp_impl="kernel") answers two Zipf batches of
      Q = 16 (19 words a query); the kernels' launch counts, read around
      exactly those two calls, must be 15 type1 and 1 type2 launches and
-     one vocab-major K copy (k_vocab_major) per batch and one
-     cdist_kexp_rows launch per 128-row miss chunk;
+     two vocab-major copies (k_vocab_major: K's and K.*M's) per batch and
+     one cdist_kexp_rows launch per 128-row miss chunk;
   4. correctness of what came out: the same batches through the plain
      engine on the same K rows (impl="fused"), through the all-plain route
      (impl="fused", kexp_impl="jnp"), cache on == use_cache=False bitwise,
@@ -28,12 +28,12 @@ Phases (any failure exits non-zero before the result line is printed):
      answers `top_k_batch(prune=True)` with k = 10 on the two batches of
      phase 3, then batch 1 again with rerank="union". The launch counts,
      read around exactly those three calls, must be: type1 15 x and type2
-     1 x the rerank programs, one k_vocab_major per stripe set (each
-     query's on the per-query rerank, the batch's on the union rerank),
-     one lc_rwmd_bound_batch (tier 1) and one
-     rwmd_bound_batch (tier 2) per call, one cdist per 128-row chunk of M
-     misses and one cdist_kexp_rows per 128-row chunk of K misses of each
-     K-cache lookup (all read from last_prune_stats and mcache_stats);
+     1 x the rerank programs, two k_vocab_major (K, K.*M) per stripe set
+     (each query's on the per-query rerank, the batch's on the union
+     rerank), one lc_rwmd_bound_batch (tier 1) and one rwmd_bound_batch
+     (tier 2) per call, one cdist per 128-row chunk of M misses and one
+     cdist_kexp_rows per 128-row chunk of K misses of each K-cache lookup
+     (all read from last_prune_stats and mcache_stats);
   7. correctness of the pruned path: the exhaustive scan == pruned ==
      union, bitwise; the tier toggles (tier0=False, lc_impl=None) give the
      same bits; the pruned answer is the top-k of phase 3's full
@@ -46,28 +46,33 @@ Phases (any failure exits non-zero before the result line is printed):
      min-SDDMM on the same M stripes; then, where the time goes: batch 2
      once more through `query_batch` and both pruned reranks, warm, under
      torch.profiler: wall time, the device's busy time and idle share, the
-     largest device entries, and the K copies in the trace, which must be
-     one per stripe set;
+     largest device entries, and the K / K.*M copies in the trace, which
+     must be two per stripe set;
   8. the per-query path at paper_5k: a fresh `WMDService(device="cuda")`
      with its defaults (impl and kexp_impl "kernel", no cache) answers
      `top_k(r, 10)` for each of batch 1's 16 queries, then
      `query_batch_sequential(batch2)`: the per-query program
      (`core.distributed.build_wmd_fn`). The launch counts, read around
-     exactly those calls, must be one cdist_kexp, 15 sddmm_spmm_type1 and
-     one sddmm_spmm_type2 a query and nothing else; `query(r)` must equal
-     phase 3's `query_batch` rows bitwise on all 32 queries (and top_k
+     exactly those calls, must be one cdist_kexp, one k_vocab_major (the
+     query's K stripe), 15 sddmm_spmm_type1 and one sddmm_spmm_type2 a
+     query and nothing else; `query(r)` must equal phase 3's
+     `query_batch` rows bitwise on all 32 queries (and top_k
      their top-k); the all-plain per-query service (impl "fused",
      kexp_impl "jnp") and the dense oracle on the 64-doc slice by
      `_compare`; `sinkhorn_wmd_converged` for one query (n_iter, delta;
      bitwise the fixed fused loop at that n_iter); the per-query wall
-     time, queries/s and the `[idle]` line of one warm `query(r)`;
+     time, queries/s and the `[idle]` line of one warm `query(r)` (one K
+     copy in its trace);
   5. (run last, so that its launch column reads the runs of phases 3, 6
-     and 8) each kernel against its plain PyTorch version at the main
-     path's shapes (the per-query kernels #5, #1, #2 at one query's: v_r
-     32; #3 bitwise against #1 on each of the 16 queries, #1 / #2 against
-     #3 / #4 at Q = 1, #5 against #6's rows, #9 against #8; the K copy
-     beside #3, and #9 beside `torch.sparse.mm`), with its time (CUDA
-     events), the plain version's time, a library yardstick where one
+     and 8: each kernel's launches summed over the three) each kernel
+     against its plain PyTorch version at the main path's shapes (the
+     per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
+     against #1 on each of the 16 queries, #4 against #2 on each, #1
+     against #3 at Q = 1, #5 against #6's rows, #9 against #8; the K copy
+     beside #3, #4 also at the per-query rerank's (1, 64) block, #1 also
+     with its copy and at docs_blk 4, 8 and 16, and #9 beside
+     `torch.sparse.mm`), with its time (CUDA events), its device time (the
+     profiler's), the plain version's time, a library yardstick where one
      exists, and the bound: the larger of the bytes the function must move
      over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
      sheet, 700 W).
@@ -174,6 +179,28 @@ def _device_busy(call, marks=()):
     return wall, wall_prof, busy, ", ".join(
         f"{key[:40]} {ms:.2f} ms x{count}"
         for ms, key, count in sorted(dev, reverse=True)[:5]), marked
+
+
+def _idle_line(what, call, copies, *kernels):
+    """Print the `[idle]` line of one warm ``call`` (`_device_busy`) with
+    the count and device time of its vocab-major copies and of each
+    (label, kernel name) of ``kernels`` in the trace; fail unless the trace
+    holds ``copies`` copies. Does nothing more when the trace holds no
+    device time (said so on the line)."""
+    marks = ("::vocab_major_kernel",) + tuple(k for _, k in kernels)
+    wall, wall_prof, busy, largest, marked = _device_busy(call, marks)
+    if busy is None:
+        print(f"[idle] {what}: {wall:.2f} ms wall; device time not "
+              f"measured ({largest})")
+        return
+    parts = [f"{label} x{marked[k][0]} ({marked[k][1]:.3f} ms)"
+             for label, k in (("copies",) + marks[:1],) + kernels]
+    print(f"[idle] {what}: {wall:.2f} ms wall ({wall_prof:.2f} ms under "
+          f"the profiler), device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall:.3f}; largest device entries: {largest}; "
+          + ", ".join(parts))
+    _check(marked[marks[0]][0] == copies, f"{what}: {marked[marks[0]][0]} "
+           f"vocab-major copies in the trace, expected {copies}")
 
 
 def _shares_word(batch, ell):
@@ -315,7 +342,7 @@ def main() -> int:
                  for s in (stats1, stats2))
     want = {"sddmm_spmm_type1_batch": 2 * cfg.max_iter,
             "sddmm_spmm_type2_batch": 2, "cdist_kexp_rows": chunks,
-            "k_vocab_major": 2}
+            "k_vocab_major": 4}
     print(f"[main] launches {launches}, expected {want}")
     _check(launches == want, f"launch counts {launches} != {want}")
     _check(all(v > 0 for v in launches.values()), "a kernel never launched")
@@ -399,13 +426,13 @@ def main() -> int:
     peak6 = torch.cuda.max_memory_allocated()
     rb = svc6.cache_rows_bucket
     programs = sum(r[3]["rerank_programs"] for r in runs)
-    # one vocab-major K copy per stripe set: a query's on the per-query
-    # rerank, the batch's on the union rerank
+    # two vocab-major copies (K, K.*M) per stripe set: a query's on the
+    # per-query rerank, the batch's on the union rerank
     stripe_sets = sum(len(batch) if rerank == "per_query" else 1
                       for _, batch, rerank in calls)
     want6 = {"sddmm_spmm_type1_batch": cfg.max_iter * programs,
              "sddmm_spmm_type2_batch": programs,
-             "k_vocab_major": stripe_sets,
+             "k_vocab_major": 2 * stripe_sets,
              "lc_rwmd_bound_batch": len(calls),
              "rwmd_bound_batch": len(calls),
              "cdist": sum(math.ceil(r[4] / rb) for r in runs),
@@ -499,30 +526,18 @@ def main() -> int:
     del m_pad
 
     # -- where the time goes: the device's busy share of warm calls ----------
-    # the trace also counts the vocab-major K copies (one per stripe set: the
-    # batch's, each query's on the per-query rerank) beside #3's launches
-    marks = ("::vocab_major_kernel", "type1_vm_kernel")
+    # the trace also counts the vocab-major copies (K's and K.*M's, two per
+    # stripe set: the batch's, each query's on the per-query rerank) beside
+    # the launches of #3 and #4
     for what, call, copies in (
             ("query_batch, batch 2 (phase 3 path)",
-             lambda: svc.query_batch(batch2), 1),
+             lambda: svc.query_batch(batch2), 2),
             ("pruned per_query, batch 2", lambda: svc6.top_k_batch(
-                batch2, k_top, prune=True), len(batch2)),
+                batch2, k_top, prune=True), 2 * len(batch2)),
             ("pruned union, batch 2", lambda: svc6.top_k_batch(
-                batch2, k_top, prune=True, rerank="union"), 1)):
-        wall, wall_prof, busy, kernels, marked = _device_busy(call, marks)
-        if busy is None:
-            print(f"[idle] {what}: {wall:.2f} ms wall; device time not "
-                  f"measured ({kernels})")
-            continue
-        print(f"[idle] {what}: {wall:.2f} ms wall ({wall_prof:.2f} ms under "
-              f"the profiler), device busy {busy:.2f} ms, idle share "
-              f"{1 - busy / wall:.3f}; largest device entries: {kernels}; "
-              f"K copies x{marked[marks[0]][0]} "
-              f"({marked[marks[0]][1]:.3f} ms), #3 "
-              f"x{marked[marks[1]][0]} ({marked[marks[1]][1]:.3f} ms)")
-        _check(marked[marks[0]][0] == copies, f"{what}: "
-               f"{marked[marks[0]][0]} K copies in the trace, expected "
-               f"{copies} (one per stripe set)")
+                batch2, k_top, prune=True, rerank="union"), 2)):
+        _idle_line(what, call, copies, ("#3", "type1_vm_kernel"),
+                   ("#4", "type2_vm_kernel"))
 
     # -- 8. the per-query path ------------------------------------------------
     svc8 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell)
@@ -542,8 +557,8 @@ def main() -> int:
     launches8 = dict(_build.launches)
     peak8 = torch.cuda.max_memory_allocated()
     nq = len(batch1) + len(batch2)
-    want8 = {"cdist_kexp": nq, "sddmm_spmm_type1": cfg.max_iter * nq,
-             "sddmm_spmm_type2": nq}
+    want8 = {"cdist_kexp": nq, "k_vocab_major": nq,
+             "sddmm_spmm_type1": cfg.max_iter * nq, "sddmm_spmm_type2": nq}
     print(f"[per-query] launches {launches8}, expected {want8}")
     _check(launches8 == want8, f"per-query launch counts {launches8} != "
            f"{want8}")
@@ -590,16 +605,8 @@ def main() -> int:
           f"n_iter {int(conv.n_iter)} of {cfg.max_iter}, delta "
           f"{float(conv.delta):.3g}; bitwise the fixed fused loop at that "
           f"n_iter; max rel vs the all-plain per-query route {rel:.3g}")
-    wall, wall_prof, busy, kernels, _ = _device_busy(
-        lambda: svc8.query(batch2[0]))
-    if busy is None:
-        print(f"[idle] per-query query(r): {wall:.2f} ms wall; device time "
-              f"not measured ({kernels})")
-    else:
-        print(f"[idle] per-query query(r): {wall:.2f} ms wall "
-              f"({wall_prof:.2f} ms under the profiler), device busy "
-              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; largest "
-              f"device entries: {kernels}")
+    _idle_line("per-query query(r)", lambda: svc8.query(batch2[0]), 1,
+               ("#1", "type1_vm_kernel"), ("#2", "type2_query_kernel"))
     del svc8
 
     # -- 5. the kernels at the main path's shapes ------------------------------
@@ -620,37 +627,49 @@ def main() -> int:
     print(f"[kernels] Q {q}, v_r {v_r}, V+1 {k_pad.shape[-1]}, N {n}, "
           f"nnz_max {nnz}, nonzero slots {nnz_real}, distinct words {uniq}")
     results = []
+    # a kernel's launches: the sum over the main paths' runs (each read
+    # with the counts set to 0 just before it), and the runs apart
+    by_phase = {"3": launches, "6": launches6, "8": launches8}
 
     def record(name, source, replaces, got, want, kernel_fn, plain_fn,
                nbytes, flops, library_fn=None, plain_reps=3):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         ms = _timed(kernel_fn, 20)
+        device_ms = _device_ms(kernel_fn)
         plain_ms = _timed(plain_fn, plain_reps, warmup=1)
         lib_ms = _timed(library_fn, 10) if library_fn else None
         bound_ms, bound_by = _bound(nbytes, flops)
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms})
-        print(f"[kernels] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms,"
-              f" bound {bound_ms:.4f} ms ({bound_by}), max abs err "
-              f"{err:.3g}")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": sum(c.get(name, 0) for c in by_phase.values()),
+                 "launches_by_phase": {p: c.get(name, 0)
+                                       for p, c in by_phase.items()},
+                 "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms}
+        results.append(entry)
+        print(f"[kernels] {name}: {ms:.4f} ms (device {device_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), max abs err {err:.3g}; "
+              f"launches {entry['launches_by_phase']}")
+        return entry
 
     src = "src/repro_torch/kernels/csrc/sddmm_spmm.cu"
     rows = q * v_r
-    # the vocab-major K copy (once per stripe set) and #3 on it
+    # the vocab-major copies (two per stripe set: K's and K.*M's), #3 on
+    # K's, #4 on both
     k_vm = sddmm_spmm.k_vocab_major(k_pad)
     k_vm_p = sddmm_spmm.k_vocab_major_plain(k_pad)
     torch.cuda.synchronize()
     _check(torch.equal(k_vm, k_vm_p), "k_vocab_major is not the transpose")
-    record("k_vocab_major", src, "src/repro/kernels/sddmm_spmm.py:239",
-           [k_vm], [k_vm_p], lambda: sddmm_spmm.k_vocab_major(k_pad),
-           lambda: sddmm_spmm.k_vocab_major_plain(k_pad),
-           nbytes=4 * 2 * rows * k_pad.shape[-1], flops=0,
-           library_fn=lambda: k_pad.transpose(1, 2).contiguous(),
-           plain_reps=10)
+    e_copy = record("k_vocab_major", src,
+                    "src/repro/kernels/sddmm_spmm.py:239", [k_vm], [k_vm_p],
+                    lambda: sddmm_spmm.k_vocab_major(k_pad),
+                    lambda: sddmm_spmm.k_vocab_major_plain(k_pad),
+                    nbytes=4 * 2 * rows * k_pad.shape[-1], flops=0,
+                    library_fn=lambda: k_pad.transpose(1, 2).contiguous(),
+                    plain_reps=10)
     del k_vm_p
     x_k = sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals)
     x_p = sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r, u, cols, vals)
@@ -661,42 +680,78 @@ def main() -> int:
     for i in range(q):
         _check(torch.equal(x_k[i], x_1[i]), f"sddmm_spmm_type1_batch (#3) "
                f"is not sddmm_spmm_type1 (#1) on query {i}, bitwise")
-    print(f"[kernels] sddmm_spmm_type1_batch (#3, vocab-major) == "
-          f"sddmm_spmm_type1 (#1, reference layout) on each of the {q} "
-          f"queries, bitwise")
-    record("sddmm_spmm_type1_batch", src,
-           "src/repro/kernels/sddmm_spmm.py:239", [x_k], [x_p],
-           lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols,
-                                                        vals),
-           lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r, u,
-                                                              cols, vals),
-           nbytes=4 * (rows * uniq + rows + 2 * rows * n + 2 * n * nnz),
-           flops=q * nnz_real * (4 * v_r + 1) + rows * n)
-    ms3, ms_copy = results[-1]["ms"], results[-2]["ms"]
-    dev3 = _device_ms(lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm(
-        k_vm, r, u, cols, vals))
-    dev_copy = _device_ms(lambda: sddmm_spmm.k_vocab_major(k_pad))
-    print(f"[kernels] device time (profiler): #3 {dev3:.4f} ms, K copy "
-          f"{dev_copy:.4f} ms")
-    print(f"[kernels] a batch's Sinkhorn loop: {cfg.max_iter} x #3 + one K "
-          f"copy = {cfg.max_iter * ms3 + ms_copy:.4f} ms "
-          f"({cfg.max_iter} x {ms3:.4f} + {ms_copy:.4f})")
-    del x_k, x_p, x_1, k_vm
-    d_k = sddmm_spmm.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals)
-    d_p = sddmm_spmm.sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols,
-                                                  vals)
+    print(f"[kernels] sddmm_spmm_type1_batch (#3) == sddmm_spmm_type1 (#1, "
+          f"on each query's own copy) on each of the {q} queries, bitwise")
+    e3 = record("sddmm_spmm_type1_batch", src,
+                "src/repro/kernels/sddmm_spmm.py:239", [x_k], [x_p],
+                lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u,
+                                                             cols, vals),
+                lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(
+                    k_vm, r, u, cols, vals),
+                nbytes=4 * (rows * uniq + rows + 2 * rows * n + 2 * n * nnz),
+                flops=q * nnz_real * (4 * v_r + 1) + rows * n)
+    del x_k, x_p, x_1
+    km_vm = sddmm_spmm.k_vocab_major(km_pad)
+    d_k = sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)
+    d_p = sddmm_spmm.sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols,
+                                                     vals)
+    d_2 = [sddmm_spmm.sddmm_spmm_type2(k_pad[i], km_pad[i], u[i], cols, vals)
+           for i in range(q)]
     torch.cuda.synchronize()
+    _check(torch.equal(km_vm, km_pad.transpose(1, 2)),
+           "k_vocab_major of K.*M is not the transpose")
     torch.testing.assert_close(d_k, d_p, **TOL_KERNEL)
-    record("sddmm_spmm_type2_batch", src,
-           "src/repro/kernels/sddmm_spmm.py:272", [d_k], [d_p],
-           lambda: sddmm_spmm.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols,
-                                                     vals),
-           lambda: sddmm_spmm.sddmm_spmm_type2_batch_plain(k_pad, km_pad, u,
-                                                           cols, vals),
-           nbytes=4 * (2 * rows * uniq + rows * n + 2 * n * nnz + q * n),
-           flops=q * nnz_real * (4 * v_r + 1) + 2 * rows * n)
-    del d_k, d_p, k_s, km_s, x, u
-    launches.update(launches8)
+    for i in range(q):
+        _check(torch.equal(d_k[i], d_2[i]), f"sddmm_spmm_type2_batch (#4) "
+               f"is not sddmm_spmm_type2 (#2) on query {i}, bitwise")
+    print(f"[kernels] sddmm_spmm_type2_batch (#4, vocab-major) == "
+          f"sddmm_spmm_type2 (#2, reference layout) on each of the {q} "
+          f"queries, bitwise")
+    e4 = record("sddmm_spmm_type2_batch", src,
+                "src/repro/kernels/sddmm_spmm.py:272", [d_k], [d_p],
+                lambda: sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u,
+                                                             cols, vals),
+                lambda: sddmm_spmm.sddmm_spmm_type2_batch_vm_plain(
+                    k_vm, km_vm, u, cols, vals),
+                nbytes=4 * (2 * rows * uniq + rows * n + 2 * n * nnz + q * n),
+                flops=q * nnz_real * (4 * v_r + 1) + 2 * rows * n)
+    # ... and at the per-query rerank's (1, 64) block: query 0's stripes and
+    # its 64 nearest docs, the block its rerank solves first (a doc's bits
+    # do not depend on its block)
+    blk = torch.from_numpy(np.argsort(d1[0], kind="stable")[:64]).to(dev)
+    cols_r, vals_r = cols[blk].contiguous(), vals[blk].contiguous()
+    u_r = u[:1, :, blk].contiguous()
+    k_vm1, km_vm1 = k_vm[:1], km_vm[:1]
+    d_r = sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm1, km_vm1, u_r, cols_r,
+                                               vals_r)
+    torch.cuda.synchronize()
+    _check(torch.equal(d_r[0], d_k[0, blk]), "#4 on a (1, 64) block is not "
+           "its (16, 5000) launch's row, bitwise")
+    live_r = vals_r != 0
+
+    def rerank_call():
+        return sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm1, km_vm1, u_r,
+                                                    cols_r, vals_r)
+
+    e4["rerank_ms"] = _timed(rerank_call, 50)
+    e4["rerank_device_ms"] = _device_ms(rerank_call)
+    e4["rerank_bound_ms"] = _bound(
+        4 * (2 * v_r * int(torch.unique(cols_r[live_r]).numel())
+             + v_r * 64 + 2 * 64 * nnz + 64),
+        int(live_r.sum()) * (4 * v_r + 1) + 2 * v_r * 64)[0]
+    print(f"[kernels] sddmm_spmm_type2_batch at the rerank's (1, 64) block: "
+          f"{e4['rerank_ms']:.4f} ms (device {e4['rerank_device_ms']:.4f}), "
+          f"bound {e4['rerank_bound_ms']:.5f} ms; bitwise the (16, 5000) "
+          f"launch's row")
+    dev_pair = _device_ms(lambda: (sddmm_spmm.k_vocab_major(k_pad),
+                                   sddmm_spmm.k_vocab_major(km_pad)))
+    print(f"[kernels] a batch's Sinkhorn solve: {cfg.max_iter} x #3 + #4 + "
+          f"the two copies = "
+          f"{cfg.max_iter * e3['ms'] + e4['ms'] + 2 * e_copy['ms']:.4f} ms "
+          f"(events; device "
+          f"{cfg.max_iter * e3['device_ms'] + e4['device_ms'] + dev_pair:.4f}"
+          f" ms, the pair of copies {dev_pair:.4f})")
+    del d_k, d_p, d_2, d_r, k_s, km_s, x, u, k_vm, km_vm, k_vm1, km_vm1
     # the per-query kernels (#5, #1, #2) at batch 1 query 0's shapes: its
     # v_r = 32 stripe (pad rows masked) and a realistic iterate
     sel_p, r_p, mask_p = pad_query(*select_query(batch1[0]), cfg.v_r)
@@ -732,20 +787,48 @@ def main() -> int:
     for _ in range(3):                        # a realistic iterate
         x1 = ops.sddmm_spmm_type1(k1, r1, ss.safe_recip(x1), cols, vals)
     u1 = ss.safe_recip(x1)
-    x_k = sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals)
-    x_p = sddmm_spmm.sddmm_spmm_type1_plain(k1, r1, u1, cols, vals)
-    x_b = sddmm_spmm.sddmm_spmm_type1_batch(k1[None], r1[None], u1[None],
-                                            cols, vals)[0]
+    # #1 on the query's vocab-major copy (one a query)
+    k1_vm = sddmm_spmm.k_vocab_major(k1[None])[0]
+    x_k = sddmm_spmm.sddmm_spmm_type1_vm(k1_vm, r1, u1, cols, vals)
+    x_p = sddmm_spmm.sddmm_spmm_type1_vm_plain(k1_vm, r1, u1, cols, vals)
+    x_b = sddmm_spmm.sddmm_spmm_type1_batch_vm(k1_vm[None], r1[None],
+                                               u1[None], cols, vals)[0]
+    x_c = sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals)
     torch.cuda.synchronize()
-    _check(torch.equal(x_k, x_b), "sddmm_spmm_type1 (#1) is not "
-           "sddmm_spmm_type1_batch (#3) at Q = 1, bitwise")
+    _check(torch.equal(x_k, x_b) and torch.equal(x_k, x_c),
+           "sddmm_spmm_type1 (#1) is not sddmm_spmm_type1_batch (#3) at "
+           "Q = 1, bitwise")
     torch.testing.assert_close(x_k, x_p, **TOL_KERNEL)
-    record("sddmm_spmm_type1", src, "src/repro/kernels/sddmm_spmm.py:126",
-           [x_k], [x_p],
-           lambda: sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals),
-           lambda: sddmm_spmm.sddmm_spmm_type1_plain(k1, r1, u1, cols, vals),
-           nbytes=4 * (v_r * uniq + v_r + 2 * v_r * n + 2 * n * nnz),
-           flops=nnz_real * (4 * v_r + 1) + v_r * n)
+    e1 = record("sddmm_spmm_type1", src,
+                "src/repro/kernels/sddmm_spmm.py:126", [x_k], [x_p],
+                lambda: sddmm_spmm.sddmm_spmm_type1_vm(k1_vm, r1, u1, cols,
+                                                       vals),
+                lambda: sddmm_spmm.sddmm_spmm_type1_vm_plain(k1_vm, r1, u1,
+                                                             cols, vals),
+                nbytes=4 * (v_r * uniq + v_r + 2 * v_r * n + 2 * n * nnz),
+                flops=nnz_real * (4 * v_r + 1) + v_r * n)
+    # ... with its copy (the reference-layout entry: copy + #1 in one
+    # call), the copy alone, and #1 at docs_blk 4, 8, 16
+    e1["with_copy_ms"] = _timed(
+        lambda: sddmm_spmm.sddmm_spmm_type1(k1, r1, u1, cols, vals), 20)
+    e1["copy_ms"] = _timed(lambda: sddmm_spmm.k_vocab_major(k1[None]), 20)
+    e1["copy_device_ms"] = _device_ms(
+        lambda: sddmm_spmm.k_vocab_major(k1[None]))
+    e1["docs_blk"] = {}
+    for b in (4, 8, 16):
+        def call(b=b):
+            return sddmm_spmm.sddmm_spmm_type1_vm(k1_vm, r1, u1, cols, vals,
+                                                  docs_blk=b)
+        e1["docs_blk"][b] = (_timed(call, 50), _device_ms(call))
+    print(f"[kernels] sddmm_spmm_type1 (#1) with its copy "
+          f"{e1['with_copy_ms']:.4f} ms; the copy (one query's stripe) "
+          f"{e1['copy_ms']:.4f} ms (device {e1['copy_device_ms']:.4f}); "
+          f"docs_blk (events ms, device ms): "
+          + ", ".join(f"{b}: {t:.4f}, {d:.4f}"
+                      for b, (t, d) in e1["docs_blk"].items()))
+    print(f"[kernels] a query's Sinkhorn loop: {cfg.max_iter} x #1 + one "
+          f"copy = {cfg.max_iter * e1['device_ms'] + e1['copy_device_ms']:.4f}"
+          f" ms of device time")
     d_k = sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals)
     d_p = sddmm_spmm.sddmm_spmm_type2_plain(k1, km1, u1, cols, vals)
     d_b = sddmm_spmm.sddmm_spmm_type2_batch(k1[None], km1[None], u1[None],
@@ -761,9 +844,7 @@ def main() -> int:
                                                      vals),
            nbytes=4 * (2 * v_r * uniq + v_r * n + 2 * n * nnz + n),
            flops=nnz_real * (4 * v_r + 1) + 2 * v_r * n)
-    print("[kernels] sddmm_spmm_type1 / type2 (one query) == the batched "
-          "kernels at Q = 1, bitwise")
-    del k1, km1, x1, u1, x_k, x_p, x_b, d_k, d_p, d_b
+    del k1, km1, k1_vm, x1, u1, x_k, x_p, x_b, x_c, d_k, d_p, d_b
     m = 128
     ids = torch.from_numpy(np.unique(sel_b)[:m].astype(np.int64)).to(dev)
     a = vecs_d[ids].contiguous()
@@ -812,8 +893,6 @@ def main() -> int:
           f"{int(near_m.sum())} near-diagonal entries (abs 5e-2, largest "
           f"plain M there {float(m_p[near_m].max()):.3g}), the rest rtol "
           f"1e-4, atol 1e-5")
-    launches.update({k: v for k, v in launches6.items()
-                     if k not in launches})
     record("cdist", "src/repro_torch/kernels/csrc/kexp.cu",
            "src/repro/kernels/cdist.py:41", [m_k], [m_p],
            lambda: cdist.cdist(a, vecs_d), lambda: cdist.cdist_plain(a, vecs_d),

@@ -23,9 +23,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.sinkhorn import precompute
-from repro_torch.core.sparse_sinkhorn import (_resolve_impl,
-                                              batched_sinkhorn_loop,
-                                              batched_type1, pad_k,
+from repro_torch.core.sparse_sinkhorn import (batched_contractions,
+                                              batched_sinkhorn_loop, pad_k,
                                               precompute_batch, safe_recip,
                                               sddmm_spmm_type1,
                                               sddmm_spmm_type2)
@@ -84,8 +83,7 @@ def sinkhorn_wmd_converged_batch(sel_idx: torch.Tensor, r_sel: torch.Tensor,
     k_pad = pad_k(pre.K)
     km_pad = pad_k(pre.KM)
     q, v_r = r_sel.shape
-    type1 = batched_type1(impl, k_pad)
-    type2 = _resolve_impl("type2", impl, True)
+    type1, type2 = batched_contractions(impl, k_pad, km_pad)
     x0 = torch.full((q, v_r, cols.shape[0]), 1.0 / v_r, dtype=pre.K.dtype,
                     device=pre.K.device)
 

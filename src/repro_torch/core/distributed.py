@@ -15,8 +15,9 @@ all-zero K row (`pad_query` + the row mask in `masked_k` /
 `build_wmd_fn` is the per-query program (`WMDService.query`): the query's
 stripe precompute (``kexp_impl``), ``max_iter`` type1 iterations and the
 type2 distance. With ``use_kernel`` and ``kexp_impl="kernel"`` on the card
-it launches kernels #5, #1 (``max_iter`` times) and #2, and its distances
-are bit for bit those the batched kernel route gives the same query.
+it launches kernels #5, the vocab-major copy of the query's K stripe
+(once), #1 (``max_iter`` times) and #2, and its distances are bit for bit
+those the batched kernel route gives the same query.
 """
 from __future__ import annotations
 
@@ -103,9 +104,8 @@ def _local_solve(vecs_sel, r_sel, row_mask, vecs_loc, cols_loc, vals_loc, *,
     k_pad, km_pad = pad_k(k), pad_k(km)
     v_r = r_sel.shape[0]
     ones_r = torch.ones_like(r_sel)
-    impl = "kernel" if use_kernel else "fused"
-    type1 = ss._resolve_impl("type1", impl, False)
-    type2 = ss._resolve_impl("type2", impl, False)
+    type1, type2 = ss.query_contractions(
+        "kernel" if use_kernel else "fused", k_pad)
     x = torch.full((v_r, cols_loc.shape[0]), 1.0 / v_r, dtype=k.dtype,
                    device=k.device)
     for _ in range(max_iter):
@@ -143,11 +143,11 @@ def _check_placement(chunk_placement: str) -> None:
 
 def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
                          max_iter: int, impl: str, docs_chunk: int | None,
-                         chunk_placement: str, tol: float, k_vm=None):
+                         chunk_placement: str, tol: float, vm=None):
     """Batched Sinkhorn solve on (Q, v_r, V+1) stripes. Returns (wmd,
-    n_iter, delta). ``k_vm``: the kernel route's vocab-major copy of k_pad
-    when the caller made it (`vocab_major_stripes`); else it is made here,
-    once for every chunk and iteration.
+    n_iter, delta). ``vm``: the kernel route's vocab-major copies of k_pad
+    and km_pad when the caller made them (`vocab_major_stripes`); else they
+    are made here, once for every chunk and iteration.
 
     ``chunk_placement="solve"`` runs the chunk loop outside the Sinkhorn
     loop (each (query, chunk) block freezes at its own convergence; n_iter
@@ -158,8 +158,7 @@ def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
     """
     q, v_r = r_sel.shape
     ones_r = torch.ones_like(r_sel)
-    type1 = ss.batched_type1(impl, k_pad, k_vm)
-    type2 = ss._resolve_impl("type2", impl, True)
+    type1, type2 = ss.batched_contractions(impl, k_pad, km_pad, vm)
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
 
     def solve_chunk(x0_c, cols_c, vals_c):
@@ -229,31 +228,31 @@ def build_wmd_batch_fn_stripes(*, max_iter: int, impl: str = "kernel",
                                tol: float = 0.0, with_info: bool = False):
     """The batched WMD solver on preassembled stripes (`core.kcache`).
 
-    The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b, k_vm=None):
+    The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b, vm=None):
       k_b, km_b (1, Q, v_r, V+1) stripes (zero pad column, pad rows zeroed),
-      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz), k_vm the
-      `vocab_major_stripes` of k_b (a caller that runs several programs on
-      one stripe set makes it once; None: the program makes it)
+      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz), vm the
+      `vocab_major_stripes` of k_b, km_b (a caller that runs several
+      programs on one stripe set makes them once; None: the program does)
     and returns wmd (Q, N) (plus (n_iter, delta) with ``with_info=True``).
     No ``lamb``: it is baked into the cached rows.
     """
     _check_placement(chunk_placement)
 
-    def fn(k_b, km_b, r_sel, cols_b, vals_b, k_vm=None):
+    def fn(k_b, km_b, r_sel, cols_b, vals_b, vm=None):
         out = _local_batched_solve(
             k_b[0], km_b[0], r_sel, cols_b[0], vals_b[0],
             max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
-            chunk_placement=chunk_placement, tol=tol, k_vm=k_vm)
+            chunk_placement=chunk_placement, tol=tol, vm=vm)
         return out if with_info else out[0]
 
     return fn
 
 
-def vocab_major_stripes(k_b: torch.Tensor, impl: str):
-    """The vocab-major copy (Q, V+1, v_r) of the (1, Q, v_r, V+1) K
-    stripes that the kernel route's type1 reads, or None for the plain
-    impls (they read k_b as it is)."""
+def vocab_major_stripes(k_b: torch.Tensor, km_b: torch.Tensor, impl: str):
+    """The vocab-major copies (k_vm, km_vm), each (Q, V+1, v_r), of the
+    (1, Q, v_r, V+1) K and K.*M stripes that the kernel route's type1 and
+    type2 read, or None for the plain impls (they read the stripes as they
+    are)."""
     if impl != "kernel":
         return None
-    from repro_torch.kernels import ops
-    return ops.k_vocab_major(k_b[0])
+    return ss.vocab_major_pair(k_b[0], km_b[0])

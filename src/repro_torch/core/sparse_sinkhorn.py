@@ -223,8 +223,8 @@ def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None,
                         k_vm=None):
     # the kernel's native cache blocking IS its doc tile: docs_chunk maps
     # onto docs_blk instead of an outer loop (None/0 = default tile). k_vm:
-    # the vocab-major copy of k_pad (`batched_type1` makes it once per
-    # stripe set); without it this call makes its own.
+    # the vocab-major copy of k_pad (`batched_contractions` makes it once
+    # per stripe set); without it this call makes its own.
     from repro_torch.kernels import ops
     kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
     if k_vm is None:
@@ -232,10 +232,15 @@ def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None,
     return ops.sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, **kw)
 
 
-def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
+def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None,
+                        vm=None):
+    # vm: the vocab-major copies (k_vm, km_vm) of k_pad and km_pad
+    # (`batched_contractions`); without them this call makes its own
     from repro_torch.kernels import ops
     kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
-    return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, **kw)
+    if vm is None:
+        return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, **kw)
+    return ops.sddmm_spmm_type2_batch_vm(*vm, u, cols, vals, **kw)
 
 
 def _resolve_impl(kind: str, impl: str, batched: bool = True):
@@ -265,32 +270,48 @@ def _resolve_impl(kind: str, impl: str, batched: bool = True):
     return table[(kind, batched)]
 
 
-def batched_type1(impl: str, k_pad: torch.Tensor,
-                  k_vm: torch.Tensor | None = None):
-    """The batched type1 of ``impl`` for a loop over one stripe set k_pad
-    (Q, v_r, V+1). The kernel route reads the vocab-major copy of k_pad,
-    made here once (or ``k_vm``, when the caller already made it), never
-    once per launch; the plain impls read k_pad as it is."""
+def vocab_major_pair(k_pad: torch.Tensor, km_pad: torch.Tensor):
+    """The vocab-major copies (k_vm, km_vm), each (Q, V+1, v_r), of K and
+    K.*M stripes (Q, v_r, V+1) that the kernel route's batched type1 and
+    type2 read."""
+    from repro_torch.kernels import ops
+    return ops.k_vocab_major(k_pad), ops.k_vocab_major(km_pad)
+
+
+def batched_contractions(impl: str, k_pad: torch.Tensor,
+                         km_pad: torch.Tensor, vm=None):
+    """The batched (type1, type2) of ``impl`` for a loop over one stripe
+    set k_pad, km_pad (Q, v_r, V+1). The kernel route reads the
+    vocab-major copies of both, made here once (or ``vm``, the
+    `vocab_major_pair` the caller already made), never once per launch;
+    the plain impls read the stripes as they are."""
     type1 = _resolve_impl("type1", impl, True)
+    type2 = _resolve_impl("type2", impl, True)
     if impl != "kernel":
-        return type1
-    if k_vm is None:
-        from repro_torch.kernels import ops
-        k_vm = ops.k_vocab_major(k_pad)
-    return functools.partial(type1, k_vm=k_vm)
+        return type1, type2
+    if vm is None:
+        vm = vocab_major_pair(k_pad, km_pad)
+    return (functools.partial(type1, k_vm=vm[0]),
+            functools.partial(type2, vm=vm))
 
 
-def _iteration(impl: str, pre_kpad: torch.Tensor, r_sel: torch.Tensor,
-               x: torch.Tensor, cols: torch.Tensor,
-               vals: torch.Tensor) -> torch.Tensor:
-    return _resolve_impl("type1", impl, False)(
-        pre_kpad, r_sel, safe_recip(x), cols, vals)
+def query_contractions(impl: str, k_pad: torch.Tensor):
+    """The single-query (type1, type2) of ``impl`` for one query's loop on
+    its stripe k_pad (v_r, V+1). The kernel route's type1 reads the
+    vocab-major copy of k_pad, made here once a query, never once per
+    iteration; type2 (#2) and the plain impls read the stripes as they
+    are."""
+    type1 = _resolve_impl("type1", impl, False)
+    type2 = _resolve_impl("type2", impl, False)
+    if impl != "kernel":
+        return type1, type2
+    from repro_torch.kernels import ops
+    k_vm = ops.k_vocab_major(k_pad[None])[0]
 
+    def type1_on_copy(k_pad, r_sel, u, cols, vals):
+        return ops.sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals)
 
-def _final(impl: str, k_pad: torch.Tensor, km_pad: torch.Tensor,
-           u: torch.Tensor, cols: torch.Tensor,
-           vals: torch.Tensor) -> torch.Tensor:
-    return _resolve_impl("type2", impl, False)(k_pad, km_pad, u, cols, vals)
+    return type1_on_copy, type2
 
 
 def sinkhorn_wmd_sparse(sel_idx: torch.Tensor, r_sel: torch.Tensor,
@@ -315,11 +336,12 @@ def sinkhorn_wmd_sparse_pre(pre: SinkhornPrecompute, cols: torch.Tensor,
     k_pad = pad_k(pre.K)
     km_pad = pad_k(pre.KM)
     v_r = pre.r.shape[0]
+    type1, type2 = query_contractions(impl, k_pad)
     x = torch.full((v_r, cols.shape[0]), 1.0 / v_r, dtype=pre.K.dtype,
                    device=pre.K.device)
     for _ in range(max_iter):
-        x = _iteration(impl, k_pad, pre.r, x, cols, vals)
-    return _final(impl, k_pad, km_pad, safe_recip(x), cols, vals)
+        x = type1(k_pad, pre.r, safe_recip(x), cols, vals)
+    return type2(k_pad, km_pad, safe_recip(x), cols, vals)
 
 
 def batched_sinkhorn_loop(iteration, x0: torch.Tensor, *, max_iter: int,
@@ -380,8 +402,7 @@ def _solve_batch_stripes(k_pad, km_pad, r_sel, cols, vals, *, max_iter: int,
     column already appended)."""
     q, v_r = r_sel.shape
     n = cols.shape[0]
-    type1 = batched_type1(impl, k_pad)
-    type2 = _resolve_impl("type2", impl, True)
+    type1, type2 = batched_contractions(impl, k_pad, km_pad)
     x0 = torch.full((q, v_r, n), 1.0 / v_r, dtype=k_pad.dtype,
                     device=k_pad.device)
 

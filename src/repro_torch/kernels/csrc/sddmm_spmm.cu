@@ -1,6 +1,6 @@
 // Fused SDDMM-SpMM for the Sinkhorn-WMD iteration (type1) and the final
 // distance (type2), single-query and batched, sm_90a, plain CUDA C++; and
-// the vocab-major copy of the K stripes that the batched type1 reads.
+// the vocab-major copy of the K and K.*M stripes that three of them read.
 //
 // Replaces four Pallas TPU kernels:
 //   * `sddmm_spmm_type1_batch` / `sddmm_spmm_type2_batch`
@@ -18,48 +18,53 @@
 //
 // One warp per (q, j); lane l holds query-word rows l, l+32, ... (R rows,
 // R = ceil(v_r / 32) <= 4). The K column of a slot is loaded once into
-// registers and feeds both the dot (a warp butterfly reduction) and the
-// accumulation, as the TPU kernel's single VMEM gather does. The per-slot
-// arithmetic (`slot_dot_part`, `warp_sum`, `slot_v`, `slot_accumulate`,
-// explicitly rounded) is shared by two tiles that differ only in where a
-// column comes from and how many slots are in flight:
+// registers and feeds both the dot (a warp butterfly reduction) and, for
+// type1, the accumulation, as the TPU kernel's single VMEM gather does. The
+// per-slot arithmetic (`slot_dot_part`, `warp_sum`, `slot_v`,
+// `slot_accumulate`, explicitly rounded) is shared by two tiles that differ
+// only in where a column comes from and how many slots are in flight:
 //
-//  * `doc_tile` reads K in the reference layout (Q, v_r, V+1): a column is
-//    v_r floats at stride V+1, one 32-byte sector per lane (8x the useful
-//    bytes), one slot at a time. #4 (batched grid), #1 and #2 (the
-//    single-query grid, so a single-query launch is the batched launch at
-//    Q = 1, bit for bit) run it.
-//  * `type1_vm_kernel`, #3, reads the vocab-major copy (Q, V+1, v_r) that
-//    `vocab_major_kernel` makes once per stripe set (the solve loop's or
-//    the rerank's, never once per launch): a column is one 128-byte line at
-//    v_r = 32. A warp lists its document's live slots in shared memory, 32
-//    slots a stage, and walks the list G = 8 / R slots at a time: G column
-//    loads in flight, the G dots summed at once by a reduce-scatter that
-//    pairs lanes as `warp_sum` does (the same bits, 9 shuffles instead of
-//    40 at G = 8), one division a lane group, and the G columns folded into
-//    acc strictly in slot order.
+//  * `vm_doc_tile` reads the vocab-major copies (Q, V+1, v_r) of K and of
+//    K.*M that `vocab_major_kernel` makes once per stripe set (the solve
+//    loop's, the rerank's, one query's for the per-query program; never
+//    once per launch): a column is one 128-byte line at v_r = 32. A warp
+//    lists its document's live slots in shared memory, 32 slots a stage,
+//    and walks the list G = 8 / R slots at a time: G column loads in flight
+//    (2 G for type2: the K line and the K.*M line of each slot), the G dots
+//    summed at once by a reduce-scatter that pairs lanes as `warp_sum` does
+//    (the same bits, 9 shuffles instead of 40 at G = 8), one division a lane
+//    group, and the G columns folded into acc strictly in slot order.
+//    #3 and #1 (`type1_vm_kernel`, #1 at Q = 1 through its own entry) and
+//    #4 (`type2_vm_kernel`) run it.
+//  * `doc_tile` reads K and K.*M in the reference layout (v_r, V+1): a
+//    column is v_r floats at stride V+1, one 32-byte sector per lane (8x
+//    the useful bytes), one slot at a time. Only #2 (`type2_query_kernel`)
+//    runs it; its bits are the yardstick #4 is held to query by query.
 //
 // What bounds them on an H100. The arithmetic is 4 flops per row per slot,
-// far below the fp32 rate; `doc_tile` is bound by memory traffic. #3 moves
-// 1/8 of doc_tile's sectors (the touched K columns are about 3.4 MB a query
-// at paper_5k, L2-resident); what is left is the issue rate of its
-// per-slot instructions and the latency of each warp's chain, which the
-// slots in flight and the reduce-scatter shorten. The copy moves the whole
-// stripe set once (205 MB read and written at Q = 16): a tiled transpose
-// at the HBM rate. At Q = 1 (one query's 12.8 MB stripe, resident in the
-// 50 MB L2) the work is too small to fill the card for long: launch and
-// latency bound #1 and #2.
+// far below the fp32 rate. `doc_tile` is bound by memory traffic. The
+// vocab-major tiles move 1/8 of its sectors (the touched K columns are
+// about 3.4 MB a query at paper_5k, L2-resident); what is left is the issue
+// rate of their per-slot instructions and the latency of each warp's
+// chain, which the slots in flight and the reduce-scatter shorten. The copy
+// moves a whole stripe set once (205 MB read and written for K at Q = 16):
+// a tiled transpose at the HBM rate. At Q = 1 (one query's 12.8 MB stripe,
+// resident in the 50 MB L2) the work is too small to fill the card for
+// long: the longest document's chain (140 live slots) and the launch bound
+// #1 and #2.
 //
 // Exactness: every output element is one warp's fixed-order sum, with no
 // atomics and no dependence on docs_blk or on other documents, so the
 // port's bitwise contracts (chunked == unchunked, cache on == off) hold,
-// and #3 equals #1 query by query. Pad slots (vals == 0) are skipped: they
-// add exactly +0. Pad query rows (all-zero K, r = 1) and Q-filler queries
-// (all-zero K, so w = 0 and v = val / 1e-30 times a zero column) come out
-// as exact zeros. Compiled without --use_fast_math: IEEE division is part
-// of that contract.
+// #3 equals #1 query by query and #4 equals #2 query by query. Pad slots
+// (vals == 0) are skipped: they add exactly +0. Pad query rows (all-zero
+// K, r = 1) and Q-filler queries (all-zero K, so w = 0 and v = val / 1e-30
+// times a zero column) come out as exact zeros. Compiled without
+// --use_fast_math: IEEE division is part of that contract.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -115,6 +120,7 @@ __device__ __forceinline__ void load_u(float (&uj)[R], float (&acc)[R],
   }
 }
 
+// type1's epilogue: x[:, j] = acc / r
 template <int R>
 __device__ __forceinline__ void store_x(const float (&acc)[R],
                                         const float* __restrict__ rq,
@@ -128,21 +134,33 @@ __device__ __forceinline__ void store_x(const float (&acc)[R],
   }
 }
 
-// -- reference layout: #1, #2, #4 -------------------------------------------
+// type2's epilogue: wmd[j] = <u[:, j], acc>
+template <int R>
+__device__ __forceinline__ void store_d(const float (&uj)[R],
+                                        const float (&acc)[R],
+                                        float* __restrict__ outq, int j) {
+  const float d = warp_sum(slot_dot_part<R>(uj, acc));
+  if (threadIdx.x % kWarp == 0) outq[j] = d;
+}
 
-// One query's documents j0 .. j_end-1, one warp per document, K in the
-// reference layout. Pointers are the query's own: k / km (v_r, vp1),
-// r (v_r), u and x (v_r, n), wmd (n).
-template <int R, bool kType2>
-__device__ __forceinline__ void doc_tile(
-    const float* __restrict__ kq, const float* __restrict__ kmq,
-    const float* __restrict__ rq, const float* __restrict__ uq,
-    const int* __restrict__ cols, const float* __restrict__ vals,
-    float* __restrict__ outq, int v_r, int vp1, int n, int nnz, int j0,
-    int j_end) {
+// -- reference layout: #2 ----------------------------------------------------
+
+// #2, the single-query type2 grid, ceil(N / docs_blk) blocks, one warp per
+// document, K and K.*M in the reference layout: (v_r, vp1) stripes,
+// u (v_r, N) -> wmd (N).
+template <int R>
+__global__ void type2_query_kernel(const float* __restrict__ kq,
+                                   const float* __restrict__ kmq,
+                                   const float* __restrict__ uq,
+                                   const int* __restrict__ cols,
+                                   const float* __restrict__ vals,
+                                   float* __restrict__ wmd, int v_r, int vp1,
+                                   int n, int nnz, int docs_blk) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
+  const int j0 = blockIdx.x * docs_blk;
+  const int j_end = min(j0 + docs_blk, n);
   for (int j = j0 + warp; j < j_end; j += warps) {
     float uj[R], acc[R];
     load_u<R>(uj, acc, uq, v_r, n, j);
@@ -152,68 +170,21 @@ __device__ __forceinline__ void doc_tile(
       const float val = vj[s];
       if (val == 0.f) continue;              // pad slot: adds exactly +0
       const size_t c = (size_t)cj[s];
-      float kc[R];
+      float kc[R], kmc[R];
 #pragma unroll
       for (int t = 0; t < R; ++t) {
         const int i = lane + t * kWarp;
         kc[t] = i < v_r ? kq[(size_t)i * vp1 + c] : 0.f;
+        kmc[t] = i < v_r ? kmq[(size_t)i * vp1 + c] : 0.f;
       }
-      const float v = slot_v(val, warp_sum(slot_dot_part<R>(kc, uj)));
-      if (kType2) {
-        float kmc[R];
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-          const int i = lane + t * kWarp;
-          kmc[t] = i < v_r ? kmq[(size_t)i * vp1 + c] : 0.f;
-        }
-        slot_accumulate<R>(acc, kmc, v);
-      } else {
-        slot_accumulate<R>(acc, kc, v);
-      }
+      slot_accumulate<R>(acc, kmc,
+                         slot_v(val, warp_sum(slot_dot_part<R>(kc, uj))));
     }
-    if (kType2) {
-      const float d = warp_sum(slot_dot_part<R>(uj, acc));
-      if (lane == 0) outq[j] = d;
-    } else {
-      store_x<R>(acc, rq, outq, v_r, n, j);
-    }
+    store_d<R>(uj, acc, wmd, j);
   }
 }
 
-// #4, the batched type2 grid, (ceil(N / docs_blk), Q): block (tile, q)
-// walks query q's documents of its tile.
-template <int R>
-__global__ void type2_batch_kernel(
-    const float* __restrict__ k,     // (Q, v_r, vp1)
-    const float* __restrict__ km,    // (Q, v_r, vp1)
-    const float* __restrict__ u,     // (Q, v_r, N)
-    const int* __restrict__ cols,    // (N, nnz)
-    const float* __restrict__ vals,  // (N, nnz)
-    float* __restrict__ wmd,         // (Q, N)
-    int v_r, int vp1, int n, int nnz, int docs_blk) {
-  const size_t q = blockIdx.y;
-  const size_t stripe = (size_t)v_r * vp1;
-  const int j0 = blockIdx.x * docs_blk;
-  doc_tile<R, true>(k + q * stripe, km + q * stripe, nullptr,
-                    u + q * v_r * n, cols, vals, wmd + q * n, v_r, vp1, n,
-                    nnz, j0, min(j0 + docs_blk, n));
-}
-
-// #1 / #2, the single-query grid, ceil(N / docs_blk) blocks: one query's
-// (v_r, vp1) stripes, r (v_r), u (v_r, N) -> x (v_r, N) or wmd (N).
-template <int R, bool kType2>
-__global__ void query_kernel(
-    const float* __restrict__ k, const float* __restrict__ km,
-    const float* __restrict__ r, const float* __restrict__ u,
-    const int* __restrict__ cols, const float* __restrict__ vals,
-    float* __restrict__ out, int v_r, int vp1, int n, int nnz,
-    int docs_blk) {
-  const int j0 = blockIdx.x * docs_blk;
-  doc_tile<R, kType2>(k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, j0,
-                      min(j0 + docs_blk, n));
-}
-
-// -- vocab-major: #3 and its K copy -----------------------------------------
+// -- vocab-major: #3, #1, #4 and the copy -----------------------------------
 
 // The G slots' warp sums at once (G a power of two <= 32): a reduce-scatter
 // that pairs lanes exactly as warp_sum's butterfly does (own + partner's at
@@ -245,42 +216,30 @@ __host__ __device__ constexpr int log2i(int x) {
   return x <= 1 ? 0 : 1 + log2i(x / 2);
 }
 
-// #3, the batched type1 grid (ceil(N / docs_blk), Q) on the vocab-major
-// copy: block (tile, q) walks query q's documents of its tile, one warp a
+// One query's documents j0 .. j_end-1 on the vocab-major copies, one warp a
 // document. The warp loads its document's slots 32 at a time (one
 // coalesced load of cols and of vals, a slot a lane) and compacts the live
-// ones, in slot order, into its shared-memory list (pad slots, val 0, add
-// exactly +0 and are dropped). It then walks the list G = 8 / R slots at a
-// time: G column loads in flight, the G dots reduced at once
-// (`warp_sum_scatter`), lane group g computing slot g's v, and the G
-// columns folded into acc in slot order.
-template <int R>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
-type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
-                const float* __restrict__ r,     // (Q, v_r)
-                const float* __restrict__ u,     // (Q, v_r, N)
-                const int* __restrict__ cols,    // (N, nnz)
-                const float* __restrict__ vals,  // (N, nnz)
-                float* __restrict__ x,           // (Q, v_r, N)
-                int v_r, int vp1, int n, int nnz, int docs_blk) {
+// ones, in slot order, into its shared-memory list sc / sv (pad slots, val
+// 0, add exactly +0 and are dropped). It then walks the list G = 8 / R
+// slots at a time: G K-line loads (and, for type2, G K.*M-line loads) in
+// flight, the G dots reduced at once (`warp_sum_scatter`), lane group g
+// computing slot g's v, and the G columns (K's for type1, K.*M's for
+// type2) folded into acc in slot order. Pointers are the query's own:
+// kq / kmq (vp1, v_r), rq (v_r), uq (v_r, n), outq x (v_r, n) or wmd (n).
+template <int R, bool kType2>
+__device__ __forceinline__ void vm_doc_tile(
+    const float* __restrict__ kq, const float* __restrict__ kmq,
+    const float* __restrict__ rq, const float* __restrict__ uq,
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    float* __restrict__ outq, int* sc, float* sv, int v_r, int n, int nnz,
+    int j0, int j_end) {
   constexpr int G = 8 / R;
   constexpr int kShift = 5 - log2i(G);       // lane >> kShift: its slot
-  __shared__ int s_col[kMaxWarpsPerBlock][kWarp];
-  __shared__ float s_val[kMaxWarpsPerBlock][kWarp];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
   const int my_g = lane >> kShift;
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
-  const size_t q = blockIdx.y;
-  const float* kq = kvm + q * vp1 * v_r;
-  const float* rq = r + q * v_r;
-  const float* uq = u + q * v_r * n;
-  float* xq = x + q * v_r * n;
-  int* sc = s_col[warp];
-  float* sv = s_val[warp];
-  const int j0 = blockIdx.x * docs_blk;
-  const int j_end = min(j0 + docs_blk, n);
   for (int j = j0 + warp; j < j_end; j += warps) {
     float uj[R], acc[R];
     load_u<R>(uj, acc, uq, v_r, n, j);
@@ -299,7 +258,7 @@ type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
       }
       __syncwarp();
       for (int k = 0; k < count; k += G) {
-        float col[G][R], part[G];
+        float col[G][R], mcol[G][R], part[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const bool ok = k + g < count;
@@ -307,7 +266,9 @@ type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
 #pragma unroll
           for (int t = 0; t < R; ++t) {
             const int i = lane + t * kWarp;
-            col[g][t] = ok && i < v_r ? kq[cc * v_r + i] : 0.f;
+            const bool in = ok && i < v_r;
+            col[g][t] = in ? kq[cc * v_r + i] : 0.f;
+            if constexpr (kType2) mcol[g][t] = in ? kmq[cc * v_r + i] : 0.f;
           }
           part[g] = slot_dot_part<R>(col[g], uj);
         }
@@ -317,18 +278,71 @@ type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float v = __shfl_sync(kFull, v_mine, g << kShift);
-          if (k + g < count) slot_accumulate<R>(acc, col[g], v);
+          if (k + g < count) {
+            if constexpr (kType2)
+              slot_accumulate<R>(acc, mcol[g], v);
+            else
+              slot_accumulate<R>(acc, col[g], v);
+          }
         }
       }
       __syncwarp();                          // the next stage overwrites
     }
-    store_x<R>(acc, rq, xq, v_r, n, j);
+    if constexpr (kType2)
+      store_d<R>(uj, acc, outq, j);
+    else
+      store_x<R>(acc, rq, outq, v_r, n, j);
   }
 }
 
+// #3 (and #1 at Q = 1), the type1 grid (ceil(N / docs_blk), Q) on the
+// vocab-major copy of K: block (tile, q) walks query q's documents of its
+// tile.
+template <int R>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
+type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
+                const float* __restrict__ r,     // (Q, v_r)
+                const float* __restrict__ u,     // (Q, v_r, N)
+                const int* __restrict__ cols,    // (N, nnz)
+                const float* __restrict__ vals,  // (N, nnz)
+                float* __restrict__ x,           // (Q, v_r, N)
+                int v_r, int vp1, int n, int nnz, int docs_blk) {
+  __shared__ int s_col[kMaxWarpsPerBlock][kWarp];
+  __shared__ float s_val[kMaxWarpsPerBlock][kWarp];
+  const size_t q = blockIdx.y;
+  const int warp = threadIdx.x / kWarp;
+  const int j0 = blockIdx.x * docs_blk;
+  vm_doc_tile<R, false>(kvm + q * vp1 * v_r, nullptr, r + q * v_r,
+                        u + q * v_r * n, cols, vals, x + q * v_r * n,
+                        s_col[warp], s_val[warp], v_r, n, nnz, j0,
+                        min(j0 + docs_blk, n));
+}
+
+// #4, the type2 grid (ceil(N / docs_blk), Q) on the vocab-major copies of K
+// and K.*M.
+template <int R>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
+type2_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
+                const float* __restrict__ kmvm,  // (Q, vp1, v_r)
+                const float* __restrict__ u,     // (Q, v_r, N)
+                const int* __restrict__ cols,    // (N, nnz)
+                const float* __restrict__ vals,  // (N, nnz)
+                float* __restrict__ wmd,         // (Q, N)
+                int v_r, int vp1, int n, int nnz, int docs_blk) {
+  __shared__ int s_col[kMaxWarpsPerBlock][kWarp];
+  __shared__ float s_val[kMaxWarpsPerBlock][kWarp];
+  const size_t q = blockIdx.y;
+  const size_t stripe = (size_t)vp1 * v_r;
+  const int warp = threadIdx.x / kWarp;
+  const int j0 = blockIdx.x * docs_blk;
+  vm_doc_tile<R, true>(kvm + q * stripe, kmvm + q * stripe, nullptr,
+                       u + q * v_r * n, cols, vals, wmd + q * n, s_col[warp],
+                       s_val[warp], v_r, n, nnz, j0, min(j0 + docs_blk, n));
+}
+
 // (B, rows, cols) -> (B, cols, rows) through 32 x 32 tiles in shared
-// memory, reads along cols and writes along rows both coalesced: the K
-// stripes (Q, v_r, V+1) -> the vocab-major copy (Q, V+1, v_r). Block
+// memory, reads along cols and writes along rows both coalesced: the K (or
+// K.*M) stripes (Q, v_r, V+1) -> the vocab-major copy (Q, V+1, v_r). Block
 // (x, y, z), of kWarp x kTileRows threads, moves tile (x, y) of batch z.
 constexpr int kTileRows = 8;
 
@@ -368,26 +382,33 @@ dim3 tile_block(int docs_blk) {
               kWarp);
 }
 
-int rows_per_lane(int v_r) { return (v_r + kWarp - 1) / kWarp; }
-
-template <bool kType2>
-int launch_query(const float* k, const float* km, const float* r,
-                 const float* u, const int* cols, const float* vals,
-                 float* out, int v_r, int vp1, int n, int nnz, int docs_blk,
-                 cudaStream_t st) {
-  if (bad_shape(1, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(n, docs_blk, 1), block = tile_block(docs_blk);
-  const int rows = rows_per_lane(v_r);
+// Calls launch(std::integral_constant<int, R>) with the rows a lane holds,
+// R = ceil(v_r / 32) rounded up to 1, 2 or 4; returns the launch's error.
+template <typename Launch>
+int by_rows(int v_r, Launch launch) {
+  const int rows = (v_r + kWarp - 1) / kWarp;
   if (rows == 1)
-    query_kernel<1, kType2><<<grid, block, 0, st>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch(std::integral_constant<int, 1>{});
   else if (rows == 2)
-    query_kernel<2, kType2><<<grid, block, 0, st>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch(std::integral_constant<int, 2>{});
   else
-    query_kernel<4, kType2><<<grid, block, 0, st>>>(
-        k, km, r, u, cols, vals, out, v_r, vp1, n, nnz, docs_blk);
+    launch(std::integral_constant<int, 4>{});
   return (int)cudaGetLastError();
+}
+
+int launch_type1_vm(const void* kvm, const void* r, const void* u,
+                    const void* cols, const void* vals, void* x, int q,
+                    int v_r, int vp1, int n, int nnz, int docs_blk,
+                    void* stream) {
+  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
+  return by_rows(v_r, [&](auto rows) {
+    type1_vm_kernel<decltype(rows)::value>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)kvm, (const float*)r, (const float*)u,
+            (const int*)cols, (const float*)vals, (float*)x, v_r, vp1, n,
+            nnz, docs_blk);
+  });
 }
 
 }  // namespace
@@ -398,26 +419,52 @@ extern "C" int sddmm_spmm_type1_batch(const void* kvm, const void* r,
                                       const void* vals, void* x, int q,
                                       int v_r, int vp1, int n, int nnz,
                                       int docs_blk, void* stream) {
+  return launch_type1_vm(kvm, r, u, cols, vals, x, q, v_r, vp1, n, nnz,
+                         docs_blk, stream);
+}
+
+// #1: #3's kernel at Q = 1 on one query's vocab-major copy kvm (V+1, v_r),
+// r (v_r), u and x (v_r, N); an entry of its own so that its launches are
+// counted apart from #3's.
+extern "C" int sddmm_spmm_type1(const void* kvm, const void* r, const void* u,
+                                const void* cols, const void* vals, void* x,
+                                int v_r, int vp1, int n, int nnz,
+                                int docs_blk, void* stream) {
+  return launch_type1_vm(kvm, r, u, cols, vals, x, 1, v_r, vp1, n, nnz,
+                         docs_blk, stream);
+}
+
+// #4 on the vocab-major copies kvm, kmvm (Q, V+1, v_r).
+extern "C" int sddmm_spmm_type2_batch(const void* kvm, const void* kmvm,
+                                      const void* u, const void* cols,
+                                      const void* vals, void* wmd, int q,
+                                      int v_r, int vp1, int n, int nnz,
+                                      int docs_blk, void* stream) {
   if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
   const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float* kp = (const float*)kvm;
-  const float* rp = (const float*)r;
-  const float* up = (const float*)u;
-  const int* cp = (const int*)cols;
-  const float* vp = (const float*)vals;
-  float* xp = (float*)x;
-  const int rows = rows_per_lane(v_r);
-  if (rows == 1)
-    type1_vm_kernel<1><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
-                                               vp1, n, nnz, docs_blk);
-  else if (rows == 2)
-    type1_vm_kernel<2><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
-                                               vp1, n, nnz, docs_blk);
-  else
-    type1_vm_kernel<4><<<grid, block, 0, st>>>(kp, rp, up, cp, vp, xp, v_r,
-                                               vp1, n, nnz, docs_blk);
-  return (int)cudaGetLastError();
+  return by_rows(v_r, [&](auto rows) {
+    type2_vm_kernel<decltype(rows)::value>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)kvm, (const float*)kmvm, (const float*)u,
+            (const int*)cols, (const float*)vals, (float*)wmd, v_r, vp1, n,
+            nnz, docs_blk);
+  });
+}
+
+// #2 on one query's reference-layout stripes k, km (v_r, V+1).
+extern "C" int sddmm_spmm_type2(const void* k, const void* km, const void* u,
+                                const void* cols, const void* vals, void* wmd,
+                                int v_r, int vp1, int n, int nnz,
+                                int docs_blk, void* stream) {
+  if (bad_shape(1, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, 1), block = tile_block(docs_blk);
+  return by_rows(v_r, [&](auto rows) {
+    type2_query_kernel<decltype(rows)::value>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)k, (const float*)km, (const float*)u,
+            (const int*)cols, (const float*)vals, (float*)wmd, v_r, vp1, n,
+            nnz, docs_blk);
+  });
 }
 
 // The vocab-major copy: src (b, rows, cols) -> dst (b, cols, rows).
@@ -430,51 +477,4 @@ extern "C" int k_vocab_major(const void* src, void* dst, int b, int rows,
                        (cudaStream_t)stream>>>((const float*)src,
                                                (float*)dst, rows, cols);
   return (int)cudaGetLastError();
-}
-
-extern "C" int sddmm_spmm_type2_batch(const void* k, const void* km,
-                                      const void* u, const void* cols,
-                                      const void* vals, void* wmd, int q,
-                                      int v_r, int vp1, int n, int nnz,
-                                      int docs_blk, void* stream) {
-  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float* kp = (const float*)k;
-  const float* kmp = (const float*)km;
-  const float* up = (const float*)u;
-  const int* cp = (const int*)cols;
-  const float* vp = (const float*)vals;
-  float* out = (float*)wmd;
-  const int rows = rows_per_lane(v_r);
-  if (rows == 1)
-    type2_batch_kernel<1><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
-                                                  v_r, vp1, n, nnz, docs_blk);
-  else if (rows == 2)
-    type2_batch_kernel<2><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
-                                                  v_r, vp1, n, nnz, docs_blk);
-  else
-    type2_batch_kernel<4><<<grid, block, 0, st>>>(kp, kmp, up, cp, vp, out,
-                                                  v_r, vp1, n, nnz, docs_blk);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sddmm_spmm_type1(const void* k, const void* r, const void* u,
-                                const void* cols, const void* vals, void* x,
-                                int v_r, int vp1, int n, int nnz,
-                                int docs_blk, void* stream) {
-  return launch_query<false>((const float*)k, nullptr, (const float*)r,
-                             (const float*)u, (const int*)cols,
-                             (const float*)vals, (float*)x, v_r, vp1, n, nnz,
-                             docs_blk, (cudaStream_t)stream);
-}
-
-extern "C" int sddmm_spmm_type2(const void* k, const void* km, const void* u,
-                                const void* cols, const void* vals, void* wmd,
-                                int v_r, int vp1, int n, int nnz,
-                                int docs_blk, void* stream) {
-  return launch_query<true>((const float*)k, (const float*)km, nullptr,
-                            (const float*)u, (const int*)cols,
-                            (const float*)vals, (float*)wmd, v_r, vp1, n, nnz,
-                            docs_blk, (cudaStream_t)stream);
 }

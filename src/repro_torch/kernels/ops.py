@@ -10,10 +10,11 @@ and falls back.
 Padding rules differ from the TPU wrappers on purpose: the CUDA kernels
 mask their own ragged edges (any v_r up to 128, any Q, N and nnz), so v_r,
 Q and docs are not padded to tile multiples here and no (Q, v_r, V+1)
-stripe is ever copied for alignment. One copy is made for layout: the
-batched type1 reads K vocab-major (`k_vocab_major`,
-`sddmm_spmm_type1_batch_vm`), and the solve loops and reranks make that
-copy once per stripe set, on both devices (on the CPU it feeds the same
+stripe is ever copied for alignment. Copies are made for layout: the
+batched type1 and type2 and the single-query type1 read K (and K.*M)
+vocab-major (`k_vocab_major`, the ``*_vm`` entry points), and the solve
+loops and reranks make those copies once per stripe set (the per-query
+program once a query), on both devices (on the CPU they feed the same
 gather as the reference layout). What remains of the reference's rules
 is the caller's: K carries its zero pad column (ELL pad slots gather it),
 pad query rows carry r = 1 and an all-zero K row, and Q-filler queries an
@@ -34,17 +35,31 @@ from repro_torch.kernels import rwmd as _rwmd
 from repro_torch.kernels import sddmm_spmm as _sddmm_spmm
 
 
+def sddmm_spmm_type1_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
+                        u: torch.Tensor, cols: torch.Tensor,
+                        vals: torch.Tensor, *,
+                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
+                        ) -> torch.Tensor:
+    """Fused Sinkhorn iteration body of one query on its vocab-major copy
+    k_vm (V+1, v_r) (`k_vocab_major` of the stripe); otherwise
+    `sddmm_spmm_type1`, bit for bit."""
+    if k_vm.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type1_vm(
+            k_vm.contiguous(), r_sel.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals)
+
+
 def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
                      u: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                     *, docs_blk: int = 8) -> torch.Tensor:
+                     *, docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
+                     ) -> torch.Tensor:
     """Fused Sinkhorn iteration body of one query: k_pad (v_r, V+1) with
     the zero pad column, r_sel (v_r,), u (v_r, N), cols/vals (N, nnz) ->
-    x (v_r, N)."""
-    if k_pad.is_cuda:
-        return _sddmm_spmm.sddmm_spmm_type1(
-            k_pad.contiguous(), r_sel.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals)
+    x (v_r, N). Makes the vocab-major copy of k_pad for this one call: a
+    loop takes `k_vocab_major` once and calls `sddmm_spmm_type1_vm`."""
+    return sddmm_spmm_type1_vm(k_vocab_major(k_pad[None])[0], r_sel, u,
+                               cols, vals, docs_blk=docs_blk)
 
 
 def sddmm_spmm_type2(k_pad: torch.Tensor, km_pad: torch.Tensor,
@@ -77,9 +92,10 @@ def sddmm_spmm_chunked(k_chunks: torch.Tensor, r_sel: torch.Tensor,
 
 
 def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
-    """The vocab-major copy (Q, V+1, v_r) of K stripes (Q, v_r, V+1) that
-    the batched type1 reads: a caller that runs several type1 launches on
-    one stripe set (a Sinkhorn loop, a rerank) makes it once."""
+    """The vocab-major copy (Q, V+1, v_r) of K (or K.*M) stripes
+    (Q, v_r, V+1) that the ``*_vm`` entry points read: a caller that runs
+    several launches on one stripe set (a Sinkhorn loop, a rerank) makes
+    it once."""
     if k_pad.is_cuda:
         return _sddmm_spmm.k_vocab_major(k_pad.contiguous())
     return _sddmm_spmm.k_vocab_major_plain(k_pad)
@@ -113,17 +129,32 @@ def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
                                      vals, docs_blk=docs_blk)
 
 
+def sddmm_spmm_type2_batch_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
+                              u: torch.Tensor, cols: torch.Tensor,
+                              vals: torch.Tensor, *,
+                              docs_blk: int = 8) -> torch.Tensor:
+    """Batched fused final distance on the vocab-major copies k_vm, km_vm
+    (Q, V+1, v_r) of `k_vocab_major`; otherwise `sddmm_spmm_type2_batch`,
+    bit for bit."""
+    if k_vm.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type2_batch_vm(
+            k_vm.contiguous(), km_vm.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols,
+                                                       vals)
+
+
 def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
                            vals: torch.Tensor, *,
                            docs_blk: int = 8) -> torch.Tensor:
-    """Batched fused final distance -> (Q, N) WMD."""
-    if k_pad.is_cuda:
-        return _sddmm_spmm.sddmm_spmm_type2_batch(
-            k_pad.contiguous(), km_pad.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols,
-                                                    vals)
+    """Batched fused final distance: k_pad, km_pad (Q, v_r, V+1), u
+    (Q, v_r, N), cols/vals (N, nnz) -> (Q, N) WMD. Makes the vocab-major
+    copies of k_pad and km_pad for this one call: loops take
+    `k_vocab_major` of each once and call `sddmm_spmm_type2_batch_vm`."""
+    return sddmm_spmm_type2_batch_vm(k_vocab_major(k_pad),
+                                     k_vocab_major(km_pad), u, cols, vals,
+                                     docs_blk=docs_blk)
 
 
 def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *,

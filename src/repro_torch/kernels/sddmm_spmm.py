@@ -15,18 +15,20 @@ type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
 <u[q, :, j], acc>. The functions without ``_plain`` launch the CUDA kernels
 in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
 
-  * ``sddmm_spmm_type1_batch_vm`` (#3) reads K vocab-major, (Q, V+1, v_r),
-    the copy `k_vocab_major` makes once per stripe set (a column is then
-    one 128-byte line); ``sddmm_spmm_type1_batch`` is the reference layout's
-    entry, the copy and #3 in one call;
-  * ``sddmm_spmm_type2_batch`` (#4) and the single-query
-    ``sddmm_spmm_type{1,2}`` (#1, #2: one query's (v_r, V+1) stripe) read
-    the reference layout (Q, v_r, V+1). All four share one per-slot step,
-    so #1 is #3 query by query and #2 is #4 at Q = 1, bit for bit.
+  * the ``*_vm`` entry points read K (and K.*M) vocab-major, (Q, V+1, v_r),
+    the copies `k_vocab_major` makes once per stripe set (a column is then
+    one 128-byte line): ``sddmm_spmm_type1_batch_vm`` (#3),
+    ``sddmm_spmm_type2_batch_vm`` (#4) and ``sddmm_spmm_type1_vm`` (#1, one
+    query's (V+1, v_r) copy, #3's kernel at Q = 1). The reference layout's
+    entries of the same names without ``_vm`` are the copies and the
+    kernel in one call;
+  * ``sddmm_spmm_type2`` (#2) reads one query's reference-layout stripes
+    (v_r, V+1), one slot at a time. #4 is #2 query by query, and #1 is #3
+    at Q = 1, bit for bit.
 
 The ``*_plain`` functions are the gather + matmul spellings of the same
-math (the single-query ones the batched at Q = 1; the vocab-major one
-gathers ``k_vm[:, cols]``, the very tensor `_gather` builds from the
+math (the single-query ones the batched at Q = 1; the vocab-major ones
+gather ``k_vm[:, cols]``, the very tensor `_gather` builds from the
 reference layout), used for CPU tensors and as the kernels' comparison on
 the card. `repro_torch.kernels.ops` chooses between them by device.
 """
@@ -42,6 +44,11 @@ TINY = 1e-30  # see core.sparse_sinkhorn.safe_recip
 
 # v_r rows a warp can hold (4 per lane); the kernels refuse larger buckets
 MAX_V_R = 128
+
+# #1's doc tile: at Q = 1 (N = 5,000, v_r = 32, H100) docs_blk 4 took
+# 0.0199-0.0207 ms of device time a launch against 0.0209-0.0213 at 8 and
+# 0.024 at 16 (chip_smoke.py phase 5); bits do not depend on it
+QUERY_DOCS_BLK = 4
 
 
 def _gather(k_pad: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -92,18 +99,37 @@ def sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols, vals):
     return _type1_from_gather(k_vm[:, cols], r_sel, u, vals)
 
 
-def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
-    """Plain version of the type2 kernel: (Q, N) distances, reduced in the
-    kernel's order (K.*M accumulation first, then the u contraction)."""
-    v = _sampled_v(_gather(k_pad, cols), u, vals)
-    acc = slot_combine(_gather(km_pad, cols), v)
+def _type2_from_gather(kg, kmg, u, vals):
+    # reduced in the kernel's order: K.*M accumulation first, then the u
+    # contraction
+    acc = slot_combine(kmg, _sampled_v(kg, u, vals))
     return torch.sum(u * acc, dim=1)
+
+
+def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
+    """Plain version of the type2 kernel: (Q, N) distances."""
+    return _type2_from_gather(_gather(k_pad, cols), _gather(km_pad, cols), u,
+                              vals)
+
+
+def sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols, vals):
+    """Plain version of #4 on the vocab-major copies k_vm, km_vm
+    (Q, V+1, v_r): bitwise the reference layout's
+    `sddmm_spmm_type2_batch_plain`."""
+    return _type2_from_gather(k_vm[:, cols], km_vm[:, cols], u, vals)
 
 
 def sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals):
     """Plain version of the single-query type1 kernel: (v_r, N) iterate."""
     return sddmm_spmm_type1_batch_plain(k_pad[None], r_sel[None], u[None],
                                         cols, vals)[0]
+
+
+def sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals):
+    """Plain version of #1 on one query's vocab-major copy k_vm (V+1, v_r):
+    `sddmm_spmm_type1_batch_vm_plain` at Q = 1."""
+    return sddmm_spmm_type1_batch_vm_plain(k_vm[None], r_sel[None], u[None],
+                                           cols, vals)[0]
 
 
 def sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals):
@@ -156,8 +182,9 @@ def _launch(name: str, ptrs, *sizes) -> None:
 
 
 def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
-    """CUDA copy of the K stripes (Q, v_r, V+1) f32 into the vocab-major
-    layout (Q, V+1, v_r) that #3 reads: a tiled transpose, one launch."""
+    """CUDA copy of K (or K.*M) stripes (Q, v_r, V+1) f32 into the
+    vocab-major layout (Q, V+1, v_r) that #1, #3 and #4 read: a tiled
+    transpose, one launch."""
     name = "k_vocab_major"
     _cuda_tensor(name, k_pad)
     if k_pad.dtype != torch.float32 or k_pad.dim() != 3:
@@ -207,22 +234,34 @@ def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
                                      vals, docs_blk=docs_blk)
 
 
-def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
-                           docs_blk: int = 8) -> torch.Tensor:
-    """CUDA type2 kernel: the fused final distance. Returns wmd (Q, N)."""
+def sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals, *,
+                              docs_blk: int = 8) -> torch.Tensor:
+    """CUDA type2 kernel (#4) on the vocab-major copies k_vm, km_vm
+    (Q, V+1, v_r) of K and K.*M with the zero pad row V, u (Q, v_r, N),
+    cols int32 / vals f32 (N, nnz) with every col in [0, V]: the fused final
+    distance, wmd (Q, N). ``docs_blk`` documents per block."""
     name = "sddmm_spmm_type2_batch"
-    _check(name, {"k_pad": k_pad, "km_pad": km_pad, "u": u, "cols": cols,
-                  "vals": vals}, k_pad, u, cols, docs_blk)
+    _check(name, {"k_vm": k_vm, "km_vm": km_vm, "u": u, "cols": cols,
+                  "vals": vals}, k_vm, u, cols, docs_blk, vocab_major=True)
     q, v_r, n = u.shape
-    if km_pad.shape != k_pad.shape or vals.shape != cols.shape:
-        raise ValueError(f"{name}: km_pad {tuple(km_pad.shape)} / vals "
+    if km_vm.shape != k_vm.shape or vals.shape != cols.shape:
+        raise ValueError(f"{name}: km_vm {tuple(km_vm.shape)} / vals "
                          f"{tuple(vals.shape)} shape mismatch")
     wmd = torch.empty((q, n), dtype=torch.float32, device=u.device)
     if q and n:
-        _launch(name, (k_pad.data_ptr(), km_pad.data_ptr(), u.data_ptr(),
+        _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
-                q, v_r, k_pad.shape[2], n, cols.shape[1], docs_blk)
+                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk)
     return wmd
+
+
+def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
+                           docs_blk: int = 8) -> torch.Tensor:
+    """#4 on K and K.*M in the reference layout (Q, v_r, V+1), zero pad
+    column: the two vocab-major copies, then `sddmm_spmm_type2_batch_vm`."""
+    return sddmm_spmm_type2_batch_vm(k_vocab_major(k_pad),
+                                     k_vocab_major(km_pad), u, cols, vals,
+                                     docs_blk=docs_blk)
 
 
 def _one_query(name: str, u: torch.Tensor) -> None:
@@ -231,29 +270,40 @@ def _one_query(name: str, u: torch.Tensor) -> None:
                          f"{tuple(u.shape)}")
 
 
-def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
-                     docs_blk: int = 8) -> torch.Tensor:
-    """CUDA single-query type1 kernel: k_pad (v_r, V+1), r_sel (v_r,),
-    u (v_r, N), cols int32 / vals f32 (N, nnz) -> x (v_r, N)."""
+def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
+                        docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+    """CUDA single-query type1 kernel (#1) on one query's vocab-major copy
+    k_vm (V+1, v_r), r_sel (v_r,), u (v_r, N), cols int32 / vals f32
+    (N, nnz) -> x (v_r, N): #3's kernel at Q = 1, counted as #1."""
     name = "sddmm_spmm_type1"
     _one_query(name, u)
-    _check(name, {"k_pad": k_pad, "r_sel": r_sel, "u": u, "cols": cols,
-                  "vals": vals}, k_pad[None], u[None], cols, docs_blk)
+    _check(name, {"k_vm": k_vm, "r_sel": r_sel, "u": u, "cols": cols,
+                  "vals": vals}, k_vm[None], u[None], cols, docs_blk,
+           vocab_major=True)
     v_r, n = u.shape
     if r_sel.shape != (v_r,) or vals.shape != cols.shape:
         raise ValueError(f"{name}: r_sel {tuple(r_sel.shape)} / vals "
                          f"{tuple(vals.shape)} shape mismatch")
     x = torch.empty_like(u)
     if n:
-        _launch(name, (k_pad.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
+        _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
-                v_r, k_pad.shape[1], n, cols.shape[1], docs_blk)
+                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk)
     return x
+
+
+def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
+                     docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+    """#1 on one query's reference-layout stripe k_pad (v_r, V+1): its
+    vocab-major copy, then `sddmm_spmm_type1_vm`."""
+    return sddmm_spmm_type1_vm(k_vocab_major(k_pad[None])[0], r_sel, u,
+                               cols, vals, docs_blk=docs_blk)
 
 
 def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
                      docs_blk: int = 8) -> torch.Tensor:
-    """CUDA single-query type2 kernel: the fused final distance, (N,)."""
+    """CUDA single-query type2 kernel (#2) on one query's reference-layout
+    stripes k_pad, km_pad (v_r, V+1): the fused final distance, (N,)."""
     name = "sddmm_spmm_type2"
     _one_query(name, u)
     _check(name, {"k_pad": k_pad, "km_pad": km_pad, "u": u, "cols": cols,

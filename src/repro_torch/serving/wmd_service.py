@@ -609,7 +609,7 @@ class WMDService:
             })
         return out
 
-    def _solve_docs(self, fn, k_s, km_s, k_vm, r_q: torch.Tensor,
+    def _solve_docs(self, fn, k_s, km_s, vm, r_q: torch.Tensor,
                     doc_ids: np.ndarray, chunk: int) -> np.ndarray:
         """Exact distances of the stripes batch against a doc subset via ONE
         fixed-shape (Q, chunk) stripes program (Q = 1 per query, the pow2
@@ -619,15 +619,15 @@ class WMDService:
         off. Per-doc bits do not depend on chunk-mates, position or
         Q-mates (each (q, doc) cell reduces over its own nnz / v_r axes, in
         the kernels as in the plain engine), which makes pruned == scan ==
-        union a bitwise statement. ``k_vm``: the stripes'
-        `vocab_major_stripes`, made once for all the programs of a stripe
-        set."""
+        union a bitwise statement. ``vm``: the stripes'
+        `vocab_major_stripes` (K's and K.*M's), made once for all the
+        programs of a stripe set."""
         m = doc_ids.size
         idx = np.full(chunk, self._rerank_cols_d.shape[0] - 1, np.int64)
         idx[:m] = doc_ids
         idx_t = torch.from_numpy(idx).to(self.device)
         d = fn(k_s, km_s, r_q, self._rerank_cols_d[idx_t][None],
-               self._rerank_vals_d[idx_t][None], k_vm=k_vm)
+               self._rerank_vals_d[idx_t][None], vm=vm)
         return d.cpu().numpy()[:, :m]
 
     def _prune_setup(self, rs, prune_chunk, prune_margin):
@@ -684,7 +684,7 @@ class WMDService:
             k_s, km_s, info = self._kcache.stripes_for_batch(
                 sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
             self._check_km(km_s, mask_b[i:i + 1])
-            k_vm = vocab_major_stripes(k_s, impl)    # once per query stripe
+            vm = vocab_major_stripes(k_s, km_s, impl)  # once a query stripe
             hits += info["hits"]
             k_misses.append(info["misses"])
             lb = bounds[i]
@@ -703,7 +703,7 @@ class WMDService:
                     if block.size == 0:
                         break
                 solved_d[block] = self._solve_docs(
-                    fn, k_s, km_s, k_vm, r_d[i:i + 1], block, chunk)[0]
+                    fn, k_s, km_s, vm, r_d[i:i + 1], block, chunk)[0]
                 solves += block.size
                 programs += 1
                 n_solved += block.size
@@ -778,12 +778,12 @@ class WMDService:
         self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
         impl = impl or self.impl
         fn = self._stripe_fn(impl, None)
-        # ONE stripes assembly (and one vocab-major copy) for the whole
-        # batch (rows are bit-reproducible either way)
+        # ONE stripes assembly (and one pair of vocab-major copies) for the
+        # whole batch (rows are bit-reproducible either way)
         k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
                                                          use_cache=use)
         self._check_km(km_s, mask_b)
-        k_vm = vocab_major_stripes(k_s, impl)
+        vm = vocab_major_stripes(k_s, km_s, impl)
         r_all = torch.from_numpy(r_b).to(self.device)        # (Q_pow2, v_r)
         min_lb = lb.min(axis=0)                   # union visit order key
         solved_d = np.full((q, n), np.inf, np.float32)
@@ -804,7 +804,7 @@ class WMDService:
             if cand.size == 0:
                 break
             block = cand[np.argsort(min_lb[cand], kind="stable")][:chunk]
-            solved_d[:, block] = self._solve_docs(fn, k_s, km_s, k_vm,
+            solved_d[:, block] = self._solve_docs(fn, k_s, km_s, vm,
                                                   r_all, block, chunk)[:q]
             unsolved[block] = False
             programs += 1

@@ -417,8 +417,9 @@ def test_service_query_is_the_batched_row_bitwise_and_counts_launches():
     _build.reset_launches()
     single = np.stack([svc.query(r) for r in rs])
     launches = dict(_build.launches)
-    assert launches == {"cdist_kexp": 5, "sddmm_spmm_type1": 50,
-                        "sddmm_spmm_type2": 5}
+    # one vocab-major copy of each query's K stripe, for its 10 type1s
+    assert launches == {"cdist_kexp": 5, "k_vocab_major": 5,
+                        "sddmm_spmm_type1": 50, "sddmm_spmm_type2": 5}
     np.testing.assert_array_equal(single, rows)
     # a cache-less service: the transient stripes route gives the same bits
     off = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev)
@@ -513,15 +514,100 @@ def test_service_copies_k_once_per_stripe_set_on_card():
     rs = [next(stream) for _ in range(5)]
     svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
                      cache_capacity=256, mcache_capacity=256, prune_chunk=16)
+    # a pair of copies (K and K.*M) per stripe set
     _build.reset_launches()
     full = svc.query_batch(rs)
-    assert _build.launches["k_vocab_major"] == 1
+    assert _build.launches["k_vocab_major"] == 2
     assert _build.launches["sddmm_spmm_type1_batch"] == 10
+    assert _build.launches["sddmm_spmm_type2_batch"] == 1
     for rerank, sets in (("per_query", len(rs)), ("union", 1)):
         _build.reset_launches()
         idx, d = svc.top_k_batch(rs, 5, prune=True, rerank=rerank)
         programs = svc.last_prune_stats["rerank_programs"]
-        assert _build.launches["k_vocab_major"] == sets
+        assert _build.launches["k_vocab_major"] == 2 * sets
         assert _build.launches["sddmm_spmm_type1_batch"] == 10 * programs
+        assert _build.launches["sddmm_spmm_type2_batch"] == programs
         np.testing.assert_array_equal(idx, svc._top_k(full, 5))
         np.testing.assert_array_equal(d, np.take_along_axis(full, idx, -1))
+
+
+# -- slice 5: the redesigned #4 and #1 (vocab-major) --------------------------
+
+def _with_empty_doc(arrs, v):
+    """The problem with its last document all pad slots (col V, val 0)."""
+    cols, vals = arrs[4], arrs[5]
+    cols[-1] = v
+    vals[-1] = 0.0
+    return arrs
+
+
+@pytest.mark.parametrize("v_r", [8, 32, 40, 96, 128])
+@pytest.mark.parametrize("q", [1, 3, 16])
+@pytest.mark.parametrize("nnz", [1, 33, 144])
+def test_type2_vocab_major_is_the_single_query_kernel_bitwise(v_r, q, nnz):
+    """#4 on the vocab-major copies == #2 on each query's reference-layout
+    stripes, bitwise: the same per-slot step, the K.*M columns folded in
+    slot order. N = 45 is no multiple of the doc tile; nnz 33 and 144 span
+    two and five 32-slot stages; pad query rows, a filler query (Q > 1),
+    ELL pad slots and an all-pad document (the last) are in the problem."""
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, km, _, u, cols, vals = (torch.from_numpy(a).to(dev) for a in
+                               _with_empty_doc(_problem(50, q, v_r, 320, 45,
+                                                        nnz,
+                                                        filler=int(q > 1)),
+                                               320))
+    k_vm, km_vm = sk.k_vocab_major(k), sk.k_vocab_major(km)
+    d = sk.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)
+    singles = [sk.sddmm_spmm_type2(k[i], km[i], u[i], cols, vals)
+               for i in range(q)]
+    torch.cuda.synchronize()
+    for i in range(q):
+        assert torch.equal(d[i], singles[i])
+    # sums over v_r and nnz run in another order: fp32 reassociation
+    torch.testing.assert_close(
+        d, sk.sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols, vals),
+        rtol=1e-4, atol=1e-6)
+    assert torch.all(d[:, -1] == 0)          # the all-pad document
+    if q > 1:
+        assert torch.all(d[q - 1] == 0)      # the filler query
+
+
+def test_type2_vocab_major_bits_do_not_depend_on_docs_blk():
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, km, _, u, cols, vals = (torch.from_numpy(a).to(dev)
+                               for a in _problem(51, 3, 40, 500, 61, 40))
+    k_vm, km_vm = sk.k_vocab_major(k), sk.k_vocab_major(km)
+    ds = [sk.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals,
+                                       docs_blk=b)
+          for b in (1, 7, 8, 61, 300)]
+    torch.cuda.synchronize()
+    for d in ds[1:]:
+        assert torch.equal(d, ds[0])
+
+
+@pytest.mark.parametrize("v_r", [8, 32, 40, 96, 128])
+@pytest.mark.parametrize("docs_blk", [1, 4, 8, 16, 61])
+def test_type1_single_query_is_the_batched_kernel_at_q1_bitwise(v_r,
+                                                                docs_blk):
+    """#1 on one query's vocab-major copy == #3 at Q = 1, bitwise, at any
+    doc tile; within the kernel tolerance of its plain version; pad query
+    rows come out exact zeros; launches counted as #1's, not #3's."""
+    dev = _card()
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, _, r, u, cols, vals = (torch.from_numpy(a).to(dev) for a in
+                              _problem(52, 1, v_r, 320, 61, 40, filler=0))
+    k_vm = sk.k_vocab_major(k)
+    _build.reset_launches()
+    x = ops.sddmm_spmm_type1_vm(k_vm[0], r[0], u[0], cols, vals,
+                                docs_blk=docs_blk)
+    assert dict(_build.launches) == {"sddmm_spmm_type1": 1}
+    xb = sk.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xb[0])
+    torch.testing.assert_close(
+        x, sk.sddmm_spmm_type1_vm_plain(k_vm[0], r[0], u[0], cols, vals),
+        rtol=1e-4, atol=1e-6)
+    assert torch.all(x[v_r - 2:] == 0)

@@ -1,18 +1,21 @@
-"""The vocab-major K layout of the batched type1 (kernel #3) on the CPU.
+"""The vocab-major K layout of kernels #3, #4 and #1 on the CPU.
 
-The kernel route copies the (Q, v_r, V+1) K stripes into a vocab-major
-(Q, V+1, v_r) layout once per stripe set (`ops.k_vocab_major`) and runs
-every type1 of the Sinkhorn loop on that copy
-(`ops.sddmm_spmm_type1_batch_vm`). On the CPU the plain version gathers
+The kernel route copies the (Q, v_r, V+1) K and K.*M stripes into a
+vocab-major (Q, V+1, v_r) layout once per stripe set (`ops.k_vocab_major`)
+and runs every type1 (`ops.sddmm_spmm_type1_batch_vm`) and the type2
+(`ops.sddmm_spmm_type2_batch_vm`) of the Sinkhorn loop on those copies; the
+per-query program copies its query's K stripe once and runs its type1s on
+it (`ops.sddmm_spmm_type1_vm`). On the CPU the plain versions gather
 ``k_vm[:, cols]``, the very tensor the reference layout's gather builds, so:
 
 * the vocab-major plain route equals the reference-layout plain route,
-  bitwise;
+  bitwise (type2 and the single-query type1: `test_torch_vocab_major_type2`);
 * the batched solve loops on the new plumbing still match live JAX within
   the reference's engine tolerance (``rtol=2e-3, atol=1e-5``,
   `tests/test_golden.py:234-241`);
-* the copy is made once per solve (per stripe set on the pruned reranks),
-  never once per launch: counted by wrapping the two `ops` entry points.
+* the copies are made once per solve (per stripe set on the pruned
+  reranks, once a query in the per-query program), never once per launch:
+  counted by wrapping the `ops` entry points.
 """
 import functools
 
@@ -157,22 +160,22 @@ def test_stripes_solve_loop_matches_live_jax(docs_chunk, tol):
 def test_local_batched_solve_matches_live_jax(placement, docs_chunk,
                                               given_copy):
     """`core.distributed._local_batched_solve` through the stripes program,
-    with the copy made inside or handed in by the caller (the reranks)."""
+    with the copies made inside or handed in by the caller (the reranks)."""
     _, ell, _ = _corpus()
     k, km, r, _ = _stripes()
     rb = tf.rebucket_for_vocab_shards(ell, 1)
-    k_b = torch.from_numpy(k)[None]
+    k_b, km_b = torch.from_numpy(k)[None], torch.from_numpy(km)[None]
     fn = tdist.build_wmd_batch_fn_stripes(max_iter=MAX_ITER, impl="kernel",
                                           docs_chunk=docs_chunk,
                                           chunk_placement=placement)
-    k_vm = tdist.vocab_major_stripes(k_b, "kernel") if given_copy else None
-    got = fn(k_b, torch.from_numpy(km)[None], torch.from_numpy(r),
-             torch.from_numpy(rb.cols), torch.from_numpy(rb.vals),
-             k_vm=k_vm).numpy()
+    vm = (tdist.vocab_major_stripes(k_b, km_b, "kernel") if given_copy
+          else None)
+    got = fn(k_b, km_b, torch.from_numpy(r), torch.from_numpy(rb.cols),
+             torch.from_numpy(rb.vals), vm=vm).numpy()
     np.testing.assert_allclose(got, _jax_stripes(None, 0.0), **TOL)
     assert torch.equal(torch.from_numpy(got), fn(
-        k_b, torch.from_numpy(km)[None], torch.from_numpy(r),
-        torch.from_numpy(rb.cols), torch.from_numpy(rb.vals)))
+        k_b, km_b, torch.from_numpy(r), torch.from_numpy(rb.cols),
+        torch.from_numpy(rb.vals)))
 
 
 def test_converged_batch_loop_matches_live_jax():
@@ -191,32 +194,58 @@ def test_converged_batch_loop_matches_live_jax():
     np.testing.assert_array_equal(got.n_iter.numpy(), np.asarray(want.n_iter))
 
 
-def test_plain_impls_make_no_copy():
+def test_plain_impls_make_no_copy(counts):
     k = torch.zeros((2, 3, 5))
-    assert tss.batched_type1("fused", k) is tss._resolve_impl("type1",
-                                                              "fused")
-    assert tdist.vocab_major_stripes(k[None], "unfused") is None
+    for impl in ("fused", "unfused"):
+        assert tss.batched_contractions(impl, k, k) == tuple(
+            tss._resolve_impl(kind, impl) for kind in ("type1", "type2"))
+        assert tss.query_contractions(impl, k[0]) == tuple(
+            tss._resolve_impl(kind, impl, False)
+            for kind in ("type1", "type2"))
+        assert tdist.vocab_major_stripes(k[None], k[None], impl) is None
+    # the plain impls' solves run without a copy or a kernel-route call
+    vecs, ell, rs = _corpus()
+    k, km, r, _ = _stripes()
+    sel, r_sel = tsk.select_query(rs[0])
+    for impl in ("fused", "unfused"):
+        tss.sinkhorn_wmd_sparse_batch_stripes(
+            torch.from_numpy(k), torch.from_numpy(km), torch.from_numpy(r),
+            torch.from_numpy(ell.cols), torch.from_numpy(ell.vals), MAX_ITER,
+            impl=impl)
+        tss.sinkhorn_wmd_sparse(
+            torch.from_numpy(sel), torch.from_numpy(r_sel),
+            torch.from_numpy(ell.cols), torch.from_numpy(ell.vals),
+            torch.from_numpy(vecs), LAMB, MAX_ITER, impl=impl)
+    assert counts == _counted()
 
 
-# -- the copy is made once per stripe set, never once per launch ------------
+# -- the copies are made once per stripe set, never once per launch ---------
+
+_COUNTED = {"copy": "k_vocab_major", "type1": "sddmm_spmm_type1_batch_vm",
+            "type2": "sddmm_spmm_type2_batch_vm",
+            "type1_q": "sddmm_spmm_type1_vm"}
+
+
+def _counted(**kw):
+    """The counter dict `counts` should hold: zeros but for ``kw``."""
+    return {**dict.fromkeys(_COUNTED, 0), **kw}
+
 
 @pytest.fixture
 def counts(monkeypatch):
-    """Wrap `ops.k_vocab_major` and `ops.sddmm_spmm_type1_batch_vm` with
-    call counters; returns the live counter dict."""
-    seen = {"copy": 0, "type1": 0}
-    copy, type1 = ops.k_vocab_major, ops.sddmm_spmm_type1_batch_vm
+    """Wrap `ops.k_vocab_major` (the K and K.*M copies), the batched
+    type1 / type2 on the copies and the single-query type1 on its copy
+    with call counters; returns the live counter dict."""
+    seen = _counted()
 
-    def counted_copy(*a, **kw):
-        seen["copy"] += 1
-        return copy(*a, **kw)
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+        return wrapper
 
-    def counted_type1(*a, **kw):
-        seen["type1"] += 1
-        return type1(*a, **kw)
-
-    monkeypatch.setattr(ops, "k_vocab_major", counted_copy)
-    monkeypatch.setattr(ops, "sddmm_spmm_type1_batch_vm", counted_type1)
+    for key, name in _COUNTED.items():
+        monkeypatch.setattr(ops, name, counted(key, getattr(ops, name)))
     return seen
 
 
@@ -229,7 +258,8 @@ def test_stripes_solve_copies_once(counts, docs_chunk):
         torch.from_numpy(ell.cols), torch.from_numpy(ell.vals), MAX_ITER,
         impl="kernel", docs_chunk=docs_chunk)
     chunks = 1 if docs_chunk is None else -(-ell.num_docs // docs_chunk)
-    assert counts == {"copy": 1, "type1": MAX_ITER * chunks}
+    # one pair of copies (K, K.*M) for every chunk
+    assert counts == _counted(copy=2, type1=MAX_ITER * chunks, type2=chunks)
 
 
 @pytest.mark.parametrize("placement", ["solve", "iteration"])
@@ -244,7 +274,7 @@ def test_batch_program_copies_once(counts, placement):
        torch.from_numpy(mask_b), vecs_t, torch.from_numpy(rb.cols),
        torch.from_numpy(rb.vals))
     chunks = -(-ell.num_docs // 7) if placement == "solve" else 1
-    assert counts == {"copy": 1, "type1": MAX_ITER * chunks}
+    assert counts == _counted(copy=2, type1=MAX_ITER * chunks, type2=chunks)
 
 
 def test_converged_batch_copies_once(counts):
@@ -255,7 +285,7 @@ def test_converged_batch_copies_once(counts):
         torch.from_numpy(ell.cols), torch.from_numpy(ell.vals),
         torch.from_numpy(vecs), LAMB, MAX_ITER, tol=0.0,
         row_mask=torch.from_numpy(mask_b))
-    assert counts == {"copy": 1, "type1": int(out.n_iter.max())}
+    assert counts == _counted(copy=2, type1=int(out.n_iter.max()), type2=1)
 
 
 def _service(**kw):
@@ -271,21 +301,43 @@ def test_query_batch_copies_once_a_batch(counts, cache_capacity):
     _, _, rs = _corpus()
     svc = _service(cache_capacity=cache_capacity)
     svc.query_batch(rs)
-    assert counts == {"copy": 1, "type1": MAX_ITER}
+    assert counts == _counted(copy=2, type1=MAX_ITER, type2=1)
 
 
 @pytest.mark.parametrize("rerank", ["per_query", "union"])
 def test_pruned_rerank_copies_once_per_stripe_set(counts, rerank):
-    """per_query: one stripe set (and one copy) a query, for all of its
-    (1, chunk) programs; union: one for the whole batch."""
+    """per_query: one stripe set (and one pair of copies, K and K.*M) a
+    query, for all of its (1, chunk) programs; union: one for the whole
+    batch."""
     _, _, rs = _corpus()
     svc = _service(cache_capacity=64, prune_chunk=4)
     idx, dist = svc.top_k_batch(rs, 5, prune=True, rerank=rerank)
     programs = svc.last_prune_stats["rerank_programs"]
     stripe_sets = len(rs) if rerank == "per_query" else 1
     assert programs > stripe_sets          # k = 5 needs two 4-doc blocks
-    assert counts == {"copy": stripe_sets, "type1": MAX_ITER * programs}
+    assert counts == _counted(copy=2 * stripe_sets, type1=MAX_ITER * programs,
+                              type2=programs)
     # and the answer is the top-k of the full rows of the same route
     full = svc.query_batch(rs)
     np.testing.assert_array_equal(idx, svc._top_k(full, 5))
     np.testing.assert_array_equal(dist, np.take_along_axis(full, idx, -1))
+
+
+def test_per_query_program_copies_once_a_query(counts):
+    """The per-query program (`query(r)`, `top_k(r)`,
+    `query_batch_sequential`, `sinkhorn_wmd_sparse`) copies its query's K
+    stripe once and runs its ``max_iter`` type1s on that copy; its type2
+    (#2) reads the reference layout."""
+    vecs, ell, rs = _corpus()
+    svc = _service()
+    svc.query(rs[0])
+    svc.top_k(rs[1], 5)
+    svc.query_batch_sequential(rs)
+    nq = 2 + len(rs)
+    assert counts == _counted(copy=nq, type1_q=MAX_ITER * nq)
+    sel, r_sel = tsk.select_query(rs[0])
+    tss.sinkhorn_wmd_sparse(torch.from_numpy(sel), torch.from_numpy(r_sel),
+                            torch.from_numpy(ell.cols),
+                            torch.from_numpy(ell.vals),
+                            torch.from_numpy(vecs), LAMB, MAX_ITER)
+    assert counts == _counted(copy=nq + 1, type1_q=MAX_ITER * (nq + 1))
