@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the result line is printed):
   1. the card: name and power limit (nvidia-smi), torch / CUDA versions;
   2. build: every CUDA source under src/repro_torch/kernels/csrc, one nvcc
      per source, all started together; build seconds and ptxas's register,
-     shared-memory and spill report;
+     shared-memory and spill report; no instance of the cost-row tile loop
+     (kexp.cu `cost_rows_kernel`: #5, #6, #7) may spill; their resident
+     blocks an SM and dynamic shared memory (the occupancy calculator);
   3. the main path at sinkhorn-wmd/paper_5k (V = 100,000, w = 300,
      N = 5,000, v_r bucket 32, 15 iterations; `make_corpus(seed=0)`):
      `WMDService(device="cuda", cache_capacity=1024)` with its defaults
@@ -68,7 +70,10 @@ Phases (any failure exits non-zero before the result line is printed):
      against its plain PyTorch version at the main path's shapes (the
      per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
      against #1 on each of the 16 queries, #4 against #2 on each, #1
-     against #3 at Q = 1, #5 against #6's rows, #9 against #8; the K copy
+     against #3 at Q = 1, #5 against #6's rows, #5, #6 and #7 bitwise
+     against their one-thread-an-output oracle `cost_rows_naive` (the
+     sha256 of #6's and #5's outputs printed), own words exactly M = 0,
+     K = 1, #9 against #8; the K copy
      beside #3, #4 also at the per-query rerank's (1, 64) block, #1 also
      with its copy and at docs_blk 4, 8 and 16, and #9 beside
      `torch.sparse.mm`), with its time (CUDA events), its device time (the
@@ -80,9 +85,11 @@ Phases (any failure exits non-zero before the result line is printed):
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import hashlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -264,6 +271,24 @@ def _check_plain_topk(what, idx, dist, idx_q, d_full, d_plain, share):
           f"{int((idx != idx_q).any(axis=1).sum())} queries")
 
 
+def _spills(log: str) -> dict[str, tuple[int, ...]]:
+    """{entry: (spill store bytes, spill load bytes)} from a -Xptxas -v
+    report."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln and entry is not None:
+            out[entry] = tuple(int(n) for n in
+                               re.findall(r"(\d+) bytes spill", ln))
+    return out
+
+
+def _sha(*tensors) -> str:
+    return " ".join(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                    for t in tensors)
+
+
 def _ptxas_summary(log: str) -> list[str]:
     keep = ("Compiling entry", "Used", "spill")
     return [ln.strip() for ln in log.splitlines()
@@ -310,6 +335,15 @@ def main() -> int:
     for name, log in _build.ptxas_log.items():
         for ln in _ptxas_summary(log):
             print(f"[ptxas {name}] {ln}")
+    tiles = {e: sp for e, sp in _spills(_build.ptxas_log.get("kexp", ""))
+             .items() if "cost_rows_kernel" in e}
+    _check(all(sum(sp) == 0 for sp in tiles.values()),
+           f"a cost-row tile instance spills: {tiles}")
+    print(f"[ptxas kexp] {len(tiles)} cost_rows_kernel instances, none "
+          f"spills" if tiles else "[ptxas kexp] not built in this run")
+    print("[occupancy] " + ", ".join(
+        f"{k}: {b} blocks/SM, {sm} B dynamic shared a block"
+        for k, (b, sm) in kexp.occupancy().items()))
 
     # -- 3. the main path -------------------------------------------------------
     cfg = config("paper_5k")
@@ -760,9 +794,16 @@ def main() -> int:
     k5, km5 = kexp.cdist_kexp(a1, vecs_d, lamb=cfg.lamb)
     k5p, km5p = kexp.cdist_kexp_plain(a1, vecs_d, lamb=cfg.lamb)
     k6, km6 = kexp.cdist_kexp_rows(a1, vecs_d, lamb=cfg.lamb)
+    k5n, km5n = kexp.cost_rows_naive(a1, vecs_d, epilogue="kexp",
+                                     lamb=cfg.lamb)
     torch.cuda.synchronize()
     _check(torch.equal(k5, k6) and torch.equal(km5, km6),
            "cdist_kexp (#5) rows are not cdist_kexp_rows (#6) rows")
+    _check(torch.equal(k5, k5n) and torch.equal(km5, km5n),
+           "cdist_kexp (#5) is not cost_rows_naive, bitwise")
+    print(f"[kernels] cdist_kexp (#5) == cost_rows_naive, bitwise; sha256 "
+          f"of K, K.*M at batch 1 query 0: {_sha(k5, km5)}")
+    del k5n, km5n
     near5 = (km5p / k5p) < 1.0
     _check(bool(((k5 - k5p).abs()[near5] <= 5e-2).all()),
            "cdist_kexp: K near the diagonal off by more than 5e-2")
@@ -850,7 +891,18 @@ def main() -> int:
     a = vecs_d[ids].contiguous()
     k_k, km_k = kexp.cdist_kexp_rows(a, vecs_d, lamb=cfg.lamb)
     k_p, km_p = kexp.cdist_kexp_rows_plain(a, vecs_d, lamb=cfg.lamb)
+    k_n, km_n = kexp.cost_rows_naive(a, vecs_d, epilogue="kexp",
+                                     lamb=cfg.lamb)
     torch.cuda.synchronize()
+    _check(torch.equal(k_k, k_n) and torch.equal(km_k, km_n),
+           "cdist_kexp_rows (#6) is not cost_rows_naive, bitwise")
+    own = (torch.arange(m, device=dev), ids)
+    _check(bool((k_k[own] == 1).all() and (km_k[own] == 0).all()),
+           "cdist_kexp_rows: a row's own word is not exactly K = 1, M = 0")
+    print(f"[kernels] cdist_kexp_rows (#6) == cost_rows_naive, bitwise; own "
+          f"words K = 1, K.*M = 0 exactly; sha256 of K, K.*M at phase 5's "
+          f"{m} rows: {_sha(k_k, km_k)}")
+    del k_n, km_n
     # a row against its own word: |a|^2 + |b|^2 - 2ab cancels (|a|^2 ~ 500
     # at w = 300); the plain spelling keeps round-off there (M(i, i) up to
     # ~2.5e-2 instead of 0), the kernel cancels exactly (see kexp.cu), so K
@@ -877,7 +929,14 @@ def main() -> int:
     # cdist (#7): the M rows of the bound tiers, one 128-row miss chunk
     m_k = cdist.cdist(a, vecs_d)
     m_p = cdist.cdist_plain(a, vecs_d)
+    (m_n,) = kexp.cost_rows_naive(a, vecs_d, epilogue="dist")
+    (d2_n,) = kexp.cost_rows_naive(a, vecs_d, epilogue="dist_squared")
+    d2_k = cdist.cdist(a, vecs_d, squared=True)
     torch.cuda.synchronize()
+    _check(torch.equal(m_k, m_n) and torch.equal(d2_k, d2_n),
+           "cdist (#7) is not cost_rows_naive, bitwise")
+    print("[kernels] cdist (#7) == cost_rows_naive, bitwise (M and M^2)")
+    del m_n, d2_n, d2_k
     live = k_k > 0
     _check(torch.equal(km_k[live], (k_k * m_k)[live]),
            "K*M of the kexp kernel is not K * M of the cdist kernel")

@@ -8,8 +8,11 @@ a (m, w) against the vocabulary b (V, w),
     squared=True: max(|a|^2 + |b|^2 - 2ab, 0)
 
 `cdist` launches the distance epilogue of ``csrc/kexp.cu`` (CUDA tensors
-only): the same tile loop and M expression as `kexp.cdist_kexp_rows`, so
-its M is bit for bit the M that the K-row kernel exponentiates.
+only): the same tile, loop and epilogue function as
+`kexp.cdist_kexp_rows`, so its M is bit for bit the M that the K-row kernel
+exponentiates. It takes the reference's ``v_tile`` and ``interpret`` and
+checks ``v_tile`` as the reference's padding does; the CUDA tile does not
+follow it, and the result depends on tiling in neither package.
 `cdist_plain` is the same expansion as one fp32 matmul, used for CPU
 tensors and as the kernel's comparison on the card.
 """
@@ -20,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, kexp
+from repro_torch.kernels._pad import check_tile
 
 
 def cdist_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -33,10 +37,13 @@ def cdist_plain(a: torch.Tensor, b: torch.Tensor, *,
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def cdist(a: torch.Tensor, b: torch.Tensor, *,
-          squared: bool = False) -> torch.Tensor:
-    """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> M (m, V)."""
+def cdist(a: torch.Tensor, b: torch.Tensor, *, v_tile: int = 512,
+          squared: bool = False, interpret: bool = False) -> torch.Tensor:
+    """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> M (m, V).
+    ``v_tile`` is checked, not followed (the kernel's tile is 128 x 128);
+    ``interpret`` changes nothing."""
     name = "cdist"
+    check_tile(name, "v_tile", v_tile)
     m, w, v = kexp.check_rows(name, a, b)
     out = torch.empty((m, v), dtype=torch.float32, device=a.device)
     if m and v:

@@ -10,11 +10,16 @@ a (m, w) against the vocabulary b (V, w),
     K = exp(-lamb * M),  KM = K * M            (m, V) each
 
 `cdist_kexp` and `cdist_kexp_rows` launch ``csrc/kexp.cu`` (CUDA tensors
-only): the same tile loop and epilogue on 32 x 128 and 64 x 64 tiles, so a
-query's stripe is bit for bit the K-cache rows of its words.
-`cdist_kexp_plain` (= `cdist_kexp_rows_plain`) is the same expansion as one
-fp32 matmul (`core.sinkhorn.precompute_rows` spelling), used for CPU
-tensors and as the kernels' comparison on the card.
+only): the same pipelined tile loop and epilogue on 32 x 128 and
+128 x 128 tiles, so a query's stripe is bit for bit the K-cache rows of its
+words. They take the reference's tiling keywords (``v_tile``,
+``rows_blk``, ``interpret``) and check them as the reference's padding
+does; the CUDA tiles do not follow them, and the result depends on tiling
+in neither package. `cost_rows_naive` is the tests' bitwise oracle of all
+three epilogues (one thread an output, the kernels' chains, no tiling); no
+path calls it. `cdist_kexp_plain` (= `cdist_kexp_rows_plain`) is the same
+expansion as one fp32 matmul (`core.sinkhorn.precompute_rows` spelling),
+used for CPU tensors and as the kernels' comparison on the card.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._pad import check_tile
 
 
 def cdist_kexp_rows_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -74,14 +80,67 @@ def _kexp(name: str, a: torch.Tensor, b: torch.Tensor,
     return k, km
 
 
-def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *,
-                    lamb: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> (K, K.*M) (m, V)."""
+def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
+                    rows_blk: int = 8, v_tile: int = 512,
+                    interpret: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel: a (m, w), b (V, w) f32 contiguous -> (K, K.*M) (m, V).
+    ``rows_blk`` and ``v_tile`` are checked, not followed (the kernel's
+    tile is 128 x 128); the CUDA kernel has no interpret mode, so
+    ``interpret`` changes nothing."""
+    check_tile("cdist_kexp_rows", "rows_blk", rows_blk)
+    check_tile("cdist_kexp_rows", "v_tile", v_tile)
     return _kexp("cdist_kexp_rows", a, b, lamb)
 
 
-def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *,
-               lamb: float) -> tuple[torch.Tensor, torch.Tensor]:
+def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
+               v_tile: int = 512, interpret: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """CUDA kernel: one query's words a (v_r, w), b (V, w) f32 contiguous
-    -> (K, K.*M) (v_r, V), each row bitwise `cdist_kexp_rows`'s."""
+    -> (K, K.*M) (v_r, V), each row bitwise `cdist_kexp_rows`'s. ``v_tile``
+    is checked, not followed (the kernel's tile is 32 x 128); ``interpret``
+    changes nothing."""
+    check_tile("cdist_kexp", "v_tile", v_tile)
     return _kexp("cdist_kexp", a, b, lamb)
+
+
+EPILOGUES = {"kexp": 0, "dist": 1, "dist_squared": 2}
+
+_NAIVE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+
+
+def cost_rows_naive(a: torch.Tensor, b: torch.Tensor, *, epilogue: str,
+                    lamb: float = 0.0) -> tuple[torch.Tensor, ...]:
+    """The tests' bitwise oracle of ``csrc/kexp.cu``: one thread an output,
+    the kernels' fma chains and epilogue, no tiling. ``epilogue`` "kexp"
+    returns (K, K.*M) like `cdist_kexp_rows`; "dist" and "dist_squared"
+    return (M,) like `cdist.cdist`. CUDA tensors, m <= 65,535."""
+    name = "cost_rows_naive"
+    m, w, v = check_rows(name, a, b)
+    out = [torch.empty((m, v), dtype=torch.float32, device=a.device)
+           for _ in range(2 if epilogue == "kexp" else 1)]
+    if m and v:
+        fn = _build.function("kexp", name, _NAIVE_ARGTYPES)
+        err = fn(a.data_ptr(), b.data_ptr(), out[0].data_ptr(),
+                 out[-1].data_ptr(), m, v, w, EPILOGUES[epilogue],
+                 float(lamb), torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(name, err)
+    return tuple(out)
+
+
+def occupancy() -> dict[str, tuple[int, int]]:
+    """(blocks an SM holds, dynamic shared bytes a block) of the kernels
+    behind `cdist_kexp_rows`, `cdist_kexp` and `cdist.cdist`, from the CUDA
+    occupancy calculator on the current card."""
+    fn = _build.function("kexp", "kexp_occupancy",
+                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    out = {}
+    for which, name in enumerate(("cdist_kexp_rows", "cdist_kexp", "cdist")):
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(which, ctypes.byref(blocks), ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"kexp_occupancy({name}) failed: cudaError "
+                               f"{err}")
+        out[name] = (blocks.value, smem.value)
+    return out

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._pad import check_tile
 from repro_torch.kernels.rwmd import check_ell, slot_dot
 
 
@@ -35,7 +36,8 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
-                        vals: torch.Tensor, *, docs_blk: int | None = None
+                        vals: torch.Tensor, *, docs_blk: int | None = None,
+                        q_blk: int | None = None, interpret: bool = False
                         ) -> torch.Tensor:
     """CUDA LC sparse dot. minm (Q, V+1) f32, cols int32 / vals f32
     (N, nnz) with every col in [0, V]. Returns the raw (Q, N) bounds.
@@ -45,8 +47,10 @@ def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
     a copy here otherwise. A block holds 4 warps, one document a warp at a
     time for up to 32 queries, whatever Q. ``docs_blk`` is the docs a block
     walks, rounded up to a multiple of 4 (None: 4). Results do not depend
-    on it."""
+    on it. The reference's ``q_blk`` is checked (None or a positive int),
+    not followed; ``interpret`` changes nothing (no interpret mode)."""
     name = "lc_rwmd_bound_batch"
+    check_tile(name, "q_blk", q_blk, optional=True)
     docs_blk = 1 if docs_blk is None else docs_blk
     if minm.dim() != 2:
         raise ValueError(f"{name}: minm must be (Q, V+1), got "

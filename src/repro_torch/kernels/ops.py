@@ -23,6 +23,13 @@ the reference's other sign: pad query rows of M carry +inf (a pad row must
 never win the min), and an all-pad filler query's +inf bounds are
 finite-ized to 0 here, on both devices (its engine distance is exactly 0,
 so a 0 bound can never prune it).
+
+Every entry that carries a reference name takes the reference's keywords
+with its defaults (``v_tile=512``, ``rows_blk=8``, ``q_blk=None``) and
+refuses what the reference's padding refuses (a non-int, zero or a
+negative), on both devices. Neither the CUDA kernels nor the plain versions
+follow them: the kernels choose their own tiles, and the result depends on
+tiling in neither package.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.kernels import kexp as _kexp
 from repro_torch.kernels import lcrwmd as _lcrwmd
 from repro_torch.kernels import rwmd as _rwmd
 from repro_torch.kernels import sddmm_spmm as _sddmm_spmm
+from repro_torch.kernels._pad import check_tile
 
 
 def sddmm_spmm_type1_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
@@ -118,13 +126,14 @@ def sddmm_spmm_type1_batch_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
 
 def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
-                           vals: torch.Tensor, *,
-                           docs_blk: int = 8) -> torch.Tensor:
+                           vals: torch.Tensor, *, docs_blk: int = 8,
+                           q_blk: int | None = None) -> torch.Tensor:
     """Batched fused iteration body: k_pad (Q, v_r, V+1), r_sel (Q, v_r),
     u (Q, v_r, N), cols/vals (N, nnz) -> x (Q, v_r, N). ``docs_blk`` is the
     kernel's doc tile (results do not depend on it). Makes the vocab-major
     copy of k_pad for this one call: loops take `k_vocab_major` once and
     call `sddmm_spmm_type1_batch_vm`."""
+    check_tile("sddmm_spmm_type1_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type1_batch_vm(k_vocab_major(k_pad), r_sel, u, cols,
                                      vals, docs_blk=docs_blk)
 
@@ -146,40 +155,46 @@ def sddmm_spmm_type2_batch_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
 
 def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
-                           vals: torch.Tensor, *,
-                           docs_blk: int = 8) -> torch.Tensor:
+                           vals: torch.Tensor, *, docs_blk: int = 8,
+                           q_blk: int | None = None) -> torch.Tensor:
     """Batched fused final distance: k_pad, km_pad (Q, v_r, V+1), u
     (Q, v_r, N), cols/vals (N, nnz) -> (Q, N) WMD. Makes the vocab-major
     copies of k_pad and km_pad for this one call: loops take
     `k_vocab_major` of each once and call `sddmm_spmm_type2_batch_vm`."""
+    check_tile("sddmm_spmm_type2_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type2_batch_vm(k_vocab_major(k_pad),
                                      k_vocab_major(km_pad), u, cols, vals,
                                      docs_blk=docs_blk)
 
 
-def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *,
-               lamb: float) -> tuple[torch.Tensor, torch.Tensor]:
+def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
+               v_tile: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused precompute of one query's stripe: a (v_r, w) query words,
     b (V, w) -> (K, K.*M), each (v_r, V)."""
+    check_tile("cdist_kexp", "v_tile", v_tile)
     if a.is_cuda:
         return _kexp.cdist_kexp(a.contiguous(), b.contiguous(), lamb=lamb)
     return _kexp.cdist_kexp_plain(a, b, lamb=lamb)
 
 
-def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *,
-                    lamb: float) -> tuple[torch.Tensor, torch.Tensor]:
+def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
+                    rows_blk: int = 8, v_tile: int = 512
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-subset fused precompute (the cache-miss path of `core.kcache`):
     a (m, w) miss-row embeddings, b (V, w) -> (K, K.*M), each (m, V)."""
+    check_tile("cdist_kexp_rows", "rows_blk", rows_blk)
+    check_tile("cdist_kexp_rows", "v_tile", v_tile)
     if a.is_cuda:
         return _kexp.cdist_kexp_rows(a.contiguous(), b.contiguous(),
                                      lamb=lamb)
     return _kexp.cdist_kexp_rows_plain(a, b, lamb=lamb)
 
 
-def cdist(a: torch.Tensor, b: torch.Tensor, *,
+def cdist(a: torch.Tensor, b: torch.Tensor, *, v_tile: int = 512,
           squared: bool = False) -> torch.Tensor:
     """Euclidean cost rows a (m, w) against b (V, w) -> (m, V) (the M-row
     compute of the bound tiers); ``squared`` skips the sqrt."""
+    check_tile("cdist", "v_tile", v_tile)
     if a.is_cuda:
         return _cdist.cdist(a.contiguous(), b.contiguous(), squared=squared)
     return _cdist.cdist_plain(a, b, squared=squared)
@@ -190,11 +205,12 @@ def _finite(lb: torch.Tensor) -> torch.Tensor:
 
 
 def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
-                     vals: torch.Tensor, *, docs_blk: int = 8
-                     ) -> torch.Tensor:
+                     vals: torch.Tensor, *, docs_blk: int = 8,
+                     q_blk: int | None = None) -> torch.Tensor:
     """Batched doc-side RWMD min-SDDMM: m_pad (Q, v_r, V+1) with +inf pad
     query rows, cols/vals (N, nnz) -> (Q, N) bounds, filler queries 0.
     ``docs_blk`` is the kernel's doc tile (results do not depend on it)."""
+    check_tile("rwmd_bound_batch", "q_blk", q_blk, optional=True)
     if m_pad.is_cuda:
         return _finite(_rwmd.rwmd_bound_batch(
             m_pad.contiguous(), cols.contiguous(), vals.contiguous(),
@@ -203,13 +219,14 @@ def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
 
 
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
-                        vals: torch.Tensor, *, docs_blk: int | None = None
-                        ) -> torch.Tensor:
+                        vals: torch.Tensor, *, docs_blk: int | None = None,
+                        q_blk: int | None = None) -> torch.Tensor:
     """Batched LC-RWMD sparse dot: minm (Q, V+1), cols/vals (N, nnz) ->
     (Q, N) bounds, filler queries 0; bitwise equal to `rwmd_bound_batch`
     on the M stripes minm was reduced from. The kernel reads minm
     vocab-major (see `kernels.lcrwmd`); ``docs_blk`` does not change the
     result."""
+    check_tile("lc_rwmd_bound_batch", "q_blk", q_blk, optional=True)
     if minm.is_cuda:
         return _finite(_lcrwmd.lc_rwmd_bound_batch(
             minm, cols.contiguous(), vals.contiguous(), docs_blk=docs_blk))

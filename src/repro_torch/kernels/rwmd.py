@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._pad import check_tile
 
 # v_r rows a warp can hold (4 per lane); the kernel refuses larger buckets
 MAX_V_R = 128
@@ -74,13 +75,16 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
-                     vals: torch.Tensor, *, docs_blk: int = 8
+                     vals: torch.Tensor, *, docs_blk: int = 8,
+                     q_blk: int | None = None, interpret: bool = False
                      ) -> torch.Tensor:
     """CUDA min-SDDMM. m_pad (Q, v_r, V+1) f32 with +inf pad query rows,
     cols int32 / vals f32 (N, nnz) with every col in [0, V]. Returns the raw
     (Q, N) bounds. ``docs_blk`` documents per block (results do not depend
-    on it)."""
+    on it). The reference's ``q_blk`` is checked (None or a positive int),
+    not followed; ``interpret`` changes nothing (no interpret mode)."""
     name = "rwmd_bound_batch"
+    check_tile(name, "q_blk", q_blk, optional=True)
     check_ell(name, m_pad, cols, vals, docs_blk)
     if m_pad.dim() != 3:
         raise ValueError(f"{name}: m_pad must be (Q, v_r, V+1), got "

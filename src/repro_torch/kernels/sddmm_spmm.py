@@ -31,6 +31,13 @@ math (the single-query ones the batched at Q = 1; the vocab-major ones
 gather ``k_vm[:, cols]``, the very tensor `_gather` builds from the
 reference layout), used for CPU tensors and as the kernels' comparison on
 the card. `repro_torch.kernels.ops` chooses between them by device.
+
+The entry points that carry the reference's names take its tiling
+keywords too (``q_blk`` on the batched ones, ``interpret``) and check
+``q_blk`` as the reference's padding does (None or a positive int). The
+CUDA kernels do not follow it (a block walks documents of every query),
+the CUDA kernels have no interpret mode, and the result depends on tiling
+in neither package.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._pad import check_tile
 
 TINY = 1e-30  # see core.sparse_sinkhorn.safe_recip
 
@@ -227,9 +235,11 @@ def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
-                           docs_blk: int = 8) -> torch.Tensor:
+                           docs_blk: int = 8, q_blk: int | None = None,
+                           interpret: bool = False) -> torch.Tensor:
     """#3 on K in the reference layout k_pad (Q, v_r, V+1), zero pad
     column: the vocab-major copy, then `sddmm_spmm_type1_batch_vm`."""
+    check_tile("sddmm_spmm_type1_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type1_batch_vm(k_vocab_major(k_pad), r_sel, u, cols,
                                      vals, docs_blk=docs_blk)
 
@@ -256,9 +266,11 @@ def sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals, *,
 
 
 def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
-                           docs_blk: int = 8) -> torch.Tensor:
+                           docs_blk: int = 8, q_blk: int | None = None,
+                           interpret: bool = False) -> torch.Tensor:
     """#4 on K and K.*M in the reference layout (Q, v_r, V+1), zero pad
     column: the two vocab-major copies, then `sddmm_spmm_type2_batch_vm`."""
+    check_tile("sddmm_spmm_type2_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type2_batch_vm(k_vocab_major(k_pad),
                                      k_vocab_major(km_pad), u, cols, vals,
                                      docs_blk=docs_blk)
@@ -293,7 +305,8 @@ def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
-                     docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+                     docs_blk: int = QUERY_DOCS_BLK,
+                     interpret: bool = False) -> torch.Tensor:
     """#1 on one query's reference-layout stripe k_pad (v_r, V+1): its
     vocab-major copy, then `sddmm_spmm_type1_vm`."""
     return sddmm_spmm_type1_vm(k_vocab_major(k_pad[None])[0], r_sel, u,
@@ -301,7 +314,8 @@ def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
-                     docs_blk: int = 8) -> torch.Tensor:
+                     docs_blk: int = 8, interpret: bool = False
+                     ) -> torch.Tensor:
     """CUDA single-query type2 kernel (#2) on one query's reference-layout
     stripes k_pad, km_pad (v_r, V+1): the fused final distance, (N,)."""
     name = "sddmm_spmm_type2"

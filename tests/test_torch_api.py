@@ -1,0 +1,321 @@
+"""The port's public names and keywords against the reference's, on the CPU.
+
+* `repro_torch.{core,data,obs,kernels}` re-export every public name of the
+  reference's subpackage that the port has, in the reference's order; a
+  name the port lacks must be listed in `NOT_PORTED` with the ROADMAP
+  Queue 1 item that ports it, and must really be absent.
+* Every `ops` entry and every `kernels/*.py` kernel entry takes the
+  reference's tiling keywords (``v_tile``, ``rows_blk``, ``q_blk``,
+  ``interpret``) with the reference's defaults; passing them changes no
+  bit, and a value the reference refuses is refused.
+"""
+import ast
+import importlib
+import importlib.util
+import inspect
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core
+import repro.data
+import repro.kernels
+import repro.obs
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import cdist as t_cdist
+from repro_torch.kernels import kexp as t_kexp
+from repro_torch.kernels import lcrwmd as t_lcrwmd
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import rwmd as t_rwmd
+from repro_torch.kernels import sddmm_spmm as t_sddmm
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SUBPACKAGES = ("core", "data", "obs", "kernels")
+
+# reference names the port does not have yet -> the ROADMAP Queue 1 item
+NOT_PORTED = {
+    "core": {"SinkhornResult": 5, "sinkhorn_divergence": 5,
+             "sinkhorn_plan": 5},
+    "data": {"TokenPipeline": 5, "batch_struct": 5, "LiveCorpus": 2,
+             "WalWriter": 2, "replay": 2},
+    "obs": {"Tracer": 1, "NullTracer": 1, "NULL_TRACER": 1,
+            "render_prometheus": 1, "MetricsServer": 1, "JsonlExporter": 1},
+    "kernels": {},
+}
+
+REF = {"core": repro.core, "data": repro.data, "obs": repro.obs,
+       "kernels": repro.kernels}
+
+
+def _port(sub):
+    return importlib.import_module(f"repro_torch.{sub}")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_port_exports_every_ported_reference_name_in_order(sub):
+    ref_all, port = REF[sub].__all__, _port(sub)
+    missing = [n for n in ref_all
+               if n not in port.__all__ and n not in NOT_PORTED[sub]]
+    assert not missing, f"repro_torch.{sub} lacks {missing} and they are " \
+                        f"not listed as unported"
+    assert port.__all__ == [n for n in ref_all if n not in NOT_PORTED[sub]]
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_unported_names_are_reference_names_absent_from_the_port(sub):
+    port = _port(sub)
+    for name, item in NOT_PORTED[sub].items():
+        assert name in REF[sub].__all__, name
+        assert not hasattr(port, name), f"{name} is ported: export it"
+        assert item in (1, 2, 3, 4, 5)
+
+
+def test_reexports_are_the_modules_objects():
+    from repro_torch.core import sparse_sinkhorn
+    from repro_torch.data import corpus
+    from repro_torch.obs import metrics
+    import repro_torch.core as core
+    import repro_torch.kernels as kernels
+    assert core.sinkhorn_wmd_sparse is sparse_sinkhorn.sinkhorn_wmd_sparse
+    assert kernels.ops is t_ops
+    from repro_torch.data import make_corpus
+    from repro_torch.obs import MetricsRegistry
+    assert make_corpus is corpus.make_corpus
+    assert MetricsRegistry is metrics.MetricsRegistry
+
+
+def _reference_imports():
+    """(file, subpackage, name) of every ``from repro.<sub> import name`` in
+    the reference's examples and benchmarks."""
+    out = []
+    for path in sorted((ROOT / "examples").glob("*.py")) + sorted(
+            (ROOT / "benchmarks").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module and \
+                    node.module in {f"repro.{s}" for s in SUBPACKAGES}:
+                sub = node.module.split(".")[1]
+                out += [(path.name, sub, a.name) for a in node.names]
+    return out
+
+
+def test_reference_scripts_import_names_the_port_exports_or_lists():
+    """A name the reference's scripts import from a subpackage is exported
+    by the port's, is one of its modules, or is listed as unported."""
+    found = _reference_imports()
+    assert found
+    for fname, sub, name in found:
+        assert (name in _port(sub).__all__ or name in NOT_PORTED[sub]
+                or importlib.util.find_spec(f"repro_torch.{sub}.{name}")), \
+            (fname, sub, name)
+
+
+# -- the tiling keywords -----------------------------------------------------
+
+TILE_KEYS = ("v_tile", "rows_blk", "q_blk", "interpret")
+
+# entry -> (port function, reference function or its dotted name)
+ENTRIES = {
+    "ops.cdist": (t_ops.cdist, ref_ops.cdist),
+    "ops.cdist_kexp": (t_ops.cdist_kexp, ref_ops.cdist_kexp),
+    "ops.cdist_kexp_rows": (t_ops.cdist_kexp_rows, ref_ops.cdist_kexp_rows),
+    "ops.sddmm_spmm_type1_batch": (t_ops.sddmm_spmm_type1_batch,
+                                   ref_ops.sddmm_spmm_type1_batch),
+    "ops.sddmm_spmm_type2_batch": (t_ops.sddmm_spmm_type2_batch,
+                                   ref_ops.sddmm_spmm_type2_batch),
+    "ops.rwmd_bound_batch": (t_ops.rwmd_bound_batch,
+                             ref_ops.rwmd_bound_batch),
+    "ops.lc_rwmd_bound_batch": (t_ops.lc_rwmd_bound_batch,
+                                ref_ops.lc_rwmd_bound_batch),
+    "cdist.cdist": (t_cdist.cdist, "repro.kernels.cdist.cdist"),
+    "kexp.cdist_kexp": (t_kexp.cdist_kexp, "repro.kernels.kexp.cdist_kexp"),
+    "kexp.cdist_kexp_rows": (t_kexp.cdist_kexp_rows,
+                             "repro.kernels.kexp.cdist_kexp_rows"),
+    "sddmm_spmm.sddmm_spmm_type1": (
+        t_sddmm.sddmm_spmm_type1, "repro.kernels.sddmm_spmm.sddmm_spmm_type1"),
+    "sddmm_spmm.sddmm_spmm_type2": (
+        t_sddmm.sddmm_spmm_type2, "repro.kernels.sddmm_spmm.sddmm_spmm_type2"),
+    "sddmm_spmm.sddmm_spmm_type1_batch": (
+        t_sddmm.sddmm_spmm_type1_batch,
+        "repro.kernels.sddmm_spmm.sddmm_spmm_type1_batch"),
+    "sddmm_spmm.sddmm_spmm_type2_batch": (
+        t_sddmm.sddmm_spmm_type2_batch,
+        "repro.kernels.sddmm_spmm.sddmm_spmm_type2_batch"),
+    "rwmd.rwmd_bound_batch": (t_rwmd.rwmd_bound_batch,
+                              "repro.kernels.rwmd.rwmd_bound_batch"),
+    "lcrwmd.lc_rwmd_bound_batch": (
+        t_lcrwmd.lc_rwmd_bound_batch,
+        "repro.kernels.lcrwmd.lc_rwmd_bound_batch"),
+}
+
+
+def _ref_fn(ref):
+    if not isinstance(ref, str):
+        return ref
+    mod, name = ref.rsplit(".", 1)
+    return getattr(importlib.import_module(mod), name)
+
+
+def _params(fn):
+    fn = inspect.unwrap(getattr(fn, "__wrapped__", fn))
+    return inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_entry_takes_the_reference_tiling_keywords(entry):
+    port, ref = ENTRIES[entry]
+    ref_p, port_p = _params(_ref_fn(ref)), _params(port)
+    keys = [k for k in TILE_KEYS if k in ref_p]
+    assert keys, entry
+    for k in keys:
+        assert k in port_p, f"{entry} lacks {k}"
+        assert port_p[k].kind == inspect.Parameter.KEYWORD_ONLY
+        want = None if k == "q_blk" else ref_p[k].default
+        assert port_p[k].default == want, (entry, k)
+
+
+def _dense_problem(seed=0, m=5, v=40, w=7):
+    rng = np.random.default_rng(seed)
+    b = rng.normal(scale=1.3, size=(v, w)).astype(np.float32)
+    a = b[rng.choice(v, m, replace=False)].copy()
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def _ell_problem(seed=1, q=3, v_r=6, v=40, n=9, nnz=5):
+    rng = np.random.default_rng(seed)
+    k = rng.random((q, v_r, v + 1)).astype(np.float32)
+    k[:, :, v] = 0.0
+    km = (k * 2.0).astype(np.float32)
+    r = (rng.random((q, v_r)) + 0.1).astype(np.float32)
+    u = (rng.random((q, v_r, n)) + 0.1).astype(np.float32)
+    cols = rng.integers(0, v, (n, nnz)).astype(np.int32)
+    cols[:, -1] = v
+    vals = rng.random((n, nnz)).astype(np.float32)
+    vals[:, -1] = 0.0
+    return tuple(torch.from_numpy(x) for x in (k, km, r, u, cols, vals))
+
+
+def _ops_calls():
+    """entry -> (call taking **kw, the tiling keywords to pass)"""
+    a, b = _dense_problem()
+    k, km, r, u, cols, vals = _ell_problem()
+    minm = km.min(dim=1).values
+    return {
+        "ops.cdist": (lambda **kw: (t_ops.cdist(a, b, **kw),),
+                      dict(v_tile=512)),
+        "ops.cdist_kexp": (lambda **kw: t_ops.cdist_kexp(a, b, lamb=1.0,
+                                                         **kw),
+                           dict(v_tile=512)),
+        "ops.cdist_kexp_rows": (
+            lambda **kw: t_ops.cdist_kexp_rows(a, b, lamb=1.0, **kw),
+            dict(rows_blk=8, v_tile=512)),
+        "ops.sddmm_spmm_type1_batch": (
+            lambda **kw: (t_ops.sddmm_spmm_type1_batch(k, r, u, cols, vals,
+                                                       **kw),),
+            dict(q_blk=2)),
+        "ops.sddmm_spmm_type2_batch": (
+            lambda **kw: (t_ops.sddmm_spmm_type2_batch(k, km, u, cols, vals,
+                                                       **kw),),
+            dict(q_blk=4)),
+        "ops.rwmd_bound_batch": (
+            lambda **kw: (t_ops.rwmd_bound_batch(km, cols, vals, **kw),),
+            dict(q_blk=4)),
+        "ops.lc_rwmd_bound_batch": (
+            lambda **kw: (t_ops.lc_rwmd_bound_batch(minm, cols, vals,
+                                                    **kw),),
+            dict(q_blk=4)),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(e for e in ENTRIES
+                                         if e.startswith("ops.")))
+def test_ops_tiling_keywords_change_no_bits(entry):
+    call, kw = _ops_calls()[entry]
+    want = call()
+    for value in (kw, {k: 7 for k in kw}, {k: True for k in kw}):
+        got = call(**value)
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), value
+
+
+INVALID = (0, -8, 2.5, "8")
+
+
+@pytest.mark.parametrize("entry", sorted(e for e in ENTRIES
+                                         if e.startswith("ops.")))
+def test_ops_refuse_what_the_reference_refuses(entry):
+    call, kw = _ops_calls()[entry]
+    a, b = _dense_problem()
+    ref_fn = _ref_fn(ENTRIES[entry][1])
+    for key in kw:
+        for bad in INVALID + (() if key == "q_blk" else (None,)):
+            with pytest.raises((TypeError, ValueError)):
+                call(**{key: bad})
+            if entry.startswith("ops.cdist"):
+                # the reference refuses it too (ZeroDivisionError at 0)
+                extra = {} if entry == "ops.cdist" else {"lamb": 1.0}
+                with pytest.raises(Exception):
+                    ref_fn(a.numpy(), b.numpy(), **extra, **{key: bad})
+
+
+def _kernel_calls():
+    """entry -> (call taking **kw on CPU tensors, the keywords to pass)"""
+    a, b = _dense_problem()
+    k, km, r, u, cols, vals = _ell_problem()
+    minm = km.min(dim=1).values
+    return {
+        "cdist.cdist": (lambda **kw: t_cdist.cdist(a, b, **kw),
+                        dict(v_tile=512, interpret=False)),
+        "kexp.cdist_kexp": (lambda **kw: t_kexp.cdist_kexp(a, b, lamb=1.0,
+                                                           **kw),
+                            dict(v_tile=512, interpret=False)),
+        "kexp.cdist_kexp_rows": (
+            lambda **kw: t_kexp.cdist_kexp_rows(a, b, lamb=1.0, **kw),
+            dict(rows_blk=8, v_tile=512, interpret=False)),
+        "sddmm_spmm.sddmm_spmm_type1": (
+            lambda **kw: t_sddmm.sddmm_spmm_type1(k[0], r[0], u[0], cols,
+                                                  vals, **kw),
+            dict(interpret=False)),
+        "sddmm_spmm.sddmm_spmm_type2": (
+            lambda **kw: t_sddmm.sddmm_spmm_type2(k[0], km[0], u[0], cols,
+                                                  vals, **kw),
+            dict(interpret=False)),
+        "sddmm_spmm.sddmm_spmm_type1_batch": (
+            lambda **kw: t_sddmm.sddmm_spmm_type1_batch(k, r, u, cols, vals,
+                                                        **kw),
+            dict(q_blk=8, interpret=False)),
+        "sddmm_spmm.sddmm_spmm_type2_batch": (
+            lambda **kw: t_sddmm.sddmm_spmm_type2_batch(k, km, u, cols, vals,
+                                                        **kw),
+            dict(q_blk=8, interpret=False)),
+        "rwmd.rwmd_bound_batch": (
+            lambda **kw: t_rwmd.rwmd_bound_batch(km, cols, vals, **kw),
+            dict(q_blk=8, interpret=False)),
+        "lcrwmd.lc_rwmd_bound_batch": (
+            lambda **kw: t_lcrwmd.lc_rwmd_bound_batch(minm, cols, vals,
+                                                      **kw),
+            dict(q_blk=8, interpret=False)),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(e for e in ENTRIES
+                                         if not e.startswith("ops.")))
+def test_kernel_entries_take_the_keywords_and_check_them_first(entry):
+    """On CPU tensors a CUDA kernel entry raises that it takes CUDA tensors,
+    with the reference's keywords as without them; a keyword value the
+    reference refuses is refused before that."""
+    call, kw = _kernel_calls()[entry]
+    with pytest.raises(ValueError, match="CUDA") as plain:
+        call()
+    with pytest.raises(ValueError, match="CUDA") as with_kw:
+        call(**kw)
+    assert str(plain.value) == str(with_kw.value)
+    for key in kw:
+        if key == "interpret":
+            continue
+        for bad in INVALID:
+            with pytest.raises((TypeError, ValueError),
+                               match=key):
+                call(**{key: bad})

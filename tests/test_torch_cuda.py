@@ -611,3 +611,162 @@ def test_type1_single_query_is_the_batched_kernel_at_q1_bitwise(v_r,
         x, sk.sddmm_spmm_type1_vm_plain(k_vm[0], r[0], u[0], cols, vals),
         rtol=1e-4, atol=1e-6)
     assert torch.all(x[v_r - 2:] == 0)
+
+
+# -- slice 6: the pipelined cost-row kernels (#5, #6, #7) --------------------
+
+_VOCAB = {}
+
+
+def _vocab(dev, v, w):
+    """A seeded (v, w) vocabulary on the card; the last one made is kept
+    (100,001 x 300 floats is 120 MB)."""
+    if (v, w) not in _VOCAB:
+        _VOCAB.clear()
+        g = torch.Generator(device=dev).manual_seed(7919 * w + v)
+        _VOCAB[(v, w)] = torch.randn((v, w), generator=g, device=dev) * 1.3
+    return _VOCAB[(v, w)]
+
+
+@pytest.mark.parametrize("w", [5, 300])
+@pytest.mark.parametrize("v", [77, 1000, 100_001])
+@pytest.mark.parametrize("m", [1, 13, 32, 127, 128, 129])
+def test_cost_row_kernels_are_the_naive_oracle_bitwise(m, v, w):
+    """#6, #5 and #7 against `cost_rows_naive` (one thread an output, the
+    same fma chains and epilogue, no tiling): tiles, the cp.async
+    zero-fill of the tail of w (w = 300 is 18 full steps of 16 and one of
+    12; w = 5 takes the 4-byte copies), of rows past m and of the last
+    column tile must change no bit."""
+    dev = _card()
+    from repro_torch.kernels import cdist, kexp
+    b = _vocab(dev, v, w)
+    ids = torch.from_numpy(np.random.default_rng(m).choice(
+        v, m, replace=m > v)).to(dev)
+    a = b[ids].contiguous()
+    k_n, km_n = kexp.cost_rows_naive(a, b, epilogue="kexp", lamb=1.0)
+    (m_n,) = kexp.cost_rows_naive(a, b, epilogue="dist")
+    (d2_n,) = kexp.cost_rows_naive(a, b, epilogue="dist_squared")
+    k6, km6 = kexp.cdist_kexp_rows(a, b, lamb=1.0)
+    k5, km5 = kexp.cdist_kexp(a, b, lamb=1.0)
+    m7 = cdist.cdist(a, b)
+    d2_7 = cdist.cdist(a, b, squared=True)
+    torch.cuda.synchronize()
+    for name, got, want in (("#6 K", k6, k_n), ("#6 K.*M", km6, km_n),
+                            ("#5 K", k5, k_n), ("#5 K.*M", km5, km_n),
+                            ("#7 M", m7, m_n), ("#7 M^2", d2_7, d2_n)):
+        assert torch.equal(got, want), name
+
+
+def test_cost_row_kernels_own_word_is_exactly_zero():
+    dev = _card()
+    from repro_torch.kernels import cdist, kexp
+    b = _vocab(dev, 100_001, 300)
+    ids = torch.arange(5, 100_001, 781, device=dev)
+    a = b[ids].contiguous()
+    own = (torch.arange(ids.numel(), device=dev), ids)
+    k6, km6 = kexp.cdist_kexp_rows(a, b, lamb=1.0)
+    k5, km5 = kexp.cdist_kexp(a, b, lamb=1.0)
+    m7 = cdist.cdist(a, b)
+    d2_7 = cdist.cdist(a, b, squared=True)
+    torch.cuda.synchronize()
+    for k, km in ((k6, km6), (k5, km5)):
+        assert torch.all(k[own] == 1.0) and torch.all(km[own] == 0.0)
+    assert torch.all(m7[own] == 0.0) and torch.all(d2_7[own] == 0.0)
+
+
+def test_cost_row_kernels_take_unaligned_rows_bitwise():
+    """Rows that do not start 16-byte aligned take the 4-byte copies: the
+    same bits as the 16-byte ones."""
+    dev = _card()
+    from repro_torch.kernels import cdist, kexp
+    b = _vocab(dev, 1000, 300)
+    m, w = 13, 300
+    a = b[100:100 + m].contiguous()
+    buf_a = torch.empty(m * w + 1, device=dev)
+    buf_b = torch.empty(b.numel() + 1, device=dev)
+    a_u = buf_a[1:].view(m, w)
+    b_u = buf_b[1:].view(b.shape)
+    a_u.copy_(a)
+    b_u.copy_(b)
+    assert a_u.data_ptr() % 16 and b_u.data_ptr() % 16
+    for fn in (kexp.cdist_kexp_rows, kexp.cdist_kexp):
+        got, want = fn(a_u, b_u, lamb=1.0), fn(a, b, lamb=1.0)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert torch.equal(cdist.cdist(a_u, b_u), cdist.cdist(a, b))
+
+
+@pytest.mark.parametrize("kernel,rows", [("cdist_kexp_rows", 65535 * 128 + 1),
+                                         ("cdist_kexp", 65535 * 32 + 1),
+                                         ("cdist", 65535 * 128 + 1)])
+def test_cost_row_kernels_raise_on_a_refused_launch(kernel, rows):
+    """A grid the card refuses (more than 65,535 row tiles) raises from the
+    wrapper, is not counted and falls back to nothing."""
+    dev = _card()
+    from repro_torch.kernels import _build, cdist, kexp
+    a = torch.zeros((rows, 1), device=dev)
+    b = torch.zeros((1, 1), device=dev)
+    fn = {"cdist_kexp_rows": lambda: kexp.cdist_kexp_rows(a, b, lamb=1.0),
+          "cdist_kexp": lambda: kexp.cdist_kexp(a, b, lamb=1.0),
+          "cdist": lambda: cdist.cdist(a, b)}[kernel]
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fn()
+    assert _build.launches[kernel] == 0
+
+
+def test_tiling_keywords_change_no_bits_on_card():
+    """The reference's tiling keywords reach every entry point and change
+    no bit of what the CUDA kernels return."""
+    dev = _card()
+    from repro_torch.kernels import cdist, kexp, lcrwmd, ops, rwmd, sddmm_spmm
+    b = _vocab(dev, 1000, 300)
+    a = b[:40].contiguous()
+    pairs = [
+        (ops.cdist_kexp(a, b, lamb=1.0),
+         ops.cdist_kexp(a, b, lamb=1.0, v_tile=7)),
+        (ops.cdist_kexp_rows(a, b, lamb=1.0),
+         ops.cdist_kexp_rows(a, b, lamb=1.0, rows_blk=3, v_tile=64)),
+        ((ops.cdist(a, b),), (ops.cdist(a, b, v_tile=128),)),
+        (kexp.cdist_kexp(a, b, lamb=1.0),
+         kexp.cdist_kexp(a, b, lamb=1.0, v_tile=256, interpret=True)),
+        (kexp.cdist_kexp_rows(a, b, lamb=1.0),
+         kexp.cdist_kexp_rows(a, b, lamb=1.0, rows_blk=16, v_tile=128,
+                              interpret=True)),
+        ((cdist.cdist(a, b),), (cdist.cdist(a, b, v_tile=64,
+                                            interpret=True),)),
+    ]
+    k, km, r, u, cols, vals = (torch.from_numpy(x).to(dev)
+                               for x in _problem(21, 3, 11, 320, 45, 16))
+    m_pad = torch.where(k > 0, km, float("inf"))
+    minm = m_pad.min(dim=1).values
+    pairs += [
+        ((ops.sddmm_spmm_type1_batch(k, r, u, cols, vals),),
+         (ops.sddmm_spmm_type1_batch(k, r, u, cols, vals, q_blk=2),)),
+        ((ops.sddmm_spmm_type2_batch(k, km, u, cols, vals),),
+         (ops.sddmm_spmm_type2_batch(k, km, u, cols, vals, q_blk=4),)),
+        ((ops.rwmd_bound_batch(m_pad, cols, vals),),
+         (ops.rwmd_bound_batch(m_pad, cols, vals, q_blk=1),)),
+        ((ops.lc_rwmd_bound_batch(minm, cols, vals),),
+         (ops.lc_rwmd_bound_batch(minm, cols, vals, q_blk=8),)),
+        ((sddmm_spmm.sddmm_spmm_type1_batch(k, r, u, cols, vals),),
+         (sddmm_spmm.sddmm_spmm_type1_batch(k, r, u, cols, vals, q_blk=3,
+                                            interpret=True),)),
+        ((sddmm_spmm.sddmm_spmm_type2_batch(k, km, u, cols, vals),),
+         (sddmm_spmm.sddmm_spmm_type2_batch(k, km, u, cols, vals, q_blk=3,
+                                            interpret=True),)),
+        ((sddmm_spmm.sddmm_spmm_type1(k[0], r[0], u[0], cols, vals),),
+         (sddmm_spmm.sddmm_spmm_type1(k[0], r[0], u[0], cols, vals,
+                                      interpret=True),)),
+        ((sddmm_spmm.sddmm_spmm_type2(k[0], km[0], u[0], cols, vals),),
+         (sddmm_spmm.sddmm_spmm_type2(k[0], km[0], u[0], cols, vals,
+                                      interpret=True),)),
+        ((rwmd.rwmd_bound_batch(m_pad, cols, vals),),
+         (rwmd.rwmd_bound_batch(m_pad, cols, vals, q_blk=8,
+                                interpret=True),)),
+        ((lcrwmd.lc_rwmd_bound_batch(minm, cols, vals),),
+         (lcrwmd.lc_rwmd_bound_batch(minm, cols, vals, q_blk=8,
+                                     interpret=True),)),
+    ]
+    torch.cuda.synchronize()
+    for i, (want, got) in enumerate(pairs):
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), i
