@@ -55,32 +55,38 @@ Phases (any failure exits non-zero before the result line is printed):
      `top_k(r, 10)` for each of batch 1's 16 queries, then
      `query_batch_sequential(batch2)`: the per-query program
      (`core.distributed.build_wmd_fn`). The launch counts, read around
-     exactly those calls, must be one cdist_kexp, one k_vocab_major (the
-     query's K stripe), 15 sddmm_spmm_type1 and one sddmm_spmm_type2 a
-     query and nothing else; `query(r)` must equal phase 3's
+     exactly those calls, must be one cdist_kexp, two k_vocab_major (the
+     query's K and K.*M stripes), 15 sddmm_spmm_type1 and one
+     sddmm_spmm_type2 a query and nothing else (so never the #2 / #4
+     oracle `sddmm_spmm_type2_naive`); `query(r)` must equal phase 3's
      `query_batch` rows bitwise on all 32 queries (and top_k
      their top-k); the all-plain per-query service (impl "fused",
      kexp_impl "jnp") and the dense oracle on the 64-doc slice by
      `_compare`; `sinkhorn_wmd_converged` for one query (n_iter, delta;
      bitwise the fixed fused loop at that n_iter); the per-query wall
-     time, queries/s and the `[idle]` line of one warm `query(r)` (one K
-     copy in its trace);
+     time, queries/s and the `[idle]` line of one warm `query(r)` (two
+     copies in its trace, no oracle);
   5. (run last, so that its launch column reads the runs of phases 3, 6
      and 8: each kernel's launches summed over the three) each kernel
      against its plain PyTorch version at the main path's shapes (the
      per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
      against #1 on each of the 16 queries, #4 against #2 on each, #1
-     against #3 at Q = 1, #5 against #6's rows, #5, #6 and #7 bitwise
+     against #3 at Q = 1, #2 against #4 at Q = 1 and against its
+     reference-layout oracle `sddmm_spmm_type2_naive` (the sha256 of #2's
+     output printed), #5 against #6's rows, #5, #6 and #7 bitwise
      against their one-thread-an-output oracle `cost_rows_naive` (the
      sha256 of #6's and #5's outputs printed), own words exactly M = 0,
-     K = 1, #9 against #8; the K copy
-     beside #3, #4 also at the per-query rerank's (1, 64) block, #1 also
-     with its copy and at docs_blk 4, 8 and 16, and #9 beside
-     `torch.sparse.mm`), with its time (CUDA events), its device time (the
-     profiler's), the plain version's time, a library yardstick where one
-     exists, and the bound: the larger of the bytes the function must move
-     over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM data
-     sheet, 700 W).
+     K = 1, #9 against #8 and #8's two routes against each other (the
+     gather route at tier 2's 256 docs, the dense route at all N, each
+     also timed by the other route; `column_min_kernel` bitwise
+     `torch.amin` and timed beside it; sector floors and sha256s printed);
+     the K copy beside #3, #4 also at the per-query rerank's (1, 64) block,
+     #1 with its copy and #2 with its two, both at docs_blk 4, 8 and 16,
+     and #9 beside `torch.sparse.mm`), with its time (CUDA events), its
+     device time (the profiler's), the plain version's time, a library
+     yardstick where one exists, and the bound: the larger of the bytes
+     the function must move over 3.35 TB/s and its fp32 operations over
+     67 TFLOP/s (H100 SXM data sheet, 700 W).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -208,6 +214,8 @@ def _idle_line(what, call, copies, *kernels):
           + ", ".join(parts))
     _check(marked[marks[0]][0] == copies, f"{what}: {marked[marks[0]][0]} "
            f"vocab-major copies in the trace, expected {copies}")
+    _check(marked.get("type2_query_kernel", (0,))[0] == 0,
+           f"{what}: the #2 / #4 oracle ran on a serving path")
 
 
 def _shares_word(batch, ell):
@@ -571,7 +579,8 @@ def main() -> int:
             ("pruned union, batch 2", lambda: svc6.top_k_batch(
                 batch2, k_top, prune=True, rerank="union"), 2)):
         _idle_line(what, call, copies, ("#3", "type1_vm_kernel"),
-                   ("#4", "type2_vm_kernel"))
+                   ("#4", "type2_vm_kernel"),
+                   ("oracle", "type2_query_kernel"))
 
     # -- 8. the per-query path ------------------------------------------------
     svc8 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell)
@@ -591,7 +600,9 @@ def main() -> int:
     launches8 = dict(_build.launches)
     peak8 = torch.cuda.max_memory_allocated()
     nq = len(batch1) + len(batch2)
-    want8 = {"cdist_kexp": nq, "k_vocab_major": nq,
+    # two vocab-major copies a query (its K and K.*M stripes) for its 15
+    # #1 and its one #2
+    want8 = {"cdist_kexp": nq, "k_vocab_major": 2 * nq,
              "sddmm_spmm_type1": cfg.max_iter * nq, "sddmm_spmm_type2": nq}
     print(f"[per-query] launches {launches8}, expected {want8}")
     _check(launches8 == want8, f"per-query launch counts {launches8} != "
@@ -639,8 +650,9 @@ def main() -> int:
           f"n_iter {int(conv.n_iter)} of {cfg.max_iter}, delta "
           f"{float(conv.delta):.3g}; bitwise the fixed fused loop at that "
           f"n_iter; max rel vs the all-plain per-query route {rel:.3g}")
-    _idle_line("per-query query(r)", lambda: svc8.query(batch2[0]), 1,
-               ("#1", "type1_vm_kernel"), ("#2", "type2_query_kernel"))
+    _idle_line("per-query query(r)", lambda: svc8.query(batch2[0]), 2,
+               ("#1", "type1_vm_kernel"), ("#2", "type2_vm_kernel"),
+               ("oracle", "type2_query_kernel"))
     del svc8
 
     # -- 5. the kernels at the main path's shapes ------------------------------
@@ -731,16 +743,19 @@ def main() -> int:
                                                      vals)
     d_2 = [sddmm_spmm.sddmm_spmm_type2(k_pad[i], km_pad[i], u[i], cols, vals)
            for i in range(q)]
+    d_o = [sddmm_spmm.sddmm_spmm_type2_naive(k_pad[i], km_pad[i], u[i], cols,
+                                             vals) for i in range(q)]
     torch.cuda.synchronize()
     _check(torch.equal(km_vm, km_pad.transpose(1, 2)),
            "k_vocab_major of K.*M is not the transpose")
     torch.testing.assert_close(d_k, d_p, **TOL_KERNEL)
     for i in range(q):
-        _check(torch.equal(d_k[i], d_2[i]), f"sddmm_spmm_type2_batch (#4) "
-               f"is not sddmm_spmm_type2 (#2) on query {i}, bitwise")
-    print(f"[kernels] sddmm_spmm_type2_batch (#4, vocab-major) == "
-          f"sddmm_spmm_type2 (#2, reference layout) on each of the {q} "
-          f"queries, bitwise")
+        _check(torch.equal(d_k[i], d_2[i]) and torch.equal(d_k[i], d_o[i]),
+               f"sddmm_spmm_type2_batch (#4) is not sddmm_spmm_type2 (#2) "
+               f"and the reference-layout oracle on query {i}, bitwise")
+    print(f"[kernels] sddmm_spmm_type2_batch (#4) == sddmm_spmm_type2 (#2, "
+          f"on each query's own copies) == sddmm_spmm_type2_naive (the "
+          f"reference-layout oracle) on each of the {q} queries, bitwise")
     e4 = record("sddmm_spmm_type2_batch", src,
                 "src/repro/kernels/sddmm_spmm.py:272", [d_k], [d_p],
                 lambda: sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u,
@@ -785,7 +800,7 @@ def main() -> int:
           f"(events; device "
           f"{cfg.max_iter * e3['device_ms'] + e4['device_ms'] + dev_pair:.4f}"
           f" ms, the pair of copies {dev_pair:.4f})")
-    del d_k, d_p, d_2, d_r, k_s, km_s, x, u, k_vm, km_vm, k_vm1, km_vm1
+    del d_k, d_p, d_2, d_o, d_r, k_s, km_s, x, u, k_vm, km_vm, k_vm1, km_vm1
     # the per-query kernels (#5, #1, #2) at batch 1 query 0's shapes: its
     # v_r = 32 stripe (pad rows masked) and a realistic iterate
     sel_p, r_p, mask_p = pad_query(*select_query(batch1[0]), cfg.v_r)
@@ -867,24 +882,66 @@ def main() -> int:
           f"docs_blk (events ms, device ms): "
           + ", ".join(f"{b}: {t:.4f}, {d:.4f}"
                       for b, (t, d) in e1["docs_blk"].items()))
-    print(f"[kernels] a query's Sinkhorn loop: {cfg.max_iter} x #1 + one "
-          f"copy = {cfg.max_iter * e1['device_ms'] + e1['copy_device_ms']:.4f}"
-          f" ms of device time")
-    d_k = sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals)
-    d_p = sddmm_spmm.sddmm_spmm_type2_plain(k1, km1, u1, cols, vals)
-    d_b = sddmm_spmm.sddmm_spmm_type2_batch(k1[None], km1[None], u1[None],
-                                            cols, vals)[0]
+    # #2 on the query's vocab-major copies (K's and K.*M's, one pair a
+    # query): bitwise the reference-layout oracle and #4 at Q = 1
+    km1_vm = sddmm_spmm.k_vocab_major(km1[None])[0]
+    d_k = sddmm_spmm.sddmm_spmm_type2_vm(k1_vm, km1_vm, u1, cols, vals)
+    d_p = sddmm_spmm.sddmm_spmm_type2_vm_plain(k1_vm, km1_vm, u1, cols, vals)
+    d_b = sddmm_spmm.sddmm_spmm_type2_batch_vm(k1_vm[None], km1_vm[None],
+                                               u1[None], cols, vals)[0]
+    d_o = sddmm_spmm.sddmm_spmm_type2_naive(k1, km1, u1, cols, vals)
+    d_c = sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals)
     torch.cuda.synchronize()
+    _check(torch.equal(km1_vm, km1.T), "k_vocab_major of one query's K.*M "
+           "is not its transpose")
     _check(torch.equal(d_k, d_b), "sddmm_spmm_type2 (#2) is not "
            "sddmm_spmm_type2_batch (#4) at Q = 1, bitwise")
+    _check(torch.equal(d_k, d_o) and torch.equal(d_c, d_k),
+           "sddmm_spmm_type2 (#2) is not the reference-layout oracle "
+           "sddmm_spmm_type2_naive, bitwise")
     torch.testing.assert_close(d_k, d_p, **TOL_KERNEL)
-    record("sddmm_spmm_type2", src, "src/repro/kernels/sddmm_spmm.py:154",
-           [d_k], [d_p],
-           lambda: sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals),
-           lambda: sddmm_spmm.sddmm_spmm_type2_plain(k1, km1, u1, cols,
-                                                     vals),
-           nbytes=4 * (2 * v_r * uniq + v_r * n + 2 * n * nnz + n),
-           flops=nnz_real * (4 * v_r + 1) + 2 * v_r * n)
+    print(f"[kernels] sddmm_spmm_type2 (#2, vocab-major copies) == "
+          f"sddmm_spmm_type2_naive (reference layout) == "
+          f"sddmm_spmm_type2_batch (#4) at Q = 1, bitwise; sha256 of wmd at "
+          f"batch 1 query 0: {_sha(d_k)}")
+    e2 = record("sddmm_spmm_type2", src,
+                "src/repro/kernels/sddmm_spmm.py:154", [d_k], [d_p],
+                lambda: sddmm_spmm.sddmm_spmm_type2_vm(k1_vm, km1_vm, u1,
+                                                       cols, vals),
+                lambda: sddmm_spmm.sddmm_spmm_type2_vm_plain(
+                    k1_vm, km1_vm, u1, cols, vals),
+                nbytes=4 * (2 * v_r * uniq + v_r * n + 2 * n * nnz + n),
+                flops=nnz_real * (4 * v_r + 1) + 2 * v_r * n)
+    e2["sha256"] = _sha(d_k)
+    # ... with its copies (the reference-layout entry: both copies + #2 in
+    # one call), the K.*M copy alone, the oracle, and #2 at docs_blk 4, 8,
+    # 16
+    e2["with_copy_ms"] = _timed(
+        lambda: sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals), 20)
+    e2["with_copy_device_ms"] = _device_ms(
+        lambda: sddmm_spmm.sddmm_spmm_type2(k1, km1, u1, cols, vals))
+    e2["km_copy_device_ms"] = _device_ms(
+        lambda: sddmm_spmm.k_vocab_major(km1[None]))
+    e2["oracle_device_ms"] = _device_ms(
+        lambda: sddmm_spmm.sddmm_spmm_type2_naive(k1, km1, u1, cols, vals))
+    e2["docs_blk"] = {}
+    for b in (4, 8, 16):
+        def call(b=b):
+            return sddmm_spmm.sddmm_spmm_type2_vm(k1_vm, km1_vm, u1, cols,
+                                                  vals, docs_blk=b)
+        e2["docs_blk"][b] = (_timed(call, 50), _device_ms(call))
+    print(f"[kernels] sddmm_spmm_type2 (#2) with its two copies "
+          f"{e2['with_copy_ms']:.4f} ms (device "
+          f"{e2['with_copy_device_ms']:.4f}); the K.*M copy device "
+          f"{e2['km_copy_device_ms']:.4f} ms; the oracle device "
+          f"{e2['oracle_device_ms']:.4f} ms; docs_blk (events ms, device "
+          f"ms): " + ", ".join(f"{b}: {t:.4f}, {d:.4f}"
+                               for b, (t, d) in e2["docs_blk"].items()))
+    solve_q = (cfg.max_iter * e1["device_ms"] + e2["device_ms"]
+               + e1["copy_device_ms"] + e2["km_copy_device_ms"])
+    print(f"[kernels] a query's Sinkhorn solve: {cfg.max_iter} x #1 + #2 + "
+          f"two copies = {solve_q:.4f} ms of device time")
+    del km1_vm, d_o, d_c
     del k1, km1, k1_vm, x1, u1, x_k, x_p, x_b, x_c, d_k, d_p, d_b
     m = 128
     ids = torch.from_numpy(np.unique(sel_b)[:m].astype(np.int64)).to(dev)
@@ -961,7 +1018,7 @@ def main() -> int:
     del k_k, km_k, k_p, km_p, m_k, m_p
     # rwmd_bound_batch (#8) at the tier-2 shape: Q = 16, v_r = 32, the 256
     # docs of batch 1's subset (the cascade's own choice, recomputed from
-    # its tier-0 and tier-1 bounds)
+    # its tier-0 and tier-1 bounds): the gather route
     sel_b, r_b, mask_b = svc6._padded_query_batch(batch1)
     m_pad, _ = svc6._mcache.m_stripes_for_batch(sel_b, mask_b)
     _, tiers = svc6._cascade_bounds(sel_b, r_b, mask_b)
@@ -970,46 +1027,97 @@ def main() -> int:
     sub_t = torch.from_numpy(subset).to(dev)
     cols_s = cols_e[sub_t].contiguous()
     vals_s = vals_e[sub_t].contiguous()
+    vp1 = m_pad.shape[-1]
     live_s = vals_s != 0
     nnz_s = int(live_s.sum())
     uniq_s = int(torch.unique(cols_s[live_s]).numel())
+    route_s = krwmd.rwmd_route(*cols_s.shape, vp1)
+    _check(route_s == "gather", f"tier 2 takes the {route_s} route")
     lb_k = ops.rwmd_bound_batch(m_pad, cols_s, vals_s)
     lb_p = rwmd_core.rwmd_bound_batch(m_pad, cols_s, vals_s, impl="fused")
+    lb_s = krwmd.rwmd_bound_batch(m_pad, cols_s, vals_s)
+    lb_sd = krwmd.rwmd_bound_batch_route(m_pad, cols_s, vals_s, "dense")
     torch.cuda.synchronize()
     _check(np.array_equal(lb_k.cpu().numpy(),
                           tiers[1]["bounds"][:16][:, subset]),
            "tier 2 (#8) differs from tier 1 (#9) on the subset")
+    _check(torch.equal(lb_s, lb_sd), "#8's gather and dense routes differ "
+           "on the tier-2 subset")
     torch.testing.assert_close(lb_k, lb_p, rtol=1e-5, atol=1e-6)
-    record("rwmd_bound_batch", "src/repro_torch/kernels/csrc/rwmd.cu",
-           "src/repro/kernels/rwmd.py:62", [lb_k], [lb_p],
-           lambda: krwmd.rwmd_bound_batch(m_pad, cols_s, vals_s),
-           lambda: krwmd.rwmd_bound_batch_plain(m_pad, cols_s, vals_s),
-           nbytes=4 * (q * v_r * uniq_s + 2 * cols_s.numel() + q * 256),
-           flops=q * nnz_s * (v_r + 1), plain_reps=10)
+    e8 = record("rwmd_bound_batch", "src/repro_torch/kernels/csrc/rwmd.cu",
+                "src/repro/kernels/rwmd.py:62", [lb_k], [lb_p],
+                lambda: krwmd.rwmd_bound_batch(m_pad, cols_s, vals_s),
+                lambda: krwmd.rwmd_bound_batch_plain(m_pad, cols_s, vals_s),
+                nbytes=4 * (q * v_r * uniq_s + 2 * cols_s.numel() + q * 256),
+                flops=q * nnz_s * (v_r + 1), plain_reps=10)
+
+    def sector_floor(live_slots):
+        """ms to move the Q v_r 32-byte sectors a live slot's column costs
+        in the reference layout, at the HBM rate"""
+        return q * v_r * live_slots * 32 / HBM_BYTES_PER_S * 1e3
+
+    e8["bound_route"] = route_s
+    e8["sector_floor_ms"] = sector_floor(nnz_s)
+    e8["sha256"] = _sha(lb_s)
+    e8["dense_device_ms"] = _device_ms(lambda: krwmd.rwmd_bound_batch_route(
+        m_pad, cols_s, vals_s, "dense"))
+    print(f"[kernels] rwmd_bound_batch at tier 2 ({len(subset)} docs, "
+          f"{nnz_s} live slots): route {route_s}, device "
+          f"{e8['device_ms']:.4f} ms (the dense route "
+          f"{e8['dense_device_ms']:.4f}); sector floor "
+          f"{e8['sector_floor_ms']:.4f} ms; both routes bitwise equal; "
+          f"sha256 {e8['sha256']}")
     # ... and at the bounds tier's shape, all N docs of the original ELL
-    # (printed, not in the JSON line); the plain version runs chunked by
-    # bound_docs_chunk
+    # (printed, not in the JSON line): the dense route, both routes timed;
+    # the plain version runs chunked by bound_docs_chunk
     bdc = svc6.bound_docs_chunk
     n_e, nnz_e = cols_e.shape
     live_e = vals_e != 0
     nnz_real_e = int(live_e.sum())
     uniq_e = int(torch.unique(cols_e[live_e]).numel())
-    lb_full = krwmd.rwmd_bound_batch(m_pad, cols_e, vals_e, docs_blk=bdc)
+    route_e = krwmd.rwmd_route(n_e, nnz_e, vp1)
+    _check(route_e == "dense", f"the bounds tier takes the {route_e} route")
+    lb_full = krwmd.rwmd_bound_batch(m_pad, cols_e, vals_e)
+    lb_full_g = krwmd.rwmd_bound_batch_route(m_pad, cols_e, vals_e, "gather")
     lb_full_p = rwmd_core.rwmd_bound_batch(m_pad, cols_e, vals_e,
                                            impl="fused", docs_chunk=bdc)
+    minm_k = krwmd.column_min(m_pad)
+    minm_t = torch.amin(m_pad, dim=1)
     torch.cuda.synchronize()
+    _check(torch.equal(lb_full, lb_full_g), "#8's dense and gather routes "
+           "differ at all N")
+    _check(torch.equal(minm_k, minm_t), "column_min_kernel is not "
+           "torch.amin(m_pad, dim=1), bitwise")
     torch.testing.assert_close(ops._finite(lb_full), lb_full_p, rtol=1e-5,
                                atol=1e-6)
-    full_ms = _timed(lambda: krwmd.rwmd_bound_batch(m_pad, cols_e, vals_e,
-                                                    docs_blk=bdc), 10)
+    del minm_k, minm_t
+
+    def full_call(route):
+        return lambda: krwmd.rwmd_bound_batch_route(m_pad, cols_e, vals_e,
+                                                    route)
+
+    full = {r: (_timed(full_call(r), 10), _device_ms(full_call(r), 10))
+            for r in ("dense", "gather")}
+    cmin_dev = _device_ms(lambda: krwmd.column_min(m_pad))
+    amin_dev = _device_ms(lambda: torch.amin(m_pad, dim=1))
     full_plain_ms = _timed(lambda: rwmd_core.rwmd_bound_batch(
         m_pad, cols_e, vals_e, impl="fused", docs_chunk=bdc), 3, warmup=1)
     full_bound, full_by = _bound(
         4 * (q * v_r * uniq_e + 2 * n_e * nnz_e + q * n_e),
         q * nnz_real_e * (v_r + 1))
-    print(f"[kernels] rwmd_bound_batch at all N = {n_e} (query_batch_bounds): "
-          f"{full_ms:.4f} ms, plain (chunked {bdc}) {full_plain_ms:.4f} ms, "
-          f"bound {full_bound:.4f} ms ({full_by}), max abs err "
+    dense_floor = _bound(4 * (q * v_r * vp1 + 2 * vp1 * q
+                              + 2 * n_e * nnz_e + q * n_e), 0)[0]
+    print(f"[kernels] rwmd_bound_batch at all N = {n_e} (query_batch_bounds, "
+          f"{nnz_real_e} live slots): route {route_e}; dense "
+          f"{full['dense'][0]:.4f} ms (device {full['dense'][1]:.4f}), "
+          f"gather {full['gather'][0]:.4f} ms (device "
+          f"{full['gather'][1]:.4f}); column_min_kernel device "
+          f"{cmin_dev:.4f} ms vs torch.amin(m_pad, dim=1) {amin_dev:.4f}; "
+          f"plain (chunked {bdc}) {full_plain_ms:.4f} ms; bound "
+          f"{full_bound:.4f} ms ({full_by}), the dense route's floor "
+          f"{dense_floor:.4f} ms, sector floor "
+          f"{sector_floor(nnz_real_e):.4f} ms; both routes bitwise equal, "
+          f"minm == torch.amin bitwise; sha256 {_sha(lb_full)}; max abs err "
           f"{float((ops._finite(lb_full) - lb_full_p).abs().max()):.3g}")
     # lc_rwmd_bound_batch (#9): tier 1 over all N, with the blocks the
     # cascade launches (sized from Q); must equal #8 bitwise, as must a
@@ -1066,6 +1174,8 @@ def main() -> int:
          "temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     print(f"[card] after the run: {clocks.stdout.strip()}")
+    _check(all(e["route"] == "cuda" for e in results),
+           "a kernel entry's route is not cuda")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

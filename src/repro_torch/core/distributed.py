@@ -105,7 +105,7 @@ def _local_solve(vecs_sel, r_sel, row_mask, vecs_loc, cols_loc, vals_loc, *,
     v_r = r_sel.shape[0]
     ones_r = torch.ones_like(r_sel)
     type1, type2 = ss.query_contractions(
-        "kernel" if use_kernel else "fused", k_pad)
+        "kernel" if use_kernel else "fused", k_pad, km_pad)
     x = torch.full((v_r, cols_loc.shape[0]), 1.0 / v_r, dtype=k.dtype,
                    device=k.device)
     for _ in range(max_iter):

@@ -107,13 +107,14 @@ def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
     pad val 0. impl: "fused" (plain gather + masked min + slot sum) or
     "kernel" (`kernels.ops.rwmd_bound_batch`: the CUDA kernel on the card,
     the plain spelling on the CPU). docs_chunk: the plain path's doc chunks
-    (bitwise equal to unchunked), the kernel's doc tile. Filler queries and
+    (bitwise equal to unchunked); the kernel sizes its own blocks (a warp a
+    document, by the route its shapes pick), so the kernel route ignores
+    it, as `core.cascade.lc_rwmd_bound_batch` does. Filler queries and
     empty docs score exactly 0."""
     if impl not in _BOUND_IMPLS:
         raise ValueError(f"impl must be one of {_BOUND_IMPLS}, got {impl!r}")
     if impl == "kernel":
-        kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
-        return ops.rwmd_bound_batch(m_pad, cols, vals, **kw)
+        return ops.rwmd_bound_batch(m_pad, cols, vals)
     q, n = m_pad.shape[0], cols.shape[0]
     u_dummy = torch.zeros((q, 1, n), dtype=m_pad.dtype, device=m_pad.device)
     lb = _chunk_over_docs(

@@ -295,23 +295,27 @@ def batched_contractions(impl: str, k_pad: torch.Tensor,
             functools.partial(type2, vm=vm))
 
 
-def query_contractions(impl: str, k_pad: torch.Tensor):
+def query_contractions(impl: str, k_pad: torch.Tensor,
+                       km_pad: torch.Tensor):
     """The single-query (type1, type2) of ``impl`` for one query's loop on
-    its stripe k_pad (v_r, V+1). The kernel route's type1 reads the
-    vocab-major copy of k_pad, made here once a query, never once per
-    iteration; type2 (#2) and the plain impls read the stripes as they
-    are."""
+    its stripes k_pad, km_pad (v_r, V+1). The kernel route's type1 (#1)
+    and type2 (#2) read the vocab-major copies of both (`vocab_major_pair`),
+    made here once a query, never once per launch; the plain impls read the
+    stripes as they are."""
     type1 = _resolve_impl("type1", impl, False)
     type2 = _resolve_impl("type2", impl, False)
     if impl != "kernel":
         return type1, type2
     from repro_torch.kernels import ops
-    k_vm = ops.k_vocab_major(k_pad[None])[0]
+    k_vm, km_vm = (c[0] for c in vocab_major_pair(k_pad[None], km_pad[None]))
 
     def type1_on_copy(k_pad, r_sel, u, cols, vals):
         return ops.sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals)
 
-    return type1_on_copy, type2
+    def type2_on_copies(k_pad, km_pad, u, cols, vals):
+        return ops.sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals)
+
+    return type1_on_copy, type2_on_copies
 
 
 def sinkhorn_wmd_sparse(sel_idx: torch.Tensor, r_sel: torch.Tensor,
@@ -336,7 +340,7 @@ def sinkhorn_wmd_sparse_pre(pre: SinkhornPrecompute, cols: torch.Tensor,
     k_pad = pad_k(pre.K)
     km_pad = pad_k(pre.KM)
     v_r = pre.r.shape[0]
-    type1, type2 = query_contractions(impl, k_pad)
+    type1, type2 = query_contractions(impl, k_pad, km_pad)
     x = torch.full((v_r, cols.shape[0]), 1.0 / v_r, dtype=pre.K.dtype,
                    device=pre.K.device)
     for _ in range(max_iter):

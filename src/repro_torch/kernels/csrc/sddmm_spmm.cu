@@ -1,6 +1,6 @@
 // Fused SDDMM-SpMM for the Sinkhorn-WMD iteration (type1) and the final
 // distance (type2), single-query and batched, sm_90a, plain CUDA C++; and
-// the vocab-major copy of the K and K.*M stripes that three of them read.
+// the vocab-major copy of the K and K.*M stripes that all four read.
 //
 // Replaces four Pallas TPU kernels:
 //   * `sddmm_spmm_type1_batch` / `sddmm_spmm_type2_batch`
@@ -26,41 +26,46 @@
 //
 //  * `vm_doc_tile` reads the vocab-major copies (Q, V+1, v_r) of K and of
 //    K.*M that `vocab_major_kernel` makes once per stripe set (the solve
-//    loop's, the rerank's, one query's for the per-query program; never
-//    once per launch): a column is one 128-byte line at v_r = 32. A warp
-//    lists its document's live slots in shared memory, 32 slots a stage,
-//    and walks the list G = 8 / R slots at a time: G column loads in flight
-//    (2 G for type2: the K line and the K.*M line of each slot), the G dots
-//    summed at once by a reduce-scatter that pairs lanes as `warp_sum` does
-//    (the same bits, 9 shuffles instead of 40 at G = 8), one division a lane
-//    group, and the G columns folded into acc strictly in slot order.
-//    #3 and #1 (`type1_vm_kernel`, #1 at Q = 1 through its own entry) and
-//    #4 (`type2_vm_kernel`) run it.
-//  * `doc_tile` reads K and K.*M in the reference layout (v_r, V+1): a
-//    column is v_r floats at stride V+1, one 32-byte sector per lane (8x
-//    the useful bytes), one slot at a time. Only #2 (`type2_query_kernel`)
-//    runs it; its bits are the yardstick #4 is held to query by query.
+//    loop's, the rerank's, one query's pair for the per-query program;
+//    never once per launch): a column is one 128-byte line at v_r = 32. A
+//    warp lists its document's live slots in shared memory, 32 slots a
+//    stage, and walks the list G = 8 / R slots at a time: G column loads in
+//    flight (2 G for type2: the K line and the K.*M line of each slot), the
+//    G dots summed at once by a reduce-scatter that pairs lanes as
+//    `warp_sum` does (the same bits, 9 shuffles instead of 40 at G = 8),
+//    one division a lane group, and the G columns folded into acc strictly
+//    in slot order. Every serving kernel runs it: #3 and #1
+//    (`type1_vm_kernel`, #1 at Q = 1 through its own entry), #4 and #2
+//    (`type2_vm_kernel`, #2 at Q = 1 through its own entry).
+//  * `type2_query_kernel` reads K and K.*M in the reference layout
+//    (v_r, V+1): a column is v_r floats at stride V+1, one 32-byte sector
+//    per lane (8x the useful bytes), one slot at a time. It is the oracle
+//    (C entry `sddmm_spmm_type2_naive`): no serving path reaches it; the
+//    tests, chip_smoke.py and scripts/bounds_ab.py hold #2 and #4 to it
+//    bitwise, an independent kernel with the same per-slot step and the
+//    same slot order.
 //
 // What bounds them on an H100. The arithmetic is 4 flops per row per slot,
-// far below the fp32 rate. `doc_tile` is bound by memory traffic. The
+// far below the fp32 rate. The oracle is bound by memory traffic. The
 // vocab-major tiles move 1/8 of its sectors (the touched K columns are
 // about 3.4 MB a query at paper_5k, L2-resident); what is left is the issue
 // rate of their per-slot instructions and the latency of each warp's
 // chain, which the slots in flight and the reduce-scatter shorten. The copy
 // moves a whole stripe set once (205 MB read and written for K at Q = 16):
-// a tiled transpose at the HBM rate. At Q = 1 (one query's 12.8 MB stripe,
-// resident in the 50 MB L2) the work is too small to fill the card for
-// long: the longest document's chain (140 live slots) and the launch bound
-// #1 and #2.
+// a tiled transpose at the HBM rate. At Q = 1 (one query's 12.8 MB
+// stripes, resident in the 50 MB L2) the work is too small to fill the
+// card for long: the longest document's chain (140 live slots) and the
+// launch bound #1 and #2.
 //
 // Exactness: every output element is one warp's fixed-order sum, with no
 // atomics and no dependence on docs_blk or on other documents, so the
 // port's bitwise contracts (chunked == unchunked, cache on == off) hold,
-// #3 equals #1 query by query and #4 equals #2 query by query. Pad slots
-// (vals == 0) are skipped: they add exactly +0. Pad query rows (all-zero
-// K, r = 1) and Q-filler queries (all-zero K, so w = 0 and v = val / 1e-30
-// times a zero column) come out as exact zeros. Compiled without
-// --use_fast_math: IEEE division is part of that contract.
+// #3 equals #1 and #4 equals #2 query by query, and both tiles give the
+// same bits. Pad slots (vals == 0) are skipped: they add exactly +0. Pad
+// query rows (all-zero K, r = 1) and Q-filler queries (all-zero K, so
+// w = 0 and v = val / 1e-30 times a zero column) come out as exact zeros.
+// Compiled without --use_fast_math: IEEE division is part of that
+// contract.
 
 #include <cuda_runtime.h>
 
@@ -143,11 +148,11 @@ __device__ __forceinline__ void store_d(const float (&uj)[R],
   if (threadIdx.x % kWarp == 0) outq[j] = d;
 }
 
-// -- reference layout: #2 ----------------------------------------------------
+// -- reference layout: the oracle of #2 and #4 -------------------------------
 
-// #2, the single-query type2 grid, ceil(N / docs_blk) blocks, one warp per
+// The single-query type2 grid, ceil(N / docs_blk) blocks, one warp per
 // document, K and K.*M in the reference layout: (v_r, vp1) stripes,
-// u (v_r, N) -> wmd (N).
+// u (v_r, N) -> wmd (N). No serving path launches it.
 template <int R>
 __global__ void type2_query_kernel(const float* __restrict__ kq,
                                    const float* __restrict__ kmq,
@@ -184,7 +189,7 @@ __global__ void type2_query_kernel(const float* __restrict__ kq,
   }
 }
 
-// -- vocab-major: #3, #1, #4 and the copy -----------------------------------
+// -- vocab-major: #3, #1, #4, #2 and the copy -------------------------------
 
 // The G slots' warp sums at once (G a power of two <= 32): a reduce-scatter
 // that pairs lanes exactly as warp_sum's butterfly does (own + partner's at
@@ -318,8 +323,8 @@ type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
                         min(j0 + docs_blk, n));
 }
 
-// #4, the type2 grid (ceil(N / docs_blk), Q) on the vocab-major copies of K
-// and K.*M.
+// #4 (and #2 at Q = 1), the type2 grid (ceil(N / docs_blk), Q) on the
+// vocab-major copies of K and K.*M.
 template <int R>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
 type2_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
@@ -411,6 +416,21 @@ int launch_type1_vm(const void* kvm, const void* r, const void* u,
   });
 }
 
+int launch_type2_vm(const void* kvm, const void* kmvm, const void* u,
+                    const void* cols, const void* vals, void* wmd, int q,
+                    int v_r, int vp1, int n, int nnz, int docs_blk,
+                    void* stream) {
+  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
+  return by_rows(v_r, [&](auto rows) {
+    type2_vm_kernel<decltype(rows)::value>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)kvm, (const float*)kmvm, (const float*)u,
+            (const int*)cols, (const float*)vals, (float*)wmd, v_r, vp1, n,
+            nnz, docs_blk);
+  });
+}
+
 }  // namespace
 
 // #3 on the vocab-major copy kvm (Q, V+1, v_r).
@@ -440,22 +460,29 @@ extern "C" int sddmm_spmm_type2_batch(const void* kvm, const void* kmvm,
                                       const void* vals, void* wmd, int q,
                                       int v_r, int vp1, int n, int nnz,
                                       int docs_blk, void* stream) {
-  if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
-  return by_rows(v_r, [&](auto rows) {
-    type2_vm_kernel<decltype(rows)::value>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(
-            (const float*)kvm, (const float*)kmvm, (const float*)u,
-            (const int*)cols, (const float*)vals, (float*)wmd, v_r, vp1, n,
-            nnz, docs_blk);
-  });
+  return launch_type2_vm(kvm, kmvm, u, cols, vals, wmd, q, v_r, vp1, n, nnz,
+                         docs_blk, stream);
 }
 
-// #2 on one query's reference-layout stripes k, km (v_r, V+1).
-extern "C" int sddmm_spmm_type2(const void* k, const void* km, const void* u,
-                                const void* cols, const void* vals, void* wmd,
-                                int v_r, int vp1, int n, int nnz,
-                                int docs_blk, void* stream) {
+// #2: #4's kernel at Q = 1 on one query's vocab-major copies kvm, kmvm
+// (V+1, v_r), u (v_r, N) -> wmd (N); an entry of its own so that its
+// launches are counted apart from #4's.
+extern "C" int sddmm_spmm_type2(const void* kvm, const void* kmvm,
+                                const void* u, const void* cols,
+                                const void* vals, void* wmd, int v_r,
+                                int vp1, int n, int nnz, int docs_blk,
+                                void* stream) {
+  return launch_type2_vm(kvm, kmvm, u, cols, vals, wmd, 1, v_r, vp1, n, nnz,
+                         docs_blk, stream);
+}
+
+// The oracle of #2 and #4: one query's reference-layout stripes k, km
+// (v_r, V+1), one slot at a time.
+extern "C" int sddmm_spmm_type2_naive(const void* k, const void* km,
+                                      const void* u, const void* cols,
+                                      const void* vals, void* wmd, int v_r,
+                                      int vp1, int n, int nnz, int docs_blk,
+                                      void* stream) {
   if (bad_shape(1, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
   const dim3 grid = tile_grid(n, docs_blk, 1), block = tile_block(docs_blk);
   return by_rows(v_r, [&](auto rows) {

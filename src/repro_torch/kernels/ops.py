@@ -11,7 +11,7 @@ Padding rules differ from the TPU wrappers on purpose: the CUDA kernels
 mask their own ragged edges (any v_r up to 128, any Q, N and nnz), so v_r,
 Q and docs are not padded to tile multiples here and no (Q, v_r, V+1)
 stripe is ever copied for alignment. Copies are made for layout: the
-batched type1 and type2 and the single-query type1 read K (and K.*M)
+batched and the single-query type1 and type2 read K (and K.*M)
 vocab-major (`k_vocab_major`, the ``*_vm`` entry points), and the solve
 loops and reranks make those copies once per stripe set (the per-query
 program once a query), on both devices (on the CPU they feed the same
@@ -70,15 +70,32 @@ def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
                                cols, vals, docs_blk=docs_blk)
 
 
+def sddmm_spmm_type2_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
+                        u: torch.Tensor, cols: torch.Tensor,
+                        vals: torch.Tensor, *,
+                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
+                        ) -> torch.Tensor:
+    """Fused final distance of one query on its vocab-major copies k_vm,
+    km_vm (V+1, v_r) (`k_vocab_major` of the stripes); otherwise
+    `sddmm_spmm_type2`, bit for bit."""
+    if k_vm.is_cuda:
+        return _sddmm_spmm.sddmm_spmm_type2_vm(
+            k_vm.contiguous(), km_vm.contiguous(), u.contiguous(),
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+    return _sddmm_spmm.sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals)
+
+
 def sddmm_spmm_type2(k_pad: torch.Tensor, km_pad: torch.Tensor,
                      u: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                     *, docs_blk: int = 8) -> torch.Tensor:
-    """Fused final distance of one query -> (N,) WMD."""
-    if k_pad.is_cuda:
-        return _sddmm_spmm.sddmm_spmm_type2(
-            k_pad.contiguous(), km_pad.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals)
+                     *, docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
+                     ) -> torch.Tensor:
+    """Fused final distance of one query: k_pad, km_pad (v_r, V+1), u
+    (v_r, N), cols/vals (N, nnz) -> (N,) WMD. Makes the vocab-major copies
+    of k_pad and km_pad for this one call: a loop takes `k_vocab_major` of
+    each once and calls `sddmm_spmm_type2_vm`."""
+    return sddmm_spmm_type2_vm(k_vocab_major(k_pad[None])[0],
+                               k_vocab_major(km_pad[None])[0], u, cols, vals,
+                               docs_blk=docs_blk)
 
 
 def sddmm_spmm_chunked(k_chunks: torch.Tensor, r_sel: torch.Tensor,
@@ -205,11 +222,15 @@ def _finite(lb: torch.Tensor) -> torch.Tensor:
 
 
 def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
-                     vals: torch.Tensor, *, docs_blk: int = 8,
+                     vals: torch.Tensor, *,
+                     docs_blk: int = _rwmd.BOUND_DOCS_BLK,
                      q_blk: int | None = None) -> torch.Tensor:
     """Batched doc-side RWMD min-SDDMM: m_pad (Q, v_r, V+1) with +inf pad
-    query rows, cols/vals (N, nnz) -> (Q, N) bounds, filler queries 0.
-    ``docs_blk`` is the kernel's doc tile (results do not depend on it)."""
+    query rows, cols/vals (N, nnz) -> (Q, N) bounds, filler queries 0. On
+    the card the shapes pick the kernel's route (`kernels.rwmd.rwmd_route`:
+    the column mins of all of M for large document sets, a gather of each
+    slot's column for small ones; the same bits). ``docs_blk`` is the
+    kernel's doc tile (results do not depend on it)."""
     check_tile("rwmd_bound_batch", "q_blk", q_blk, optional=True)
     if m_pad.is_cuda:
         return _finite(_rwmd.rwmd_bound_batch(

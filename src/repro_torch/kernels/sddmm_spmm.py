@@ -18,13 +18,14 @@ in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
   * the ``*_vm`` entry points read K (and K.*M) vocab-major, (Q, V+1, v_r),
     the copies `k_vocab_major` makes once per stripe set (a column is then
     one 128-byte line): ``sddmm_spmm_type1_batch_vm`` (#3),
-    ``sddmm_spmm_type2_batch_vm`` (#4) and ``sddmm_spmm_type1_vm`` (#1, one
-    query's (V+1, v_r) copy, #3's kernel at Q = 1). The reference layout's
-    entries of the same names without ``_vm`` are the copies and the
-    kernel in one call;
-  * ``sddmm_spmm_type2`` (#2) reads one query's reference-layout stripes
-    (v_r, V+1), one slot at a time. #4 is #2 query by query, and #1 is #3
-    at Q = 1, bit for bit.
+    ``sddmm_spmm_type2_batch_vm`` (#4), and ``sddmm_spmm_type1_vm`` (#1)
+    and ``sddmm_spmm_type2_vm`` (#2) on one query's (V+1, v_r) copies, #3's
+    and #4's kernels at Q = 1. The reference layout's entries of the same
+    names without ``_vm`` are the copies and the kernel in one call. #4 is
+    #2 query by query, and #1 is #3 at Q = 1, bit for bit;
+  * ``sddmm_spmm_type2_naive`` is their oracle: one query's
+    reference-layout stripes (v_r, V+1), one slot at a time, the same
+    per-slot step (a kernel of its own, which no serving path calls).
 
 The ``*_plain`` functions are the gather + matmul spellings of the same
 math (the single-query ones the batched at Q = 1; the vocab-major ones
@@ -53,9 +54,10 @@ TINY = 1e-30  # see core.sparse_sinkhorn.safe_recip
 # v_r rows a warp can hold (4 per lane); the kernels refuse larger buckets
 MAX_V_R = 128
 
-# #1's doc tile: at Q = 1 (N = 5,000, v_r = 32, H100) docs_blk 4 took
-# 0.0199-0.0207 ms of device time a launch against 0.0209-0.0213 at 8 and
-# 0.024 at 16 (chip_smoke.py phase 5); bits do not depend on it
+# #1's and #2's doc tile: at Q = 1 (N = 5,000, v_r = 32, H100) docs_blk 4
+# took 0.0199-0.0207 ms of device time a #1 launch against 0.0209-0.0213 at
+# 8 and 0.024 at 16; #2 took 0.0247-0.0262 ms at 4, 0.0254-0.0257 at 8
+# and 0.0282 at 16 (chip_smoke.py phase 5); bits do not depend on it
 QUERY_DOCS_BLK = 4
 
 
@@ -144,6 +146,13 @@ def sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals):
     """Plain version of the single-query type2 kernel: (N,) distances."""
     return sddmm_spmm_type2_batch_plain(k_pad[None], km_pad[None], u[None],
                                         cols, vals)[0]
+
+
+def sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals):
+    """Plain version of #2 on one query's vocab-major copies k_vm, km_vm
+    (V+1, v_r): `sddmm_spmm_type2_batch_vm_plain` at Q = 1."""
+    return sddmm_spmm_type2_batch_vm_plain(k_vm[None], km_vm[None], u[None],
+                                           cols, vals)[0]
 
 
 def _cuda_tensor(name: str, t: torch.Tensor) -> None:
@@ -313,12 +322,45 @@ def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
                                cols, vals, docs_blk=docs_blk)
 
 
-def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
-                     docs_blk: int = 8, interpret: bool = False
-                     ) -> torch.Tensor:
-    """CUDA single-query type2 kernel (#2) on one query's reference-layout
-    stripes k_pad, km_pad (v_r, V+1): the fused final distance, (N,)."""
+def sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals, *,
+                        docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+    """CUDA single-query type2 kernel (#2) on one query's vocab-major
+    copies k_vm, km_vm (V+1, v_r) of K and K.*M, u (v_r, N), cols int32 /
+    vals f32 (N, nnz) -> wmd (N,): #4's kernel at Q = 1, counted as #2."""
     name = "sddmm_spmm_type2"
+    _one_query(name, u)
+    _check(name, {"k_vm": k_vm, "km_vm": km_vm, "u": u, "cols": cols,
+                  "vals": vals}, k_vm[None], u[None], cols, docs_blk,
+           vocab_major=True)
+    v_r, n = u.shape
+    if km_vm.shape != k_vm.shape or vals.shape != cols.shape:
+        raise ValueError(f"{name}: km_vm {tuple(km_vm.shape)} / vals "
+                         f"{tuple(vals.shape)} shape mismatch")
+    wmd = torch.empty((n,), dtype=torch.float32, device=u.device)
+    if n:
+        _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
+                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk)
+    return wmd
+
+
+def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
+                     docs_blk: int = QUERY_DOCS_BLK,
+                     interpret: bool = False) -> torch.Tensor:
+    """#2 on one query's reference-layout stripes k_pad, km_pad (v_r, V+1):
+    their vocab-major copies, then `sddmm_spmm_type2_vm`."""
+    return sddmm_spmm_type2_vm(k_vocab_major(k_pad[None])[0],
+                               k_vocab_major(km_pad[None])[0], u, cols, vals,
+                               docs_blk=docs_blk)
+
+
+def sddmm_spmm_type2_naive(k_pad, km_pad, u, cols, vals, *,
+                           docs_blk: int = 8) -> torch.Tensor:
+    """The oracle of #2 and #4 (CUDA): one query's reference-layout stripes
+    k_pad, km_pad (v_r, V+1), one slot at a time, the kernels' per-slot
+    step and slot order -> (N,) distances, bitwise theirs. No serving path
+    calls it."""
+    name = "sddmm_spmm_type2_naive"
     _one_query(name, u)
     _check(name, {"k_pad": k_pad, "km_pad": km_pad, "u": u, "cols": cols,
                   "vals": vals}, k_pad[None], u[None], cols, docs_blk)

@@ -417,8 +417,9 @@ def test_service_query_is_the_batched_row_bitwise_and_counts_launches():
     _build.reset_launches()
     single = np.stack([svc.query(r) for r in rs])
     launches = dict(_build.launches)
-    # one vocab-major copy of each query's K stripe, for its 10 type1s
-    assert launches == {"cdist_kexp": 5, "k_vocab_major": 5,
+    # the vocab-major copies of each query's K and K.*M stripes, for its
+    # 10 type1s and its type2
+    assert launches == {"cdist_kexp": 5, "k_vocab_major": 10,
                         "sddmm_spmm_type1": 50, "sddmm_spmm_type2": 5}
     np.testing.assert_array_equal(single, rows)
     # a cache-less service: the transient stripes route gives the same bits
@@ -770,3 +771,141 @@ def test_tiling_keywords_change_no_bits_on_card():
     torch.cuda.synchronize()
     for i, (want, got) in enumerate(pairs):
         assert all(torch.equal(g, x) for g, x in zip(got, want)), i
+
+
+# -- slice 7: #2 on vocab-major copies, #8's two routes ----------------------
+
+@pytest.mark.parametrize("v_r", [8, 32, 40, 96, 128])
+@pytest.mark.parametrize("nnz", [1, 33, 144])
+def test_type2_single_query_is_the_oracle_and_the_batched_kernel(v_r, nnz):
+    """#2 on one query's vocab-major copies == the reference-layout oracle
+    `sddmm_spmm_type2_naive` == #4 at Q = 1, bitwise; the reference-layout
+    entry (copies + #2) too. N = 61 is no multiple of the doc tile; nnz 33
+    and 144 span two and five 32-slot stages; pad query rows, ELL pad
+    slots and an all-pad document (the last) are in the problem."""
+    dev = _card()
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, km, _, u, cols, vals = (torch.from_numpy(a).to(dev) for a in
+                               _with_empty_doc(_problem(70, 1, v_r, 320, 61,
+                                                        nnz, filler=0),
+                                               320))
+    k_vm, km_vm = sk.k_vocab_major(k), sk.k_vocab_major(km)
+    _build.reset_launches()
+    d = ops.sddmm_spmm_type2_vm(k_vm[0], km_vm[0], u[0], cols, vals)
+    assert dict(_build.launches) == {"sddmm_spmm_type2": 1}
+    oracle = sk.sddmm_spmm_type2_naive(k[0], km[0], u[0], cols, vals)
+    batched = sk.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)[0]
+    ref_layout = sk.sddmm_spmm_type2(k[0], km[0], u[0], cols, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(d, oracle) and torch.equal(d, batched)
+    assert torch.equal(ref_layout, d)
+    torch.testing.assert_close(
+        d, sk.sddmm_spmm_type2_vm_plain(k_vm[0], km_vm[0], u[0], cols, vals),
+        rtol=1e-4, atol=1e-6)
+    assert d[-1] == 0 and torch.all(d[:-1] > 0)
+
+
+def test_type2_single_query_bits_do_not_depend_on_docs_blk():
+    dev = _card()
+    from repro_torch.kernels import sddmm_spmm as sk
+    k, km, _, u, cols, vals = (torch.from_numpy(a).to(dev)
+                               for a in _problem(71, 1, 40, 500, 61, 40,
+                                                 filler=0))
+    k_vm, km_vm = sk.k_vocab_major(k)[0], sk.k_vocab_major(km)[0]
+    ds = [sk.sddmm_spmm_type2_vm(k_vm, km_vm, u[0], cols, vals, docs_blk=b)
+          for b in (1, 4, 7, 8, 16, 61, 300)]
+    ds += [sk.sddmm_spmm_type2_naive(k[0], km[0], u[0], cols, vals,
+                                     docs_blk=b) for b in (1, 8, 61)]
+    torch.cuda.synchronize()
+    for d in ds[1:]:
+        assert torch.equal(d, ds[0])
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _route_problem(seed, q, v_r, v=1000, n=300, nnz=40):
+    """M stripes with +inf pad query rows (one, where v_r > 1), an
+    all-+inf filler query (the last, for Q > 1), a NaN in query 0's M on
+    the column of document 0's first slot, ELL pad slots and empty
+    documents (every 50th)."""
+    rng = np.random.default_rng(seed)
+    m = (rng.random((q, v_r, v + 1)) * 4).astype(np.float32)
+    m[:, :, v] = 0.0
+    if v_r > 1:
+        m[:, v_r - 1] = np.inf
+    if q > 1:
+        m[q - 1] = np.inf
+    cols = np.full((n, nnz), v, np.int32)
+    vals = np.zeros((n, nnz), np.float32)
+    for j in range(n):
+        if j % 50 == 49:
+            continue
+        c = int(rng.integers(1, nnz + 1))
+        cols[j, :c] = rng.choice(v, c, replace=False)
+        vals[j, :c] = rng.random(c).astype(np.float32) + 0.05
+    m[0, 0, cols[0, 0]] = np.nan
+    return m, cols, vals
+
+
+@pytest.mark.parametrize("v_r", [1, 31, 32, 33, 100, 128])
+@pytest.mark.parametrize("q", [1, 3, 16, 17])
+def test_rwmd_routes_are_the_lc_kernel_bitwise(v_r, q):
+    """#8's dense route (column mins, then #9's walk) == its gather route
+    == #9 on `min_cost_vectors`, bitwise, at several doc tiles; each call
+    is one counted rwmd_bound_batch launch; the NaN reaches the documents
+    that use its column on both routes (NaN wins the min, as in
+    torch.amin); the empty documents score 0; the filler query is +inf,
+    which ops finite-izes to 0."""
+    dev = _card()
+    from repro_torch.core.cascade import min_cost_vectors
+    from repro_torch.kernels import _build, lcrwmd, ops
+    from repro_torch.kernels import rwmd as kr
+    m, cols, vals = (torch.from_numpy(a).to(dev)
+                     for a in _route_problem(72 + v_r, q, v_r))
+    lc = lcrwmd.lc_rwmd_bound_batch(min_cost_vectors(m), cols, vals)
+    for blk in (1, 8, 61):
+        for route in ("dense", "gather"):
+            _build.reset_launches()
+            lb = kr.rwmd_bound_batch_route(m, cols, vals, route,
+                                           docs_blk=blk)
+            assert dict(_build.launches) == {"rwmd_bound_batch": 1}
+            torch.cuda.synchronize()
+            assert _same_bits(lb, lc), (route, blk)
+    lb = kr.rwmd_bound_batch(m, cols, vals)
+    torch.cuda.synchronize()
+    assert _same_bits(lb, lc)
+    nan_docs = (cols == cols[0, 0]).any(dim=1) & (vals != 0).any(dim=1)
+    assert torch.isnan(lb[0, nan_docs]).all()
+    assert not torch.isnan(lb[1:]).any() and not torch.isnan(
+        lb[0, ~nan_docs]).any()
+    assert torch.all(lb[:, 49::50] == 0)
+    if q > 1:
+        assert torch.isinf(lb[q - 1, :49]).all()
+    fin = ops.rwmd_bound_batch(m, cols, vals)
+    plain = ops._finite(kr.rwmd_bound_batch_plain(m, cols, vals))
+    torch.testing.assert_close(fin, plain, rtol=1e-5, atol=1e-6)
+
+
+def test_column_min_is_torch_amin_bitwise():
+    """The dense route's first pass: minm == torch.amin(M, 1), NaN and all,
+    laid out vocab-major like `min_cost_vectors`."""
+    dev = _card()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwmd as kr
+    for q, v_r, v in ((1, 1, 77), (3, 33, 1000), (16, 32, 4097),
+                      (17, 128, 301)):
+        m = torch.from_numpy(_route_problem(73, q, v_r, v=v,
+                                            n=2)[0]).to(dev)
+        _build.reset_launches()
+        minm = kr.column_min(m)
+        assert dict(_build.launches) == {"column_min": 1}
+        want = torch.amin(m, dim=1)
+        torch.cuda.synchronize()
+        assert minm.shape == want.shape and minm.T.is_contiguous()
+        torch.testing.assert_close(minm, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.isnan(minm[0]).sum() == 1

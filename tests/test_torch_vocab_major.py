@@ -199,7 +199,7 @@ def test_plain_impls_make_no_copy(counts):
     for impl in ("fused", "unfused"):
         assert tss.batched_contractions(impl, k, k) == tuple(
             tss._resolve_impl(kind, impl) for kind in ("type1", "type2"))
-        assert tss.query_contractions(impl, k[0]) == tuple(
+        assert tss.query_contractions(impl, k[0], k[0]) == tuple(
             tss._resolve_impl(kind, impl, False)
             for kind in ("type1", "type2"))
         assert tdist.vocab_major_stripes(k[None], k[None], impl) is None
@@ -223,7 +223,8 @@ def test_plain_impls_make_no_copy(counts):
 
 _COUNTED = {"copy": "k_vocab_major", "type1": "sddmm_spmm_type1_batch_vm",
             "type2": "sddmm_spmm_type2_batch_vm",
-            "type1_q": "sddmm_spmm_type1_vm"}
+            "type1_q": "sddmm_spmm_type1_vm",
+            "type2_q": "sddmm_spmm_type2_vm"}
 
 
 def _counted(**kw):
@@ -234,8 +235,8 @@ def _counted(**kw):
 @pytest.fixture
 def counts(monkeypatch):
     """Wrap `ops.k_vocab_major` (the K and K.*M copies), the batched
-    type1 / type2 on the copies and the single-query type1 on its copy
-    with call counters; returns the live counter dict."""
+    type1 / type2 on the copies and the single-query type1 / type2 on the
+    query's copies with call counters; returns the live counter dict."""
     seen = _counted()
 
     def counted(key, fn):
@@ -326,18 +327,20 @@ def test_pruned_rerank_copies_once_per_stripe_set(counts, rerank):
 def test_per_query_program_copies_once_a_query(counts):
     """The per-query program (`query(r)`, `top_k(r)`,
     `query_batch_sequential`, `sinkhorn_wmd_sparse`) copies its query's K
-    stripe once and runs its ``max_iter`` type1s on that copy; its type2
-    (#2) reads the reference layout."""
+    and K.*M stripes once (two `k_vocab_major` calls, `vocab_major_pair`)
+    and runs its ``max_iter`` type1s (#1) and its one type2 (#2) on those
+    copies."""
     vecs, ell, rs = _corpus()
     svc = _service()
     svc.query(rs[0])
     svc.top_k(rs[1], 5)
     svc.query_batch_sequential(rs)
     nq = 2 + len(rs)
-    assert counts == _counted(copy=nq, type1_q=MAX_ITER * nq)
+    assert counts == _counted(copy=2 * nq, type1_q=MAX_ITER * nq, type2_q=nq)
     sel, r_sel = tsk.select_query(rs[0])
     tss.sinkhorn_wmd_sparse(torch.from_numpy(sel), torch.from_numpy(r_sel),
                             torch.from_numpy(ell.cols),
                             torch.from_numpy(ell.vals),
                             torch.from_numpy(vecs), LAMB, MAX_ITER)
-    assert counts == _counted(copy=nq + 1, type1_q=MAX_ITER * (nq + 1))
+    assert counts == _counted(copy=2 * (nq + 1), type1_q=MAX_ITER * (nq + 1),
+                              type2_q=nq + 1)
