@@ -66,8 +66,33 @@ Phases (any failure exits non-zero before the result line is printed):
      bitwise the fixed fused loop at that n_iter); the per-query wall
      time, queries/s and the `[idle]` line of one warm `query(r)` (two
      copies in its trace, no oracle);
+  9. async serving at paper_5k: a fresh `WMDService(device="cuda",
+     cache_capacity=1024, mcache_capacity=1024)` with its defaults, an
+     `EngineGuard` with the default `ResiliencePolicy`, a `Tracer`, and
+     `svc.async_service(window_ms=2, max_batch=16, max_queue=256)` over
+     them. `warm_registry(ks=(10,))` dispatches every shape once (every
+     kernel library must already be loaded, by phase 2, so the warmup's
+     nvcc compiles and library loads are 0 by construction; each shape's
+     first-call seconds printed). Phase 3's 32 queries are submitted from
+     4 client threads as plain requests, drained, then as
+     `submit_top_k(r, 10)`: every plain row must be phase 3's
+     `query_batch` row bitwise and replay bitwise from `batch_log`, every
+     top-k answer the top-k of phase 3's rows; the launches, read around
+     each run, must be 15 type1, 1 type2 and 2 k_vocab_major a plain
+     dispatch and one cdist_kexp_rows a 128-row K miss chunk, and on the
+     top-k run one lc_rwmd_bound_batch and one rwmd_bound_batch a
+     dispatch plus phase 6's rerank counts (never the oracle); the
+     guard's retries, failures, demotions and degraded answers must all
+     be 0, every span tree must close exactly once. Then an open loop of
+     64 `zipf_query_stream(seed=2)` queries at half the saturating plain
+     rate (q/s, mean batch, triggers, latency p50/p95/p99), the `[idle]`
+     lines of the coalesced plain run and of the synchronous
+     `query_batch` of the same two batches, and the launcher's serving
+     loop in-process (`launch.serve.main`, 64 top-10 requests,
+     `--resilience`): its stats JSON must show 64 of 64 served, none
+     degraded;
   5. (run last, so that its launch column reads the runs of phases 3, 6
-     and 8: each kernel's launches summed over the three) each kernel
+     8 and 9: each kernel's launches summed over the four) each kernel
      against its plain PyTorch version at the main path's shapes (the
      per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
      against #1 on each of the 16 queries, #4 against #2 on each, #1
@@ -94,10 +119,12 @@ last line is ``{"ok": true, "device": {...}}``.
 import hashlib
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -301,6 +328,274 @@ def _ptxas_summary(log: str) -> list[str]:
     keep = ("Compiling entry", "Used", "spill")
     return [ln.strip() for ln in log.splitlines()
             if any(k in ln for k in keep)]
+
+
+def _phase9(cfg, data, batches, d_rows, k_top):
+    """Phase 9: async serving at paper_5k (see the module docstring).
+    Returns the launches of its main path: the plain run's and the top-k
+    run's, each read with the counts set to 0 just before it."""
+    import collections
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.corpus import zipf_query_stream
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import (EngineGuard, ResiliencePolicy,
+                                     WMDService, open_loop)
+
+    qs = [r for batch in batches for r in batch]          # phase 3's 32
+    rows = np.concatenate(d_rows)
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
+                     cache_capacity=1024, mcache_capacity=1024)
+    _check(svc.device.type == "cuda" and svc.impl == "kernel"
+           and svc.kexp_impl == "kernel" and svc.bound_impl == "kernel"
+           and svc.lc_impl == "kernel", "async service defaults changed")
+    # per-call stats of the engine entry points the dispatcher calls, from
+    # which the expected launches follow (misses per 128-row chunk), with
+    # the payloads and results of plain calls for the replay
+    calls = []
+
+    def recorded(name):
+        orig = getattr(svc, name)
+
+        def call(*args, **kw):
+            m0 = svc.mcache_stats.miss_rows
+            out = orig(*args, **kw)
+            calls.append((name, len(args[0]), dict(svc.last_batch_stats),
+                          dict(svc.last_prune_stats),
+                          svc.mcache_stats.miss_rows - m0,
+                          list(args[0]), out))
+            return out
+        return call
+
+    svc.query_batch = recorded("query_batch")
+    svc.top_k_batch = recorded("top_k_batch")
+    guard = EngineGuard(svc, ResiliencePolicy(), metrics=svc.metrics)
+    # on the card the guard's ladder holds only rungs that launch kernels
+    _check(set(guard.stats().breaker_states)
+           == {"plain/0", "top_k/0", "top_k/1"},
+           f"the guard's ladder leaves the kernels: "
+           f"{sorted(guard.stats().breaker_states)}")
+    tracer = Tracer()
+    co = svc.async_service(window_ms=2, max_batch=16, max_queue=256,
+                           resilience=guard, tracer=tracer,
+                           metrics=svc.metrics)
+    rb = svc.cache_rows_bucket
+    try:
+        # -- warmup: every shape the coalescer can cut. Phase 2 built and
+        # loaded every library, so the build layer has nothing left to
+        # compile or load: the warmup's compile and load counts are 0 by
+        # construction, and what is checked is that every library is
+        # already loaded
+        _check(set(_build._libs) == set(_build.SOURCES),
+               f"a kernel library is not loaded before the warmup: "
+               f"{sorted(_build._libs)} of {list(_build.SOURCES)}")
+        rep = co.warm_registry(ks=(k_top,))
+        print(f"[async] warmup: {len(rep.shapes)} shapes in "
+              f"{rep.wall_s:.2f} s (libraries {sorted(_build._libs)} "
+              f"loaded by phase 2; compiles {rep.compiles}, loads "
+              f"{rep.persistent_hits}, 0 by construction); first-call s: "
+              + ", ".join(f"{lbl} {s.wall_s:.3f}"
+                          for lbl, s in rep.shapes.items()))
+
+        def serve(submit, n_clients=4):
+            """Submit qs from n_clients threads (client c submits queries
+            c, c + n_clients, ...), drain; returns (futures in qs order,
+            wall s, ServingStats before, after); the seconds of each
+            submit call go to ``submit_s``."""
+            st0 = co.stats()
+            futs = [None] * len(qs)
+
+            def client(c):
+                for i in range(c, len(qs), n_clients):
+                    t = time.perf_counter()
+                    futs[i] = submit(qs[i])
+                    submit_s.append(time.perf_counter() - t)
+
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=client, args=(c,))
+                  for c in range(n_clients)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            _check(not any(t.is_alive() for t in ts), "a client hung")
+            co.drain(timeout=600)
+            wall = time.perf_counter() - t0
+            return futs, wall, st0, co.stats()
+
+        def delta(st0, st1):
+            n = st1.dispatches - st0.dispatches
+            hist = collections.Counter(st1.batch_size_hist)
+            hist.subtract(st0.batch_size_hist)
+            return n, sum(q * c for q, c in hist.items()) / max(n, 1), {
+                t: getattr(st1, f"dispatch_{t}") - getattr(st0,
+                                                           f"dispatch_{t}")
+                for t in ("fill", "window", "deadline", "drain")}
+
+        # -- the plain run: launches read around exactly it
+        submit_s = []
+        calls.clear()
+        _build.reset_launches()
+        futs, wall_p, st0, st1 = serve(co.submit)
+        launches_p = dict(_build.launches)
+        plain_calls = [c for c in calls if c[0] == "query_batch"]
+        n_p, mean_p, trig_p = delta(st0, st1)
+        want = {"sddmm_spmm_type1_batch": cfg.max_iter * n_p,
+                "sddmm_spmm_type2_batch": n_p, "k_vocab_major": 2 * n_p,
+                "cdist_kexp_rows": sum(math.ceil(c[2]["misses"] / rb)
+                                       for c in plain_calls)}
+        want = {k: v for k, v in want.items() if v}
+        print(f"[async] plain: 32 queries from 4 threads in "
+              f"{wall_p * 1e3:.1f} ms ({32 / wall_p:.1f} queries/s), "
+              f"{n_p} dispatches, mean batch {mean_p:.2f}, triggers "
+              f"{trig_p}, batches in order {[c[1] for c in plain_calls]}, "
+              f"submit calls mean {np.mean(submit_s) * 1e6:.0f} us, max "
+              f"{np.max(submit_s) * 1e6:.0f} us; launches {launches_p}, "
+              f"expected {want}")
+        _check(len(plain_calls) == n_p, "plain dispatches != engine calls")
+        _check(launches_p == want, f"async plain launch counts "
+               f"{launches_p} != {want}")
+        got = np.stack([f.result(timeout=60) for f in futs])
+        _check(np.array_equal(got, rows), "a coalesced row is not phase "
+               "3's query_batch row of its query, bitwise")
+        # the replay: each dispatched composition (the batch_log's groups,
+        # in order) through a direct query_batch gives the same bits
+        groups = [g for g in co.batch_log if g[0] >= st0.submitted]
+        _check([len(g) for g in groups] == [c[1] for c in plain_calls]
+               and sum(map(len, groups)) == 32,
+               "the batch log does not match the dispatches")
+        for c in plain_calls:
+            _check(np.array_equal(WMDService.query_batch(svc, c[5]), c[6]),
+                   f"a dispatch of {c[1]} does not replay bitwise")
+        print("[check] async plain rows == phase 3's query_batch rows == "
+              "the batch_log replay, bitwise, on all 32 queries")
+
+        # -- the top-k run
+        calls.clear()
+        _build.reset_launches()
+        futs_k, wall_k, st0, st1 = serve(
+            lambda r: co.submit_top_k(r, k_top))
+        launches_k = dict(_build.launches)
+        topk_calls = [c for c in calls if c[0] == "top_k_batch"]
+        n_k, mean_k, trig_k = delta(st0, st1)
+        programs = sum(c[3]["rerank_programs"] for c in topk_calls)
+        want_k = {"sddmm_spmm_type1_batch": cfg.max_iter * programs,
+                  "sddmm_spmm_type2_batch": programs,
+                  "k_vocab_major": 2 * sum(c[1] for c in topk_calls),
+                  "lc_rwmd_bound_batch": n_k, "rwmd_bound_batch": n_k,
+                  "cdist": sum(math.ceil(c[4] / rb) for c in topk_calls),
+                  "cdist_kexp_rows": sum(math.ceil(m / rb)
+                                         for c in topk_calls
+                                         for m in c[3]["kcache_misses"])}
+        want_k = {k: v for k, v in want_k.items() if v}
+        print(f"[async] top-k: 32 queries (k={k_top}) from 4 threads in "
+              f"{wall_k * 1e3:.1f} ms ({32 / wall_k:.1f} queries/s), {n_k} "
+              f"dispatches, mean batch {mean_k:.2f}, triggers {trig_k}, "
+              f"batches in order {[c[1] for c in topk_calls]}, "
+              f"{programs} rerank programs; launches {launches_k}, "
+              f"expected {want_k}")
+        _check(len(topk_calls) == n_k, "top-k dispatches != engine calls")
+        _check(launches_k == want_k, f"async top-k launch counts "
+               f"{launches_k} != {want_k}")
+        for i, f in enumerate(futs_k):
+            idx, dist = f.result(timeout=60)
+            _check(np.array_equal(idx, WMDService._top_k(rows[i], k_top))
+                   and np.array_equal(dist, rows[i][idx]),
+                   f"async top-k of query {i} is not the top-k of its "
+                   f"phase 3 row")
+        print("[check] async top-k == top-k of phase 3's rows, bitwise "
+              "(ids and distances), on all 32 queries")
+        gs, st = guard.stats(), co.stats()
+        print(f"[async] guard: dispatches {gs.dispatches}, retries "
+              f"{gs.retries}, failures {gs.failures}, demoted {gs.demoted}, "
+              f"degraded {gs.degraded}; ServingStats degraded "
+              f"{st.degraded}, failed {st.failed}, hit_rate {st.hit_rate}")
+        _check(gs.retries == gs.demoted == gs.degraded == gs.failures == 0
+               and st.degraded == st.failed == 0
+               and all(rung == 0 for _, rung, _ in guard.dispatch_log),
+               "the fault-free guarded run retried, demoted or degraded")
+
+        # -- the open loop at half the saturating plain rate
+        stream = zipf_query_stream(vocab_size=cfg.vocab_size,
+                                   query_words=19, seed=2)
+        rate = 32 / wall_p / 2
+        st0 = co.stats()
+        lg = open_loop(co.submit, [next(stream) for _ in range(64)],
+                       rate_qps=rate, seed=0)
+        co.drain(timeout=600)
+        n_o, mean_o, trig_o = delta(st0, co.stats())
+        print(f"[async] open loop: {lg.completed}/{lg.submitted} at "
+              f"{rate:.1f} q/s offered, {lg.throughput_qps:.1f} q/s "
+              f"served; {n_o} dispatches, mean batch {mean_o:.2f}, "
+              f"triggers {trig_o}; latency ms p50 {lg.percentile_ms(50):.2f}"
+              f" p95 {lg.percentile_ms(95):.2f} p99 "
+              f"{lg.percentile_ms(99):.2f}")
+        _check(lg.completed == lg.submitted == 64 and lg.failed == 0,
+               "the open loop lost requests")
+
+        # -- where the time goes: the saturating plain run against the
+        # synchronous query_batch of the same two batches
+        runs = []
+
+        def coalesced():
+            st0 = co.stats()
+            serve(co.submit)
+            runs.append(co.stats().dispatches - st0.dispatches)
+
+        marks = ("::vocab_major_kernel", "type1_vm_kernel",
+                 "type2_vm_kernel", "type2_query_kernel")
+        for what, call in (("synchronous query_batch, 2 x Q=16",
+                            lambda: [svc.query_batch(b) for b in batches]),
+                           ("coalesced plain, 32 queries from 4 threads",
+                            coalesced)):
+            wall, wall_prof, busy, largest, marked = _device_busy(call,
+                                                                  marks)
+            if busy is None:
+                print(f"[idle] {what}: {wall:.2f} ms wall; device time not "
+                      f"measured ({largest})")
+                continue
+            copies = 2 * (runs[-1] if runs else len(batches))
+            print(f"[idle] {what}: {wall:.2f} ms wall ({wall_prof:.2f} ms "
+                  f"under the profiler), device busy {busy:.2f} ms, idle "
+                  f"share {1 - busy / wall:.3f}; largest device entries: "
+                  f"{largest}; copies x{marked[marks[0]][0]}, #3 "
+                  f"x{marked[marks[1]][0]} ({marked[marks[1]][1]:.3f} ms)")
+            _check(marked[marks[0]][0] == copies, f"{what}: "
+                   f"{marked[marks[0]][0]} copies, expected {copies}")
+            _check(marked[marks[3]][0] == 0, f"{what}: the oracle ran")
+        co.shutdown(drain=True, timeout=600)
+        _check(tracer.open_count == 0
+               and len(tracer.completed) == co.stats().submitted,
+               "a request's span tree did not close exactly once")
+    finally:
+        co.shutdown(drain=False, timeout=600)
+    del svc, co, guard
+
+    # -- the launcher's serving loop, in-process
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stats.json")
+        t0 = time.perf_counter()
+        launch_serve.main(["--arch", "sinkhorn-wmd", "--coalesce-window-ms",
+                           "2", "--requests", "64", "--top-k", str(k_top),
+                           "--resilience", "--stats-out", path])
+        with open(path) as f:
+            stats = json.load(f)
+    served = stats["serving"]
+    print(f"[async] launcher: {served['completed']}/{served['submitted']} "
+          f"served, degraded {served['degraded']}, resilience "
+          f"{ {k: stats['resilience'][k] for k in ('retries', 'demoted')} }, "
+          f"{time.perf_counter() - t0:.1f} s with its corpus")
+    _check(served["completed"] == served["submitted"] == 64
+           and served["degraded"] == 0, "the launcher's serving loop did not "
+           "serve 64 of 64 undegraded")
+    torch.cuda.synchronize()
+    return {k: launches_p.get(k, 0) + launches_k.get(k, 0)
+            for k in set(launches_p) | set(launches_k)}
 
 
 def main() -> int:
@@ -655,6 +950,9 @@ def main() -> int:
                ("oracle", "type2_query_kernel"))
     del svc8
 
+    # -- 9. async serving ------------------------------------------------------
+    launches9 = _phase9(cfg, data, (batch1, batch2), (d1, d2), k_top)
+
     # -- 5. the kernels at the main path's shapes ------------------------------
     sel_b, r_b, mask_b = svc._padded_query_batch(batch1)
     k_s, km_s, _ = svc._kcache.stripes_for_batch(sel_b, mask_b)
@@ -675,7 +973,8 @@ def main() -> int:
     results = []
     # a kernel's launches: the sum over the main paths' runs (each read
     # with the counts set to 0 just before it), and the runs apart
-    by_phase = {"3": launches, "6": launches6, "8": launches8}
+    by_phase = {"3": launches, "6": launches6, "8": launches8,
+                "9": launches9}
 
     def record(name, source, replaces, got, want, kernel_fn, plain_fn,
                nbytes, flops, library_fn=None, plain_reps=3):

@@ -14,7 +14,12 @@ reciprocals would break the exact-zero contracts of the pad conventions
 
 ``launches`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
-main path went through.
+main path went through. ``builds`` counts what `build` did: ``compiles``
+(nvcc runs) and ``loads`` (libraries found in ``BUILD_DIR``, loaded
+without a compile), each with its seconds (`serving.warmup.
+measure_compiles` reads it). `set_build_dir` moves ``BUILD_DIR``
+(`serving.warmup.enable_compilation_cache`, the launcher's
+``--cache-dir``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: collections.Counter = collections.Counter()
+builds = {"compiles": 0, "compile_s": 0.0, "loads": 0, "load_s": 0.0}
 ptxas_log: dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,6 +50,22 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches.clear()
+
+
+def build_counts() -> dict:
+    """A snapshot of ``builds``."""
+    with _lock:
+        return dict(builds)
+
+
+def set_build_dir(path) -> pathlib.Path:
+    """Build and look up the libraries in ``path`` from now on (created if
+    missing); libraries already loaded stay loaded."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = pathlib.Path(path)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -96,7 +118,14 @@ def build(names=SOURCES) -> dict[str, float]:
             raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
         for name in names:
             if name not in _libs:
+                t0 = time.perf_counter()
                 _libs[name] = ctypes.CDLL(str(_target(name)))
+                if name in procs:
+                    builds["compiles"] += 1
+                    builds["compile_s"] += seconds[name]
+                else:
+                    builds["loads"] += 1
+                    builds["load_s"] += time.perf_counter() - t0
         return seconds
 
 

@@ -1,4 +1,36 @@
-"""The batched Sinkhorn-WMD query service."""
+"""Serving substrate: the WMD query service, the async admission layer
+(request coalescer + load generators), AOT warmup, the offline
+bulk-scoring driver, and the resilience layer (circuit breakers, retry,
+brownout degradation; fault injection lives in serving.faultinject and is
+test-only by contract).
+
+Re-exports every public name of `repro.serving` in the reference's order
+except `build_serve_fns` (the LM substrate, ROADMAP Queue 1 item 5).
+"""
+from repro_torch.serving.coalescer import (CoalescerClosedError,
+                                           QueryCoalescer, QueueFullError,
+                                           ServingStats)
+from repro_torch.serving.loadgen import LoadgenResult, closed_loop, open_loop
+from repro_torch.serving.offline import (OfflineResult, load_query_file,
+                                         run_offline, save_query_file)
+from repro_torch.serving.resilience import (BrownoutController,
+                                            CircuitBreaker, DegradedResult,
+                                            EngineGuard, ResiliencePolicy,
+                                            ResilienceStats)
+from repro_torch.serving.warmup import (ProgramShape, ShapeRegistry,
+                                        WarmupReport,
+                                        enable_compilation_cache,
+                                        flush_compilation_cache,
+                                        measure_compiles, warm)
 from repro_torch.serving.wmd_service import WMDService
 
-__all__ = ["WMDService"]
+__all__ = ["WMDService", "QueryCoalescer",
+           "ServingStats", "QueueFullError", "CoalescerClosedError",
+           "LoadgenResult", "open_loop", "closed_loop",
+           "ProgramShape", "ShapeRegistry", "WarmupReport", "warm",
+           "enable_compilation_cache", "flush_compilation_cache",
+           "measure_compiles",
+           "OfflineResult", "run_offline", "load_query_file",
+           "save_query_file",
+           "ResiliencePolicy", "EngineGuard", "DegradedResult",
+           "CircuitBreaker", "BrownoutController", "ResilienceStats"]

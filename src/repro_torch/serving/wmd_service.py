@@ -52,11 +52,19 @@ Service API
   query_batch_bounds(rs) / top_k_batch_bounds(rs, k) -- the degraded
       tier: (Q, N) doc-side RWMD lower bounds (one min-SDDMM, no Sinkhorn
       iterations), and the nearest-k by bound.
+  async_service(**kw)       -- async admission front-end: a
+      `serving.coalescer.QueryCoalescer` that turns a concurrent stream of
+      single-query ``submit(r) -> Future`` calls into full `query_batch`
+      dispatches (fill/window/deadline micro-batching, backpressure,
+      ServingStats); `drain_async()` flushes every live front-end.
+  warmup(max_batch=..., ks=...) -- one dispatch per shape of the serving
+      envelope (`serving.warmup`); returns the `WarmupReport`.
 
-Not in this slice (each raises NotImplementedError naming the ROADMAP
-queue item that brings it): `from_live` and the corpus mutators (the live
-corpus, whose pruned paths come with it) and `async_service` (the async
-front-end).
+Not ported yet (each raises NotImplementedError naming the ROADMAP queue
+item that brings it): `from_live` and the corpus mutators ``add_docs`` /
+``remove_docs`` / ``compact`` (the live corpus, whose pruned paths come
+with it). The coalescer's writer lane calls the mutators, so a write
+future resolves with that error.
 
 Knobs (constructor fields): ``impl`` ("kernel" default: the CUDA kernels on
 the card, their plain versions on the CPU; "fused" / "unfused" are the
@@ -90,6 +98,7 @@ import dataclasses
 import functools
 import threading
 import time
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -217,16 +226,56 @@ class WMDService:
         self.last_batch_stats: dict = {}
         self.last_prune_stats: dict = {}
         self._engine_lock = threading.RLock()
+        # live async front-ends (async_service); weak so a shut-down
+        # coalescer the caller dropped doesn't accumulate on the service
+        self._coalescers: weakref.WeakSet = weakref.WeakSet()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- not in this slice --------------------------------------------------
+    # -- async front-end ------------------------------------------------------
 
     def async_service(self, **kw):
-        _not_ported("WMDService.async_service (async front-end)",
-                    "item 'Async serving front-end'")
+        """Async admission front-end: a `serving.coalescer.QueryCoalescer`
+        whose dispatcher feeds this service's `query_batch` (thread-safe
+        ``submit(r) -> Future``, micro-batching by fill/window/deadline --
+        see the coalescer module docstring for knobs). Usable as a context
+        manager (shutdown-with-drain on exit); `drain_async` flushes every
+        front-end this service has handed out."""
+        from repro_torch.serving.coalescer import QueryCoalescer
+        co = QueryCoalescer(self, **kw)
+        self._coalescers.add(co)
+        return co
+
+    def drain_async(self, timeout: float | None = None) -> None:
+        """Drain hook: block until every live `async_service` front-end has
+        an empty queue and no in-flight batch (coalescers stay open)."""
+        for co in list(self._coalescers):
+            co.drain(timeout=timeout)
+
+    def warmup(self, *, max_batch: int = 16, ks: Sequence[int] = (),
+               kinds: Sequence[str] | None = None,
+               queries: Sequence[np.ndarray] | None = None,
+               seed: int = 0):
+        """Warm the full serving envelope (`serving.warmup`).
+
+        Enumerates every program shape this service can be dispatched --
+        pow2 Q buckets up to ``max_batch`` x request kinds ("plain", plus
+        "top_k" per k in ``ks``; pass ``kinds`` to add the offline mode's
+        "top_k_union") -- and runs one dispatch per shape, so a following
+        serving session never pays a first call (the kernels' build or
+        load, the caches' first rows). Combine with
+        `serving.warmup.enable_compilation_cache` to keep the built
+        kernels across processes. Returns the `WarmupReport` (per-shape
+        seconds; hand it to `QueryCoalescer.record_warmup` to surface in
+        `ServingStats`)."""
+        from repro_torch.serving import warmup as _warmup
+        registry = _warmup.ShapeRegistry.from_service(
+            self, max_batch=max_batch, ks=ks, kinds=kinds)
+        return _warmup.warm(self, registry, queries=queries, seed=seed)
+
+    # -- not ported yet -------------------------------------------------------
 
     def add_docs(self, ids, docs):
         _not_ported("WMDService.add_docs (live corpus)",

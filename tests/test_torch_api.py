@@ -1,9 +1,10 @@
 """The port's public names and keywords against the reference's, on the CPU.
 
-* `repro_torch.{core,data,obs,kernels}` re-export every public name of the
-  reference's subpackage that the port has, in the reference's order; a
-  name the port lacks must be listed in `NOT_PORTED` with the ROADMAP
-  Queue 1 item that ports it, and must really be absent.
+* `repro_torch.{core,data,obs,kernels,serving,distributed}` re-export
+  every public name of the reference's subpackage that the port has, in
+  the reference's order; a name the port lacks must be listed in
+  `NOT_PORTED` with the ROADMAP Queue 1 item that ports it, and must
+  really be absent.
 * Every `ops` entry and every `kernels/*.py` kernel entry takes the
   reference's tiling keywords (``v_tile``, ``rows_blk``, ``q_blk``,
   ``interpret``) with the reference's defaults; passing them changes no
@@ -21,8 +22,10 @@ import torch
 
 import repro.core
 import repro.data
+import repro.distributed
 import repro.kernels
 import repro.obs
+import repro.serving
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import cdist as t_cdist
 from repro_torch.kernels import kexp as t_kexp
@@ -32,7 +35,7 @@ from repro_torch.kernels import rwmd as t_rwmd
 from repro_torch.kernels import sddmm_spmm as t_sddmm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("core", "data", "obs", "kernels")
+SUBPACKAGES = ("core", "data", "obs", "kernels", "serving", "distributed")
 
 # reference names the port does not have yet -> the ROADMAP Queue 1 item
 NOT_PORTED = {
@@ -40,13 +43,15 @@ NOT_PORTED = {
              "sinkhorn_plan": 5},
     "data": {"TokenPipeline": 5, "batch_struct": 5, "LiveCorpus": 2,
              "WalWriter": 2, "replay": 2},
-    "obs": {"Tracer": 1, "NullTracer": 1, "NULL_TRACER": 1,
-            "render_prometheus": 1, "MetricsServer": 1, "JsonlExporter": 1},
+    "obs": {},
     "kernels": {},
+    "serving": {"build_serve_fns": 5},
+    "distributed": {"elastic": 3, "partitioning": 3},
 }
 
 REF = {"core": repro.core, "data": repro.data, "obs": repro.obs,
-       "kernels": repro.kernels}
+       "kernels": repro.kernels, "serving": repro.serving,
+       "distributed": repro.distributed}
 
 
 def _port(sub):
@@ -86,6 +91,17 @@ def test_reexports_are_the_modules_objects():
     from repro_torch.obs import MetricsRegistry
     assert make_corpus is corpus.make_corpus
     assert MetricsRegistry is metrics.MetricsRegistry
+    import repro_torch.distributed as distributed
+    import repro_torch.serving as serving
+    from repro_torch.distributed import fault_tolerance
+    from repro_torch.obs import Tracer, render_prometheus
+    from repro_torch.obs import export, trace
+    from repro_torch.serving import coalescer, warmup
+    assert Tracer is trace.Tracer
+    assert render_prometheus is export.render_prometheus
+    assert serving.QueryCoalescer is coalescer.QueryCoalescer
+    assert serving.warm is warmup.warm
+    assert distributed.fault_tolerance is fault_tolerance
 
 
 def _reference_imports():

@@ -909,3 +909,136 @@ def test_column_min_is_torch_amin_bitwise():
         torch.testing.assert_close(minm, want, rtol=0, atol=0,
                                    equal_nan=True)
         assert torch.isnan(minm[0]).sum() == 1
+
+
+# -- slice 8: the async serving front-end on the card -------------------------
+
+def _async_stack(dev):
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    from repro_torch.serving import WMDService
+    data = make_corpus(vocab_size=2048, embed_dim=32, num_docs=300,
+                       num_queries=1, seed=31)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=32, num_docs=300,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=32)
+    rs = [next(stream) for _ in range(12)]
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev,
+                     cache_capacity=256, mcache_capacity=256, prune_chunk=16)
+    return svc, rs
+
+
+def test_coalesced_query_batch_is_the_direct_call_bitwise_on_card():
+    """Coalesced rows == the direct query_batch of each logged batch and
+    == one direct call over all queries (on the card a row does not depend
+    on its batch); the dispatches went through the kernels."""
+    dev = _card()
+    from repro_torch.kernels import _build
+    svc, rs = _async_stack(dev)
+    full = svc.query_batch(rs)
+    _build.reset_launches()
+    with svc.async_service(window_ms=10_000.0, max_batch=4) as co:
+        futs = co.submit_many(rs)
+        co.drain(timeout=120)
+        rows = np.stack([f.result(timeout=120) for f in futs])
+        top = [co.submit_top_k(r, 5) for r in rs[:4]]
+        co.drain(timeout=120)
+    launches = dict(_build.launches)
+    np.testing.assert_array_equal(rows, full)
+    for group in co.batch_log:
+        if group[0] < len(rs):
+            np.testing.assert_array_equal(
+                rows[list(group)], svc.query_batch([rs[i] for i in group]))
+    for i, f in enumerate(top):
+        idx, d = f.result(timeout=120)
+        np.testing.assert_array_equal(idx, svc._top_k(full[i], 5))
+        np.testing.assert_array_equal(d, full[i][idx])
+    assert launches["sddmm_spmm_type1_batch"] >= 10 * 3
+    assert launches["lc_rwmd_bound_batch"] == launches["rwmd_bound_batch"] \
+        == 1
+    assert "sddmm_spmm_type2_naive" not in launches
+
+
+def test_guarded_coalesced_run_has_zero_demotions_on_card():
+    """The resilience guard in front of the kernels: a fault-free run is
+    served by rung 0 only (no retry, no demotion, nothing degraded) and
+    gives the unguarded bits."""
+    dev = _card()
+    from repro_torch.serving import EngineGuard
+    svc, rs = _async_stack(dev)
+    full = svc.query_batch(rs)
+    guard = EngineGuard(svc)
+    with svc.async_service(window_ms=2.0, max_batch=8,
+                           resilience=guard) as co:
+        futs = co.submit_many(rs) + [co.submit_top_k(r, 5) for r in rs]
+        co.drain(timeout=120)
+        st = co.stats()
+    gs = guard.stats()
+    assert (gs.retries, gs.demoted, gs.degraded, gs.failures) == (0, 0, 0, 0)
+    assert st.degraded == 0 and st.completed == 2 * len(rs)
+    assert all(rung == 0 for _, rung, _ in guard.dispatch_log)
+    np.testing.assert_array_equal(
+        np.stack([f.result() for f in futs[:len(rs)]]), full)
+    for i, f in enumerate(futs[len(rs):]):
+        idx, d = f.result()
+        np.testing.assert_array_equal(idx, svc._top_k(full[i], 5))
+
+
+def test_guard_on_card_never_reaches_a_plain_rung(monkeypatch):
+    """A kernel that refuses to launch (rung 0 raising) and a watchdog trip
+    on a CUDA service: the guard stays on the kernels. Every exact call
+    keeps the service impl; past the kernel rungs the answer is the bound
+    tier's, through its kernels, and counted as degraded."""
+    dev = _card()
+    from repro_torch.distributed.fault_tolerance import (FaultPolicy,
+                                                         ServingWatchdog)
+    from repro_torch.kernels import _build
+    from repro_torch.serving import (DegradedResult, EngineGuard,
+                                     ResiliencePolicy)
+    from repro_torch.serving.faultinject import FaultSchedule, FaultyEngine
+    svc, rs = _async_stack(dev)
+    qs = rs[:4]
+    want = svc.query_batch_bounds(qs)
+    eng = FaultyEngine(svc, FaultSchedule())
+    guard = EngineGuard(eng, ResiliencePolicy(max_retries=1,
+                                              breaker_failures=2),
+                        sleep=lambda s: None)
+    assert set(guard.stats().breaker_states) == {"plain/0", "top_k/0",
+                                                 "top_k/1"}
+    real = _build.check_launch
+
+    def refuse(name, err):
+        if name == "sddmm_spmm_type1_batch":
+            raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                               f"refused by the test")
+        real(name, err)
+
+    monkeypatch.setattr(_build, "check_launch", refuse)
+    _build.reset_launches()
+    plain = guard.dispatch("plain", qs)
+    top = guard.dispatch("top_k", qs, k=5)
+    launches = dict(_build.launches)
+    monkeypatch.undo()
+    assert isinstance(plain, DegradedResult)
+    assert isinstance(top, DegradedResult)
+    assert "failed to launch" in plain.reason
+    np.testing.assert_array_equal(plain.value, want)
+    assert "sddmm_spmm_type1_batch" not in launches
+    assert launches.get("rwmd_bound_batch", 0) \
+        + launches.get("column_min", 0) >= 2
+    assert all(c.kwargs.get("impl") in (None, "kernel")
+               for c in eng.dispatch_log)
+    st = guard.stats()
+    assert st.demoted == 0 and st.degraded == 2
+    # a straggler trip opens the only plain rung: the bound tier answers
+    guard = EngineGuard(eng, ResiliencePolicy(), sleep=lambda s: None)
+    wd = ServingWatchdog(FaultPolicy(straggler_strikes=1),
+                         on_strike=guard.trip)
+    wd.beat("plain", 0.01, False)
+    n = len(eng.dispatch_log)
+    _build.reset_launches()
+    res = guard.dispatch("plain", qs)
+    assert isinstance(res, DegradedResult)
+    np.testing.assert_array_equal(res.value, want)
+    assert len(eng.dispatch_log) == n and sum(_build.launches.values()) >= 1
+    assert guard.stats().demoted == 0

@@ -2,8 +2,10 @@
 `WMDService(mesh=make_mesh((1, 1), ...))` on the golden corpus recipe:
 the stripes (K cache), transient and legacy routes within the reference's
 engine tolerance (``rtol=2e-3, atol=1e-5``), top-k ids equal, the port's
-own bitwise contracts, and the serving launcher on the CPU."""
+own bitwise contracts, and the serving launcher on the CPU (one-shot,
+async serving loop and offline modes)."""
 import functools
+import json
 import os
 import pathlib
 import subprocess
@@ -227,8 +229,7 @@ def test_from_state_and_guards():
 
 def test_unported_parts_raise_not_implemented():
     svc = _svc()
-    for call in (lambda: svc.async_service(),
-                 lambda: svc.add_docs([0], [[(0, 1.0)]]),
+    for call in (lambda: svc.add_docs([0], [[(0, 1.0)]]),
                  lambda: svc.remove_docs([0]),
                  lambda: svc.compact(),
                  lambda: WMDService.from_live(None, None, None, None)):
@@ -246,9 +247,23 @@ def test_default_device_is_the_card():
         WMDService(cfg=_cfg(WMDConfig), vecs=vecs, ell=ell)
 
 
-@pytest.mark.parametrize("flags", [["--batch-queries"], [],
-                                   ["--top-k", "5", "--prune"]])
-def test_serve_launcher_runs_on_cpu(flags):
+@pytest.mark.parametrize("flags", [
+    ["--batch-queries"], [], ["--top-k", "5", "--prune"],
+    ["--coalesce-window-ms", "2", "--requests", "16", "--top-k", "5",
+     "--resilience", "--warmup", "--stats-out", "{tmp}/stats.json"],
+    ["--coalesce-window-ms", "2", "--requests", "12", "--rate-qps", "400",
+     "--deadline-ms", "500", "--brownout-queue", "64", "--trace-out",
+     "{tmp}/trace.json", "--metrics-port", "0", "--stats-out",
+     "{tmp}/stats.json"],
+    ["--offline", "{tmp}/queries.npz", "--offline-out", "{tmp}/scored.npz",
+     "--top-k", "5"]])
+def test_serve_launcher_runs_on_cpu(flags, tmp_path):
+    from repro_torch.data import zipf_query_stream
+    from repro_torch.serving import save_query_file
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    stream = zipf_query_stream(vocab_size=512, query_words=7, seed=5)
+    save_query_file(tmp_path / "queries.npz",
+                    [next(stream) for _ in range(6)])
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
@@ -256,6 +271,33 @@ def test_serve_launcher_runs_on_cpu(flags):
          *flags], cwd=ROOT, env=env, capture_output=True, text=True,
         timeout=240)
     assert out.returncode == 0, out.stderr
+    if "--coalesce-window-ms" in flags:
+        n = int(flags[flags.index("--requests") + 1])
+        assert f"served {n}/{n}" in out.stdout
+        assert "resilience: retries=0 demoted=0 degraded=0" in out.stdout
+        stats = json.loads((tmp_path / "stats.json").read_text())
+        serving = stats["serving"]
+        assert serving["completed"] == serving["submitted"] == n
+        assert serving["degraded"] == serving["failed"] == 0
+        assert stats["resilience"]["demoted"] == 0
+        assert stats["resilience"]["retries"] == 0
+        kinds = ("plain", "top_k") if "--top-k" in flags else ("plain",)
+        assert set(stats["warmup"]["shapes"]) == {
+            f"{kind}/q{q}" + ("/k5" if kind == "top_k" else "")
+            for kind in kinds for q in (1, 2, 4, 8)}
+        if "--trace-out" in flags:
+            trace = json.loads((tmp_path / "trace.json").read_text())
+            roots = [e for e in trace["traceEvents"]
+                     if e["name"].startswith("request[")]
+            assert len(roots) == n
+            assert "/metrics" in out.stdout
+        return
+    if "--offline" in flags:
+        assert "offline top_k: 6 queries in 1 batches" in out.stdout
+        with np.load(tmp_path / "scored.npz") as z:
+            assert z["topk_idx"].shape == (6, 5)
+            assert np.isfinite(z["topk_dist"]).all()
+        return
     assert out.stdout.count("top5 docs") == 3
     assert ("solves avoided" in out.stdout) == ("--prune" in flags)
     assert ("per-query Q=3" in out.stdout) == (flags == [])
