@@ -91,8 +91,32 @@ Phases (any failure exits non-zero before the result line is printed):
      loop in-process (`launch.serve.main`, 64 top-10 requests,
      `--resilience`): its stats JSON must show 64 of 64 served, none
      degraded;
-  5. (run last, so that its launch column reads the runs of phases 3, 6
-     8 and 9: each kernel's launches summed over the four) each kernel
+ 10. the live corpus at paper_5k: a `LiveCorpus(normalize=False)` in a
+     temporary directory, seeded from the corpus's docs through a history
+     of 5 adds of docs 0-2,499, a compaction, 16 upserts of wrong content,
+     8 extraneous ids >= 5,000 added and removed, 10 adds of docs
+     2,500-4,999, the 16 corrected, and a kill injected at
+     ``compact.snapshot.tmp`` (`serving.faultinject.CrashInjector`), then
+     a reopen from disk: about half the docs in the base, half in the
+     delta. `WMDService.from_live(..., device="cuda", cache_capacity=1024,
+     mcache_capacity=1024)` must give `live_doc_ids == arange(5000)`; live
+     `query_batch` rows bitwise phase 3's (launches: 15 type1 and 1 type2
+     per non-empty segment, two k_vocab_major a call, one
+     cdist_kexp_rows a 128-row miss chunk); live pruned top-k (k = 10)
+     == the live scan == the top-k of phase 3's rows, bitwise (launches:
+     one lc_rwmd_bound_batch and one rwmd_bound_batch over the base a
+     call, then 15 type1 + 1 type2 a program, delta and base blocks, two
+     k_vocab_major a query, cdist and cdist_kexp_rows per miss chunk);
+     ``rerank="union"`` takes the counted full-scan fallback, same bits;
+     live bounds == phase 7's static bounds, bitwise, and bounds; the
+     `[idle]` lines of the static and the live `query_batch` and pruned
+     calls; the ack latency (p50 / p99) of single-doc `add_docs`; a clean
+     compaction at 5,000 docs (timed; rows and top-k bitwise again) and
+     the recovery of its snapshot (timed); and the launcher twice on one
+     ``--live-dir`` (seeded, then recovered; ``--ingest-stream 8
+     --compact-every 3``, 64 top-10 requests): every write op acked;
+  5. (run last, so that its launch column reads the runs of phases 3, 6,
+     8, 9 and 10: each kernel's launches summed over the five) each kernel
      against its plain PyTorch version at the main path's shapes (the
      per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
      against #1 on each of the 16 queries, #4 against #2 on each, #1
@@ -598,6 +622,291 @@ def _phase9(cfg, data, batches, d_rows, k_top):
             for k in set(launches_p) | set(launches_k)}
 
 
+def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
+    """Phase 10: the live corpus at paper_5k (see the module docstring).
+    Returns the launches of its main path: the live query_batch and pruned
+    calls, each read with the counts set to 0 just before it."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.formats import doc_lists_from_ell, next_pow2
+    from repro_torch.data import LiveCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwmd as krwmd
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving import WMDService
+    from repro_torch.serving.faultinject import CrashInjector, InjectedCrash
+
+    v, n = cfg.vocab_size, cfg.num_docs
+    docs = doc_lists_from_ell(data.ell)
+    rng = np.random.default_rng(10)
+    tmp = tempfile.TemporaryDirectory(prefix="live-")
+    acks = []                                      # single-doc add acks
+
+    def add(lc, ids, rows):
+        t = time.perf_counter()
+        lc.add_docs(ids, rows)
+        return time.perf_counter() - t
+
+    # -- the mutation history
+    hook = CrashInjector()                         # a counter until armed
+    lc = LiveCorpus(tmp.name, v, normalize=False, crash_hook=hook)
+    bulk = [add(lc, list(range(s, s + 500)), docs[s:s + 500])
+            for s in range(0, 2500, 500)]
+    t0 = time.perf_counter()
+    lc.compact()
+    t_compact_half = time.perf_counter() - t0
+    wrong = rng.choice(2500, 16, replace=False).tolist()
+    for i in wrong:                                # wrong content ...
+        acks.append(add(lc, [i], [docs[(i + 1) % n]]))
+    extra = list(range(n, n + 8))
+    add(lc, extra, docs[:8])                       # extraneous ids ...
+    lc.remove_docs(extra)                          # ... removed again
+    bulk += [add(lc, list(range(s, s + 250)), docs[s:s + 250])
+             for s in range(2500, n, 250)]
+    for i in wrong:                                # ... corrected
+        acks.append(add(lc, [i], [docs[i]]))
+    hook.target = hook.count + 2                   # compact.snapshot.tmp
+    try:
+        lc.compact()
+        raise RuntimeError("chip_smoke: the injected crash did not fire")
+    except InjectedCrash:
+        pass
+    _check(hook.crashed_at[1] == "compact.snapshot.tmp",
+           f"the kill landed at {hook.crashed_at}")
+    del lc
+    t0 = time.perf_counter()
+    lc = LiveCorpus(tmp.name, v, normalize=False)  # recover from disk
+    t_recover_wal = time.perf_counter() - t0
+    st = lc.stats()
+    print(f"[live] {card}: history of {hook.count} boundaries, killed at "
+          f"{hook.crashed_at}; recovered {st['num_live']} docs in "
+          f"{t_recover_wal:.3f} s (snapshot gen {st['gen']} of "
+          f"{st['base_rows']} base rows, WAL replay of "
+          f"{st['delta_rows']} delta rows, capacity "
+          f"{st['delta_capacity']} x {st['delta_nnz_max']} slots); "
+          f"compaction at 2,500 docs {t_compact_half:.3f} s; bulk adds of "
+          f"500 / 250 docs {np.mean(bulk[:5]) * 1e3:.1f} / "
+          f"{np.mean(bulk[5:]) * 1e3:.1f} ms mean")
+    _check(st["num_live"] == n and st["gen"] == 1
+           and 0 < st["delta_rows"] < n, f"unexpected corpus state {st}")
+
+    live = WMDService.from_live(cfg, data.vecs, lc, device="cuda",
+                                cache_capacity=1024, mcache_capacity=1024)
+    _check(live.device.type == "cuda" and live.impl == "kernel"
+           and live.kexp_impl == "kernel" and live.bound_impl == "kernel"
+           and live.lc_impl == "kernel", "live service defaults changed")
+    _check(np.array_equal(live.live_doc_ids, np.arange(n)),
+           "live_doc_ids is not arange(5000)")
+    base, delta = lc.base_ell, lc.delta_ell
+    print(f"[live] segments: base {base.num_docs} x {base.nnz_max} "
+          f"(route of #8: {krwmd.rwmd_route(*base.cols.shape, v + 1)}), "
+          f"delta {delta.num_docs} x {delta.nnz_max} (route "
+          f"{krwmd.rwmd_route(*delta.cols.shape, v + 1)})")
+    rb = live.cache_rows_bucket
+
+    # -- live query_batch: launches read around exactly the two calls
+    _build.reset_launches()
+    rows, stats = [], []
+    for batch in batches:
+        rows.append(live.query_batch(batch))
+        stats.append(dict(live.last_batch_stats))
+    launches_q = dict(_build.launches)
+    segs = sum(s["segments"] for s in stats)
+    want = {"sddmm_spmm_type1_batch": cfg.max_iter * segs,
+            "sddmm_spmm_type2_batch": segs,
+            "k_vocab_major": 2 * len(batches),
+            "cdist_kexp_rows": sum(math.ceil(s["misses"] / rb)
+                                   for s in stats)}
+    want = {k: c for k, c in want.items() if c}
+    print(f"[live] query_batch launches {launches_q}, expected {want}")
+    _check(segs == 2 * len(batches), "a live segment was empty")
+    _check(launches_q == want, f"live query_batch launches {launches_q} "
+           f"!= {want}")
+    for i, (got, d) in enumerate(zip(rows, d_rows)):
+        _check(np.array_equal(got, d), f"batch {i + 1}: live query_batch "
+               f"is not phase 3's static rows, bitwise")
+    print("[check] live query_batch == phase 3's static rows, bitwise "
+          "(incremental == one-shot on the kernel route), both batches")
+
+    # -- live pruned top-k: launches read around exactly the two calls
+    _build.reset_launches()
+    pruned, pstats, m_miss = [], [], []
+    for batch in batches:
+        m0 = live.mcache_stats.miss_rows
+        pruned.append(live.top_k_batch(batch, k_top, prune=True))
+        pstats.append(dict(live.last_prune_stats))
+        m_miss.append(live.mcache_stats.miss_rows - m0)
+    launches_p = dict(_build.launches)
+    programs = sum(p["rerank_programs"] for p in pstats)
+    want_p = {"sddmm_spmm_type1_batch": cfg.max_iter * programs,
+              "sddmm_spmm_type2_batch": programs,
+              "k_vocab_major": 2 * sum(len(b) for b in batches),
+              "lc_rwmd_bound_batch": len(batches),
+              "rwmd_bound_batch": len(batches),
+              "cdist": sum(math.ceil(m / rb) for m in m_miss),
+              "cdist_kexp_rows": sum(math.ceil(m / rb) for p in pstats
+                                     for m in p["kcache_misses"])}
+    want_p = {k: c for k, c in want_p.items() if c}
+    print(f"[live] pruned launches {launches_p}, expected {want_p}")
+    _check(launches_p == want_p, f"live pruned launches {launches_p} != "
+           f"{want_p}")
+    for i, ((idx, dist), d, ps) in enumerate(zip(pruned, d_rows, pstats)):
+        _check(np.array_equal(idx, WMDService._top_k(d, k_top))
+               and np.array_equal(dist, np.take_along_axis(d, idx, -1)),
+               f"batch {i + 1}: live pruned top-k is not the top-k of "
+               f"phase 3's rows")
+        idx_s, d_s = live.top_k_scan_batch(batches[i], k_top)
+        _check(np.array_equal(idx_s, idx) and np.array_equal(d_s, dist),
+               f"batch {i + 1}: live pruned != live scan, bitwise")
+        print(f"[live] pruned batch {i + 1}: solves_avoided "
+              f"{ps['solves_avoided']:.4f} ({ps['exact_solves']} of "
+              f"{ps['scan_solves']}, {ps['delta_docs']} delta docs solved "
+              f"whole), {ps['rerank_programs']} programs")
+    fallbacks = live.metrics.counter("wmd_prune_fallback_total")
+    f0 = fallbacks.value
+    idx_u, d_u = live.top_k_batch(batches[0], k_top, prune=True,
+                                  rerank="union")
+    _check(fallbacks.value == f0 + 1
+           and live.last_prune_stats["rerank"] == "live_full_scan",
+           "union on the live service did not take the counted fallback")
+    _check(np.array_equal(idx_u, pruned[0][0])
+           and np.array_equal(d_u, pruned[0][1]),
+           "live union fallback != live pruned, bitwise")
+    print("[check] live pruned == live scan == top-k of phase 3's rows, "
+          "bitwise; union took the full-scan fallback (counted once), "
+          "same bits")
+
+    # -- live bounds: phase 7's static bounds, bitwise
+    for i, (batch, d, lb_static) in enumerate(zip(batches, d_rows,
+                                                  lb_rows)):
+        lb = live.query_batch_bounds(batch)
+        _check(np.array_equal(lb, lb_static), f"batch {i + 1}: live bounds "
+               f"are not phase 7's static bounds, bitwise")
+        _check(bool((lb <= d * (1 + 1e-5) + 1e-6).all()),
+               f"batch {i + 1}: a live bound exceeds its distance")
+    print("[check] live query_batch_bounds == phase 7's static bounds, "
+          "bitwise (#8 per segment), and <= the distances")
+
+    # -- where the time goes: static, then live, warm, one call each
+    timing = {}
+    for what, call, copies in (
+            ("static query_batch, batch 2",
+             lambda: svc.query_batch(batches[1]), 2),
+            ("live query_batch, batch 2",
+             lambda: live.query_batch(batches[1]), 2),
+            ("static pruned per_query, batch 2",
+             lambda: svc6.top_k_batch(batches[1], k_top, prune=True),
+             2 * len(batches[1])),
+            ("live pruned per_query, batch 2",
+             lambda: live.top_k_batch(batches[1], k_top, prune=True),
+             2 * len(batches[1]))):
+        wall, wall_prof, busy, largest, marked = _device_busy(
+            call, ("::vocab_major_kernel", "type2_query_kernel"))
+        timing[what] = (wall, busy)
+        if busy is None:
+            print(f"[idle] {card}: {what}: {wall:.2f} ms wall; device time "
+                  f"not measured ({largest})")
+            continue
+        print(f"[idle] {card}: {what}: {wall:.2f} ms wall ({wall_prof:.2f} "
+              f"ms under the profiler), device busy {busy:.2f} ms, idle "
+              f"share {1 - busy / wall:.3f}; largest device entries: "
+              f"{largest}; copies x{marked['::vocab_major_kernel'][0]}")
+        _check(marked["::vocab_major_kernel"][0] == copies,
+               f"{what}: {marked['::vocab_major_kernel'][0]} copies, "
+               f"expected {copies}")
+        _check(marked["type2_query_kernel"][0] == 0, f"{what}: the oracle "
+               f"ran")
+    for kind in ("query_batch", "pruned per_query"):
+        (ws, bs), (wl, bl) = (timing[f"static {kind}, batch 2"],
+                              timing[f"live {kind}, batch 2"])
+        ratio = "not measured" if bs is None or bl is None \
+            else f"{bl / bs:.3f}"
+        print(f"[live] {card}: live / static {kind}: wall {wl / ws:.3f}, "
+              f"device busy {ratio}")
+
+    # -- ack latency: single-doc upserts (own content) through the service
+    for i in rng.choice(n, 64, replace=False).tolist():
+        t = time.perf_counter()
+        live.add_docs([i], [docs[i]])
+        acks.append(time.perf_counter() - t)
+    p50, p99 = np.percentile(np.asarray(acks) * 1e3, (50, 99))
+    print(f"[live] {card}: add_docs ack latency (one doc, WAL append + "
+          f"fsync) over {len(acks)} calls: p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms")
+    _check(np.array_equal(live.query_batch(batches[0]), d_rows[0]),
+           "after 64 upserts, live query_batch is not phase 3's rows")
+
+    # -- a clean compaction at 5,000 docs, then recovery of its snapshot
+    t0 = time.perf_counter()
+    live.compact()
+    t_compact = time.perf_counter() - t0
+    for i, (batch, d) in enumerate(zip(batches, d_rows)):
+        _check(np.array_equal(live.query_batch(batch), d), f"batch {i + 1}: "
+               f"after the compaction, query_batch is not phase 3's rows")
+    _check(live._rerank_cols_d.shape[0] == next_pow2(n) + 1
+           and live.last_batch_stats["segments"] == 1,
+           "the device state did not follow the compaction")
+    idx_c, d_c = live.top_k_batch(batches[0], k_top, prune=True)
+    _check(np.array_equal(idx_c, pruned[0][0])
+           and np.array_equal(d_c, pruned[0][1]),
+           "after the compaction, live pruned top-k changed")
+    lc.close()
+    t0 = time.perf_counter()
+    lc2 = LiveCorpus(tmp.name, v, normalize=False)
+    t_recover = time.perf_counter() - t0
+    _check(lc2.num_live == n and lc2.stats()["delta_rows"] == 0,
+           "recovery after the clean compaction lost docs")
+    lc2.close()
+    print(f"[live] {card}: clean compaction at {n} docs {t_compact:.3f} s; "
+          f"recovery of its snapshot {t_recover:.3f} s (after the kill: "
+          f"{t_recover_wal:.3f} s with the WAL replay); query_batch and "
+          f"pruned top-k bitwise again")
+    del live
+    tmp.cleanup()
+
+    # -- the launcher's ingest mode, twice on one --live-dir
+    with tempfile.TemporaryDirectory() as d:
+        for run in ("seeded", "recovered"):
+            path = os.path.join(d, f"stats-{run}.json")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                launch_serve.main([
+                    "--arch", "sinkhorn-wmd", "--coalesce-window-ms", "2",
+                    "--requests", "64", "--top-k", str(k_top),
+                    "--resilience", "--ingest-stream", "8",
+                    "--compact-every", "3", "--live-dir",
+                    os.path.join(d, "live"), "--stats-out", path])
+            text = out.getvalue()
+            with open(path) as f:
+                stats = json.load(f)
+            served, lstats = stats["serving"], stats["live_corpus"]
+            line = [ln for ln in text.splitlines() if "ingest:" in ln]
+            word = "seeded: " if run == "seeded" else "recovered: "
+            print(f"[live] launcher, {run}: "
+                  f"{[ln for ln in text.splitlines() if word in ln]}; "
+                  f"{line}; served {served['completed']}/"
+                  f"{served['submitted']}, failed {served['failed']}, "
+                  f"degraded {served['degraded']}; corpus gen "
+                  f"{lstats['gen']}, {lstats['num_live']} live; "
+                  f"{time.perf_counter() - t0:.1f} s with its corpus")
+            _check(f"live corpus {word}" in text, f"launcher {run}: no "
+                   f"'live corpus {word}' line")
+            _check(len(line) == 1 and "ingest: 8/8 write ops acked" in
+                   line[0], f"launcher {run}: not every write op acked")
+            _check(served["completed"] == served["submitted"] == 72
+                   and served["failed"] == served["degraded"] == 0
+                   and served["docs_added"] + served["docs_removed"] == 8,
+                   f"launcher {run}: the serving loop lost requests")
+    torch.cuda.synchronize()
+    return {k: launches_q.get(k, 0) + launches_p.get(k, 0)
+            for k in set(launches_q) | set(launches_p)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -626,7 +935,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
 
@@ -848,8 +1158,10 @@ def main() -> int:
     lb_plain = rwmd_core.rwmd_bound_batch(
         m_pad, cols_e, vals_e, impl="fused",
         docs_chunk=svc6.bound_docs_chunk)[:16].cpu().numpy()
+    lb_static = []
     for i, (batch, d) in enumerate(((batch1, d1), (batch2, d2))):
         lb = svc6.query_batch_bounds(batch)
+        lb_static.append(lb)
         slack = lb - (d * (1 + 1e-5) + 1e-6)
         print(f"[check] batch {i + 1}: kernel bounds <= kernel distances on "
               f"{lb.size} pairs: max(bound - d(1+1e-5) - 1e-6) = "
@@ -953,6 +1265,10 @@ def main() -> int:
     # -- 9. async serving ------------------------------------------------------
     launches9 = _phase9(cfg, data, (batch1, batch2), (d1, d2), k_top)
 
+    # -- 10. the live corpus ---------------------------------------------------
+    launches10 = _phase10(cfg, data, (batch1, batch2), (d1, d2), lb_static,
+                          svc, svc6, k_top, card)
+
     # -- 5. the kernels at the main path's shapes ------------------------------
     sel_b, r_b, mask_b = svc._padded_query_batch(batch1)
     k_s, km_s, _ = svc._kcache.stripes_for_batch(sel_b, mask_b)
@@ -974,7 +1290,7 @@ def main() -> int:
     # a kernel's launches: the sum over the main paths' runs (each read
     # with the counts set to 0 just before it), and the runs apart
     by_phase = {"3": launches, "6": launches6, "8": launches8,
-                "9": launches9}
+                "9": launches9, "10": launches10}
 
     def record(name, source, replaces, got, want, kernel_fn, plain_fn,
                nbytes, flops, library_fn=None, plain_reps=3):

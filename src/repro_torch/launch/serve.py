@@ -6,7 +6,8 @@
         [--coalesce-window-ms W [--max-batch B] [--max-queue Q]
          [--deadline-ms D] [--rate-qps R] [--requests N] [--resilience]
          [--brownout-queue D] [--stats-out F] [--trace-out F]
-         [--metrics-port P]]
+         [--metrics-port P]
+         [--ingest-stream N [--live-dir DIR] [--compact-every OPS]]]
         [--offline QUERIES [--offline-out OUT] [--rerank union|per_query]]
         [--warmup] [--cache-dir DIR] [--device cuda|cpu]
 
@@ -31,7 +32,12 @@ dispatch first (`serving.warmup`). Ctrl-C drains the queue and the
 in-flight batch before exiting; the `ServingStats` report always prints
 on the way out (and persists with ``--stats-out``). ``--resilience`` (or
 ``--brownout-queue``) routes dispatches through the resilience guard and
-runs the serving watchdog.
+runs the serving watchdog. ``--ingest-stream N`` serves from a live
+WAL-backed corpus (`data.LiveCorpus` in ``--live-dir``, seeded from the
+synthetic corpus on first use and *recovered* when the directory exists)
+and interleaves N seeded add / remove ops with the queries through the
+coalescer's writer lane, with a compaction every ``--compact-every`` ops;
+the loop ends with the count of acked write ops.
 ``--offline QUERIES`` runs the offline bulk-scoring mode instead: the
 query file (the reference's format) streams through the engine at full
 batch occupancy, top-k reranks batched across the batch (union rerank).
@@ -39,8 +45,7 @@ batch occupancy, top-k reranks batched across the batch (union rerank).
 builds and looks up the CUDA kernels in DIR (`serving.warmup.
 enable_compilation_cache`), so a restarted server loads them without nvcc.
 Runs on the card unless ``--device cpu`` is given. The language-model
-architectures and the live-corpus flags of the reference launcher are not
-ported yet.
+architectures of the reference launcher are not ported yet.
 """
 import argparse
 
@@ -119,6 +124,20 @@ def main(argv=None):
                     help="offline mode: rerank batching strategy (both "
                          "are bitwise-identical; union runs (Q, chunk) "
                          "programs instead of Q x (1, chunk))")
+    ap.add_argument("--ingest-stream", type=int, default=0, metavar="N",
+                    help="serving loop: build the service over a live "
+                         "WAL-backed corpus and interleave N seeded "
+                         "add/remove ops through the coalescer's writer "
+                         "lane (requires --coalesce-window-ms)")
+    ap.add_argument("--live-dir", default="",
+                    help="live-corpus directory (snapshots + WAL); an "
+                         "existing directory is *recovered*, so a killed "
+                         "run resumes with every acked write. Default: a "
+                         "fresh temp dir")
+    ap.add_argument("--compact-every", type=int, default=0, metavar="OPS",
+                    help="ingest mode: run an (interruptible, atomically "
+                         "swapped) corpus compaction every OPS ingest ops "
+                         "(0 = never)")
     ap.add_argument("--metrics-port", type=int, default=-1, metavar="PORT",
                     help="serving loop: serve the live metrics registry as "
                          "Prometheus text exposition on this port (0 = an "
@@ -152,13 +171,36 @@ def main(argv=None):
         # before the first kernel launch: every library from here on is
         # built in / loaded from the cache directory
         enable_compilation_cache(args.cache_dir)
+    if args.ingest_stream and args.coalesce_window_ms <= 0:
+        ap.error("--ingest-stream requires --coalesce-window-ms > 0 "
+                 "(writes go through the coalescer's writer lane)")
     cfg = wmd_cfg.smoke_config() if args.smoke else wmd_cfg.config()
     data = make_corpus(vocab_size=cfg.vocab_size, embed_dim=cfg.embed_dim,
                        num_docs=cfg.num_docs, num_queries=args.num_queries,
                        query_words=min(cfg.v_r - 1, 19))
-    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
-                     device=args.device, impl=args.impl,
-                     docs_chunk=args.docs_chunk or None, tol=args.tol)
+    if args.ingest_stream:
+        import tempfile
+
+        from repro_torch.core.formats import doc_lists_from_ell
+        from repro_torch.data import LiveCorpus
+        live_dir = args.live_dir or tempfile.mkdtemp(prefix="wmd-live-")
+        # the corpus stores already-normalized weights (make_corpus emits
+        # a normalized ELL), so segment rebuilds must not re-normalize
+        live = LiveCorpus(live_dir, cfg.vocab_size, normalize=False)
+        if live.num_live == 0:
+            seed_docs = doc_lists_from_ell(data.ell)
+            live.add_docs(list(range(len(seed_docs))), seed_docs)
+            print(f"[serve-wmd] live corpus seeded: "
+                  f"{live.num_live} docs at {live_dir}")
+        else:
+            print(f"[serve-wmd] live corpus recovered: "
+                  f"{live.num_live} docs, gen {live.gen} at {live_dir}")
+        svc = WMDService.from_live(cfg, data.vecs, live, device=args.device,
+                                   impl=args.impl, tol=args.tol)
+    else:
+        svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
+                         device=args.device, impl=args.impl,
+                         docs_chunk=args.docs_chunk or None, tol=args.tol)
     if args.offline:
         _serve_wmd_offline(svc, args)
         return
@@ -258,8 +300,8 @@ def _dump_serving_stats(path, st, warmup_report, guard, watchdog, svc,
 
     Called from the serving loop's ``finally`` block, so clean exit and
     SIGINT both leave the same artifact; everything in it is plain
-    scalars (ServingStats asdict + the warmup / resilience / watchdog
-    report dicts; ``live_corpus`` stays None until the port has one)."""
+    scalars (ServingStats asdict + the warmup / resilience / watchdog /
+    live-corpus report dicts)."""
     import dataclasses
     import json
     payload = {
@@ -269,7 +311,8 @@ def _dump_serving_stats(path, st, warmup_report, guard, watchdog, svc,
         "resilience": (dataclasses.asdict(guard.stats())
                        if guard is not None else None),
         "watchdog": watchdog.report() if watchdog is not None else None,
-        "live_corpus": None,
+        "live_corpus": (svc.live.stats()
+                        if getattr(svc, "live", None) is not None else None),
     }
     with open(path, "w") as f:
         json.dump(payload, f, indent=2, default=str)
@@ -302,6 +345,8 @@ def _serve_wmd_loop(svc, cfg, args):
         from repro_torch.obs import JsonlExporter, Tracer
         tracer = Tracer()
         exporter = JsonlExporter(tracer, args.trace_out + ".events.jsonl")
+        if getattr(svc, "live", None) is not None:
+            svc.live.tracer = tracer      # WAL + compaction boundaries
     if args.metrics_port >= 0:
         from repro_torch.obs import MetricsServer
         metrics_srv = MetricsServer(svc.metrics, port=args.metrics_port)
@@ -348,6 +393,42 @@ def _serve_wmd_loop(svc, cfg, args):
         submit = lambda r: co.submit_top_k(r, args.top_k)   # noqa: E731
     else:
         submit = co.submit
+    wfuts: list = []
+    if args.ingest_stream:
+        # seeded writer stream: mostly upserts of fresh doc ids, some
+        # removes of existing ones, paced to spread over the query stream;
+        # every op goes through the coalescer's writer lane so write
+        # batches interleave with (and order against) query batches
+        wrng = np.random.default_rng(1)
+        next_id = [svc.live.num_live]
+        done = [0]
+        every = max(1, args.requests // max(args.ingest_stream, 1))
+
+        def maybe_ingest(i: int) -> None:
+            if done[0] >= args.ingest_stream or i % every:
+                return
+            done[0] += 1
+            if wrng.random() < 0.25 and next_id[0] > 0:
+                victim = int(wrng.integers(0, next_id[0]))
+                wfuts.append(co.submit_remove_docs([victim]))
+            else:
+                nw = int(wrng.integers(2, min(8, cfg.v_r)))
+                wids = wrng.choice(cfg.vocab_size, size=nw, replace=False)
+                cnts = wrng.integers(1, 5, size=nw).astype(np.float64)
+                cnts /= cnts.sum()          # corpus stores normalized docs
+                doc = [(int(w), float(c)) for w, c in zip(wids, cnts)]
+                wfuts.append(co.submit_add_docs([next_id[0]], [doc]))
+                next_id[0] += 1
+            if args.compact_every and done[0] % args.compact_every == 0:
+                svc.compact()       # interruptible; serialized vs dispatch
+
+        base_submit = submit
+        counter = [0]
+
+        def submit(r):              # noqa: F811 -- deliberate wrap
+            maybe_ingest(counter[0])
+            counter[0] += 1
+            return base_submit(r)
     print(f"[serve-wmd] serving loop: {args.requests} zipf queries"
           + (f" (top-{args.top_k} pruned)" if args.top_k else "") + ", "
           f"window={args.coalesce_window_ms:g} ms "
@@ -393,6 +474,15 @@ def _serve_wmd_loop(svc, cfg, args):
               f"deadline_misses={st.deadline_misses}"
               + (f" hit_rate={st.hit_rate:.2f}"
                  if st.hit_rate is not None else ""))
+        if args.ingest_stream:
+            acked = sum(1 for f in wfuts
+                        if f.done() and f.exception() is None)
+            ls = svc.live.stats()
+            print(f"[serve-wmd] ingest: {acked}/{len(wfuts)} write ops "
+                  f"acked over {st.write_dispatches} dispatches "
+                  f"(+{st.docs_added}/-{st.docs_removed} docs), "
+                  f"gen={ls['gen']} live={ls['num_live']} "
+                  f"delta={ls['delta_rows']} wal={ls['wal_bytes']}B")
         if guard is not None:
             gs = guard.stats()
             stalled = watchdog.check()

@@ -49,15 +49,19 @@ Serving architecture (queue -> dispatcher -> engine)
   deadline budgets should leave one foreign service time of slack (the
   same slack a request arriving behind an already-full bucket needs).
 * **Writer lane** -- ``submit_add_docs(ids, docs)`` / ``submit_remove_docs
-  (ids)`` enqueue live-corpus mutations through the same admission queue:
-  FIFO against queries, homogeneous cuts per op, and a write dispatch
-  merges its batch into one ``svc.add_docs`` / ``svc.remove_docs`` call.
-  Writes bypass the resilience guard and contribute ``write_dispatches``
-  / ``docs_added`` / ``docs_removed`` to `ServingStats` instead of
-  program-shape telemetry. The port's `WMDService` has no live corpus yet
-  (ROADMAP Queue 1, "Live corpus"): its ``add_docs`` / ``remove_docs``
-  raise `NotImplementedError`, so every write future resolves with that
-  exception and the dispatcher keeps serving.
+  (ids)`` enqueue live-corpus mutations (services built via
+  `WMDService.from_live`) through the same admission queue: FIFO against
+  queries (read-your-writes: a query submitted after a write ack
+  dispatches after the write applied), homogeneous cuts per op, and a
+  write dispatch merges its batch into ONE durable ``add_docs`` /
+  ``remove_docs`` call -- ingest bursts amortize WAL fsyncs the way query
+  bursts amortize programs. Write futures resolve to the acked doc count
+  once the mutation is WAL-fsynced (on a service without a live corpus,
+  with the `ValueError` its ``add_docs`` / ``remove_docs`` raise); writes
+  bypass the resilience guard (durability is the corpus's contract, a
+  degraded write has no meaning) and contribute ``write_dispatches`` /
+  ``docs_added`` / ``docs_removed`` to `ServingStats` instead of
+  program-shape telemetry.
 * **Dispatch triggers** -- a batch is cut when the first of these fires
   (per-dispatch counts are in `ServingStats`):
     - *fill*:     the ``max_batch`` Q bucket is full (``max_batch`` is
@@ -438,17 +442,17 @@ class QueryCoalescer:
     def submit_add_docs(self, ids, docs, *, deadline_ms: float | None = None,
                         priority: int = 0,
                         timeout: float | None = None) -> Future:
-        """Writer lane: enqueue a live-corpus upsert; the Future resolves
-        to the number of docs ``svc.add_docs`` accepted once the write
-        batch dispatches -- in the port, with the `NotImplementedError`
-        that ``add_docs`` raises until the live corpus lands (ROADMAP
-        Queue 1, "Live corpus").
+        """Writer lane: enqueue a durable live-corpus upsert; the Future
+        resolves to the number of docs acked (WAL-fsynced -- see
+        `WMDService.add_docs`) once the write batch dispatches.
 
         Writes ride the same admission queue (FIFO order against queries
         is preserved, backpressure applies) but cut into their OWN
         homogeneous batches: a write dispatch merges consecutive queued
-        add requests into one ``svc.add_docs`` call. Writes bypass the
-        resilience guard."""
+        add requests into one ``svc.add_docs`` call, so ingest bursts
+        amortize WAL fsyncs exactly like query bursts amortize programs.
+        Writes bypass the resilience guard -- durability is the corpus's
+        WAL contract, and a degraded 'add' has no meaning."""
         if len(ids) != len(docs):
             raise ValueError(f"{len(ids)} ids but {len(docs)} docs")
         if not hasattr(self.svc, "add_docs"):
@@ -459,10 +463,11 @@ class QueryCoalescer:
     def submit_remove_docs(self, ids, *, deadline_ms: float | None = None,
                            priority: int = 0,
                            timeout: float | None = None) -> Future:
-        """Writer lane: enqueue a live-corpus remove; the Future resolves
-        to the number of ids passed to ``svc.remove_docs`` -- in the port,
-        with the `NotImplementedError` it raises until the live corpus
-        lands. Same batching/ordering rules as `submit_add_docs`."""
+        """Writer lane: enqueue a durable live-corpus remove; the Future
+        resolves to the number of ids durably logged (removing a
+        never-added id is a logged no-op, so the count acks durability,
+        not prior existence). Same batching/ordering rules as
+        `submit_add_docs`."""
         if not hasattr(self.svc, "remove_docs"):
             raise ValueError("service has no live corpus (remove_docs)")
         return self._submit(list(ids), None, deadline_ms, priority,
@@ -827,11 +832,11 @@ class QueryCoalescer:
         n_added = n_removed = 0
         try:
             if op == "add":
-                # writer lane: merge the batch into one add_docs call; each
+                # writer lane: merge the batch into ONE durable add_docs
+                # call (one WAL record + fsync for the whole burst); each
                 # future acks its own docs. Writes bypass the resilience
-                # guard. The port's add_docs / remove_docs raise
-                # NotImplementedError (no live corpus yet), and every
-                # future of the batch resolves with it.
+                # guard -- durability is the corpus WAL's contract, and a
+                # crash surfaces as recovery, not as a retryable fault.
                 ids: list = []
                 docs: list = []
                 for rq in batch:

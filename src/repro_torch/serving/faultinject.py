@@ -36,8 +36,8 @@ directly against a clean service to assert the bitwise no-fault contract.
 crash injector kills the writer at the live corpus's WAL / snapshot /
 compaction boundaries (hook-based, seeded per boundary index with the
 same ``default_rng((seed, idx))`` determinism) so the ingest chaos suite
-can assert crash-consistent recovery at every single kill site (the
-port's live corpus is ROADMAP Queue 1, "Live corpus").
+can assert crash-consistent recovery at every single kill site
+(`data.live_corpus.LiveCorpus`, `data.wal.WalWriter`).
 """
 from __future__ import annotations
 

@@ -59,12 +59,20 @@ Service API
       ServingStats); `drain_async()` flushes every live front-end.
   warmup(max_batch=..., ks=...) -- one dispatch per shape of the serving
       envelope (`serving.warmup`); returns the `WarmupReport`.
-
-Not ported yet (each raises NotImplementedError naming the ROADMAP queue
-item that brings it): `from_live` and the corpus mutators ``add_docs`` /
-``remove_docs`` / ``compact`` (the live corpus, whose pruned paths come
-with it). The coalescer's writer lane calls the mutators, so a write
-future resolves with that error.
+  add_docs / remove_docs / compact -- live-corpus mutation, on a service
+      built by `WMDService.from_live` over a `data.live_corpus.LiveCorpus`
+      (a service without one raises `ValueError`): WAL-durable upserts and
+      tombstones (the return acks fsynced state), a lazy refresh of the
+      device state before each live dispatch, and interruptible
+      compaction. A live dispatch runs the same programs once per
+      non-empty segment (base and delta, one pair of vocab-major copies
+      for both) and answers over the live docs in ascending-id order, bit
+      for bit a one-shot build of the same docs; top-k returns real doc
+      ids (`live_doc_ids`). Live pruned top-k runs the cascade over the
+      base segment and solves the delta whole; ``rerank="union"`` falls
+      back to the exact full scan, counted by ``wmd_prune_fallback_total``.
+      The K cache is never invalidated by corpus mutation (its rows do not
+      depend on the docs).
 
 Knobs (constructor fields): ``impl`` ("kernel" default: the CUDA kernels on
 the card, their plain versions on the CPU; "fused" / "unfused" are the
@@ -78,7 +86,7 @@ only when ``bound * (1 - margin)`` exceeds the k-th exact distance),
 ``bound_impl`` and ``lc_impl`` ("kernel" default, or "fused": the plain
 spelling; ``lc_impl=None`` disables tier 1), ``bound_docs_chunk``,
 ``mcache_capacity``, ``tier0``, ``tier2_cap`` (None = 4 x prune_chunk,
-0 disables tier 2), ``guards``, ``metrics``. ``device`` replaces the
+0 disables tier 2), ``guards``, ``live``, ``metrics``. ``device`` replaces the
 reference's ``mesh``: "cuda" by default; a default service on a machine
 without a card raises.
 
@@ -128,12 +136,6 @@ def _serialized(fn):
     return wrapper
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md Queue 1, "
-        f"{item}")
-
-
 # sentinel: "use the service's docs_chunk" (None already means unchunked)
 _UNSET = object()
 
@@ -159,6 +161,7 @@ class WMDService:
     lc_impl: str | None = "kernel"
     tier2_cap: int | None = None
     guards: bool = True
+    live: object | None = None          # data.live_corpus.LiveCorpus
     metrics: object | None = None       # repro_torch.obs.MetricsRegistry
 
     @classmethod
@@ -169,13 +172,24 @@ class WMDService:
         return cls(cfg=cfg, vecs=state.vecs, ell=state.ell, **kw)
 
     @classmethod
-    def from_live(cls, *args, **kw):
-        _not_ported("WMDService.from_live (live corpus)",
-                    "item 'Live corpus'")
+    def from_live(cls, cfg, vecs, live, **kw) -> "WMDService":
+        """Build a service over a mutable `data.live_corpus.LiveCorpus`.
+
+        The corpus's base segment becomes the service ELL; the delta
+        segment (and the tombstone gather map) is refreshed lazily before
+        every live dispatch (`_refresh_live`). ``add_docs`` /
+        ``remove_docs`` / ``compact`` then mutate the corpus through the
+        service under the engine lock. ``device`` and the other knobs go
+        in ``kw``, as for the constructor."""
+        return cls(cfg=cfg, vecs=vecs, live=live, **kw)
 
     def __post_init__(self):
+        if self.live is not None:
+            # the base segment IS the service corpus; ell, if also passed,
+            # is ignored in favor of the live corpus's current base
+            self.ell = self.live.base_ell
         if self.ell is None:
-            raise ValueError("WMDService needs ell=")
+            raise ValueError("WMDService needs either ell= or live=")
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("WMDService(device='cuda') needs an NVIDIA "
@@ -184,9 +198,7 @@ class WMDService:
         self._vecs_d = torch.as_tensor(self.vecs, dtype=torch.float32,
                                        device=self.device).contiguous()
         vecs_np = self._vecs_d.cpu().numpy()
-        self._rb = formats.rebucket_for_vocab_shards(self.ell, 1)
-        self._cols_d = torch.from_numpy(self._rb.cols).to(self.device)
-        self._vals_d = torch.from_numpy(self._rb.vals).to(self.device)
+        self._install_corpus()
         self._single_fns: dict[tuple, object] = {}
         self._batch_fns: dict[tuple, object] = {}
         self._stripe_fns: dict[tuple, object] = {}
@@ -205,6 +217,43 @@ class WMDService:
                               device=self.device,
                               rows_bucket=self.cache_rows_bucket,
                               kexp_impl=self.kexp_impl, metrics=self.metrics)
+        # any pruned dispatch that silently degrades to an exact full scan
+        # must be countable, not just visible in last_prune_stats
+        self._prune_fallbacks = self.metrics.counter(
+            "wmd_prune_fallback_total",
+            "pruned top-k dispatches that fell back to the exact full scan")
+        self._rerank_chunk = max(self.prune_chunk, 1)
+        # numeric-guard state: the underflow gate needs the largest
+        # embedding norm
+        self._max_vec_norm = float(np.sqrt(
+            (vecs_np.astype(np.float64) ** 2).sum(axis=-1).max())) \
+            if vecs_np.size else 0.0
+        self.last_batch_stats: dict = {}
+        self.last_prune_stats: dict = {}
+        self._engine_lock = threading.RLock()
+        # live async front-ends (async_service); weak so a shut-down
+        # coalescer the caller dropped doesn't accumulate on the service
+        self._coalescers: weakref.WeakSet = weakref.WeakSet()
+        # live-corpus device state (refreshed lazily; see _refresh_live).
+        # The base state was just built from live.base_ell, so only the
+        # delta and gather state start stale.
+        self._live_base_version = (self.live.base_version
+                                   if self.live is not None else -1)
+        self._live_version = -1
+        if self.live is not None and self.live.metrics is None:
+            # arm the corpus's compaction lock-hold histogram on this
+            # service's registry (late-bindable, like its tracer)
+            self.live.metrics = self.metrics
+
+    def _install_corpus(self) -> None:
+        """(Re)build every piece of device state derived from ``self.ell``
+        (the corpus, or a live corpus's base segment): the rebucketed ELL
+        the engine solves, the original ELL of the bound tiers, the rerank
+        blocks' ELL with its pad doc, the empty-doc mask of the guards,
+        and the tier-0 moments (dropped here, recomputed lazily)."""
+        self._rb = formats.rebucket_for_vocab_shards(self.ell, 1)
+        self._cols_d = torch.from_numpy(self._rb.cols).to(self.device)
+        self._vals_d = torch.from_numpy(self._rb.vals).to(self.device)
         # the bound tiers run on the original ELL, as in the reference
         self._ell_cols_d = torch.from_numpy(self.ell.cols).to(self.device)
         self._ell_vals_d = torch.from_numpy(self.ell.vals).to(self.device)
@@ -214,21 +263,10 @@ class WMDService:
             self._cols_d[0], (0, 0, 0, 1), value=self._rb.num_vocab)
         self._rerank_vals_d = torch.nn.functional.pad(self._vals_d[0],
                                                       (0, 0, 0, 1))
-        self._rerank_chunk = max(self.prune_chunk, 1)
         # tier-0 moments of the corpus, computed on the first pruned call
         self._cent: tuple | None = None
-        # numeric-guard state: the underflow gate needs the largest
-        # embedding norm; docs with zero mass legitimately solve to 0
-        self._max_vec_norm = float(np.sqrt(
-            (vecs_np.astype(np.float64) ** 2).sum(axis=-1).max())) \
-            if vecs_np.size else 0.0
+        # docs with zero mass legitimately solve to distance 0
         self._empty_doc_mask = np.asarray(self.ell.vals.sum(axis=-1) == 0)
-        self.last_batch_stats: dict = {}
-        self.last_prune_stats: dict = {}
-        self._engine_lock = threading.RLock()
-        # live async front-ends (async_service); weak so a shut-down
-        # coalescer the caller dropped doesn't accumulate on the service
-        self._coalescers: weakref.WeakSet = weakref.WeakSet()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -275,19 +313,170 @@ class WMDService:
             self, max_batch=max_batch, ks=ks, kinds=kinds)
         return _warmup.warm(self, registry, queries=queries, seed=seed)
 
-    # -- not ported yet -------------------------------------------------------
+    # -- live corpus (mutable base + delta segments) -------------------------
+    #
+    # With ``live`` set, every dispatch runs per SEGMENT: the same stripes
+    # program solves the base and delta ELLs (the corpus cols / vals are
+    # arguments, so one program serves both shapes), and the results are
+    # gathered into ascending-doc-id order through the corpus's (segment,
+    # row) location map. Tombstoned and pad rows are solved but never
+    # gathered -- the kernels skip val = 0 slots, so they cannot touch a
+    # live doc's bits -- and per-doc distances are bitwise those of a
+    # one-shot build of the same docs (the incremental == batch contract).
+    #
+    # K-cache scoping: a cached K row is a function of (word_id, lambda,
+    # vecs) only, so corpus mutation invalidates nothing (resident rows
+    # survive add / remove / compact and still hit);
+    # `invalidate_embedding_rows` is the scoped hook for vector updates.
+    # The bound tiers need no invalidation either: bounds are recomputed
+    # per call against the current segment ELLs.
 
-    def add_docs(self, ids, docs):
-        _not_ported("WMDService.add_docs (live corpus)",
-                    "item 'Live corpus'")
+    def _require_live(self):
+        if self.live is None:
+            raise ValueError("this WMDService has no live corpus "
+                             "(construct with WMDService.from_live)")
 
-    def remove_docs(self, ids):
-        _not_ported("WMDService.remove_docs (live corpus)",
-                    "item 'Live corpus'")
+    def _refresh_live(self) -> None:
+        """Sync device state with the corpus (cheap when nothing changed).
 
-    def compact(self):
-        _not_ported("WMDService.compact (live corpus)",
-                    "item 'Live corpus'")
+        A base_version bump (a compaction swapped segments) rebuilds every
+        piece of device state derived from the base (`_install_corpus`);
+        a version bump (any mutation) uploads the delta segment once and
+        rebuilds the gather map. Versions are read under the engine lock,
+        which every mutating service entry point also holds, and under the
+        corpus lock (reentrant), because `LiveCorpus.compact` builds
+        outside its lock and swaps under it: without it, the version
+        reads, the base_ell read and the locations() read here could
+        straddle a concurrent swap and mix segments."""
+        lc = self.live
+        with lc._lock:
+            self._refresh_live_locked(lc)
+
+    def _refresh_live_locked(self, lc) -> None:
+        if lc.base_version != self._live_base_version:
+            self.ell = lc.base_ell
+            self._install_corpus()
+            self._live_base_version = lc.base_version
+            self._live_version = -1          # gather map must follow
+        if lc.version != self._live_version:
+            d_ell = lc.delta_ell
+            drb = formats.rebucket_for_vocab_shards(d_ell, 1)
+            self._dcols_d = torch.from_numpy(drb.cols).to(self.device)
+            self._dvals_d = torch.from_numpy(drb.vals).to(self.device)
+            self._dell_cols_d = torch.from_numpy(d_ell.cols).to(self.device)
+            self._dell_vals_d = torch.from_numpy(d_ell.vals).to(self.device)
+            ids, seg, row = lc.locations()
+            self._live_ids = ids
+            self._live_seg = seg
+            self._live_row = row
+            self._live_empty = lc.live_empty_mask()
+            self._live_version = lc.version
+
+    @_serialized
+    def _query_batch_live(self, rs: Sequence[np.ndarray],
+                          impl: str | None = None,
+                          use_cache: bool | None = None) -> np.ndarray:
+        """(Q, num_live) exact distances over the live corpus, columns in
+        ascending doc-id order. One K-cache stripes assembly and one pair
+        of vocab-major copies feed one stripes program per non-empty
+        segment; a segment holding no live doc is skipped. docs_chunk is
+        None: segments are capacity-bounded, and per-doc bits do not
+        depend on chunking."""
+        self._refresh_live()
+        n_live = self._live_ids.size
+        q = len(rs)
+        if q == 0 or n_live == 0:
+            self.last_batch_stats = {}
+            return np.zeros((q, n_live), np.float32)
+        self._validate_queries(rs)
+        sel_b, r_b, mask_b = self._padded_query_batch(rs)
+        self._kcache.ensure_lamb(self.cfg.lamb)
+        use = use_cache is not False
+        t0 = time.perf_counter()
+        k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
+                                                         use_cache=use)
+        self._sync()
+        t_pre = time.perf_counter() - t0
+        self._check_km(km_s, mask_b)
+        impl = impl or self.impl
+        fn = self._stripe_fn(impl, None)
+        r_d = torch.from_numpy(r_b).to(self.device)
+        out = np.empty((q, n_live), np.float32)
+        segments = 0
+        t0 = time.perf_counter()
+        vm = vocab_major_stripes(k_s, km_s, impl)   # one pair, both segments
+        for seg_id, (cols_d, vals_d) in enumerate(
+                ((self._cols_d, self._vals_d),
+                 (self._dcols_d, self._dvals_d))):
+            pick = self._live_seg == seg_id
+            if not pick.any():
+                continue
+            d_seg = fn(k_s, km_s, r_d, cols_d, vals_d, vm=vm)[:q]
+            out[:, pick] = d_seg.cpu().numpy()[:, self._live_row[pick]]
+            segments += 1
+        t_solve = time.perf_counter() - t0
+        self.last_batch_stats = {"precompute_s": t_pre, "solve_s": t_solve,
+                                 "segments": segments, **info}
+        self._check_result(out, what="live query_batch distances",
+                           empty_doc_mask=self._live_empty)
+        return out
+
+    def _bounds_live(self, rs: Sequence[np.ndarray]) -> np.ndarray:
+        """(Q, num_live) RWMD lower bounds over the live corpus: one M-row
+        assembly, one min-SDDMM per non-empty segment, the same
+        ascending-id gather as the exact path."""
+        self._refresh_live()
+        n_live = self._live_ids.size
+        q = len(rs)
+        if q == 0 or n_live == 0:
+            return np.zeros((q, n_live), np.float32)
+        self._validate_queries(rs)
+        sel_b, _, mask_b = self._padded_query_batch(rs)
+        m_pad, _ = self._mcache.m_stripes_for_batch(sel_b, mask_b)
+        out = np.empty((q, n_live), np.float32)
+        for seg_id, (cols_d, vals_d) in enumerate(
+                ((self._ell_cols_d, self._ell_vals_d),
+                 (self._dell_cols_d, self._dell_vals_d))):
+            pick = self._live_seg == seg_id
+            if not pick.any():
+                continue
+            lb = rwmd_core.rwmd_bound_batch(
+                m_pad, cols_d, vals_d, impl=self.bound_impl,
+                docs_chunk=None)[:q].cpu().numpy()
+            out[:, pick] = lb[:, self._live_row[pick]]
+        return out
+
+    @property
+    def live_doc_ids(self) -> np.ndarray:
+        """Ascending doc ids of the live corpus -- result column j of a
+        live dispatch scores the doc ``live_doc_ids[j]`` (and live top-k
+        returns these ids, not positions)."""
+        self._require_live()
+        with self._engine_lock:
+            self._refresh_live()
+            return self._live_ids
+
+    @_serialized
+    def add_docs(self, ids, docs) -> int:
+        """Durable live upsert (see `data.live_corpus.LiveCorpus.add_docs`;
+        the return acknowledges WAL-fsynced docs). Device state refreshes
+        lazily at the next dispatch; the K cache is deliberately NOT
+        invalidated -- see the section comment above."""
+        self._require_live()
+        return self.live.add_docs(ids, docs)
+
+    @_serialized
+    def remove_docs(self, ids) -> int:
+        """Durable live remove; returns how many ids were actually live."""
+        self._require_live()
+        return self.live.remove_docs(ids)
+
+    @_serialized
+    def compact(self) -> None:
+        """Run one interruptible corpus compaction (base <- base + delta,
+        atomic swap); the next dispatch picks up the new base segment."""
+        self._require_live()
+        self.live.compact()
 
     @_serialized
     def invalidate_embedding_rows(self, word_ids) -> int:
@@ -396,7 +585,11 @@ class WMDService:
     @_serialized
     def query(self, r: np.ndarray) -> np.ndarray:
         """r: (V,) sparse query histogram -> (N,) distances, through the
-        per-query program (see the module docstring)."""
+        per-query program (see the module docstring); on a live service
+        (num_live,) distances in ascending doc-id order, through the
+        per-segment dispatch, as in the reference."""
+        if self.live is not None:
+            return self._query_batch_live([r])[0]
         self._validate_queries([r])
         sel_idx, r_sel = select_query(r)
         sel_p, r_p, mask = pad_query(sel_idx, r_sel, self.cfg.v_r)
@@ -421,7 +614,15 @@ class WMDService:
         call (docs_chunk=0 for explicitly unchunked); ``use_cache`` routes
         explicitly (False = transient stripes baseline, bitwise identical
         to the cached path; True = stripes engine even with the cache
-        disabled). See the module docstring for the routes."""
+        disabled). See the module docstring for the routes.
+
+        Live services route every call through the per-segment dispatch
+        (`_query_batch_live`; docs_chunk is unchunked there) -- (Q,
+        num_live) columns in ascending doc-id order, bitwise a one-shot
+        build of the same docs."""
+        if self.live is not None:
+            return self._query_batch_live(rs, impl=impl,
+                                          use_cache=use_cache)
         if len(rs) == 0:
             return np.zeros((0, self.ell.num_docs), np.float32)
         self._validate_queries(rs)
@@ -513,7 +714,10 @@ class WMDService:
             raise TypeError(f"top_k without prune takes no {sorted(kw)}")
         d = self.query(r)
         idx = self._top_k(d, k)
-        return idx, d[idx]
+        dist = d[idx]
+        if self.live is not None and idx.size:
+            idx = self._live_ids[idx]      # positions -> real doc ids
+        return idx, dist
 
     def top_k_batch(self, rs: Sequence[np.ndarray], k: int = 10, *,
                     prune: bool = False, rerank: str = "per_query",
@@ -526,7 +730,15 @@ class WMDService:
         ``rerank`` "per_query" or "union", and returns the bitwise-identical
         set as `top_k_scan_batch` while skipping the pruned docs' solves
         (stats in ``last_prune_stats``); ``**kw`` then forwards impl /
-        use_cache / prune_chunk / prune_margin."""
+        use_cache / prune_chunk / prune_margin.
+
+        Live services return REAL doc ids (ascending-id positions mapped
+        through `live_doc_ids`), and ``prune=True`` runs the cascade over
+        the base segment while exact-solving the delta outright
+        (`_top_k_live_pruned`) -- the full scan's bits. ``rerank="union"``
+        degrades to the exact full scan (`_top_k_live_fallback`, counted by
+        the ``wmd_prune_fallback_total`` metric): the same answer, without
+        the speedup."""
         if rerank not in ("per_query", "union"):
             raise ValueError(f"rerank must be per_query|union, "
                              f"got {rerank!r}")
@@ -534,12 +746,20 @@ class WMDService:
             raise ValueError("rerank='union' is a pruned-rerank strategy; "
                              "pass prune=True")
         if prune:
+            if self.live is not None:
+                if rerank == "union":
+                    return self._top_k_live_fallback(rs, k, **kw)
+                return self._top_k_live_pruned(rs, k, exhaustive=False,
+                                               **kw)
             if rerank == "union":
                 return self._top_k_union(rs, k, **kw)
             return self._top_k_pruned(rs, k, exhaustive=False, **kw)
         d = self.query_batch(rs, **kw)
         idx = self._top_k(d, k)
-        return idx, np.take_along_axis(d, idx, axis=-1)
+        dist = np.take_along_axis(d, idx, axis=-1)
+        if self.live is not None and idx.size:
+            idx = self._live_ids[idx]      # positions -> real doc ids
+        return idx, dist
 
     def top_k_scan_batch(self, rs: Sequence[np.ndarray], k: int = 10,
                          **kw) -> tuple[np.ndarray, np.ndarray]:
@@ -548,6 +768,8 @@ class WMDService:
         Bitwise identical to ``top_k_batch(prune=True)``: identical programs
         on identical inputs for the shared prefix, sound bounds for the
         pruned suffix."""
+        if self.live is not None:
+            return self._top_k_live_pruned(rs, k, exhaustive=True, **kw)
         return self._top_k_pruned(rs, k, exhaustive=True, **kw)
 
     # -- the retrieval cascade ------------------------------------------------
@@ -696,17 +918,9 @@ class WMDService:
                       prune_chunk: int | None = None,
                       prune_margin: float | None = None
                       ) -> tuple[np.ndarray, np.ndarray]:
-        """Shared core of the pruned top-k and its exhaustive-scan oracle.
-
-        Per query: visit docs in ascending-bound order in fixed ``chunk``
-        blocks; solve each block with one (1, chunk) stripes program (K
-        rows from the K cache); once k docs are solved, drop every doc
-        whose ``bound * (1 - margin)`` exceeds the running k-th exact
-        distance -- ascending order makes the survivors a prefix, so the
-        first empty block ends the query. ``exhaustive`` disables the drop
-        (same programs, same order). A pruned doc's exact distance is
-        >= bound > threshold *strictly*, so it cannot displace or tie any
-        selected doc."""
+        """Shared core of the pruned top-k and its exhaustive-scan oracle:
+        the cascade's bounds over the corpus, then the per-query rerank
+        (`_rerank_per_query`) over every doc."""
         n = self.ell.num_docs
         k_eff = min(k, n)
         if len(rs) == 0:
@@ -720,49 +934,14 @@ class WMDService:
                                                use_cache=use)
         bounds = combined[:q]
         t_bound = time.perf_counter() - t0
-        self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
-        impl = impl or self.impl
-        fn = self._stripe_fn(impl, None)          # chunk IS the block
-        idx_out = np.empty((q, k_eff), np.int64)
-        d_out = np.empty((q, k_eff), np.float32)
-        solves = programs = hits = 0
-        k_misses = []
-        r_d = torch.from_numpy(r_b).to(self.device)
         t0 = time.perf_counter()
-        for i in range(q):
-            k_s, km_s, info = self._kcache.stripes_for_batch(
-                sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
-            self._check_km(km_s, mask_b[i:i + 1])
-            vm = vocab_major_stripes(k_s, km_s, impl)  # once a query stripe
-            hits += info["hits"]
-            k_misses.append(info["misses"])
-            lb = bounds[i]
-            order = np.argsort(lb, kind="stable")      # ascending bounds
-            solved_d = np.full(n, np.inf, np.float32)
-            n_solved = 0
-            threshold = np.inf
-            pos = 0
-            while pos < n:
-                block = order[pos:pos + chunk]
-                if not exhaustive and n_solved >= k_eff:
-                    # bounds ascend within the block, so the survivors are
-                    # its prefix; an empty prefix proves every remaining
-                    # doc is outside the top-k
-                    block = block[lb[block] * (1.0 - margin) <= threshold]
-                    if block.size == 0:
-                        break
-                solved_d[block] = self._solve_docs(
-                    fn, k_s, km_s, vm, r_d[i:i + 1], block, chunk)[0]
-                solves += block.size
-                programs += 1
-                n_solved += block.size
-                pos += block.size
-                if n_solved >= k_eff:
-                    cur = self._top_k(solved_d, k_eff)
-                    threshold = float(solved_d[cur[-1]])
-            sel = self._top_k(solved_d, k_eff)
-            idx_out[i] = sel
-            d_out[i] = solved_d[sel]
+        docs = np.arange(n)
+        idx_out, d_out, solves, programs, hits, k_misses = \
+            self._rerank_per_query(sel_b, r_b, mask_b, bounds, docs, docs,
+                                   np.empty(0, np.int64), n, k_eff=k_eff,
+                                   chunk=chunk, margin=margin,
+                                   exhaustive=exhaustive,
+                                   impl=impl or self.impl, use=use)
         t_rerank = time.perf_counter() - t0
         self._record_prune(q, n, k_eff, chunk, margin, exhaustive,
                            "per_query", solves, programs, t_bound, t_rerank,
@@ -776,9 +955,86 @@ class WMDService:
                            empty_doc_mask=self._empty_doc_mask[idx_out])
         return idx_out, d_out
 
+    def _rerank_per_query(self, sel_b, r_b, mask_b, bounds, bpos, brow,
+                          delta, n_pos, *, k_eff, chunk, margin, exhaustive,
+                          impl, use):
+        """The per-query rerank loop of the pruned paths, over ``n_pos``
+        answer positions: the docs at positions ``bpos`` are the resident
+        ELL's rows ``brow``, visited in ascending ``bounds`` (columns:
+        resident rows) order in fixed ``chunk`` blocks, one (1, chunk)
+        stripes program a block (K rows from the K cache); once k docs are
+        solved, every doc whose ``bound * (1 - margin)`` exceeds the
+        running k-th exact distance is dropped -- ascending order makes
+        the survivors a prefix, so the first empty block ends the query.
+        ``exhaustive`` disables the drop (same programs, same order).
+        ``delta``: the live delta's positions (empty on a static corpus),
+        solved whole first by one unchunked program that seeds the
+        threshold; the delta
+        program and the blocks of a query share its pair of vocab-major
+        copies. A pruned doc's exact distance is >= bound > threshold
+        *strictly*, so it cannot displace or tie any selected doc.
+        Returns (idx (Q, k), distances (Q, k), solves, programs, K-cache
+        hits, K-cache misses a query)."""
+        self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
+        fn = self._stripe_fn(impl, None)          # chunk IS the block
+        q = bounds.shape[0]
+        idx_out = np.empty((q, k_eff), np.int64)
+        d_out = np.empty((q, k_eff), np.float32)
+        solves = programs = hits = 0
+        k_misses = []
+        r_d = torch.from_numpy(r_b).to(self.device)
+        for i in range(q):
+            k_s, km_s, info = self._kcache.stripes_for_batch(
+                sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
+            self._check_km(km_s, mask_b[i:i + 1])
+            vm = vocab_major_stripes(k_s, km_s, impl)  # once a query stripe
+            hits += info["hits"]
+            k_misses.append(info["misses"])
+            r_q = r_d[i:i + 1]
+            solved_d = np.full(n_pos, np.inf, np.float32)
+            n_solved = 0
+            threshold = np.inf
+            if delta.size:
+                d_seg = fn(k_s, km_s, r_q, self._dcols_d, self._dvals_d,
+                           vm=vm)[0].cpu().numpy()
+                solved_d[delta] = d_seg[self._live_row[delta]]
+                programs += 1
+                n_solved = delta.size
+                if n_solved >= k_eff:
+                    cur = self._top_k(solved_d, k_eff)
+                    threshold = float(solved_d[cur[-1]])
+            lb = bounds[i][brow]            # bounds per position in bpos
+            order = np.argsort(lb, kind="stable")      # ascending bounds
+            pos = 0
+            while pos < bpos.size:
+                block = order[pos:pos + chunk]
+                if not exhaustive and n_solved >= k_eff:
+                    # bounds ascend within the block, so the survivors are
+                    # its prefix; an empty prefix proves every remaining
+                    # doc is outside the top-k
+                    block = block[lb[block] * (1.0 - margin) <= threshold]
+                    if block.size == 0:
+                        break
+                solved_d[bpos[block]] = self._solve_docs(
+                    fn, k_s, km_s, vm, r_q, brow[block], chunk)[0]
+                solves += block.size
+                programs += 1
+                n_solved += block.size
+                pos += block.size
+                if n_solved >= k_eff:
+                    cur = self._top_k(solved_d, k_eff)
+                    threshold = float(solved_d[cur[-1]])
+            sel = self._top_k(solved_d, k_eff)
+            idx_out[i] = sel
+            d_out[i] = solved_d[sel]
+        return idx_out, d_out, solves, programs, hits, k_misses
+
     def _record_prune(self, q, n, k_eff, chunk, margin, exhaustive, rerank,
                       solves, programs, t_bound, t_rerank, tiers, d_out,
                       k_misses) -> None:
+        """``last_prune_stats`` of a pruned call over ``n`` docs; the tier
+        funnel counts the bound columns, the resident ELL's rows (a live
+        corpus's base segment)."""
         final_thresh = (d_out[:, -1].astype(np.float32) if k_eff
                         else np.full(q, np.inf, np.float32))
         self.last_prune_stats = {
@@ -788,9 +1044,101 @@ class WMDService:
             "solves_avoided": 1.0 - solves / (q * n),
             "rerank_programs": programs,
             "bound_s": t_bound, "rerank_s": t_rerank,
-            "tiers": self._tier_stats(tiers, final_thresh, q, n, margin),
+            "tiers": self._tier_stats(tiers, final_thresh, q,
+                                      int(self._ell_cols_d.shape[0]),
+                                      margin),
             "kcache_misses": k_misses,
         }
+
+    @_serialized
+    def _top_k_live_fallback(self, rs: Sequence[np.ndarray], k: int, *,
+                             impl: str | None = None,
+                             use_cache: bool | None = None,
+                             prune_chunk: int | None = None,
+                             prune_margin: float | None = None
+                             ) -> tuple[np.ndarray, np.ndarray]:
+        """Pruned top-k fallback on a live corpus: the exact full scan
+        through the per-segment dispatch. The prune knobs are accepted and
+        ignored (there is nothing to prune); ``last_prune_stats`` records
+        the route and ``wmd_prune_fallback_total`` counts the dispatch.
+        Only ``rerank="union"`` (whose shared block schedule does not span
+        segments) routes here."""
+        self._prune_fallbacks.inc()
+        t0 = time.perf_counter()
+        ids, dist = self.top_k_batch(rs, k, impl=impl, use_cache=use_cache)
+        q, k_eff = ids.shape
+        n = self._live_ids.size
+        self.last_prune_stats = {
+            "queries": q, "docs": n, "k": k_eff, "chunk": 0, "margin": 0.0,
+            "exhaustive": True, "rerank": "live_full_scan",
+            "exact_solves": q * n, "scan_solves": q * n,
+            "solves_avoided": 0.0, "rerank_programs": 0,
+            "bound_s": 0.0, "rerank_s": time.perf_counter() - t0,
+        }
+        return ids, dist
+
+    @_serialized
+    def _top_k_live_pruned(self, rs: Sequence[np.ndarray], k: int, *,
+                           exhaustive: bool, impl: str | None = None,
+                           use_cache: bool | None = None,
+                           prune_chunk: int | None = None,
+                           prune_margin: float | None = None
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """Pruned top-k over a live corpus: cascade bounds over the base
+        segment, exact-solve the delta outright.
+
+        Per query, the delta segment -- small, capacity-bounded, and the
+        only part that mutates between compactions -- is solved whole with
+        the same unchunked per-segment program `_query_batch_live`
+        dispatches, seeding the running k-th-distance threshold. Live base
+        docs are then visited in ascending cascade-bound order through the
+        same fixed ``(1, chunk)`` stripes programs as the static pruned
+        path, pruning against that threshold; the delta program and the
+        base blocks of a query share its pair of vocab-major copies. The
+        result is bitwise the full-scan answer: per-doc distance bits do
+        not depend on chunk-mates or batch-mates, the K cache assembles
+        bit-identical rows either way, and a pruned doc's exact distance
+        strictly exceeds the final threshold. ``exhaustive`` disables the
+        drop (same programs, same order) -- the live scan oracle."""
+        self._refresh_live()
+        n_live = self._live_ids.size
+        q = len(rs)
+        k_eff = min(k, n_live)
+        if q == 0 or n_live == 0:
+            return (np.zeros((q, k_eff), np.int64),
+                    np.zeros((q, k_eff), np.float32))
+        chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
+            rs, prune_chunk, prune_margin)
+        use = use_cache is not False
+        t0 = time.perf_counter()
+        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
+                                               use_cache=use)
+        bounds = combined[:q]               # columns: base-segment rows
+        t_bound = time.perf_counter() - t0
+        bpos = np.nonzero(self._live_seg == 0)[0]   # live base positions
+        dpos = np.nonzero(self._live_seg == 1)[0]   # live delta positions
+        t0 = time.perf_counter()
+        idx_out, d_out, solves, programs, hits, k_misses = \
+            self._rerank_per_query(sel_b, r_b, mask_b, bounds, bpos,
+                                   self._live_row[bpos], dpos, n_live,
+                                   k_eff=k_eff, chunk=chunk, margin=margin,
+                                   exhaustive=exhaustive,
+                                   impl=impl or self.impl, use=use)
+        t_rerank = time.perf_counter() - t0
+        self._record_prune(q, n_live, k_eff, chunk, margin, exhaustive,
+                           "live_pruned", solves + q * int(dpos.size),
+                           programs, t_bound, t_rerank, tiers, d_out,
+                           k_misses)
+        self.last_prune_stats["delta_docs"] = int(dpos.size)
+        self._check_result(d_out, what="top_k distances",
+                           empty_doc_mask=self._live_empty[idx_out])
+        total = hits + sum(k_misses)
+        self.last_batch_stats = {
+            "hit_rate": hits / total if total else 0.0,
+            "precompute_s": t_bound, "solve_s": t_rerank,
+        }
+        ids = self._live_ids[idx_out] if idx_out.size else idx_out
+        return ids, d_out
 
     @_serialized
     def _top_k_union(self, rs: Sequence[np.ndarray], k: int, *,
@@ -888,7 +1236,17 @@ class WMDService:
         """Degraded tier: (Q, N) doc-side RWMD *lower bounds* instead of
         exact distances -- the brownout answer. One min-SDDMM over the
         corpus, no Sinkhorn iterations; a sound lower bound at any budget
-        (see `core.rwmd`)."""
+        (see `core.rwmd`). On a live service: (Q, num_live) bounds, one
+        min-SDDMM per non-empty segment (`_bounds_live`)."""
+        if self.live is not None:
+            t0 = time.perf_counter()
+            lb = self._bounds_live(rs)
+            self.last_batch_stats = {
+                "precompute_s": time.perf_counter() - t0, "solve_s": 0.0,
+                "degraded": True}
+            if self.guards and lb.size:
+                _guards.check_finite(lb, "rwmd bounds", lamb=self.cfg.lamb)
+            return lb
         if len(rs) == 0:
             return np.zeros((0, self.ell.num_docs), np.float32)
         self._validate_queries(rs)
@@ -914,4 +1272,7 @@ class WMDService:
             return (np.zeros((0, k_eff), np.int64),
                     np.zeros((0, k_eff), np.float32))
         idx = self._top_k(lb, k_eff)
-        return idx, np.take_along_axis(lb, idx, axis=-1)
+        dist = np.take_along_axis(lb, idx, axis=-1)
+        if self.live is not None and idx.size:
+            idx = self._live_ids[idx]      # positions -> real doc ids
+        return idx, dist

@@ -41,8 +41,7 @@ SUBPACKAGES = ("core", "data", "obs", "kernels", "serving", "distributed")
 NOT_PORTED = {
     "core": {"SinkhornResult": 5, "sinkhorn_divergence": 5,
              "sinkhorn_plan": 5},
-    "data": {"TokenPipeline": 5, "batch_struct": 5, "LiveCorpus": 2,
-             "WalWriter": 2, "replay": 2},
+    "data": {"TokenPipeline": 5, "batch_struct": 5},
     "obs": {},
     "kernels": {},
     "serving": {"build_serve_fns": 5},

@@ -13,8 +13,9 @@
   bitwise the direct `query_batch` of each logged batch composition, cache
   on and off, and within ``rtol=2e-3, atol=1e-5`` of the live JAX
   service's rows; coalesced pruned top-k ids equal the JAX service's.
-* The writer lane resolves with the service's `NotImplementedError` (no
-  live corpus yet) and the dispatcher keeps serving.
+* The writer lane on a live service (`WMDService.from_live`): the write
+  futures resolve with the acked counts, and the queries around them are
+  served over the corpus as it stands when they dispatch.
 
 Timing-triggered assertions use windows orders of magnitude apart (10 s vs
 tens of ms), as the reference's do.
@@ -562,27 +563,47 @@ def test_async_service_and_drain_hook(wmd_services):
         co2.shutdown(timeout=60)
 
 
-def test_writer_lane_resolves_with_not_implemented(wmd_services):
-    """The port has no live corpus yet: a write future resolves with the
-    service's NotImplementedError, and queries around it are served."""
+def test_writer_lane_resolves_with_not_implemented(wmd_services, tmp_path):
+    """The writer lane on a live service (the name is kept from when the
+    port's mutators were stubs): each write future resolves with its acked
+    count, and the queries around the writes are served, in FIFO order,
+    over the corpus as it stands when each dispatches -- bitwise the
+    static service's rows on the same docs. A service without a live
+    corpus resolves a write with the reference's ValueError."""
+    from repro_torch.core import formats
+    from repro_torch.data import LiveCorpus
+    from repro_torch.serving import WMDService
     svc = wmd_services[0]
     qs = _zipf_queries(2, seed=13)
-    with svc.async_service(window_ms=NEVER_MS, max_batch=4) as co:
+    docs = formats.doc_lists_from_ell(svc.ell)
+    lc = LiveCorpus(str(tmp_path / "live"), svc.ell.num_vocab,
+                    normalize=False)
+    lc.add_docs(range(len(docs)), docs)
+    live = WMDService.from_live(svc.cfg, svc.vecs, lc, device="cpu")
+    with live.async_service(window_ms=NEVER_MS, max_batch=4) as co:
         before = co.submit(qs[0])
-        add = co.submit_add_docs([0], [[(0, 1.0)]])
+        add = co.submit_add_docs([40], [docs[3]])
         rm = co.submit_remove_docs([0])
         after = co.submit(qs[1])
         co.drain(timeout=60)
-        for f in (add, rm):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                f.result(timeout=60)
+        assert add.result(timeout=60) == 1 and rm.result(timeout=60) == 1
+        np.testing.assert_array_equal(before.result(timeout=60),
+                                      svc.query_batch([qs[0]])[0])
+        # after the writes: doc 0 gone, doc 40 (doc 3's words) appended
+        want = svc.query_batch([qs[1]])[0]
         np.testing.assert_array_equal(after.result(timeout=60),
-                                      svc.query_batch([qs[1]])[0])
-        assert before.result(timeout=60).shape == (32,)
+                                      np.append(want[1:], want[3]))
         st = co.stats()
-    assert st.write_dispatches == 2 and st.docs_added == 0
-    assert st.failed == 2 and st.completed == 2
+    assert st.write_dispatches == 2 and st.docs_added == 1
+    assert st.docs_removed == 1 and st.failed == 0 and st.completed == 4
     assert list(co.shape_log) == [("plain", 1, None), ("plain", 1, None)]
+    assert live.live_doc_ids.tolist() == list(range(1, 32)) + [40]
+    lc.close()
+    with svc.async_service(window_ms=NEVER_MS, max_batch=4) as co:
+        fut = co.submit_add_docs([0], [[(0, 1.0)]])
+        co.drain(timeout=60)
+        with pytest.raises(ValueError, match="no live corpus"):
+            fut.result(timeout=60)
 
 
 def test_many_submitters_lose_no_request_under_fast_switching():

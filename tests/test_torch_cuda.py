@@ -1042,3 +1042,92 @@ def test_guard_on_card_never_reaches_a_plain_rung(monkeypatch):
     np.testing.assert_array_equal(res.value, want)
     assert len(eng.dispatch_log) == n and sum(_build.launches.values()) >= 1
     assert guard.stats().demoted == 0
+
+
+def _live_stack(dev, layout, tmp_path):
+    """A live service and the static service over the same docs (the
+    `_async_stack` corpus), the live one assembled as ``layout`` says:
+    "two_segments" (docs 0-199 compacted into the base, 200-299 in the
+    delta), "small_delta" (docs 0-279 in the base, 20 in a 32-row delta),
+    "empty_base" (every doc in the delta, an 8-row all-pad base) or
+    "wide_delta" (the shorter half compacted, the longer half in a delta
+    whose nnz_max exceeds the base's)."""
+    from repro_torch.core import formats
+    from repro_torch.data import LiveCorpus
+    from repro_torch.serving import WMDService
+    svc, rs = _async_stack(dev)
+    docs = formats.doc_lists_from_ell(svc.ell)
+    lc = LiveCorpus(str(tmp_path / layout), svc.ell.num_vocab,
+                    normalize=False)
+    if layout == "empty_base":
+        first = list(range(len(docs)))
+    elif layout in ("two_segments", "small_delta"):
+        first = list(range(200 if layout == "two_segments" else 280))
+    else:
+        lens = np.array([len(d) for d in docs])
+        first = np.nonzero(lens <= np.median(lens))[0].tolist()
+    lc.add_docs(first, [docs[i] for i in first])
+    if layout != "empty_base":
+        lc.compact()
+        rest = sorted(set(range(len(docs))) - set(first))
+        lc.add_docs(rest, [docs[i] for i in rest])
+    if layout == "wide_delta":
+        assert lc.delta_ell.nnz_max > lc.base_ell.nnz_max
+    live = WMDService.from_live(svc.cfg, svc.vecs, lc, device=dev,
+                                cache_capacity=256, mcache_capacity=256,
+                                prune_chunk=16)
+    return live, svc, rs
+
+
+@pytest.mark.parametrize("layout", ["two_segments", "empty_base",
+                                    "wide_delta"])
+def test_live_query_batch_is_the_static_service_bitwise_on_card(layout,
+                                                                 tmp_path):
+    """Live rows (one program per non-empty segment, dead and pad rows
+    solved but never gathered) and live pruned top-k are the static
+    service's, bitwise, through the kernels: one pair of vocab-major
+    copies per live query_batch, 10 #3 and one #4 per segment."""
+    dev = _card()
+    from repro_torch.kernels import _build
+    live, svc, rs = _live_stack(dev, layout, tmp_path)
+    want = svc.query_batch(rs)
+    live.query_batch(rs[:2])                       # warms the K cache
+    _build.reset_launches()
+    got = live.query_batch(rs)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    segments = live.last_batch_stats["segments"]
+    assert segments == (1 if layout == "empty_base" else 2)
+    assert launches.get("k_vocab_major") == 2
+    assert launches.get("sddmm_spmm_type1_batch") == 10 * segments
+    assert launches.get("sddmm_spmm_type2_batch") == segments
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(live.top_k_batch(rs[:4], 5, prune=True),
+                    svc.top_k_batch(rs[:4], 5)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_live_bounds_take_both_routes_and_equal_static_on_card(
+        monkeypatch, tmp_path):
+    """#8 picks its route from the shapes: the 512-row base takes the
+    dense route, the 32-row delta the gather route, the static 300-doc
+    corpus the dense one. Live bounds equal the static bounds bitwise
+    (the contract #8 by either route == #9), and lie under the live
+    distances."""
+    dev = _card()
+    from repro_torch.kernels import rwmd as krwmd
+    live, svc, rs = _live_stack(dev, "small_delta", tmp_path)
+    routes = []
+    real = krwmd.rwmd_bound_batch_route
+
+    def spy(m_pad, cols, vals, route, **kw):
+        routes.append((cols.shape[0], route))
+        return real(m_pad, cols, vals, route, **kw)
+
+    monkeypatch.setattr(krwmd, "rwmd_bound_batch_route", spy)
+    lb = live.query_batch_bounds(rs)
+    assert routes == [(512, "dense"), (32, "gather")], routes
+    monkeypatch.undo()
+    np.testing.assert_array_equal(lb, svc.query_batch_bounds(rs))
+    d = live.query_batch(rs)
+    assert (lb <= d * (1 + 1e-5) + 1e-6).all()

@@ -210,6 +210,15 @@ def test_lambda_change_invalidates_the_cache():
     fresh = _svc(cache_capacity=64)
     fresh.cfg = svc.cfg
     np.testing.assert_array_equal(fresh.query_batch(rs), d_half)
+    # the pruned path re-keys the cache too when it is the first call
+    # after the change (its rerank builds K rows under the new lambda)
+    svc.cfg = WMDConfig(**{**svc.cfg.__dict__, "lamb": 0.25})
+    got = svc.top_k_batch(rs, 5, prune=True)
+    assert svc.cache_stats.invalidations == 2
+    fresh = _svc(cache_capacity=64)
+    fresh.cfg = svc.cfg
+    for g, w in zip(got, fresh.top_k_batch(rs, 5, prune=True)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_from_state_and_guards():
@@ -228,13 +237,20 @@ def test_from_state_and_guards():
 
 
 def test_unported_parts_raise_not_implemented():
+    """The corpus mutators are ported (the name is kept from when they
+    were stubs): on a service without a live corpus they raise the
+    reference's ValueError, as does `live_doc_ids`; a service needs ell=
+    or live=."""
     svc = _svc()
     for call in (lambda: svc.add_docs([0], [[(0, 1.0)]]),
                  lambda: svc.remove_docs([0]),
                  lambda: svc.compact(),
-                 lambda: WMDService.from_live(None, None, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: svc.live_doc_ids):
+        with pytest.raises(ValueError, match="has no live corpus"):
             call()
+    vecs, _, _ = _corpus()
+    with pytest.raises(ValueError, match="either ell= or live="):
+        WMDService(cfg=_cfg(WMDConfig), vecs=vecs, device="cpu")
 
 
 def test_default_device_is_the_card():
@@ -301,3 +317,29 @@ def test_serve_launcher_runs_on_cpu(flags, tmp_path):
     assert out.stdout.count("top5 docs") == 3
     assert ("solves avoided" in out.stdout) == ("--prune" in flags)
     assert ("per-query Q=3" in out.stdout) == (flags == [])
+
+
+def test_serve_launcher_ingest_mode_seeds_then_recovers_on_cpu(tmp_path):
+    """The launcher's live-corpus mode on the CPU, twice on one
+    --live-dir: the first run seeds the corpus, the second recovers it
+    from its snapshot and WAL; every write op is acked both times, and the
+    stats JSON carries the corpus's stats."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    live_dir = tmp_path / "live"
+    outs = []
+    for _ in range(2):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "sinkhorn-wmd", "--smoke", "--device", "cpu",
+             "--coalesce-window-ms", "2", "--requests", "12",
+             "--ingest-stream", "4", "--compact-every", "2", "--live-dir",
+             str(live_dir), "--stats-out", str(tmp_path / "stats.json")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+        assert out.returncode == 0, out.stderr
+        assert "ingest: 4/4 write ops acked" in out.stdout
+        outs.append(out.stdout)
+    assert "live corpus seeded: 64 docs" in outs[0]
+    assert "live corpus recovered: " in outs[1]
+    live = json.loads((tmp_path / "stats.json").read_text())["live_corpus"]
+    assert live["gen"] == 4 and live["num_live"] > 64
+    assert live["compacting"] is False
