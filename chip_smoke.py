@@ -115,8 +115,30 @@ Phases (any failure exits non-zero before the result line is printed):
      the recovery of its snapshot (timed); and the launcher twice on one
      ``--live-dir`` (seeded, then recovered; ``--ingest-stream 8
      --compact-every 3``, 64 top-10 requests): every write op acked;
+ 11. multi-device serving at paper_5k on single-controller meshes of
+     logical shards on one card (`launch.mesh.make_mesh(..., devices=
+     [cuda:0] * 4)`; the count of visible cards is printed, and where it is
+     above 1 the (2, 2) mesh also runs over distinct cards, bitwise the
+     one-card rows). A (4, 1) mesh (four doc shards of 1,250 docs,
+     `cache_capacity=1024`, `mcache_capacity=1024`): `query_batch` rows,
+     `query(r)` on all 32 queries, pruned top-k (per_query, union), bounds
+     and a live service over phase 10's directory (a fifth of the docs
+     upserted into its delta) are phase 3's / 6's / 7's answers, bitwise;
+     launches exact (15 #3 and one #4 a doc shard, one pair of copies a
+     stripe set, one #6 a 128-row miss chunk; the pruned calls' counts from
+     `last_prune_stats`). A (2, 2) mesh (two 50,000-word stripes, two doc
+     shards): each shard's K and K.*M stripes are phase 3's split at column
+     50,000, bitwise; cache on == off, pruned == scan == union and
+     `query(r)` == `query_batch` rows, bitwise; rows against phase 3's by
+     `_compare` (max relative difference printed); launches exact (15 #3
+     and one #4 a position, two copies a stripe, #6 a shard a chunk). With
+     ``tol=1e-5`` (300 iterations at most) the (4, 1) n_iter equals the
+     one-device program's and the (2, 2) one is within one. The `[idle]`
+     lines of the warm `query_batch` of batch 2 on 1 x 1, (4, 1) and (2, 2)
+     with each call's peak device memory, and the launcher in-process with
+     ``--devices 4 --mesh 2x2 --top-k 10 --prune`` (every query answered);
   5. (run last, so that its launch column reads the runs of phases 3, 6,
-     8, 9 and 10: each kernel's launches summed over the five) each kernel
+     8, 9, 10 and 11: each kernel's launches summed over the six) each kernel
      against its plain PyTorch version at the main path's shapes (the
      per-query kernels #5, #1, #2 at one query's: v_r 32; #3 bitwise
      against #1 on each of the 16 queries, #4 against #2 on each, #1
@@ -624,8 +646,9 @@ def _phase9(cfg, data, batches, d_rows, k_top):
 
 def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
     """Phase 10: the live corpus at paper_5k (see the module docstring).
-    Returns the launches of its main path: the live query_batch and pruned
-    calls, each read with the counts set to 0 just before it."""
+    Returns the launches of its main path (the live query_batch and pruned
+    calls, each read with the counts set to 0 just before it) and its
+    corpus directory (phase 11 serves it on a mesh)."""
     import contextlib
     import io
 
@@ -847,7 +870,7 @@ def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
     for i, (batch, d) in enumerate(zip(batches, d_rows)):
         _check(np.array_equal(live.query_batch(batch), d), f"batch {i + 1}: "
                f"after the compaction, query_batch is not phase 3's rows")
-    _check(live._rerank_cols_d.shape[0] == next_pow2(n) + 1
+    _check(live._rerank_cols_d[0].shape[0] == next_pow2(n) + 1
            and live.last_batch_stats["segments"] == 1,
            "the device state did not follow the compaction")
     idx_c, d_c = live.top_k_batch(batches[0], k_top, prune=True)
@@ -866,7 +889,6 @@ def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
           f"{t_recover_wal:.3f} s with the WAL replay); query_batch and "
           f"pruned top-k bitwise again")
     del live
-    tmp.cleanup()
 
     # -- the launcher's ingest mode, twice on one --live-dir
     with tempfile.TemporaryDirectory() as d:
@@ -904,7 +926,307 @@ def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
                    f"launcher {run}: the serving loop lost requests")
     torch.cuda.synchronize()
     return {k: launches_q.get(k, 0) + launches_p.get(k, 0)
-            for k in set(launches_q) | set(launches_p)}
+            for k in set(launches_q) | set(launches_p)}, tmp
+
+def _mesh_launches(cfg, stats, n_doc, n_model, rb):
+    """The launches of ``len(stats)`` stripes-route `query_batch` calls on
+    a (n_doc, n_model) mesh whose doc shards share one card: 15 #3 and one
+    #4 a position, one pair of copies a model shard, and one #6 a model
+    shard a 128-row chunk of K misses."""
+    cells = n_doc * n_model
+    want = {"sddmm_spmm_type1_batch": cfg.max_iter * cells * len(stats),
+            "sddmm_spmm_type2_batch": cells * len(stats),
+            "k_vocab_major": 2 * n_model * len(stats),
+            "cdist_kexp_rows": n_model * sum(math.ceil(s["misses"] / rb)
+                                             for s in stats)}
+    return {k: c for k, c in want.items() if c}
+
+
+def _phase11(cfg, data, batches, d_rows, pruned, union1, lb_rows, svc,
+             live_dir, k_top, card):
+    """Phase 11: multi-device serving on a single-controller mesh at
+    paper_5k (see the module docstring). Returns the launches of its main
+    path: the (4, 1) and (2, 2) meshes' query_batch and pruned calls, each
+    read with the counts set to 0 just before it."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import build_wmd_batch_fn_stripes
+    from repro_torch.data import LiveCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import WMDService
+
+    n_cards = torch.cuda.device_count()
+    print(f"[mesh] {card}: torch.cuda.device_count() = {n_cards}; every "
+          f"mesh below puts its shards on cuda:0 (one card: these numbers "
+          f"test the program, they are no multi-GPU speed)")
+    one_card = [torch.device("cuda", 0)] * 4
+    kw = dict(cache_capacity=1024, mcache_capacity=1024)
+    rb = 128
+    total = {}
+
+    def count(launches):
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+
+    def serve(mesh, what):
+        """Both batches through query_batch (launches read around them)."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        msvc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, mesh=mesh,
+                          **kw)
+        _check(msvc.device == torch.device("cuda", 0)
+               and msvc.impl == "kernel" and msvc.kexp_impl == "kernel",
+               f"{what}: mesh service defaults changed")
+        _build.reset_launches()
+        rows, stats = [], []
+        for batch in batches:
+            rows.append(msvc.query_batch(batch))
+            stats.append(dict(msvc.last_batch_stats))
+        launches = dict(_build.launches)
+        count(launches)
+        want = _mesh_launches(cfg, stats, *msvc._grid.shape, rb)
+        print(f"[mesh] {what}: query_batch launches {launches}, expected "
+              f"{want}")
+        _check(launches == want, f"{what}: query_batch launches {launches} "
+               f"!= {want}")
+        print(f"[mesh] {card}, shards on one card: {what} service and both "
+              f"query_batch calls: peak device memory "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+              f"over what was allocated before it")
+        return msvc, rows
+
+    def per_query(msvc, what, queries):
+        """query(r) for each query (launches read around the loop): #5, the
+        pair of copies, 15 #1 and one #2 a position (the stripe and copies
+        once a model shard: the doc shards share the card)."""
+        n_doc, n_model = msvc._grid.shape
+        _build.reset_launches()
+        rows = np.stack([msvc.query(r) for r in queries])
+        launches = dict(_build.launches)
+        count(launches)
+        q = len(queries)
+        want = {"cdist_kexp": n_model * q, "k_vocab_major": 2 * n_model * q,
+                "sddmm_spmm_type1": cfg.max_iter * n_doc * n_model * q,
+                "sddmm_spmm_type2": n_doc * n_model * q}
+        print(f"[mesh] {what}: query(r) launches {launches}, expected {want}")
+        _check(launches == want, f"{what}: query(r) launches {launches} != "
+               f"{want}")
+        return rows
+
+    def pruned_runs(msvc, what):
+        """Pruned top-k per query on both batches, then union on batch 1
+        (launches read around the three calls): 15 #3 and one #4 a
+        position a rerank program, two copies a model shard a stripe set,
+        #9 and #8 once a call on the first device, #7 a 128-row chunk of M
+        misses, #6 a model shard a chunk of K misses."""
+        n_doc, n_model = msvc._grid.shape
+        _build.reset_launches()
+        out, stats, m_miss = [], [], []
+        for batch, rerank in ((batches[0], "per_query"),
+                              (batches[1], "per_query"),
+                              (batches[0], "union")):
+            m0 = msvc.mcache_stats.miss_rows
+            out.append(msvc.top_k_batch(batch, k_top, prune=True,
+                                        rerank=rerank))
+            stats.append(dict(msvc.last_prune_stats))
+            m_miss.append(msvc.mcache_stats.miss_rows - m0)
+        launches = dict(_build.launches)
+        count(launches)
+        programs = sum(p["rerank_programs"] for p in stats)
+        cells = n_doc * n_model
+        want = {"sddmm_spmm_type1_batch": cfg.max_iter * cells * programs,
+                "sddmm_spmm_type2_batch": cells * programs,
+                "k_vocab_major": 2 * n_model * (sum(len(b) for b in batches)
+                                                + 1),
+                "lc_rwmd_bound_batch": 3, "rwmd_bound_batch": 3,
+                "cdist": sum(math.ceil(m / rb) for m in m_miss),
+                "cdist_kexp_rows": n_model * sum(
+                    math.ceil(m / rb) for p in stats
+                    for m in p["kcache_misses"])}
+        want = {k: c for k, c in want.items() if c}
+        print(f"[mesh] {what} pruned launches {launches}, expected {want} "
+              f"({programs} rerank programs of {cells} positions)")
+        _check(launches == want, f"{what} pruned launches {launches} != "
+               f"{want}")
+        return out
+
+    # -- (4, 1): four doc shards of 1,250 docs, bitwise the one-device rows
+    m41 = make_mesh((4, 1), ("data", "model"), devices=one_card)
+    svc41, rows41 = serve(m41, "(4, 1)")
+    for i, (got, d) in enumerate(zip(rows41, d_rows)):
+        _check(np.array_equal(got, d), f"(4, 1) batch {i + 1}: query_batch "
+               f"is not phase 3's rows, bitwise")
+    q41 = per_query(svc41, "(4, 1)", [r for b in batches for r in b])
+    _check(np.array_equal(q41, np.concatenate(d_rows)),
+           "(4, 1): query(r) is not phase 3's rows, bitwise")
+    got_p = pruned_runs(svc41, "(4, 1)")
+    got_u = got_p.pop()
+    for i, ((idx, dist), (idx6, d6)) in enumerate(zip(got_p, pruned)):
+        _check(np.array_equal(idx, idx6) and np.array_equal(dist, d6),
+               f"(4, 1) batch {i + 1}: pruned top-k is not phase 6's")
+    _check(np.array_equal(got_u[0], union1[0])
+           and np.array_equal(got_u[1], union1[1]),
+           "(4, 1): union top-k is not phase 6's")
+    for i, (batch, lb) in enumerate(zip(batches, lb_rows)):
+        _check(np.array_equal(svc41.query_batch_bounds(batch), lb),
+               f"(4, 1) batch {i + 1}: bounds are not phase 7's")
+    # the live corpus of phase 10 (every doc in the base after its clean
+    # compaction), a fifth of the docs upserted with their own content
+    # (1,000 at paper_5k: the delta)
+    lc = LiveCorpus(live_dir, cfg.vocab_size, normalize=False)
+    live41 = WMDService.from_live(cfg, data.vecs, lc, mesh=m41, **kw)
+    from repro_torch.core.formats import doc_lists_from_ell
+    docs = doc_lists_from_ell(data.ell)
+    upserts = cfg.num_docs // 5
+    live41.add_docs(list(range(upserts)), docs[:upserts])
+    for i, (batch, d) in enumerate(zip(batches, d_rows)):
+        _check(np.array_equal(live41.query_batch(batch), d),
+               f"(4, 1) live batch {i + 1}: query_batch is not phase 3's "
+               f"rows")
+        _check(live41.last_batch_stats["segments"] == 2,
+               "(4, 1) live: a segment was empty")
+    idx_l, d_l = live41.top_k_batch(batches[0], k_top, prune=True)
+    _check(np.array_equal(idx_l, pruned[0][0])
+           and np.array_equal(d_l, pruned[0][1]),
+           "(4, 1) live pruned top-k is not phase 6's")
+    lc.close()
+    del live41
+    print(f"[check] (4, 1) mesh, four doc shards on one card: query_batch, "
+          f"query(r) (32 queries), pruned per_query and union, bounds and "
+          f"the live service over phase 10's directory ({upserts} docs in "
+          f"its delta) are phase 3's / 6's / 7's answers, bitwise")
+
+    # -- (2, 2): two 50,000-word stripes, two doc shards of 2,500
+    m22 = make_mesh((2, 2), ("data", "model"), devices=one_card)
+    svc22, rows22 = serve(m22, "(2, 2)")
+    sel_b, _, mask_b = svc._padded_query_batch(batches[0])
+    k1, km1, _ = svc._kcache.stripes_for_batch(sel_b, mask_b)
+    k2, km2, _ = svc22._kcache.stripes_for_batch(sel_b, mask_b)
+    vloc = cfg.vocab_size // 2
+    for whole, parts in ((k1[0], k2), (km1[0], km2)):
+        for s, part in enumerate(parts):
+            _check(torch.equal(part[..., :-1],
+                               whole[..., s * vloc:(s + 1) * vloc])
+                   and bool((part[..., -1] == 0).all()),
+                   f"(2, 2): K-cache shard {s} is not phase 3's rows split "
+                   f"at column {vloc}, bitwise")
+    del k1, km1, k2, km2
+    print(f"[check] (2, 2): the K and K.*M stripes of each shard are phase "
+          f"3's rows split at column {vloc}, bitwise (#6 a shard against "
+          f"its stripe)")
+    _check(np.array_equal(per_query(svc22, "(2, 2)", batches[0]),
+                          rows22[0]), "(2, 2) batch 1: query(r) is not its "
+           "query_batch rows, bitwise")
+    for i, (batch, got) in enumerate(zip(batches, rows22)):
+        _check(np.array_equal(svc22.query_batch(batch, use_cache=False),
+                              got), f"(2, 2) batch {i + 1}: cache on != off")
+        _compare(f"(2, 2) batch {i + 1} vs phase 3's rows (the split sum's "
+                 f"rounding)", got, d_rows[i], _shares_word(batch, data.ell))
+        rel = np.abs(got - d_rows[i]) / np.abs(d_rows[i])
+        print(f"[mesh] (2, 2) batch {i + 1}: max rel difference to phase 3's "
+              f"rows {rel.max():.3g}")
+    got_p = pruned_runs(svc22, "(2, 2)")
+    scans = [svc22.top_k_scan_batch(b, k_top) for b in batches]
+    for (idx, dist), want in zip(got_p, scans + [got_p[0]]):
+        _check(np.array_equal(idx, want[0]) and np.array_equal(dist, want[1]),
+               "(2, 2): pruned, scan and union are not bitwise equal")
+    print("[check] (2, 2): cache on == off, query(r) == query_batch rows, "
+          "pruned == scan == union, bitwise; rows within _compare's "
+          "tolerances of phase 3's")
+
+    # -- the vote: tol 1e-5, 300 iterations at most, the same K rows; then
+    # the median delta the 1 x 1 run reached, so that about half the
+    # queries freeze inside the budget
+    r_t = torch.from_numpy(svc._padded_query_batch(batches[0])[1]).to("cuda")
+    layouts = (("1 x 1", svc), ("(4, 1)", svc41), ("(2, 2)", svc22))
+    tol = 1e-5
+    for run in range(2):
+        iters = {}
+        for name, msvc in layouts:
+            fn = build_wmd_batch_fn_stripes(msvc.mesh, max_iter=300, tol=tol,
+                                            with_info=True)
+            k_s, km_s, _ = msvc._kcache.stripes_for_batch(sel_b, mask_b)
+            _, n_iter, delta = fn(k_s, km_s, r_t, msvc._cols_d, msvc._vals_d)
+            iters[name] = n_iter.cpu().numpy()
+            if name == "1 x 1":
+                deltas = delta.cpu().numpy()
+            print(f"[mesh] tol {tol:.6g}, batch 1, {name}: n_iter "
+                  f"{iters[name].tolist()}; max delta "
+                  f"{float(delta.max()):.6g}")
+        _check(np.array_equal(iters["(4, 1)"], iters["1 x 1"]),
+               "(4, 1): n_iter is not the one-device n_iter")
+        _check(int(np.abs(iters["(2, 2)"].astype(int)
+                          - iters["1 x 1"]).max()) <= 1,
+               "(2, 2): n_iter more than one from the one-device n_iter")
+        tol = float(np.median(deltas))
+
+    # -- where the time goes: warm query_batch of batch 2, each layout
+    for what, msvc, copies in (("1 x 1", svc, 2), ("(4, 1)", svc41, 2),
+                               ("(2, 2)", svc22, 4)):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wall, wall_prof, busy, largest, marked = _device_busy(
+            lambda: msvc.query_batch(batches[1]), ("::vocab_major_kernel",
+                                                   "type1_vm_kernel"))
+        peak = torch.cuda.max_memory_allocated() - before
+        if busy is None:
+            print(f"[idle] {card}: {what} query_batch, batch 2: {wall:.2f} "
+                  f"ms wall; device time not measured ({largest})")
+            continue
+        print(f"[idle] {card}, shards on one card: {what} query_batch, "
+              f"batch 2: {wall:.2f} ms wall ({wall_prof:.2f} ms under the "
+              f"profiler), device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall:.3f}; #3 x{marked['type1_vm_kernel'][0]} "
+              f"({marked['type1_vm_kernel'][1]:.3f} ms), copies "
+              f"x{marked['::vocab_major_kernel'][0]}; largest device entries: "
+              f"{largest}; the call's peak device memory over what was "
+              f"allocated before it {peak / 2**30:.2f} GiB")
+        _check(marked["::vocab_major_kernel"][0] == copies,
+               f"{what}: {marked['::vocab_major_kernel'][0]} copies, "
+               f"expected {copies}")
+
+    # -- more than one card: the (2, 2) mesh over distinct cards
+    if n_cards > 1:
+        spread = make_mesh((2, 2), ("data", "model"),
+                           devices=[torch.device("cuda", i % n_cards)
+                                    for i in range(4)])
+        s2 = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, mesh=spread,
+                        **kw)
+        for batch, got in zip(batches, rows22):
+            _check(np.array_equal(s2.query_batch(batch), got),
+                   "(2, 2) over distinct cards != (2, 2) on one card")
+        print(f"[check] (2, 2) over {min(n_cards, 4)} cards: rows bitwise "
+              f"the one-card (2, 2) rows")
+        del s2
+    else:
+        print("[mesh] one card: multi-card placement and peer copies not "
+              "run")
+
+    # -- the launcher in-process on a 2 x 2 mesh of logical devices
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", "sinkhorn-wmd", "--devices", "4",
+                           "--mesh", "2x2", "--top-k", str(k_top), "--prune",
+                           "--num-queries", "16"])
+    text = out.getvalue()
+    lines = [ln for ln in text.splitlines() if f"top{k_top} docs" in ln]
+    summary = [ln for ln in text.splitlines() if "solves avoided" in ln]
+    print(f"[mesh] launcher --devices 4 --mesh 2x2 --top-k {k_top} --prune: "
+          f"{len(lines)} of 16 queries answered; {summary}; "
+          f"{time.perf_counter() - t0:.1f} s with its corpus")
+    _check("Mesh(data=2, model=2" in text and len(lines) == 16
+           and len(summary) == 1, "the launcher on the 2 x 2 mesh did not "
+           "serve every request")
+    del svc41, svc22
+    torch.cuda.synchronize()
+    return total
 
 
 def main() -> int:
@@ -1242,7 +1564,7 @@ def main() -> int:
              f"queries", d_seq1[:3, :docs], dense, share1[:3, :docs])
     del plain8
     sel0, r0 = (torch.from_numpy(x).to(dev) for x in select_query(batch1[0]))
-    cols8, vals8 = svc8._cols_d[0], svc8._vals_d[0]
+    cols8, vals8 = svc8._cols_d[0, 0], svc8._vals_d[0, 0]
     conv = sinkhorn_wmd_converged(sel0, r0, cols8, vals8, vecs_d, cfg.lamb,
                                   cfg.max_iter, tol=1e-6)
     fixed = ss.sinkhorn_wmd_sparse(sel0, r0, cols8, vals8, vecs_d, cfg.lamb,
@@ -1266,15 +1588,21 @@ def main() -> int:
     launches9 = _phase9(cfg, data, (batch1, batch2), (d1, d2), k_top)
 
     # -- 10. the live corpus ---------------------------------------------------
-    launches10 = _phase10(cfg, data, (batch1, batch2), (d1, d2), lb_static,
-                          svc, svc6, k_top, card)
+    launches10, live_dir = _phase10(cfg, data, (batch1, batch2), (d1, d2),
+                                    lb_static, svc, svc6, k_top, card)
+
+    # -- 11. multi-device serving on a mesh ---------------------------------
+    launches11 = _phase11(cfg, data, (batch1, batch2), (d1, d2),
+                          ((idx_p1, d_p1), (idx_p2, d_p2)), (idx_u1, d_u1),
+                          lb_static, svc, live_dir.name, k_top, card)
+    live_dir.cleanup()
 
     # -- 5. the kernels at the main path's shapes ------------------------------
     sel_b, r_b, mask_b = svc._padded_query_batch(batch1)
     k_s, km_s, _ = svc._kcache.stripes_for_batch(sel_b, mask_b)
     k_pad, km_pad = k_s[0], km_s[0]
     r = torch.from_numpy(r_b).to(dev)
-    cols, vals = svc._cols_d[0], svc._vals_d[0]
+    cols, vals = svc._cols_d[0, 0], svc._vals_d[0, 0]
     q, v_r, n, nnz = 16, cfg.v_r, cols.shape[0], cols.shape[1]
     x = torch.full((q, v_r, n), 1.0 / v_r, device=dev)
     for _ in range(3):                        # a realistic iterate
@@ -1290,7 +1618,7 @@ def main() -> int:
     # a kernel's launches: the sum over the main paths' runs (each read
     # with the counts set to 0 just before it), and the runs apart
     by_phase = {"3": launches, "6": launches6, "8": launches8,
-                "9": launches9, "10": launches10}
+                "9": launches9, "10": launches10, "11": launches11}
 
     def record(name, source, replaces, got, want, kernel_fn, plain_fn,
                nbytes, flops, library_fn=None, plain_reps=3):

@@ -128,7 +128,7 @@ def main() -> int:
     svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
                      cache_capacity=1024, mcache_capacity=1024)
     vecs = svc._vecs_d
-    cols, vals = svc._cols_d[0], svc._vals_d[0]
+    cols, vals = svc._cols_d[0, 0], svc._vals_d[0, 0]
     n, nnz, v_r = cols.shape[0], cols.shape[1], cfg.v_r
     sel_p, r_p, mask_p = pad_query(*select_query(batch1[0]), v_r)
     a1 = vecs[torch.from_numpy(sel_p.astype(np.int64)).to(dev)]

@@ -2,9 +2,10 @@
 
 The JAX package `repro` is the reference; this package computes the same
 functions with the same public names, argument names, shapes and dtypes,
-on one NVIDIA GPU. It imports torch and numpy, never jax and nothing of
-`repro`. Entry points run on ``"cuda"`` unless the caller passes
-``device="cpu"``; on a CPU tensor every kernel wrapper in
+on one NVIDIA GPU or on a single-controller mesh of them
+(`repro_torch.launch.mesh`). It imports torch and numpy, never jax and
+nothing of `repro`. Entry points run on ``"cuda"`` unless the caller
+passes ``device="cpu"`` (or a mesh of CPU devices); on a CPU tensor every kernel wrapper in
 `repro_torch.kernels.ops` runs its plain PyTorch version, on a CUDA tensor
 it launches the hand-written kernel (`kernels/csrc/*.cu`) or raises.
 

@@ -1,12 +1,38 @@
 """Query padding and the solver programs (per query and batched), on one
-device.
+device or on a single-controller mesh.
 
-Port of the single-device part of `repro.core.distributed`. The reference
-builds shard_map programs over a (data, model) mesh with one psum over the
-vocab shards per iteration; this port runs on one GPU, so the vocab axis
-has one shard (S = 1) and the psum is the identity. The argument shapes
-are kept: ELL and stripes carry the leading S = 1 shard axis
-(`core.formats.rebucket_for_vocab_shards(ell, 1)`, `core.kcache`).
+Port of `repro.core.distributed`. The reference builds shard_map programs
+over a (data, model) mesh: docs (N) shard over the doc axes (``data``, and
+``pod`` where the mesh has one) with no communication, the vocabulary (V)
+over ``model`` (each shard holds its stripe of K and exactly the ELL
+nonzeros whose word falls in it, `formats.rebucket_for_vocab_shards`), and
+the only collectives are one psum over ``model`` per iteration and one
+scalar-per-doc psum for the distances.
+
+One program body serves every layout. With a `launch.mesh.Mesh`, one
+Python process runs every shard in lockstep: one loop over iterations and
+inside it a loop over the (doc shard, model shard) positions, each
+launching on its own device (`launch.mesh.shard_grid`). ``mesh=None`` (the
+default of every ``build_*``) runs the same body on the (1, 1) grid of
+the device the inputs lie on: the one-device ELL's leading S = 1 axis
+becomes the one model shard, and every collective is the identity. The
+collectives are written out:
+  * the model-axis sum copies each model shard's partial to the first
+    model shard's device and sums them as a left fold in shard order,
+    ``((p0 + p1) + p2) + ...``; the sum goes back to every model shard as
+    the next iterate (no float atomics, no `torch.distributed`);
+  * with ``tol > 0`` the convergence vote is the max of the per-doc-shard
+    deltas (max is exact in any order), so the freeze mask is the same on
+    every shard, as the reference's pmax over (model, *doc_axes);
+  * the outputs come back on the mesh's first device, in doc order.
+At S = 1 each doc's reduction is the one-device one, so a (d, 1) mesh is
+bit for bit the one-device program -- except where ``tol > 0`` meets
+``chunk_placement="solve"`` with chunks smaller than a doc shard: there a
+chunk iterates until every doc shard's chunk of its group has converged
+(`_batched_solve`), as the reference's vote over the doc axes does. At
+S > 1 a doc's slots split over the stripes and the sum differs by
+rounding. Doc shards on one device share one vocab-major copy (and one K
+stripe, in the per-query program) per model shard.
 
 Query padding is exact and mask-based: pad rows carry r = 1 and an
 all-zero K row (`pad_query` + the row mask in `masked_k` /
@@ -29,6 +55,7 @@ import torch
 from repro_torch.core import sparse_sinkhorn as ss
 from repro_torch.core.cost_matrix import cdist
 from repro_torch.core.sparse_sinkhorn import pad_k, safe_recip
+from repro_torch.launch.mesh import check_placement, on_device, shard_grid
 
 
 def pad_query(sel_idx: np.ndarray, r_sel: np.ndarray, v_r_target: int
@@ -92,167 +119,547 @@ def masked_k_batch(vecs_sel: torch.Tensor, vecs_loc: torch.Tensor,
     return k, k * m
 
 
-def _local_solve(vecs_sel, r_sel, row_mask, vecs_loc, cols_loc, vals_loc, *,
-                 lamb: float, max_iter: int, use_kernel: bool,
-                 kexp_impl: str) -> torch.Tensor:
-    """The per-query program on its doc slice and vocab stripe (here all of
-    both). Returns the (N_local,) WMD. As in the reference, the type1
-    contraction runs with r = 1 and the 1/r row scale follows it, where the
-    vocab psum sits (the identity at S = 1); acc / 1 is exact, so this is
-    bitwise the same as dividing inside."""
-    k, km = masked_k(vecs_sel, vecs_loc, lamb, row_mask, kexp_impl)
-    k_pad, km_pad = pad_k(k), pad_k(km)
+# -- the mesh layout ----------------------------------------------------------
+
+def _one(x) -> np.ndarray:
+    """A (1, 1) object array holding ``x``: one device's tensor (or the
+    device itself) in the mesh layout."""
+    out = np.empty((1, 1), object)
+    out[0, 0] = x
+    return out
+
+
+def _grids(mesh, doc_axes: Sequence[str], model_axis: str):
+    """``grid_for(device)``: a program's (D, S) device grid -- ``mesh``'s
+    (`shard_grid`), or without a mesh the (1, 1) grid of the device its
+    inputs lie on."""
+    if mesh is None:
+        return _one
+    grid = shard_grid(mesh, doc_axes, model_axis)
+    return lambda dev: grid
+
+
+def _doc_bounds(n: int, parts: int) -> list[tuple[int, int]]:
+    """Contiguous (lo, hi) doc ranges of ``parts`` doc shards, in order
+    (the first ``n % parts`` shards hold one doc more)."""
+    edges = np.cumsum([0] + [n // parts + (i < n % parts)
+                             for i in range(parts)])
+    return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:])]
+
+
+def shard_docs(mesh, blocks: Sequence[torch.Tensor], *,
+               doc_axes: Sequence[str] = ("data",),
+               model_axis: str = "model") -> np.ndarray:
+    """Split each model shard's (N, ...) block (``blocks[s]``, on any
+    device) over the doc shards, contiguous docs in doc order, and move
+    each part to its position's device. Returns the (D, S) object array of
+    parts."""
+    grid = shard_grid(mesh, doc_axes, model_axis)
+    if len(blocks) != grid.shape[1]:
+        raise ValueError(f"{len(blocks)} model-shard blocks for "
+                         f"{grid.shape[1]} model shards")
+    out = np.empty(grid.shape, object)
+    for s, blk in enumerate(blocks):
+        for d, (lo, hi) in enumerate(_doc_bounds(blk.shape[0],
+                                                 grid.shape[0])):
+            out[d, s] = blk[lo:hi].to(grid[d, s])
+    return out
+
+
+def shard_wmd_inputs(mesh, vecs, cols_b: np.ndarray, vals_b: np.ndarray, *,
+                     doc_axes: Sequence[str] = ("data",),
+                     model_axis: str = "model"):
+    """Place the embeddings and the rebucketed ELL on the mesh with the
+    layouts the mesh programs expect.
+
+    vecs (V, w) (numpy or a tensor) is striped over the model axis;
+    cols_b / vals_b (S, N, nnz_loc) is the host rebucketed ELL
+    (`formats.rebucket_for_vocab_shards(ell, S)`), its docs split over the
+    doc shards. Returns (vecs_d, cols_d, vals_d), each a (D, S) object
+    array (`shard_grid`): position (d, s) holds stripe s of vecs and doc
+    shard d of model shard s's ELL, on its device. Positions on one device
+    share one stripe tensor."""
+    grid = shard_grid(mesh, doc_axes, model_axis)
+    n_doc, n_model = grid.shape
+    if cols_b.shape[0] != n_model or vals_b.shape != cols_b.shape:
+        raise ValueError(f"ELL of shape {cols_b.shape} / {vals_b.shape} for "
+                         f"{n_model} model shards")
+    vecs_t = torch.as_tensor(vecs, dtype=torch.float32)
+    if vecs_t.shape[0] % n_model:
+        raise ValueError(f"vocab {vecs_t.shape[0]} not divisible by model "
+                         f"shards {n_model}")
+    vs = vecs_t.shape[0] // n_model
+    stripes: dict = {}
+    vecs_d = np.empty(grid.shape, object)
+    for d in range(n_doc):
+        for s in range(n_model):
+            key = (s, grid[d, s])
+            if key not in stripes:
+                stripes[key] = vecs_t[s * vs:(s + 1) * vs].to(
+                    grid[d, s]).contiguous()
+            vecs_d[d, s] = stripes[key]
+    kw = dict(doc_axes=doc_axes, model_axis=model_axis)
+    cols_d = shard_docs(mesh, [torch.from_numpy(np.ascontiguousarray(c))
+                               for c in cols_b], **kw)
+    vals_d = shard_docs(mesh, [torch.from_numpy(np.ascontiguousarray(v))
+                               for v in vals_b], **kw)
+    return vecs_d, cols_d, vals_d
+
+
+def _model_sum(parts: Sequence[torch.Tensor], dev: torch.device
+               ) -> torch.Tensor:
+    """The model-axis sum: each model shard's partial copied to ``dev``
+    (the first model shard's), summed as a left fold in shard order."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(dev)
+    return acc
+
+
+def _vote(deltas: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The all-shards convergence vote: the max of the per-doc-shard (Q,)
+    deltas, on the first one's device (max is exact in any order)."""
+    acc = deltas[0]
+    for x in deltas[1:]:
+        acc = torch.maximum(acc, x.to(acc.device))
+    return acc
+
+
+def _gather_docs(pieces: Sequence[torch.Tensor], dev: torch.device
+                 ) -> torch.Tensor:
+    """Doc-sharded outputs (last axis = docs) back on ``dev``, in doc
+    order."""
+    if len(pieces) == 1:
+        return pieces[0]
+    return torch.cat([p.to(dev) for p in pieces], dim=-1)
+
+
+def _per_device(grid: np.ndarray, fn) -> dict:
+    """``fn(s, device)`` once for each (model shard, device) pair of the
+    grid: doc shards on one device share the result."""
+    out: dict = {}
+    for d in range(grid.shape[0]):
+        for s in range(grid.shape[1]):
+            key = (s, grid[d, s])
+            if key not in out:
+                with on_device(grid[d, s]):
+                    out[key] = fn(*key)
+    return out
+
+
+def _plan(grid, d, st, ones, cols_d, vals_d, lo=0, hi=None) -> list:
+    """What doc shard ``d``'s contractions read, one entry a model shard:
+    (device, k_pad, km_pad, ones_r, type1, type2, cols, vals), the ELL
+    rows ``lo:hi``. Made once a solve, not once an iteration."""
+    out = []
+    for s in range(grid.shape[1]):
+        dev = grid[d, s]
+        k_pad, km_pad, type1, type2 = st[(s, dev)]
+        out.append((dev, k_pad, km_pad, ones[dev], type1, type2,
+                    cols_d[d, s][lo:hi], vals_d[d, s][lo:hi]))
+    return out
+
+
+def _contract(plan, home: torch.device, u: torch.Tensor, call
+              ) -> torch.Tensor:
+    """One doc shard's contraction: ``call(entry, u)`` for each model
+    shard's ``plan`` entry, on the shard's device with ``u`` copied there,
+    then the model-axis sum on ``home`` (the doc shard's first device, the
+    current one)."""
+    parts = []
+    for entry in plan:
+        dev = entry[0]
+        if dev == home:
+            parts.append(call(entry, u))
+        else:
+            with on_device(dev):
+                parts.append(call(entry, u.to(dev)))
+    return _model_sum(parts, home)
+
+
+# -- the per-query program ----------------------------------------------------
+
+def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
+           lamb: float, max_iter: int, use_kernel: bool, kexp_impl: str,
+           check: bool) -> torch.Tensor:
+    """The per-query program, the shards in lockstep: a query stripe per
+    (model shard, device), ``max_iter`` type1 contractions and the type2
+    distance, each followed by one model-axis sum. As in the reference,
+    type1 runs with r = 1 and the 1/r row scale follows the sum; acc / 1 is
+    exact, so on one shard this is bitwise the same as dividing inside.
+    Returns (N,) on ``grid[0, 0]``."""
+    impl = "kernel" if use_kernel else "fused"
+    n_doc = grid.shape[0]
+    homes = list(grid[:, 0])
+
+    def stripe(s, dev):
+        k, km = masked_k(vecs_sel.to(dev), vecs_d[_first_on(grid, s, dev),
+                                                  s],
+                         lamb, row_mask.to(dev), kexp_impl)
+        k_pad, km_pad = pad_k(k), pad_k(km)
+        return (k_pad, km_pad, *ss.query_contractions(impl, k_pad, km_pad))
+
+    st = _per_device(grid, stripe)
+    ones = {dev: torch.ones_like(r_sel, device=dev)
+            for dev in set(grid.flat)}
+    r_col = {dev: r_sel.to(dev)[:, None] for dev in set(homes)}
     v_r = r_sel.shape[0]
-    ones_r = torch.ones_like(r_sel)
-    type1, type2 = ss.query_contractions(
-        "kernel" if use_kernel else "fused", k_pad, km_pad)
-    x = torch.full((v_r, cols_loc.shape[0]), 1.0 / v_r, dtype=k.dtype,
-                   device=k.device)
+    xs = []
+    for d, home in enumerate(homes):
+        with on_device(home):
+            xs.append(torch.full((v_r, cols_d[d, 0].shape[0]), 1.0 / v_r,
+                                 dtype=torch.float32, device=home))
+    plans = [_plan(grid, d, st, ones, cols_d, vals_d) for d in range(n_doc)]
+    if check:
+        check_placement(grid, cols_d, "ELL cols")
+        check_placement(grid, vals_d, "ELL vals")
+        check_placement(grid, {k: v[:2] for k, v in st.items()},
+                        "query stripes")
+        check_placement(grid[:, :1], _one_column(xs), "iterates")
+
+    def type1(entry, u):
+        _, k_pad, _, ones_r, t1, _, cols, vals = entry
+        return t1(k_pad, ones_r, u, cols, vals)
+
+    def type2(entry, u):
+        _, k_pad, km_pad, _, _, t2, cols, vals = entry
+        return t2(k_pad, km_pad, u, cols, vals)
+
     for _ in range(max_iter):
-        x = type1(k_pad, ones_r, safe_recip(x), cols_loc, vals_loc) \
-            / r_sel[:, None]
-    return type2(k_pad, km_pad, safe_recip(x), cols_loc, vals_loc)
+        for d, home in enumerate(homes):
+            with on_device(home):
+                xs[d] = _contract(plans[d], home, safe_recip(xs[d]),
+                                  type1) / r_col[home]
+    out = []
+    for d, home in enumerate(homes):
+        with on_device(home):
+            out.append(_contract(plans[d], home, safe_recip(xs[d]), type2))
+    return _gather_docs(out, grid[0, 0])
 
 
-def build_wmd_fn(*, lamb: float, max_iter: int, use_kernel: bool = False,
+def _first_on(grid, s, dev) -> int:
+    """The first doc shard whose model shard ``s`` lies on ``dev``."""
+    return next(d for d in range(grid.shape[0]) if grid[d, s] == dev)
+
+
+def _one_column(tensors) -> np.ndarray:
+    """A (n, 1) object array of tensors (one doc shard a row)."""
+    out = np.empty((len(tensors), 1), object)
+    for i, t in enumerate(tensors):
+        out[i, 0] = t
+    return out
+
+
+def build_wmd_fn(mesh=None, *, lamb: float, max_iter: int,
+                 doc_axes: Sequence[str] = ("data",),
+                 model_axis: str = "model", use_kernel: bool = False,
                  kexp_impl: str = "kernel"):
-    """The per-query WMD solver.
+    """The per-query WMD solver, on ``mesh`` or (``mesh=None``) on the
+    device its inputs lie on.
 
     The returned fn takes (vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
       vecs_sel (v_r, w) query word embeddings (`pad_query` rows),
-      r_sel (v_r,) (pad rows = 1.0), row_mask (v_r,) (pad rows = 0.0),
-      vecs (V, w), cols_b / vals_b (1, N, nnz) -- the rebucketed ELL, S = 1
-    and returns wmd (N,). ``use_kernel`` keeps the reference's name: the
-    type1 / type2 contractions through `kernels.ops` (the CUDA kernels for
-    CUDA tensors), else the fused plain spelling. ``kexp_impl`` chooses the
-    stripe precompute (`masked_k`).
+      r_sel (v_r,) (pad rows = 1.0), row_mask (v_r,) (pad rows = 0.0);
+      without a mesh: vecs (V, w), cols_b / vals_b (1, N, nnz) -- the
+      rebucketed ELL, S = 1; on a mesh: vecs, cols_b, vals_b as
+      `shard_wmd_inputs` places them
+    and returns wmd (N,) (on the mesh's first device). ``use_kernel``
+    keeps the reference's name: the type1 / type2 contractions through
+    `kernels.ops` (the CUDA kernels for CUDA tensors), else the fused plain
+    spelling. ``kexp_impl`` chooses the stripe precompute (`masked_k`).
+    Without a mesh the inputs run as the (1, 1) mesh's: one program body.
     """
+    grid_for = _grids(mesh, doc_axes, model_axis)
+    checked = []
+
     def fn(vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
-        return _local_solve(vecs_sel, r_sel, row_mask, vecs, cols_b[0],
-                            vals_b[0], lamb=lamb, max_iter=max_iter,
-                            use_kernel=use_kernel, kexp_impl=kexp_impl)
+        if mesh is None:
+            vecs, cols_b, vals_b = _one(vecs), _one(cols_b[0]), \
+                _one(vals_b[0])
+        out = _solve(grid_for(vecs_sel.device), vecs_sel, r_sel, row_mask,
+                     vecs, cols_b, vals_b, lamb=lamb, max_iter=max_iter,
+                     use_kernel=use_kernel, kexp_impl=kexp_impl,
+                     check=not checked)
+        checked.append(True)
+        return out
 
     return fn
 
 
-def _check_placement(chunk_placement: str) -> None:
+# -- the batched programs -----------------------------------------------------
+
+def _check_chunk_placement(chunk_placement: str) -> None:
     if chunk_placement not in ("solve", "iteration"):
         raise ValueError(f"chunk_placement must be 'solve' or 'iteration', "
                          f"got {chunk_placement!r}")
 
 
-def _local_batched_solve(k_pad, km_pad, r_sel, cols_loc, vals_loc, *,
-                         max_iter: int, impl: str, docs_chunk: int | None,
-                         chunk_placement: str, tol: float, vm=None):
-    """Batched Sinkhorn solve on (Q, v_r, V+1) stripes. Returns (wmd,
-    n_iter, delta). ``vm``: the kernel route's vocab-major copies of k_pad
-    and km_pad when the caller made them (`vocab_major_stripes`); else they
-    are made here, once for every chunk and iteration.
+def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
+                   docs_chunk: int | None, chunk_placement: str, tol: float,
+                   check: bool):
+    """The batched Sinkhorn solve, the shards in lockstep. ``st``:
+    {(model shard, device): (k_pad, km_pad, type1, type2)}, the stripes and
+    contractions each (model shard, device) pair runs. One model-axis sum
+    of the type1 partials an iteration and one of the distances; with
+    ``tol`` one vote an iteration. As in the reference, type1 runs with
+    r = 1 and the 1/r row scale follows the sum.
 
     ``chunk_placement="solve"`` runs the chunk loop outside the Sinkhorn
-    loop (each (query, chunk) block freezes at its own convergence; n_iter
-    and delta are per-query maxima over chunks); ``"iteration"`` chunks each
-    contraction inside the iteration-major loop. As in the reference, the
-    type1 contraction runs with r = 1 and the 1/r row scale follows it
-    (where the reference's psum sits).
-    """
+    loop: the doc shards solve their c-th chunks together (the reference's
+    unrolled chunk loop under shard_map), each group of chunks with its own
+    vote, and n_iter / delta are per-query maxima over the groups. On one
+    doc shard each chunk freezes at its own convergence; on several, a
+    chunk that has converged iterates on until its group has, so with
+    ``tol > 0`` its bits differ from the one-doc-shard run's (n_iter, the
+    maximum, does not). ``"iteration"`` chunks each contraction inside the
+    iteration-major loop (one vote over every doc). Returns
+    (wmd (Q, N), n_iter, delta) on ``grid[0, 0]``."""
     q, v_r = r_sel.shape
-    ones_r = torch.ones_like(r_sel)
-    type1, type2 = ss.batched_contractions(impl, k_pad, km_pad, vm)
+    n_doc = grid.shape[0]
+    first = grid[0, 0]
+    homes = list(grid[:, 0])
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
+    r_col = {dev: r_sel.to(dev)[:, :, None] for dev in set(homes)}
+    ones = {dev: torch.ones_like(r_sel, device=dev)
+            for dev in set(grid.flat)}
+    n_d = [cols_d[d, 0].shape[0] for d in range(n_doc)]
+    if check:
+        check_placement(grid, cols_d, "ELL cols")
+        check_placement(grid, vals_d, "ELL vals")
+        check_placement(grid, {k: v[:2] for k, v in st.items()},
+                        "K / K.*M stripes")
 
-    def solve_chunk(x0_c, cols_c, vals_c):
-        def iteration(x):
-            x_part = type1(k_pad, ones_r, safe_recip(x), cols_c, vals_c,
-                           docs_chunk=iter_chunk)
-            return x_part / r_sel[:, :, None]
+    def type1(entry, u):
+        _, k_pad, _, ones_r, t1, _, cols, vals = entry
+        return t1(k_pad, ones_r, u, cols, vals, docs_chunk=iter_chunk)
+
+    def type2(entry, u):
+        _, k_pad, km_pad, _, _, t2, cols, vals = entry
+        return t2(k_pad, km_pad, u, cols, vals, docs_chunk=iter_chunk)
+
+    def solve(spans):
+        """One lockstep solve of the doc ranges ``spans`` [(d, lo, hi)]."""
+        x0 = []
+        for d, lo, hi in spans:
+            with on_device(homes[d]):
+                x0.append(torch.full((q, v_r, hi - lo), 1.0 / v_r,
+                                     dtype=torch.float32, device=homes[d]))
+        if check:
+            check_placement(grid[[d for d, _, _ in spans], :1],
+                            _one_column(x0), "iterates")
+        plans = [(homes[d], _plan(grid, d, st, ones, cols_d, vals_d, lo, hi))
+                 for d, lo, hi in spans]
+
+        def iteration(xs):
+            out = []
+            for (home, plan), x in zip(plans, xs):
+                with on_device(home):
+                    out.append(_contract(plan, home, safe_recip(x), type1)
+                               / r_col[home])
+            return out
 
         if tol:
-            x, delta, n_iter = ss.batched_sinkhorn_loop(
-                iteration, x0_c, max_iter=max_iter, tol=tol)
+            xs, delta, n_iter = ss.batched_sinkhorn_loop(
+                iteration, x0, max_iter=max_iter, tol=tol,
+                delta_all_reduce=_vote)
         else:
-            x = x0_c
+            xs = x0
             for _ in range(max_iter):
-                x = iteration(x)
-            delta = torch.zeros((q,), dtype=x0_c.dtype, device=x0_c.device)
+                xs = iteration(xs)
+            delta = torch.zeros((q,), dtype=torch.float32, device=first)
             n_iter = torch.full((q,), max_iter, dtype=torch.int32,
-                                device=x0_c.device)
-        wmd = type2(k_pad, km_pad, safe_recip(x), cols_c, vals_c,
-                    docs_chunk=iter_chunk)
-        return wmd, n_iter, delta
+                                device=first)
+        wmd = []
+        for (home, plan), x in zip(plans, xs):
+            with on_device(home):
+                wmd.append(_contract(plan, home, safe_recip(x), type2))
+        return wmd, n_iter.to(first), delta.to(first)
 
-    n_loc = cols_loc.shape[0]
-    x0 = torch.full((q, v_r, n_loc), 1.0 / v_r, dtype=k_pad.dtype,
-                    device=k_pad.device)
-    if chunk_placement == "solve" and docs_chunk and docs_chunk < n_loc:
-        parts = [solve_chunk(x0[:, :, s:s + docs_chunk],
-                             cols_loc[s:s + docs_chunk],
-                             vals_loc[s:s + docs_chunk])
-                 for s in range(0, n_loc, docs_chunk)]
-        wmd = torch.cat([p[0] for p in parts], dim=-1)
-        n_iter = torch.amax(torch.stack([p[1] for p in parts]), dim=0)
-        delta = torch.amax(torch.stack([p[2] for p in parts]), dim=0)
-        return wmd, n_iter, delta
-    return solve_chunk(x0, cols_loc, vals_loc)
+    if chunk_placement == "solve" and docs_chunk and docs_chunk < max(n_d):
+        pieces = [[] for _ in range(n_doc)]
+        iters, deltas = [], []
+        for lo in range(0, max(n_d), docs_chunk):
+            spans = [(d, lo, min(lo + docs_chunk, n_d[d]))
+                     for d in range(n_doc) if lo < n_d[d]]
+            wmd, n_iter, delta = solve(spans)
+            for (d, _, _), w in zip(spans, wmd):
+                pieces[d].append(w)
+            iters.append(n_iter)
+            deltas.append(delta)
+        wmd = [_gather_docs(p, homes[d]) for d, p in enumerate(pieces)]
+        return (_gather_docs(wmd, first),
+                torch.amax(torch.stack(iters), dim=0),
+                torch.amax(torch.stack(deltas), dim=0))
+    wmd, n_iter, delta = solve([(d, 0, n_d[d]) for d in range(n_doc)])
+    return _gather_docs(wmd, first), n_iter, delta
 
 
-def build_wmd_batch_fn(*, lamb: float, max_iter: int, impl: str = "kernel",
+def _contractions(grid, impl, stripes, vm=None) -> dict:
+    """{(model shard, device): (k_pad, km_pad, type1, type2)}: each pair's
+    stripes (``stripes(s, device)``) and the batched contractions that
+    read them; the kernel route's vocab-major copies come from ``vm`` (the
+    `vocab_major_stripes` of the stripes) or are made here, once a pair."""
+    def one(s, dev):
+        k_pad, km_pad = stripes(s, dev)
+        return (k_pad, km_pad, *ss.batched_contractions(
+            impl, k_pad, km_pad, None if vm is None else vm[(s, dev)]))
+    return _per_device(grid, one)
+
+
+def build_wmd_batch_fn(mesh=None, *, lamb: float, max_iter: int,
+                       doc_axes: Sequence[str] = ("data",),
+                       model_axis: str = "model", impl: str = "kernel",
                        docs_chunk: int | None = None,
                        chunk_placement: str = "solve", tol: float = 0.0,
                        with_info: bool = False):
-    """The batched WMD solver with the precompute inside the program.
+    """The batched WMD solver with the precompute inside the program, on
+    ``mesh`` or (``mesh=None``) on the device its inputs lie on.
 
     The returned fn takes (vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
       vecs_sel (Q, v_r, w), r_sel (Q, v_r) (pad rows = 1.0),
-      row_mask (Q, v_r) (pad rows = 0.0), vecs (V, w),
-      cols_b / vals_b (1, N, nnz) -- the rebucketed ELL, S = 1
+      row_mask (Q, v_r) (pad rows = 0.0); without a mesh: vecs (V, w),
+      cols_b / vals_b (1, N, nnz) -- the rebucketed ELL, S = 1; on a mesh:
+      vecs, cols_b, vals_b as `shard_wmd_inputs` places them
     and returns wmd (Q, N), or (wmd, n_iter (Q,), delta (Q,)) with
-    ``with_info=True``.
+    ``with_info=True`` (on the mesh's first device). ``tol > 0`` votes over
+    every shard each iteration (see `_batched_solve` for the chunks).
     """
-    _check_placement(chunk_placement)
+    _check_chunk_placement(chunk_placement)
+    grid_for = _grids(mesh, doc_axes, model_axis)
+    checked = []
 
     def fn(vecs_sel, r_sel, row_mask, vecs, cols_b, vals_b):
-        k, km = masked_k_batch(vecs_sel, vecs, lamb, row_mask)
-        out = _local_batched_solve(
-            pad_k(k), pad_k(km), r_sel, cols_b[0], vals_b[0],
-            max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
-            chunk_placement=chunk_placement, tol=tol)
+        if mesh is None:
+            vecs, cols_b, vals_b = _one(vecs), _one(cols_b[0]), \
+                _one(vals_b[0])
+        grid = grid_for(vecs_sel.device)
+
+        def stripes(s, dev):
+            k, km = masked_k_batch(vecs_sel.to(dev),
+                                   vecs[_first_on(grid, s, dev), s], lamb,
+                                   row_mask.to(dev))
+            return pad_k(k), pad_k(km)
+
+        out = _batched_solve(
+            grid, _contractions(grid, impl, stripes), r_sel, cols_b, vals_b,
+            max_iter=max_iter, docs_chunk=docs_chunk,
+            chunk_placement=chunk_placement, tol=tol, check=not checked)
+        checked.append(True)
         return out if with_info else out[0]
 
     return fn
 
 
-def build_wmd_batch_fn_stripes(*, max_iter: int, impl: str = "kernel",
+def build_wmd_batch_fn_stripes(mesh=None, *, max_iter: int,
+                               doc_axes: Sequence[str] = ("data",),
+                               model_axis: str = "model",
+                               impl: str = "kernel",
                                docs_chunk: int | None = None,
                                chunk_placement: str = "solve",
                                tol: float = 0.0, with_info: bool = False):
-    """The batched WMD solver on preassembled stripes (`core.kcache`).
+    """The batched WMD solver on preassembled stripes (`core.kcache`), on
+    ``mesh`` or (``mesh=None``) on the device its inputs lie on.
 
     The returned fn takes (k_b, km_b, r_sel, cols_b, vals_b, vm=None):
-      k_b, km_b (1, Q, v_r, V+1) stripes (zero pad column, pad rows zeroed),
-      r_sel (Q, v_r), cols_b / vals_b (1, N, nnz), vm the
-      `vocab_major_stripes` of k_b, km_b (a caller that runs several
-      programs on one stripe set makes them once; None: the program does)
+      k_b, km_b the S model shards' (Q, v_r, Vloc+1) stripes (zero pad
+      column, pad rows zeroed; `KCache.stripes_for_batch`), indexed by
+      shard -- a list, or a (S, Q, v_r, Vloc+1) tensor; without a mesh
+      cols_b / vals_b (1, N, nnz), on a mesh as `shard_wmd_inputs` places
+      them; r_sel (Q, v_r); vm the `vocab_major_stripes` of k_b, km_b (a
+      caller that runs several programs on one stripe set makes them once;
+      None: the program does)
     and returns wmd (Q, N) (plus (n_iter, delta) with ``with_info=True``).
     No ``lamb``: it is baked into the cached rows.
     """
-    _check_placement(chunk_placement)
+    _check_chunk_placement(chunk_placement)
+    grid_for = _grids(mesh, doc_axes, model_axis)
+    checked = []
 
     def fn(k_b, km_b, r_sel, cols_b, vals_b, vm=None):
-        out = _local_batched_solve(
-            k_b[0], km_b[0], r_sel, cols_b[0], vals_b[0],
-            max_iter=max_iter, impl=impl, docs_chunk=docs_chunk,
-            chunk_placement=chunk_placement, tol=tol, vm=vm)
+        if mesh is None:
+            cols_b, vals_b = _one(cols_b[0]), _one(vals_b[0])
+        grid = grid_for(k_b[0].device)
+        if vm is None:
+            vm = _vocab_major(grid, k_b, km_b, impl)
+        if not checked:
+            check_placement(grid, list(k_b), "K stripes")
+            check_placement(grid, list(km_b), "K.*M stripes")
+            if vm is not None:
+                check_placement(grid, vm, "vocab-major copies")
+        st = _contractions(
+            grid, impl, lambda s, dev: (k_b[s].to(dev), km_b[s].to(dev)), vm)
+        out = _batched_solve(
+            grid, st, r_sel, cols_b, vals_b, max_iter=max_iter,
+            docs_chunk=docs_chunk, chunk_placement=chunk_placement, tol=tol,
+            check=not checked)
+        checked.append(True)
         return out if with_info else out[0]
 
     return fn
 
 
-def vocab_major_stripes(k_b: torch.Tensor, km_b: torch.Tensor, impl: str):
-    """The vocab-major copies (k_vm, km_vm), each (Q, V+1, v_r), of the
-    (1, Q, v_r, V+1) K and K.*M stripes that the kernel route's type1 and
-    type2 read, or None for the plain impls (they read the stripes as they
-    are)."""
+def _vocab_major(grid, k_b, km_b, impl: str):
     if impl != "kernel":
         return None
-    return ss.vocab_major_pair(k_b[0], km_b[0])
+    return _per_device(grid, lambda s, dev: ss.vocab_major_pair(
+        k_b[s].to(dev), km_b[s].to(dev)))
+
+
+def vocab_major_stripes(k_b, km_b, impl: str, mesh=None, *,
+                        doc_axes: Sequence[str] = ("data",),
+                        model_axis: str = "model"):
+    """The vocab-major copies that the kernel route's type1 and type2 read,
+    or None for the plain impls (they read the stripes as they are):
+    {(model shard, device): (k_vm, km_vm)}, each (Q, Vloc+1, v_r), one pair
+    for each model shard on each device its doc shards use (doc shards on
+    one device share it), of the model shards' stripes ``k_b[s]``,
+    ``km_b[s]``. Without a mesh: the one pair, keyed (0, the stripes'
+    device)."""
+    return _vocab_major(_grids(mesh, doc_axes, model_axis)(k_b[0].device),
+                        k_b, km_b, impl)
+
+
+# -- the doc-sharded program --------------------------------------------------
+
+def build_wmd_fn_docsharded(mesh, *, lamb: float, max_iter: int,
+                            use_kernel: bool = False):
+    """Doc-sharded / K-replicated layout: every device keeps the whole
+    query stripe and docs shard over ALL mesh axes, so the Sinkhorn loop
+    has no collective at all (the vocab-sharded `build_wmd_fn` has one sum
+    an iteration). The stripe is computed once a device (``masked_k``, the
+    plain spelling, as the reference's).
+
+    The returned fn takes (vecs_sel, r_sel, row_mask, vecs, cols, vals):
+      vecs (V, w) (replicated: copied to each device of the mesh that
+      lacks it), cols / vals (N, nnz) the corpus ELL (split over every
+      position of the mesh, row major, contiguous docs)
+    and returns wmd (N,) on the mesh's first device.
+    """
+    devs = list(mesh.devices.flat)
+    impl = "kernel" if use_kernel else "fused"
+
+    def fn(vecs_sel, r_sel, row_mask, vecs, cols, vals):
+        def stripe(dev):
+            with on_device(dev):
+                k, km = masked_k(vecs_sel.to(dev), vecs.to(dev), lamb,
+                                 row_mask.to(dev), "jnp")
+                k_pad, km_pad = pad_k(k), pad_k(km)
+                return (k_pad, km_pad, r_sel.to(dev),
+                        *ss.query_contractions(impl, k_pad, km_pad))
+
+        st = {dev: stripe(dev) for dev in dict.fromkeys(devs)}
+        out = []
+        for dev, (lo, hi) in zip(devs, _doc_bounds(cols.shape[0],
+                                                   len(devs))):
+            k_pad, km_pad, r_d, type1, type2 = st[dev]
+            with on_device(dev):
+                cols_p, vals_p = cols[lo:hi].to(dev), vals[lo:hi].to(dev)
+                x = torch.full((r_d.shape[0], hi - lo), 1.0 / r_d.shape[0],
+                               dtype=torch.float32, device=dev)
+                for _ in range(max_iter):
+                    x = type1(k_pad, r_d, safe_recip(x), cols_p, vals_p)
+                out.append(type2(k_pad, km_pad, safe_recip(x), cols_p,
+                                 vals_p))
+        return _gather_docs(out, devs[0])
+
+    return fn

@@ -1,7 +1,7 @@
 """Cross-query precompute cache: word-id-keyed K / K.*M row store.
 
 Port of `repro.core.kcache` (`KCacheStats`, `_RowCacheBase`, `KCache` and
-the bound tiers' M-row store `MCache`) on one device.
+the bound tiers' M-row store `MCache`), on one device or on a mesh.
 
 Each row of the (Q, v_r, V) precompute stripes is keyed purely by
 ``(word_id, lambda)``; nothing query-specific enters until the per-query
@@ -9,15 +9,19 @@ Each row of the (Q, v_r, V) precompute stripes is keyed purely by
 batches, so the store keeps them resident and the per-batch precompute cost
 drops from O(Q * v_r * V * w) to O(misses * V * w).
 
-Layout. Rows live in two device buffers of shape
+Layout. Rows live in two device buffers a vocab shard,
 
-    (S, capacity + 1, V + 1)      S = 1 vocab shard on one GPU
+    (capacity + 1, Vloc + 1)      S = model-axis shards, Vloc = V // S
 
-with the reference's two pad tricks, so assembly is a pure slot-gather
-``k_buf[:, slots]``:
+(S = 1 without a mesh; with ``mesh=`` shard ``s`` lives on the device of
+the mesh position (0, .., model = s, .., 0), the first doc shard's), so
+each vocab shard owns the same slice of every cached row that it owns of
+the rebucketed ELL (`core.formats.rebucket_for_vocab_shards`). The
+reference's two pad tricks keep assembly a pure slot-gather
+``k_buf[slots]``:
 
-  * the trailing column of every row is the zero pad column that ELL pad
-    slots gather (no `pad_k` on the hot path);
+  * the trailing column of every shard's rows is the shard-local zero pad
+    column that ELL pad slots gather (no `pad_k` on the hot path);
   * row index ``capacity`` is a reserved all-zero row that pad *query* rows
     (row_mask == 0) point at, so masking is a host-side ``np.where`` on the
     (Q, v_r) slot map.
@@ -32,6 +36,14 @@ reference's name). Both compute a row from its own embedding and the
 vocabulary alone, in a fixed order, so a row's bits do not depend on its
 chunk-mates: cached rows are bitwise equal to recomputed rows and solver
 output is bitwise identical with the cache on or off.
+
+At S > 1 the "kernel" rows run #6 once per model shard per chunk, against
+that shard's vocab stripe, on the shard's device; each output column of
+#6 is one thread's fma chain whatever its tile, so a shard's rows are the
+S = 1 rows split at the stripe boundaries, bit for bit. The "jnp" rows
+are computed whole on the first device and split, as the reference does.
+The reference refuses ``kexp_impl="kernel"`` at S > 1 (Pallas does not run
+under its vocab sharding); the port has no such limit.
 
 Batches whose unique-id count exceeds ``capacity`` (and every call when
 ``capacity == 0`` or ``use_cache=False``) take the *transient* path: the
@@ -50,6 +62,8 @@ import torch
 
 from repro_torch.core.rwmd import _m_row_block, assemble_m_stripes
 from repro_torch.core.sinkhorn import precompute_rows
+from repro_torch.launch.mesh import (check_placement, on_device,
+                                     one_device_mesh, shard_grid)
 
 
 @dataclasses.dataclass
@@ -136,21 +150,32 @@ class _RowCacheBase:
         return slots
 
 
-def _row_stripes(ids: torch.Tensor, vecs: torch.Tensor, b2: torch.Tensor, *,
-                 lamb: float, kexp_impl: str
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(m,) word ids -> (K, K.*M) rows in cache layout (1, m, V+1): the
-    appended zero column is the ELL pad column."""
+def _row_stripes(ids: torch.Tensor, vecs: torch.Tensor, b2: torch.Tensor,
+                 stripes: list, devices: list, *, lamb: float,
+                 kexp_impl: str) -> tuple[list, list]:
+    """(m,) word ids -> the shards' (K, K.*M) rows in cache layout, each
+    (m, Vloc+1) on its shard's device: the appended zero column is the
+    shard-local ELL pad column. "kernel": #6 once a shard against its
+    stripe; "jnp": whole rows on the first device, split."""
     if kexp_impl == "kernel":
         from repro_torch.kernels import ops
-        k, km = ops.cdist_kexp_rows(vecs[ids], vecs, lamb=lamb)
+        a = vecs[ids]
+        rows = []
+        for stripe, dev in zip(stripes, devices):
+            with on_device(dev):
+                rows.append(ops.cdist_kexp_rows(a.to(dev), stripe,
+                                                lamb=lamb))
     else:
         k, km = precompute_rows(ids, vecs, lamb, b2=b2)
+        vloc = k.shape[1] // len(devices)
+        rows = [(k[:, s * vloc:(s + 1) * vloc].to(dev),
+                 km[:, s * vloc:(s + 1) * vloc].to(dev))
+                for s, dev in enumerate(devices)]
 
     def layout(x):
-        return torch.nn.functional.pad(x, (0, 1))[None]
+        return torch.nn.functional.pad(x, (0, 1))
 
-    return layout(k), layout(km)
+    return [layout(k) for k, _ in rows], [layout(km) for _, km in rows]
 
 
 class KCache(_RowCacheBase):
@@ -160,10 +185,15 @@ class KCache(_RowCacheBase):
       capacity:    resident row slots; 0 disables the store (every call takes
                    the transient path -- the exact cache-off baseline).
       vecs:        (V, w) float32 embeddings, numpy or a tensor; moved to
-                   ``device``.
+                   the (first) device.
       lamb:        entropy regularization the rows are keyed under.
-      device:      where the buffers and the row compute live ("cuda" by
-                   default; pass "cpu" for the plain versions).
+      mesh:        a `launch.mesh.Mesh`: the rows split into
+                   S = ``mesh.shape[model_axis]`` vocab stripes, each on its
+                   model shard's device (see the module docstring). None:
+                   the (1, 1) mesh of ``device``, one shard.
+      device:      where the buffers and the row compute live without a
+                   mesh ("cuda" by default; pass "cpu" for the plain
+                   versions).
       rows_bucket: fixed chunk size of the miss compute (the
                    bit-reproducibility guarantee above).
       kexp_impl:   "kernel" (`kernels.ops.cdist_kexp_rows`, the default) or
@@ -171,11 +201,13 @@ class KCache(_RowCacheBase):
       metrics:     optional `repro_torch.obs.MetricsRegistry`; when set,
                    every KCacheStats counter is mirrored into ``wmd_kcache_*``
                    registry metrics at the same mutation sites.
+
+    `stripes_for_batch` returns the list of the S shards' (Q, v_r,
+    Vloc+1) stripes (one without a mesh).
     """
 
-    num_shards = 1
-
-    def __init__(self, capacity: int, vecs, lamb: float, *,
+    def __init__(self, capacity: int, vecs, lamb: float, *, mesh=None,
+                 model_axis: str = "model",
                  device: str | torch.device = "cuda",
                  rows_bucket: int = 128, kexp_impl: str = "kernel",
                  metrics=None):
@@ -186,11 +218,25 @@ class KCache(_RowCacheBase):
         self.lamb = float(lamb)
         self.rows_bucket = int(rows_bucket)
         self.kexp_impl = kexp_impl
-        self.device = torch.device(device)
+        if mesh is None:
+            mesh = one_device_mesh(device)
+        self._grid = shard_grid(mesh, (), model_axis)
+        self._devices = list(self._grid[0])
+        self.device = self._devices[0]
+        self.num_shards = len(self._devices)
         self._vecs = torch.as_tensor(vecs, dtype=torch.float32,
                                      device=self.device).contiguous()
-        self.vocab = self.vloc = self._vecs.shape[0]
+        self.vocab = self._vecs.shape[0]
+        if self.vocab % self.num_shards:
+            raise ValueError(f"vocab {self.vocab} not divisible by model "
+                             f"shards {self.num_shards}")
+        self.vloc = self.vocab // self.num_shards
         self._b2 = torch.sum(self._vecs * self._vecs, dim=-1)
+        # each shard's vocab stripe, on its device (the whole vocabulary
+        # itself at S = 1)
+        self._stripes = [
+            self._vecs[s * self.vloc:(s + 1) * self.vloc].to(dev).contiguous()
+            for s, dev in enumerate(self._devices)]
         self._alloc_buffers()
         self.stats = KCacheStats()
         self._m = None
@@ -218,14 +264,18 @@ class KCache(_RowCacheBase):
                     "rows currently resident"),
             }
         self._reset_map()
+        for what, ts in (("K-cache stripes", self._stripes),
+                         ("K buffers", self._k_bufs),
+                         ("K.*M buffers", self._km_bufs)):
+            check_placement(self._grid, ts, what)
 
     def _alloc_buffers(self):
-        """All-zero row buffers (+1 row: the reserved zero row pad query
-        rows gather)."""
-        shape = (self.num_shards, self.capacity + 1, self.vloc + 1)
-        self._k_buf = torch.zeros(shape, dtype=torch.float32,
-                                  device=self.device)
-        self._km_buf = torch.zeros_like(self._k_buf)
+        """All-zero row buffers, one pair a shard on its device (+1 row:
+        the reserved zero row pad query rows gather)."""
+        self._k_bufs = [torch.zeros((self.capacity + 1, self.vloc + 1),
+                                    dtype=torch.float32, device=dev)
+                        for dev in self._devices]
+        self._km_bufs = [torch.zeros_like(b) for b in self._k_bufs]
 
     def invalidate(self, lamb: float | None = None):
         """Drop every cached row (all ids become misses). Pass ``lamb`` to
@@ -240,8 +290,9 @@ class KCache(_RowCacheBase):
             self.invalidate(lamb)
 
     def _compute_chunks(self, ids: np.ndarray):
-        """Yield (chunk_len, k_rows, km_rows) over fixed rows_bucket chunks
-        (pad ids point at word 0; their rows are discarded by the caller)."""
+        """Yield (chunk_len, k_rows, km_rows) over fixed rows_bucket chunks,
+        the rows a list of the shards' (rows_bucket, Vloc+1) (pad ids point
+        at word 0; their rows are discarded by the caller)."""
         rb = self.rows_bucket
         for lo in range(0, len(ids), rb):
             chunk = ids[lo:lo + rb]
@@ -249,7 +300,8 @@ class KCache(_RowCacheBase):
             ids_p[:len(chunk)] = chunk
             k_r, km_r = _row_stripes(
                 torch.from_numpy(ids_p).to(self.device), self._vecs,
-                self._b2, lamb=self.lamb, kexp_impl=self.kexp_impl)
+                self._b2, self._stripes, self._devices, lamb=self.lamb,
+                kexp_impl=self.kexp_impl)
             yield len(chunk), k_r, km_r
 
     def stripes_for_batch(self, sel_b: np.ndarray, row_mask: np.ndarray, *,
@@ -263,10 +315,11 @@ class KCache(_RowCacheBase):
           use_cache: False forces the transient path (the cache-off
                      baseline) without reading or mutating the store.
 
-        Returns (k_stripes, km_stripes, info): (1, Q, v_r, V+1) device
-        stripe pairs for `core.distributed.build_wmd_batch_fn_stripes`
-        (slice ``[0]`` for `sinkhorn_wmd_sparse_batch_stripes`), and a
-        per-call info dict (unique / hits / misses / hit_rate / cached).
+        Returns (k_stripes, km_stripes, info): the stripe pairs for
+        `core.distributed.build_wmd_batch_fn_stripes`, the list of the S
+        shards' (Q, v_r, Vloc+1) device tensors (one shard without a mesh:
+        ``[0]`` is the stripe of `sinkhorn_wmd_sparse_batch_stripes`), and
+        a per-call info dict (unique / hits / misses / hit_rate / cached).
         """
         sel_b = np.asarray(sel_b)
         ids = np.unique(sel_b)                       # sorted: stable dedup
@@ -290,10 +343,11 @@ class KCache(_RowCacheBase):
                         self._compute_chunks(miss_ids)):
                     # the chunk's pad rows are dropped here (the reference
                     # aims them out of bounds of its scatter instead)
-                    slots_t = torch.as_tensor(new_slots[lo:lo + n_c],
-                                              device=self.device)
-                    self._k_buf[:, slots_t] = k_r[:, :n_c]
-                    self._km_buf[:, slots_t] = km_r[:, :n_c]
+                    for s, dev in enumerate(self._devices):
+                        slots_t = torch.as_tensor(new_slots[lo:lo + n_c],
+                                                  device=dev)
+                        self._k_bufs[s][slots_t] = k_r[s][:n_c]
+                        self._km_bufs[s][slots_t] = km_r[s][:n_c]
             except BaseException:
                 # a failed row compute must not poison the map: the new ids
                 # were never (fully) written, so their slots go back to the
@@ -317,15 +371,21 @@ class KCache(_RowCacheBase):
         slots_b = slot_arr[np.searchsorted(ids, sel_b)]
         # pad query rows gather the reserved zero row (index capacity)
         slots_b = np.where(np.asarray(row_mask) > 0, slots_b, self.capacity)
-        k_s, km_s = self._gather(self._k_buf, self._km_buf, slots_b)
+        k_s, km_s = self._gather(self._k_bufs, self._km_bufs, slots_b)
         return k_s, km_s, {"unique": len(ids), "hits": n_hit,
                            "misses": n_miss,
                            "hit_rate": n_hit / len(ids), "cached": True}
 
-    def _gather(self, k_buf, km_buf, slots_b: np.ndarray):
-        """Slot-gather (Q, v_r) slots -> (1, Q, v_r, V+1) K and K.*M."""
-        idx = torch.from_numpy(slots_b.astype(np.int64)).to(self.device)
-        return k_buf[:, idx], km_buf[:, idx]
+    def _gather(self, k_bufs, km_bufs, slots_b: np.ndarray):
+        """Slot-gather (Q, v_r) slots from each shard's row table -> the
+        stripes in `stripes_for_batch`'s layout."""
+        idx = torch.from_numpy(slots_b.astype(np.int64))
+        k_s, km_s = [], []
+        for k_buf, km_buf, dev in zip(k_bufs, km_bufs, self._devices):
+            idx_d = idx.to(dev)
+            k_s.append(k_buf[idx_d])
+            km_s.append(km_buf[idx_d])
+        return k_s, km_s
 
     def _transient(self, ids, sel_b, row_mask, use_cache):
         """Compute every unique row fresh into a throwaway store (cache off,
@@ -338,13 +398,15 @@ class KCache(_RowCacheBase):
             self._mirror("miss_rows", len(ids))
         self.stats.bypasses += 1
         self._mirror("bypasses")
-        parts = [(k_r[:, :n_c], km_r[:, :n_c])
+        parts = [(k_r, km_r, n_c)
                  for n_c, k_r, km_r in self._compute_chunks(ids)]
-        zero = torch.zeros((self.num_shards, 1, self.vloc + 1),
-                           dtype=torch.float32, device=self.device)
-        k_t = torch.cat([p[0] for p in parts] + [zero], dim=1)
-        km_t = torch.cat([p[1] for p in parts] + [zero], dim=1)
-        zero_row = k_t.shape[1] - 1
+        k_t, km_t = [], []
+        for s, dev in enumerate(self._devices):
+            zero = torch.zeros((1, self.vloc + 1), dtype=torch.float32,
+                               device=dev)
+            k_t.append(torch.cat([p[0][s][:p[2]] for p in parts] + [zero]))
+            km_t.append(torch.cat([p[1][s][:p[2]] for p in parts] + [zero]))
+        zero_row = k_t[0].shape[0] - 1
         pos_b = np.where(np.asarray(row_mask) > 0,
                          np.searchsorted(ids, sel_b), zero_row)
         k_s, km_s = self._gather(k_t, km_t, pos_b)

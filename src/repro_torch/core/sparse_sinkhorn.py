@@ -348,8 +348,8 @@ def sinkhorn_wmd_sparse_pre(pre: SinkhornPrecompute, cols: torch.Tensor,
     return type2(k_pad, km_pad, safe_recip(x), cols, vals)
 
 
-def batched_sinkhorn_loop(iteration, x0: torch.Tensor, *, max_iter: int,
-                          tol: float = 0.0):
+def batched_sinkhorn_loop(iteration, x0, *, max_iter: int,
+                          tol: float = 0.0, delta_all_reduce=None):
     """Early-exit Sinkhorn loop with per-query freeze masks.
 
     ``iteration`` maps x -> x_new for the whole (Q, v_r, N) batch. A query
@@ -358,26 +358,39 @@ def batched_sinkhorn_loop(iteration, x0: torch.Tensor, *, max_iter: int,
     at ``max_iter``. With ``tol = 0.0`` no query ever freezes, so the
     result equals the fixed-``max_iter`` loop exactly.
 
-    Returns (x, delta, n_iter): final iterate, per-query relative |dx|_inf,
-    and per-query executed iteration counts (Q,) int32.
+    ``delta_all_reduce`` (the mesh hook, the reference's argument): x0 is
+    then the list of the doc shards' iterates, each (Q, v_r, N_d) on its
+    device, ``iteration`` maps such a list to the next, and the hook maps
+    the shards' (Q,) local deltas to the global one (the mesh programs
+    pass their max: the all-shards vote), so every shard freezes the same
+    queries. The loop still syncs the host once an iteration, for all
+    shards. None (the default): x0 is one tensor, as before.
+
+    Returns (x, delta, n_iter): final iterate (a list on the mesh),
+    per-query relative |dx|_inf, and per-query executed iteration counts
+    (Q,) int32.
     """
-    q = x0.shape[0]
-    x = x0
-    delta = torch.full((q,), float("inf"), dtype=x0.dtype, device=x0.device)
-    n_iter = torch.zeros((q,), dtype=torch.int32, device=x0.device)
+    shards = delta_all_reduce is not None
+    xs = list(x0) if shards else [x0]
+    q = xs[0].shape[0]
+    delta = torch.full((q,), float("inf"), dtype=xs[0].dtype,
+                       device=xs[0].device)
+    n_iter = torch.zeros((q,), dtype=torch.int32, device=xs[0].device)
     for _ in range(max_iter):
         active = delta >= tol                              # (Q,)
         if not bool(active.any()):
             break
-        x_new = iteration(x)
+        new = iteration(xs) if shards else [iteration(xs[0])]
         # relative delta: x spans a huge dynamic range, so an absolute
         # norm would never cross tol for strongly regularized K
-        rel = torch.amax(torch.abs(x_new - x) / (torch.abs(x) + 1e-30),
-                         dim=(1, 2))
-        x = torch.where(active[:, None, None], x_new, x)
+        rels = [torch.amax(torch.abs(x_new - x) / (torch.abs(x) + 1e-30),
+                           dim=(1, 2)) for x_new, x in zip(new, xs)]
+        rel = delta_all_reduce(rels).to(delta.device) if shards else rels[0]
+        xs = [torch.where(active.to(x.device)[:, None, None], x_new, x)
+              for x_new, x in zip(new, xs)]
         delta = torch.where(active, rel, delta)
         n_iter = n_iter + active.to(n_iter.dtype)
-    return x, delta, n_iter
+    return (xs if shards else xs[0]), delta, n_iter
 
 
 def sinkhorn_wmd_sparse_batch(sel_idx: torch.Tensor, r_sel: torch.Tensor,

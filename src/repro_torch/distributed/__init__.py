@@ -1,8 +1,9 @@
-"""Distribution substrate: fault tolerance.
+"""Distribution substrate: elasticity and fault tolerance.
 
 Re-exports the reference's `repro.distributed` modules that the port has.
-Not ported yet: `elastic` and `partitioning` (ROADMAP Queue 1, item 3).
+Not ported yet: `partitioning` (the LM substrate's sharding rules, ROADMAP
+Queue 1, item 5).
 """
-from repro_torch.distributed import fault_tolerance
+from repro_torch.distributed import elastic, fault_tolerance
 
-__all__ = ["fault_tolerance"]
+__all__ = ["elastic", "fault_tolerance"]

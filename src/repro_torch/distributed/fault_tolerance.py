@@ -11,9 +11,8 @@ Protocol:
   1. every host POSTs a heartbeat (step, timestamp) each train step;
   2. a host silent for ``timeout_s`` is declared dead; the coordinator
      decides: respawn-in-place (transient) vs shrink (hardware loss);
-  3. on shrink, the reference's `elastic.remesh` picks the largest valid
-     (pod, data, model) factoring of the surviving device count (`elastic`
-     is not ported yet: ROADMAP Queue 1, item 3);
+  3. on shrink, `elastic.remesh` picks the largest valid (pod, data,
+     model) factoring of the surviving device count;
   4. stragglers (> factor x median step time) are respawn candidates after
     ``straggler_strikes`` consecutive slow steps.
 

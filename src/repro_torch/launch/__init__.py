@@ -1,1 +1,1 @@
-"""Command-line launchers."""
+"""Command-line launchers and the device meshes they serve on."""

@@ -10,6 +10,7 @@
          [--ingest-stream N [--live-dir DIR] [--compact-every OPS]]]
         [--offline QUERIES [--offline-out OUT] [--rerank union|per_query]]
         [--warmup] [--cache-dir DIR] [--device cuda|cpu]
+        [--devices N] [--mesh DxM | PxDxM]
 
 Builds the synthetic corpus of the configuration (``--smoke``: the tiny
 smoke config; default: ``paper_5k``), serves its queries through
@@ -44,8 +45,17 @@ batch occupancy, top-k reranks batched across the batch (union rerank).
 ``--warmup`` warms the one-shot and offline paths too; ``--cache-dir DIR``
 builds and looks up the CUDA kernels in DIR (`serving.warmup.
 enable_compilation_cache`), so a restarted server loads them without nvcc.
-Runs on the card unless ``--device cpu`` is given. The language-model
-architectures of the reference launcher are not ported yet.
+Runs on the card unless ``--device cpu`` is given. The service runs on a
+single-controller mesh (`launch.mesh`): ``--mesh DxM`` (data x model) or
+``PxDxM`` (pod x data x model), by default (n, 1). ``--devices N`` makes
+N logical devices, placed round-robin on the visible cards (all on
+``cuda:0`` on a one-card machine; on the CPU with ``--device cpu``), the
+counterpart of the reference's forced host device count; without it, n
+is the number of visible cards (1 on the CPU). An indexed ``--device
+cuda:1`` serves on that one card and takes neither flag. Several shards on
+one card test the program's logic, not its speed across cards. The
+language-model architectures of the reference launcher are not ported
+yet.
 """
 import argparse
 
@@ -152,7 +162,14 @@ def main(argv=None):
                          "warmup/resilience/watchdog reports as JSON on "
                          "clean exit AND on SIGINT")
     ap.add_argument("--device", default="cuda",
-                    help="torch device the service runs on")
+                    help="torch device the service runs on: a type (the "
+                         "mesh's devices) or one indexed device")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="logical devices of the mesh, round-robin on the "
+                         "visible cards (0 = one a visible card)")
+    ap.add_argument("--mesh", default="",
+                    help="mesh shape DxM (data x model) or PxDxM; default "
+                         "(devices, 1)")
     args = ap.parse_args(argv)
 
     if args.arch != "sinkhorn-wmd":
@@ -174,6 +191,7 @@ def main(argv=None):
     if args.ingest_stream and args.coalesce_window_ms <= 0:
         ap.error("--ingest-stream requires --coalesce-window-ms > 0 "
                  "(writes go through the coalescer's writer lane)")
+    mesh = _mesh(args, ap)
     cfg = wmd_cfg.smoke_config() if args.smoke else wmd_cfg.config()
     data = make_corpus(vocab_size=cfg.vocab_size, embed_dim=cfg.embed_dim,
                        num_docs=cfg.num_docs, num_queries=args.num_queries,
@@ -195,12 +213,13 @@ def main(argv=None):
         else:
             print(f"[serve-wmd] live corpus recovered: "
                   f"{live.num_live} docs, gen {live.gen} at {live_dir}")
-        svc = WMDService.from_live(cfg, data.vecs, live, device=args.device,
+        svc = WMDService.from_live(cfg, data.vecs, live, mesh=mesh,
                                    impl=args.impl, tol=args.tol)
     else:
-        svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell,
-                         device=args.device, impl=args.impl,
-                         docs_chunk=args.docs_chunk or None, tol=args.tol)
+        svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, mesh=mesh,
+                         impl=args.impl, docs_chunk=args.docs_chunk or None,
+                         tol=args.tol)
+    print(f"[serve-wmd] {mesh}")
     if args.offline:
         _serve_wmd_offline(svc, args)
         return
@@ -240,6 +259,44 @@ def main(argv=None):
     q = len(data.queries)
     print(f"[serve-wmd] per-query Q={q} on {svc.device}: "
           f"{total / q * 1e3:.2f} ms a query ({q / total:.1f} queries/s)")
+
+
+def _mesh(args, ap):
+    """The service's mesh from ``--device``, ``--devices`` and ``--mesh``
+    (see the module docstring)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs an NVIDIA GPU; pass "
+                           "--device cpu for the plain PyTorch versions")
+    if dev.index is not None:
+        if args.devices or args.mesh:
+            ap.error(f"--device {args.device} names one device; --devices "
+                     f"and --mesh take the device type alone")
+        return make_mesh((1, 1), ("data", "model"), devices=[dev])
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        n = args.devices or visible
+        devices = [torch.device("cuda", i % visible) for i in range(n)]
+    else:
+        n = args.devices or 1
+        devices = [dev] * n
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+        if len(shape) not in (2, 3):
+            ap.error(f"--mesh {args.mesh!r}: DxM or PxDxM")
+        axes = ("data", "model") if len(shape) == 2 \
+            else ("pod", "data", "model")
+    else:
+        shape, axes = (n, 1), ("data", "model")
+    size = 1
+    for x in shape:
+        size *= x
+    if size != n:
+        ap.error(f"--mesh {args.mesh} has {size} positions for {n} devices")
+    return make_mesh(shape, axes, devices=devices)
 
 
 def _warmup_wmd(svc, args):

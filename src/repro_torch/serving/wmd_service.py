@@ -1,8 +1,25 @@
-"""Sinkhorn-WMD query service on one GPU.
+"""Sinkhorn-WMD query service on one GPU or on a single-controller mesh.
 
-Port of the single-device serving path of `repro.serving.wmd_service`. The
-corpus (embeddings + ELL, rebucketed to one vocab shard) is loaded onto the
-device once; queries are solved by the fused SDDMM-SpMM engine.
+Port of `repro.serving.wmd_service`. The corpus (embeddings + ELL,
+rebucketed to the mesh's vocab shards) is loaded onto the devices once;
+queries are solved by the fused SDDMM-SpMM engine.
+
+The service always runs on a mesh: ``mesh=`` (a `launch.mesh.Mesh` with
+a ``model`` axis and ``data``, and ``pod`` where it has one, as doc
+axes), or without one the (1, 1) mesh of ``device``. ``device`` becomes
+the mesh's first device; the ELL is rebucketed over
+``mesh.shape["model"]`` and placed by `core.distributed.shard_wmd_inputs`,
+the K cache holds one vocab stripe a model shard, and every exact entry
+point runs the programs of `core.distributed` (the shards in lockstep,
+one model-axis sum an iteration). The bound tiers, the tier-0 moments,
+the M cache and the original ELL stay on the first device, replicated as
+in the reference; the rerank block is rounded up to a multiple of the doc
+shards. A (d, 1) mesh gives the one-device service's bits, except with
+``tol > 0`` and a ``docs_chunk`` smaller than a doc shard: the chunks of
+one group then share a vote (see `core.distributed`), so their n_iter is
+the one-device service's and their distances differ within the
+convergence tolerance. A (d, S) mesh differs from the one-device service
+by the rounding of the split sum.
 
 Service API
 -----------
@@ -24,8 +41,9 @@ Service API
       and are sliced off). Two routes, as in the reference:
         * stripes (``cache_capacity > 0`` or an explicit ``use_cache``):
           `core.kcache.KCache` dedups word ids across the batch, computes
-          only missing K / K.*M rows (``kexp_impl``) and slot-gathers the
-          (1, Q, v_r, V+1) stripes for `build_wmd_batch_fn_stripes`;
+          only missing K / K.*M rows (``kexp_impl``) and slot-gathers each
+          model shard's (Q, v_r, Vloc+1) stripes for
+          `build_wmd_batch_fn_stripes`;
           ``use_cache=False`` is the transient baseline, bitwise identical
           to the cached path;
         * legacy (cache disabled, no routing request): the precompute runs
@@ -86,9 +104,9 @@ only when ``bound * (1 - margin)`` exceeds the k-th exact distance),
 ``bound_impl`` and ``lc_impl`` ("kernel" default, or "fused": the plain
 spelling; ``lc_impl=None`` disables tier 1), ``bound_docs_chunk``,
 ``mcache_capacity``, ``tier0``, ``tier2_cap`` (None = 4 x prune_chunk,
-0 disables tier 2), ``guards``, ``live``, ``metrics``. ``device`` replaces the
-reference's ``mesh``: "cuda" by default; a default service on a machine
-without a card raises.
+0 disables tier 2), ``guards``, ``live``, ``metrics``, ``device`` ("cuda"
+by default; a default service on a machine without a card raises) and
+``mesh`` (None: the (1, 1) mesh of ``device``; see above).
 
 Observability: ``cache_stats`` / ``mcache_stats`` (cumulative),
 ``cache_resident`` / ``mcache_resident``, ``last_batch_stats``
@@ -120,10 +138,13 @@ from repro_torch.core import rwmd as rwmd_core
 from repro_torch.core.distributed import (build_wmd_batch_fn,
                                           build_wmd_batch_fn_stripes,
                                           build_wmd_fn, pad_query,
-                                          pad_query_batch,
+                                          pad_query_batch, shard_docs,
+                                          shard_wmd_inputs,
                                           vocab_major_stripes)
 from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
+from repro_torch.launch.mesh import (check_placement, one_device_mesh,
+                                     shard_grid)
 
 
 def _serialized(fn):
@@ -163,11 +184,13 @@ class WMDService:
     guards: bool = True
     live: object | None = None          # data.live_corpus.LiveCorpus
     metrics: object | None = None       # repro_torch.obs.MetricsRegistry
+    mesh: object | None = None          # repro_torch.launch.mesh.Mesh
 
     @classmethod
     def from_state(cls, cfg, state, **kw) -> "WMDService":
         """Build a service on a `repro_torch.convert.WMDState` (embeddings
-        already on the device); the service runs where they lie."""
+        already on the device); the service runs where they lie (on a
+        ``mesh`` passed in ``kw``: on the mesh)."""
         kw.setdefault("device", state.vecs.device)
         return cls(cfg=cfg, vecs=state.vecs, ell=state.ell, **kw)
 
@@ -179,8 +202,8 @@ class WMDService:
         segment (and the tombstone gather map) is refreshed lazily before
         every live dispatch (`_refresh_live`). ``add_docs`` /
         ``remove_docs`` / ``compact`` then mutate the corpus through the
-        service under the engine lock. ``device`` and the other knobs go
-        in ``kw``, as for the constructor."""
+        service under the engine lock. ``device``, ``mesh`` and the other
+        knobs go in ``kw``, as for the constructor."""
         return cls(cfg=cfg, vecs=vecs, live=live, **kw)
 
     def __post_init__(self):
@@ -190,11 +213,18 @@ class WMDService:
             self.ell = self.live.base_ell
         if self.ell is None:
             raise ValueError("WMDService needs either ell= or live=")
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("WMDService(device='cuda') needs an NVIDIA "
-                               "GPU; pass device='cpu' for the plain "
-                               "PyTorch versions")
+        if self.mesh is None:
+            if torch.device(self.device).type == "cuda" and \
+                    not torch.cuda.is_available():
+                raise RuntimeError("WMDService(device='cuda') needs an "
+                                   "NVIDIA GPU; pass device='cpu' for the "
+                                   "plain PyTorch versions")
+            self.mesh = one_device_mesh(self.device)
+        self.device = self.mesh.device()
+        self._doc_axes = tuple(a for a in ("pod", "data")
+                               if a in self.mesh.axis_names)
+        self._grid = shard_grid(self.mesh, self._doc_axes)
+        self._doc_shards, self._model_shards = self._grid.shape
         self._vecs_d = torch.as_tensor(self.vecs, dtype=torch.float32,
                                        device=self.device).contiguous()
         vecs_np = self._vecs_d.cpu().numpy()
@@ -206,7 +236,8 @@ class WMDService:
             from repro_torch.obs.metrics import MetricsRegistry
             self.metrics = MetricsRegistry()
         self._kcache = KCache(self.cache_capacity, self._vecs_d,
-                              self.cfg.lamb, device=self.device,
+                              self.cfg.lamb, mesh=self.mesh,
+                              device=self.device,
                               rows_bucket=self.cache_rows_bucket,
                               kexp_impl=self.kexp_impl,
                               metrics=self.metrics)
@@ -222,7 +253,8 @@ class WMDService:
         self._prune_fallbacks = self.metrics.counter(
             "wmd_prune_fallback_total",
             "pruned top-k dispatches that fell back to the exact full scan")
-        self._rerank_chunk = max(self.prune_chunk, 1)
+        # rerank blocks split over the doc shards: a multiple of them
+        self._rerank_chunk = self._chunk_for(self.prune_chunk)
         # numeric-guard state: the underflow gate needs the largest
         # embedding norm
         self._max_vec_norm = float(np.sqrt(
@@ -251,26 +283,53 @@ class WMDService:
         the engine solves, the original ELL of the bound tiers, the rerank
         blocks' ELL with its pad doc, the empty-doc mask of the guards,
         and the tier-0 moments (dropped here, recomputed lazily)."""
-        self._rb = formats.rebucket_for_vocab_shards(self.ell, 1)
-        self._cols_d = torch.from_numpy(self._rb.cols).to(self.device)
-        self._vals_d = torch.from_numpy(self._rb.vals).to(self.device)
+        self._rb = formats.rebucket_for_vocab_shards(self.ell,
+                                                     self._model_shards)
+        self._vecs_sh, self._cols_d, self._vals_d = shard_wmd_inputs(
+            self.mesh, self._vecs_d, self._rb.cols, self._rb.vals,
+            doc_axes=self._doc_axes)
         # the bound tiers run on the original ELL, as in the reference
         self._ell_cols_d = torch.from_numpy(self.ell.cols).to(self.device)
         self._ell_vals_d = torch.from_numpy(self.ell.vals).to(self.device)
-        # rerank blocks index the resident rebucketed ELL on the device;
-        # row N is a pad doc (every slot the pad id, val 0: it solves to 0)
-        self._rerank_cols_d = torch.nn.functional.pad(
-            self._cols_d[0], (0, 0, 0, 1), value=self._rb.num_vocab)
-        self._rerank_vals_d = torch.nn.functional.pad(self._vals_d[0],
-                                                      (0, 0, 0, 1))
+        # rerank blocks index the resident rebucketed ELL, each model
+        # shard's on its first doc shard's device; row N is a pad doc
+        # (every slot the pad id, val 0: it solves to 0)
+        pad = lambda x, v: torch.nn.functional.pad(  # noqa: E731
+            x, (0, 0, 0, 1), value=v)
+        devs = self._grid[0]
+        self._rerank_cols_d = [
+            pad(torch.from_numpy(c).to(dev), self._rb.num_vocab)
+            for c, dev in zip(self._rb.cols, devs)]
+        self._rerank_vals_d = [pad(torch.from_numpy(v).to(dev), 0.0)
+                               for v, dev in zip(self._rb.vals, devs)]
+        check_placement(self._grid, self._rerank_cols_d, "rerank ELL")
+        check_placement(self._grid, self._rerank_vals_d, "rerank ELL")
         # tier-0 moments of the corpus, computed on the first pruned call
         self._cent: tuple | None = None
         # docs with zero mass legitimately solve to distance 0
         self._empty_doc_mask = np.asarray(self.ell.vals.sum(axis=-1) == 0)
 
+    def _place_ell(self, rb: formats.EllDocs):
+        """A rebucketed ELL in the programs' layout: the (D, S) blocks of
+        `shard_docs`."""
+        return tuple(shard_docs(self.mesh, [torch.from_numpy(x) for x in a],
+                                doc_axes=self._doc_axes)
+                     for a in (rb.cols, rb.vals))
+
+    def _chunk_for(self, prune_chunk: int) -> int:
+        """A rerank block of at least ``prune_chunk`` docs that divides
+        across the doc shards."""
+        return -(-max(prune_chunk, 1) // self._doc_shards) * self._doc_shards
+
+    def _vm(self, k_s, km_s, impl: str):
+        """`vocab_major_stripes` of a stripe set, on this service's mesh."""
+        return vocab_major_stripes(k_s, km_s, impl, self.mesh,
+                                   doc_axes=self._doc_axes)
+
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self._grid.flat):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- async front-end ------------------------------------------------------
 
@@ -360,9 +419,9 @@ class WMDService:
             self._live_version = -1          # gather map must follow
         if lc.version != self._live_version:
             d_ell = lc.delta_ell
-            drb = formats.rebucket_for_vocab_shards(d_ell, 1)
-            self._dcols_d = torch.from_numpy(drb.cols).to(self.device)
-            self._dvals_d = torch.from_numpy(drb.vals).to(self.device)
+            drb = formats.rebucket_for_vocab_shards(d_ell,
+                                                    self._model_shards)
+            self._dcols_d, self._dvals_d = self._place_ell(drb)
             self._dell_cols_d = torch.from_numpy(d_ell.cols).to(self.device)
             self._dell_vals_d = torch.from_numpy(d_ell.vals).to(self.device)
             ids, seg, row = lc.locations()
@@ -404,7 +463,7 @@ class WMDService:
         out = np.empty((q, n_live), np.float32)
         segments = 0
         t0 = time.perf_counter()
-        vm = vocab_major_stripes(k_s, km_s, impl)   # one pair, both segments
+        vm = self._vm(k_s, km_s, impl)   # one set, both segments
         for seg_id, (cols_d, vals_d) in enumerate(
                 ((self._cols_d, self._vals_d),
                  (self._dcols_d, self._dvals_d))):
@@ -510,7 +569,10 @@ class WMDService:
         reduction runs on the device, only (Q, v_r) scalars come back."""
         if not self.guards:
             return
-        rowmax = torch.amax(torch.abs(km_s), dim=(0, -1)).cpu().numpy()
+        # the max over the shards' stripes (exact in any order)
+        rowmax = functools.reduce(torch.maximum, [
+            torch.amax(torch.abs(k), dim=-1).to(self.device) for k in km_s])
+        rowmax = rowmax.cpu().numpy()
         _guards.check_km_rows(rowmax, mask_b, lamb=self.cfg.lamb)
 
     def _check_result(self, d, *, what: str,
@@ -551,7 +613,9 @@ class WMDService:
         key = (self.impl, self.kexp_impl, self.cfg.lamb)
         fn = self._single_fns.get(key)
         if fn is None:
-            fn = build_wmd_fn(lamb=self.cfg.lamb, max_iter=self.cfg.max_iter,
+            fn = build_wmd_fn(self.mesh, lamb=self.cfg.lamb,
+                              max_iter=self.cfg.max_iter,
+                              doc_axes=self._doc_axes,
                               use_kernel=self.impl == "kernel",
                               kexp_impl=self.kexp_impl)
             self._single_fns[key] = fn
@@ -563,8 +627,9 @@ class WMDService:
         key = (impl, docs_chunk, self.tol, self.cfg.lamb)
         fn = self._batch_fns.get(key)
         if fn is None:
-            fn = build_wmd_batch_fn(lamb=self.cfg.lamb,
-                                    max_iter=self.cfg.max_iter, impl=impl,
+            fn = build_wmd_batch_fn(self.mesh, lamb=self.cfg.lamb,
+                                    max_iter=self.cfg.max_iter,
+                                    doc_axes=self._doc_axes, impl=impl,
                                     docs_chunk=docs_chunk, tol=self.tol)
             self._batch_fns[key] = fn
         return fn
@@ -574,7 +639,9 @@ class WMDService:
         key = (impl, docs_chunk, self.tol)
         fn = self._stripe_fns.get(key)
         if fn is None:
-            fn = build_wmd_batch_fn_stripes(max_iter=self.cfg.max_iter,
+            fn = build_wmd_batch_fn_stripes(self.mesh,
+                                            max_iter=self.cfg.max_iter,
+                                            doc_axes=self._doc_axes,
                                             impl=impl, docs_chunk=docs_chunk,
                                             tol=self.tol)
             self._stripe_fns[key] = fn
@@ -598,7 +665,7 @@ class WMDService:
         wmd = self._single_fn()(vecs_sel,
                                 torch.from_numpy(r_p).to(self.device),
                                 torch.from_numpy(mask).to(self.device),
-                                self._vecs_d, self._cols_d, self._vals_d)
+                                self._vecs_sh, self._cols_d, self._vals_d)
         wmd = wmd.cpu().numpy()
         self._check_result(wmd, what="query distances")
         return wmd
@@ -639,7 +706,7 @@ class WMDService:
             vecs_sel = self._vecs_d[torch.from_numpy(
                 sel_b.astype(np.int64)).to(self.device)]
             wmd = fn(vecs_sel, r_d, torch.from_numpy(mask_b).to(self.device),
-                     self._vecs_d, self._cols_d, self._vals_d)
+                     self._vecs_sh, self._cols_d, self._vals_d)
             wmd = wmd[:q].cpu().numpy()
             self.last_batch_stats = {
                 "solve_s": time.perf_counter() - t0,
@@ -894,11 +961,16 @@ class WMDService:
         `vocab_major_stripes` (K's and K.*M's), made once for all the
         programs of a stripe set."""
         m = doc_ids.size
-        idx = np.full(chunk, self._rerank_cols_d.shape[0] - 1, np.int64)
+        idx = np.full(chunk, self._rerank_cols_d[0].shape[0] - 1, np.int64)
         idx[:m] = doc_ids
-        idx_t = torch.from_numpy(idx).to(self.device)
-        d = fn(k_s, km_s, r_q, self._rerank_cols_d[idx_t][None],
-               self._rerank_vals_d[idx_t][None], vm=vm)
+        idx_t = torch.from_numpy(idx)
+        # each model shard's block rows, split over the doc shards
+        kw = dict(doc_axes=self._doc_axes)
+        cols_b = shard_docs(self.mesh, [c[idx_t.to(c.device)] for c in
+                                        self._rerank_cols_d], **kw)
+        vals_b = shard_docs(self.mesh, [v[idx_t.to(v.device)] for v in
+                                        self._rerank_vals_d], **kw)
+        d = fn(k_s, km_s, r_q, cols_b, vals_b, vm=vm)
         return d.cpu().numpy()[:, :m]
 
     def _prune_setup(self, rs, prune_chunk, prune_margin):
@@ -906,7 +978,7 @@ class WMDService:
         r_b, mask_b)."""
         self._validate_queries(rs)
         chunk = (self._rerank_chunk if prune_chunk is None
-                 else max(prune_chunk, 1))
+                 else self._chunk_for(prune_chunk))
         margin = self.prune_margin if prune_margin is None else prune_margin
         sel_b, r_b, mask_b = self._padded_query_batch(rs)
         return chunk, margin, len(rs), sel_b, r_b, mask_b
@@ -987,7 +1059,7 @@ class WMDService:
             k_s, km_s, info = self._kcache.stripes_for_batch(
                 sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
             self._check_km(km_s, mask_b[i:i + 1])
-            vm = vocab_major_stripes(k_s, km_s, impl)  # once a query stripe
+            vm = self._vm(k_s, km_s, impl)     # once a query stripe
             hits += info["hits"]
             k_misses.append(info["misses"])
             r_q = r_d[i:i + 1]
@@ -1180,7 +1252,7 @@ class WMDService:
         k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
                                                          use_cache=use)
         self._check_km(km_s, mask_b)
-        vm = vocab_major_stripes(k_s, km_s, impl)
+        vm = self._vm(k_s, km_s, impl)
         r_all = torch.from_numpy(r_b).to(self.device)        # (Q_pow2, v_r)
         min_lb = lb.min(axis=0)                   # union visit order key
         solved_d = np.full((q, n), np.inf, np.float32)

@@ -45,7 +45,7 @@ NOT_PORTED = {
     "obs": {},
     "kernels": {},
     "serving": {"build_serve_fns": 5},
-    "distributed": {"elastic": 3, "partitioning": 3},
+    "distributed": {"partitioning": 5},
 }
 
 REF = {"core": repro.core, "data": repro.data, "obs": repro.obs,
@@ -101,6 +101,8 @@ def test_reexports_are_the_modules_objects():
     assert serving.QueryCoalescer is coalescer.QueryCoalescer
     assert serving.warm is warmup.warm
     assert distributed.fault_tolerance is fault_tolerance
+    from repro_torch.distributed import elastic
+    assert distributed.elastic is elastic
 
 
 def _reference_imports():

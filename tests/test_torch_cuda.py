@@ -1131,3 +1131,101 @@ def test_live_bounds_take_both_routes_and_equal_static_on_card(
     np.testing.assert_array_equal(lb, svc.query_batch_bounds(rs))
     d = live.query_batch(rs)
     assert (lb <= d * (1 + 1e-5) + 1e-6).all()
+
+
+# -- slice 10: the single-controller mesh, its shards on one card -----------
+
+def _mesh_stack(dev):
+    from repro_torch.configs.sinkhorn_wmd import WMDConfig
+    from repro_torch.data.corpus import make_corpus, zipf_query_stream
+    data = make_corpus(vocab_size=2048, embed_dim=64, num_docs=256,
+                       num_queries=1, seed=11)
+    cfg = WMDConfig(name="t", vocab_size=2048, embed_dim=64, num_docs=256,
+                    nnz_max=data.ell.nnz_max, v_r=32, lamb=1.0, max_iter=10)
+    stream = zipf_query_stream(vocab_size=2048, seed=12)
+    return data, cfg, [next(stream) for _ in range(6)]
+
+
+def test_mesh_kcache_rows_are_the_one_shard_rows_split_on_card():
+    """At S = 2 each shard's #6 rows against its 1,024-word stripe are the
+    S = 1 rows split at column 1,024, bitwise (each output column is one
+    thread's fma chain whatever its tile); the launches are one a shard a
+    128-row chunk."""
+    dev = _card()
+    from repro_torch.core.kcache import KCache
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    data, cfg, _ = _mesh_stack(dev)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    sel_b = np.arange(300).reshape(10, 30) * 6 % 2048
+    mask_b = np.ones(sel_b.shape, np.float32)
+    mask_b[:, -3:] = 0.0
+    one = KCache(512, data.vecs, 1.0, device=dev)
+    two = KCache(512, data.vecs, 1.0, mesh=mesh)
+    k1, km1, info = one.stripes_for_batch(sel_b, mask_b)
+    _build.reset_launches()
+    k2, km2, _ = two.stripes_for_batch(sel_b, mask_b)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {
+        "cdist_kexp_rows": 2 * -(-info["misses"] // 128)}
+    for whole, parts in ((k1[0], k2), (km1[0], km2)):
+        for s, part in enumerate(parts):
+            assert part.device == mesh.device(0, s)
+            assert torch.equal(part[..., :-1],
+                               whole[..., s * 1024:(s + 1) * 1024])
+            assert torch.all(part[..., -1] == 0)
+
+
+def test_mesh_4x1_service_is_the_one_device_service_on_card():
+    """Four doc shards on one card: rows, per-query rows, pruned top-k and
+    bounds bitwise the one-device service's; the launches of a warm
+    query_batch are 10 #3 and one #4 a doc shard and one pair of copies."""
+    dev = _card()
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import WMDService
+    data, cfg, rs = _mesh_stack(dev)
+    kw = dict(cache_capacity=512, mcache_capacity=512)
+    one = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev, **kw)
+    mesh = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, **kw,
+                      mesh=make_mesh((4, 1), ("data", "model"),
+                                     devices=[dev] * 4))
+    want = one.query_batch(rs)
+    mesh.query_batch(rs)                           # warms the K cache
+    _build.reset_launches()
+    got = mesh.query_batch(rs)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"sddmm_spmm_type1_batch": 40,
+                                     "sddmm_spmm_type2_batch": 4,
+                                     "k_vocab_major": 2}
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.stack([mesh.query(r) for r in rs]),
+                                  want)
+    for a, b in zip(mesh.top_k_batch(rs, 10, prune=True),
+                    one.top_k_batch(rs, 10, prune=True)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(mesh.query_batch_bounds(rs),
+                                  one.query_batch_bounds(rs))
+
+
+def test_mesh_2x2_service_on_card():
+    """Two stripes, two doc shards on one card: cache on == off, pruned ==
+    scan, query(r) == query_batch rows, bitwise; rows within the engine
+    tolerance of the one-device service."""
+    dev = _card()
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import WMDService
+    data, cfg, rs = _mesh_stack(dev)
+    kw = dict(cache_capacity=512, mcache_capacity=512)
+    one = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, device=dev, **kw)
+    svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, **kw,
+                     mesh=make_mesh((2, 2), ("data", "model"),
+                                    devices=[dev] * 4))
+    rows = svc.query_batch(rs)
+    np.testing.assert_array_equal(rows, svc.query_batch(rs, use_cache=False))
+    np.testing.assert_array_equal(rows, np.stack([svc.query(r) for r in rs]))
+    for a, b in zip(svc.top_k_batch(rs, 10, prune=True),
+                    svc.top_k_scan_batch(rs, 10)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(rows, one.query_batch(rs), rtol=2e-3,
+                               atol=1e-5)

@@ -67,6 +67,9 @@ def test_stripes_match_reference():
     sel_b, mask_b = _batches(1, 3)[0]
     k_s, km_s, _ = KCache(64, vecs, 1.0, device="cpu",
                           rows_bucket=16).stripes_for_batch(sel_b, mask_b)
+    # the port's list of the shards' stripes, stacked: the reference's
+    # (S, Q, v_r, V+1) layout
+    k_s, km_s = torch.stack(k_s), torch.stack(km_s)
     jk, jkm, _ = JKCache(64, jnp.asarray(vecs), 1.0,
                          rows_bucket=16).stripes_for_batch(sel_b, mask_b)
     assert k_s.shape == jk.shape == (1, 3, V_R, V + 1)
@@ -104,7 +107,8 @@ def test_cache_on_off_transient_hits_evictions_bitwise(kexp_impl):
         k4, km4, _ = small.stripes_for_batch(sel_b, mask_b)
         assert i2["hits"] == i2["unique"] and i2["misses"] == 0
         for k, km in ((k1, km1), (k2, km2), (k3, km3), (k4, km4)):
-            assert torch.equal(k, k0) and torch.equal(km, km0)
+            assert len(k) == len(k0) == 1
+            assert torch.equal(k[0], k0[0]) and torch.equal(km[0], km0[0])
     assert small.stats.evictions > 0 and small.stats.bypasses == 0
 
 

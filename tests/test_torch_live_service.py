@@ -258,15 +258,15 @@ def test_rerank_state_follows_a_compaction():
     vecs, ell, rs = _corpus()
     svc = _live()
     svc.top_k_batch(rs, TOP_K, prune=True)        # builds the moments
-    before = svc._rerank_cols_d.clone()
+    before = svc._rerank_cols_d[0].clone()
     assert before.shape[0] == 9                   # empty base: 8 rows + pad
     svc.compact()
     svc.live_doc_ids                              # refreshes
     base = svc.live.base_ell
-    assert svc._rerank_cols_d.shape[0] == base.num_docs + 1 == 33
-    np.testing.assert_array_equal(svc._rerank_cols_d[:-1].numpy(),
+    assert svc._rerank_cols_d[0].shape[0] == base.num_docs + 1 == 33
+    np.testing.assert_array_equal(svc._rerank_cols_d[0][:-1].numpy(),
                                   base.cols)
-    assert (svc._rerank_cols_d[-1] == vecs.shape[0]).all()
+    assert (svc._rerank_cols_d[0][-1] == vecs.shape[0]).all()
     np.testing.assert_array_equal(svc._ell_cols_d.numpy(), base.cols)
     assert svc._cent is None and svc._empty_doc_mask.shape == (32,)
     idx, dist = svc.top_k_batch(rs, TOP_K, prune=True)

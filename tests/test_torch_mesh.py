@@ -1,0 +1,678 @@
+"""The port's single-controller mesh on the CPU against the live JAX package.
+
+Meshes are built with explicit devices (``[torch.device("cpu")] * k``: k
+logical shards in one process, the counterpart of the reference's forced
+host device count); every JAX side runs in-process on its single-host
+engine. The problems are the reference's own mesh tests' (V = 256, w = 32,
+N = 64, v_r bucket 16, 12 iterations; `tests/test_system.py`,
+`tests/test_batch_engine.py`, `tests/test_kcache.py`):
+
+* `distributed.elastic.mesh_shape` is the reference's rule; `remesh`,
+  `make_mesh` and `make_production_mesh` give its shapes and axis names,
+  and a mesh larger than the visible cards raises unless its devices are
+  given;
+* the per-query program (`build_wmd_fn`) on (4, 2) and (2, 2) meshes and
+  the batched engine (`build_wmd_batch_fn`, early exit with the
+  all-shards vote) are within 1e-4 relative of live JAX; ``n_iter`` is
+  exactly the port's single host on a (4, 1) mesh, within one of it and
+  of live JAX on (2, 2), and exactly the (1, 2) mesh's (the same model
+  split) with the same bits; the stripes engine on `KCache(mesh=...)`,
+  the doc-sharded program and the (2, 2) service are held to live JAX
+  (within 2e-4 of the largest distance) and to the port's one-device
+  engine by `_hold`;
+* ``mesh=None`` is a (1, 1) mesh, bitwise the port's one-device engine
+  (`core.sparse_sinkhorn`); with ``tol > 0`` and chunks smaller than a
+  doc shard, (4, 1) keeps the one-device n_iter and stays within ``tol``;
+* `WMDService(mesh=(4, 1))` is bitwise `WMDService(device="cpu")` on every
+  entry point, static and live; on (2, 2) pruned == scan == union,
+  ``query(r)`` == its ``query_batch`` rows and cache on == off, bitwise;
+  doc shards on one device share one pair of vocab-major copies a model
+  shard;
+* per-shard tensors lie on their positions' devices (checked with a mesh
+  that mixes "cpu" and "meta"); the launcher serves on a 2 x 2 mesh.
+"""
+import contextlib
+import functools
+import io
+import tempfile
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import convergence as jconv
+from repro.core import sparse_sinkhorn as jss
+from repro.distributed import elastic as jelastic
+from repro.launch import mesh as jmesh
+from repro_torch.configs.sinkhorn_wmd import WMDConfig
+from repro_torch.core import convergence as tconv
+from repro_torch.core import distributed as tdist
+from repro_torch.core import formats as tf
+from repro_torch.core import sparse_sinkhorn as tss
+from repro_torch.core.kcache import KCache
+from repro_torch.core.sinkhorn import select_query
+from repro_torch.data import LiveCorpus
+from repro_torch.distributed import elastic
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as tmesh
+from repro_torch.serving import WMDService
+
+CPU = torch.device("cpu")
+V, W, N, V_R, LAMB, MAX_ITER = 256, 32, 64, 16, 1.0, 12
+REL = 1e-4
+# the service-level bound against live JAX, relative to the largest
+# distance: on `tests/test_kcache.py`'s corpus (seed 3) the one-device
+# port itself is 1.33e-4 from live JAX, with either kexp route
+JAX_REL = 2e-4
+TOL = dict(rtol=2e-3, atol=1e-5)     # the reference's engine tolerance
+
+
+def _mesh(shape, devices=None):
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    n = int(np.prod(shape))
+    return tmesh.make_mesh(shape, axes, devices=devices or [CPU] * n)
+
+
+def _rel(got, want):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max()
+                 / np.abs(np.asarray(want)).max())
+
+
+def _histogram(rng, words):
+    r = np.zeros(V, np.float32)
+    idx = rng.choice(V, words, replace=False)
+    r[idx] = rng.random(words).astype(np.float32)
+    return r / r.sum()
+
+
+def _docs(rng, hi):
+    c = np.zeros((V, N), np.float32)
+    for j in range(N):
+        widx = rng.choice(V, rng.integers(3, hi), replace=False)
+        c[widx, j] = rng.random(widx.size).astype(np.float32)
+        c[:, j] /= c[:, j].sum()
+    return tf.ell_from_dense(c)
+
+
+@functools.lru_cache(maxsize=None)
+def _problem(seed):
+    """The reference's mesh-test inputs: (vecs, ell, three queries of 5, 9
+    and 14 words) -- seed 3 `tests/test_kcache.py`'s, seed 5
+    `tests/test_batch_engine.py`'s."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(V, W)).astype(np.float32)
+    ell = _docs(rng, 15 if seed == 3 else 17)
+    return vecs, ell, [_histogram(rng, n) for n in (5, 9, 14)]
+
+
+def _hold(got, one_device, ref, model):
+    """A mesh result against live JAX, within ``JAX_REL`` of the largest
+    distance and the reference's engine tolerance elementwise; and, as an
+    extra check, against the port's one-device engine on the same inputs:
+    bitwise at model = 1, within the split sum's rounding (1e-5 relative)
+    at model > 1."""
+    got, one_device = np.asarray(got), np.asarray(one_device)
+    assert _rel(got, ref) < JAX_REL
+    np.testing.assert_allclose(got, ref, **TOL)
+    if model == 1:
+        assert np.array_equal(got, one_device)
+    assert _rel(got, one_device) < 1e-5
+
+
+def _jax_wmd(vecs, ell, r, max_iter=MAX_ITER):
+    s, rr = select_query(r)
+    return np.asarray(jss.sinkhorn_wmd_sparse(
+        s, rr, jnp.asarray(ell.cols), jnp.asarray(ell.vals), vecs, LAMB,
+        max_iter))
+
+
+# -- elastic / mesh --------------------------------------------------------
+
+@pytest.mark.parametrize("n,mp,pod", [
+    (1, 16, 256), (8, 2, 256), (8, 16, 256), (12, 16, 256), (6, 4, 256),
+    (7, 2, 256), (256, 16, 256), (512, 16, 256), (768, 16, 256),
+    (520, 16, 256), (8, 0, 256), (8, -3, 256), (12, 8, 4), (24, 2, 4)])
+def test_mesh_shape_is_the_references_rule(n, mp, pod):
+    assert elastic.mesh_shape(n, model_parallelism=mp, pod_size=pod) == \
+        jelastic.mesh_shape(n, model_parallelism=mp, pod_size=pod)
+
+
+@pytest.mark.parametrize("n", [0, -1])
+def test_mesh_shape_refuses_what_the_reference_refuses(n):
+    with pytest.raises(ValueError):
+        jelastic.mesh_shape(n)
+    with pytest.raises(ValueError):
+        elastic.mesh_shape(n)
+
+
+def test_remesh_and_make_mesh_give_the_references_shapes():
+    ref = jelastic.remesh(1)
+    got = elastic.remesh(1, devices=[CPU])
+    assert dict(got.shape) == dict(ref.shape)
+    assert got.axis_names == tuple(ref.axis_names)
+    got = elastic.remesh(12, model_parallelism=8, devices=[CPU] * 12)
+    assert (tuple(got.shape.values()), got.axis_names) == \
+        elastic.mesh_shape(12, model_parallelism=8)
+    for shape, axes in (((1, 1), ("data", "model")),
+                        ((1, 1, 1), ("pod", "data", "model"))):
+        ref = jmesh.make_mesh(shape, axes)
+        got = tmesh.make_mesh(shape, axes, devices=[CPU])
+        assert dict(got.shape) == dict(ref.shape)
+        assert got.axis_names == tuple(ref.axis_names)
+        assert got.device(*[0] * len(shape)) == got.device() == CPU
+    prod = tmesh.make_production_mesh(devices=[CPU] * 256)
+    assert dict(prod.shape) == {"data": 16, "model": 16}
+    prod = tmesh.make_production_mesh(multi_pod=True, devices=[CPU] * 512)
+    assert dict(prod.shape) == {"pod": 2, "data": 16, "model": 16}
+
+
+def test_a_mesh_larger_than_the_visible_cards_raises():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        tmesh.make_mesh((n + 1, 1), ("data", "model"))
+    with pytest.raises(ValueError):
+        tmesh.make_mesh((2, 2), ("data", "model"), devices=[CPU] * 3)
+    with pytest.raises(ValueError):
+        tmesh.shard_grid(_mesh((2,) * 2), doc_axes=("pod",))
+    # a card named without its index is the current card, as tensors say
+    cards = tmesh.make_mesh((2, 1), ("data", "model"),
+                            devices=[torch.device("cuda")] * 2)
+    assert cards.device(1, 0).index is not None
+
+
+# -- the programs ----------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 2)])
+@pytest.mark.parametrize("use_kernel,kexp_impl", [(False, "jnp"),
+                                                  (True, "kernel")])
+def test_per_query_program_on_a_mesh_matches_live_jax(shape, use_kernel,
+                                                      kexp_impl):
+    """`tests/test_system.py::test_distributed_wmd_matches_single_chip`."""
+    rng = np.random.default_rng(2)
+    vecs = rng.normal(size=(V, W)).astype(np.float32)
+    r = _histogram(rng, 9)
+    ell = _docs(rng, 17)
+    ref = _jax_wmd(vecs, ell, r)
+    mesh = _mesh(shape)
+    sel_p, r_p, mask = tdist.pad_query(*select_query(r), V_R)
+    rb = tf.rebucket_for_vocab_shards(ell, shape[1])
+    fn = tdist.build_wmd_fn(mesh, lamb=LAMB, max_iter=MAX_ITER,
+                            use_kernel=use_kernel, kexp_impl=kexp_impl)
+    placed = tdist.shard_wmd_inputs(mesh, vecs, rb.cols, rb.vals)
+    got = fn(torch.from_numpy(vecs[sel_p]), torch.from_numpy(r_p),
+             torch.from_numpy(mask), *placed)
+    assert got.shape == (N,) and _rel(got, ref) < REL
+
+
+def _batch_inputs(seed=5):
+    vecs, ell, qs = _problem(seed)
+    sels, rsels = zip(*[select_query(r) for r in qs])
+    return (vecs, ell) + tdist.pad_query_batch(sels, rsels, V_R)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_converged(seed=5, max_iter=400, tol=1e-5):
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs(seed)
+    out = jconv.sinkhorn_wmd_converged_batch(
+        jnp.asarray(sel_b), jnp.asarray(r_b), jnp.asarray(ell.cols),
+        jnp.asarray(ell.vals), vecs, LAMB, max_iter, tol=tol,
+        row_mask=jnp.asarray(mask_b))
+    return np.asarray(out.wmd), np.asarray(out.n_iter)
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_converged(shape, placement, impl="fused"):
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs()
+    mesh = _mesh(shape)
+    rb = tf.rebucket_for_vocab_shards(ell, shape[1])
+    fn = tdist.build_wmd_batch_fn(mesh, lamb=LAMB, max_iter=400, tol=1e-5,
+                                  impl=impl, docs_chunk=16,
+                                  chunk_placement=placement, with_info=True)
+    wmd, n_iter, delta = fn(torch.from_numpy(vecs[sel_b]),
+                            torch.from_numpy(r_b), torch.from_numpy(mask_b),
+                            *tdist.shard_wmd_inputs(mesh, vecs, rb.cols,
+                                                    rb.vals))
+    return wmd.numpy(), n_iter.numpy(), delta.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _port_converged(seed=5, max_iter=400, tol=1e-5):
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs(seed)
+    out = tconv.sinkhorn_wmd_converged_batch(
+        *(torch.from_numpy(x) for x in (sel_b, r_b, ell.cols, ell.vals,
+                                        vecs)),
+        LAMB, max_iter, tol=tol, row_mask=torch.from_numpy(mask_b))
+    return out.wmd.numpy(), out.n_iter.numpy()
+
+
+@pytest.mark.parametrize("placement", ["iteration", "solve"])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_batched_vote_against_single_host(shape, placement):
+    """`tests/test_batch_engine.py::test_distributed_vote_matches_single_
+    host_masking`'s inputs. Query 1's relative delta sits on the ``tol``
+    edge: live JAX crosses it at iteration 58, the port's single-host
+    `sinkhorn_wmd_converged_batch` (no mesh) at 57 (the two packages round
+    differently), and splitting a doc's slots over the model axis moves
+    query 2 from 117 to 116. So ``n_iter`` is held exactly to the port's
+    single host at model = 1 and within one iteration of it and of live
+    JAX at model = 2; the distances within 1e-4 of live JAX."""
+    ref_wmd, ref_iter = _jax_converged()
+    port_wmd, port_iter = _port_converged()
+    assert ref_iter.max() < 400                       # the vote engaged
+    wmd, n_iter, _ = _mesh_converged(shape, placement)
+    assert _rel(wmd, ref_wmd) < REL
+    assert n_iter.dtype == np.int32 and n_iter.shape == (3,)
+    if shape[1] == 1:
+        np.testing.assert_array_equal(n_iter, port_iter)
+    assert np.abs(n_iter.astype(int) - port_iter).max() <= 1
+    assert np.abs(n_iter.astype(int) - ref_iter).max() <= 1
+
+
+def test_vote_replays_exactly_on_the_same_model_split():
+    """With the chunks inside the iteration (one vote an iteration over
+    every doc), (2, 2) and (1, 2) split every doc's slots the same way:
+    the vote over two doc shards gives the one-doc-shard run's n_iter,
+    delta and bits exactly, and (4, 1) is the one-device program's."""
+    placement = "iteration"
+    for many, one in (((2, 2), (1, 2)), ((4, 1), (1, 1))):
+        a, b = _mesh_converged(many, placement), _mesh_converged(one,
+                                                                 placement)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs()
+    rb = tf.rebucket_for_vocab_shards(ell, 1)
+    fn = tdist.build_wmd_batch_fn(lamb=LAMB, max_iter=400, tol=1e-5,
+                                  impl="fused", docs_chunk=16,
+                                  chunk_placement=placement, with_info=True)
+    out = fn(torch.from_numpy(vecs[sel_b]), torch.from_numpy(r_b),
+             torch.from_numpy(mask_b), torch.from_numpy(vecs),
+             *(torch.from_numpy(x) for x in (rb.cols, rb.vals)))
+    for x, y in zip(_mesh_converged((4, 1), placement), out):
+        np.testing.assert_array_equal(x, y.numpy())
+
+
+def test_batched_sinkhorn_loop_hook_default_and_one_shard():
+    """``delta_all_reduce=None`` is the old loop; one shard through the
+    hook (the identity max) gives the same bits."""
+    g = torch.Generator().manual_seed(0)
+    k = torch.rand((3, 4, 20), generator=g) + 0.1
+
+    def it(x):
+        return 0.5 * (x + k / x)
+
+    x0 = torch.ones((3, 4, 20))
+    a = tss.batched_sinkhorn_loop(it, x0, max_iter=50, tol=1e-6)
+    b = tss.batched_sinkhorn_loop(lambda xs: [it(xs[0])], [x0],
+                                  max_iter=50, tol=1e-6,
+                                  delta_all_reduce=tdist._vote)
+    assert torch.equal(a[0], b[0][0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[2], b[2]) and int(a[2].max()) < 50
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_stripes_engine_on_a_mesh_cache(shape):
+    """`tests/test_kcache.py::test_distributed_cache_stripes_match_single_
+    chip` at the engine level: KCache(mesh) stripes through
+    `build_wmd_batch_fn_stripes`, against the one-device port and
+    per-query single-chip JAX (`_hold`); cache on == warm == off,
+    bitwise."""
+    vecs, ell, _ = _problem(3)
+    qs = _problem(3)[2]
+    sels, rsels = zip(*[select_query(r) for r in qs])
+    sel_b, r_b, mask_b = tdist.pad_query_batch(sels, rsels, V_R)
+    mesh = _mesh(shape)
+    cache = KCache(48, vecs, LAMB, mesh=mesh, rows_bucket=8)
+    assert cache.num_shards == shape[1] and cache.vloc == V // shape[1]
+    rb = tf.rebucket_for_vocab_shards(ell, shape[1])
+    _, cols_d, vals_d = tdist.shard_wmd_inputs(mesh, vecs, rb.cols, rb.vals)
+    fn = tdist.build_wmd_batch_fn_stripes(mesh, max_iter=MAX_ITER)
+    r_t = torch.from_numpy(r_b)
+    outs = []
+    for use in (True, True, False):
+        k_s, km_s, _ = cache.stripes_for_batch(sel_b, mask_b, use_cache=use)
+        assert len(k_s) == shape[1]
+        assert k_s[0].shape == (3, V_R, V // shape[1] + 1)
+        outs.append(fn(k_s, km_s, r_t, cols_d, vals_d).numpy())
+    assert cache.stats.hit_rows > 0
+    assert np.array_equal(outs[0], outs[1]) and \
+        np.array_equal(outs[0], outs[2])
+    ref = np.stack([_jax_wmd(vecs, ell, r) for r in qs])
+    one = KCache(48, vecs, LAMB, device="cpu", rows_bucket=8)
+    k_s, km_s, _ = one.stripes_for_batch(sel_b, mask_b)
+    rb1 = tf.rebucket_for_vocab_shards(ell, 1)
+    want = tdist.build_wmd_batch_fn_stripes(max_iter=MAX_ITER)(
+        k_s, km_s, r_t, torch.from_numpy(rb1.cols),
+        torch.from_numpy(rb1.vals))
+    _hold(outs[0], want, ref, shape[1])
+
+
+def test_kcache_rows_split_at_the_stripe_boundaries():
+    """The "jnp" rows at S = 2 are the S = 1 rows split, bitwise (each
+    shard's zero pad column appended); pad query rows gather zeros."""
+    vecs, _, _ = _problem(3)
+    sel_b = np.array([[3, 17, 200, 0], [9, 3, 0, 0]])
+    mask_b = np.array([[1, 1, 1, 0], [1, 1, 0, 0]], np.float32)
+    one = KCache(16, vecs, LAMB, device="cpu", rows_bucket=8,
+                 kexp_impl="jnp")
+    two = KCache(16, vecs, LAMB, mesh=_mesh((2, 2)), rows_bucket=8,
+                 kexp_impl="jnp")
+    k1, km1, _ = one.stripes_for_batch(sel_b, mask_b)
+    k2, km2, _ = two.stripes_for_batch(sel_b, mask_b)
+    for whole, parts in ((k1[0], k2), (km1[0], km2)):
+        for s, part in enumerate(parts):
+            assert torch.equal(part[..., :-1],
+                               whole[..., s * 128:(s + 1) * 128])
+            assert torch.all(part[..., -1] == 0)
+    assert torch.all(k2[1][0, 3] == 0) and torch.all(k2[0][1, 2:] == 0)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)])
+def test_docsharded_program_matches_single_chip_jax(shape):
+    """K replicated, docs over every mesh axis: each doc's solve is the
+    one-device `sinkhorn_wmd_sparse` on the query's unpadded stripe, so
+    the rows are held to it and to live JAX by `_hold` (model = 1: no
+    sum crosses devices)."""
+    vecs, ell, qs = _problem(3)
+    mesh = _mesh(shape)
+    t = torch.from_numpy
+    for use_kernel in (False, True):
+        fn = tdist.build_wmd_fn_docsharded(mesh, lamb=LAMB, max_iter=MAX_ITER,
+                                           use_kernel=use_kernel)
+        for r in qs[:2]:
+            sel, rr = select_query(r)
+            sel_p, r_p, mask = tdist.pad_query(sel, rr, V_R)
+            got = fn(t(vecs[sel_p]), t(r_p), t(mask), t(vecs), t(ell.cols),
+                     t(ell.vals))
+            assert got.shape == (N,)
+            one = tss.sinkhorn_wmd_sparse(
+                t(sel), t(rr), t(ell.cols), t(ell.vals), t(vecs), LAMB,
+                MAX_ITER, impl="kernel" if use_kernel else "fused")
+            _hold(got, one, _jax_wmd(vecs, ell, r), 2)
+
+
+def test_mesh_none_is_the_one_device_call_and_a_1x1_mesh():
+    """``mesh=None`` runs the one program body on the (1, 1) grid of the
+    inputs' device: bitwise a (1, 1) mesh, and bitwise the port's
+    one-device solvers of `core.sparse_sinkhorn` (no mesh; type1 divides
+    by r inside): the batched programs with and without the early exit,
+    and the per-query program against the stripes program's rows."""
+    t = torch.from_numpy
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs()
+    rb = tf.rebucket_for_vocab_shards(ell, 1)
+    vecs_t = t(vecs)
+    one = (vecs_t, t(rb.cols), t(rb.vals))
+    mesh = _mesh((1, 1))
+    placed = tdist.shard_wmd_inputs(mesh, vecs, rb.cols, rb.vals)
+    args = (vecs_t[t(sel_b).long()], t(r_b), t(mask_b))
+    cache = KCache(0, vecs, LAMB, device="cpu")
+    k_s, km_s, _ = cache.stripes_for_batch(sel_b, mask_b)
+    mk, mkm, _ = KCache(0, vecs, LAMB, mesh=mesh).stripes_for_batch(sel_b,
+                                                                    mask_b)
+    assert len(k_s) == len(mk) == 1
+    assert torch.equal(k_s[0], mk[0]) and torch.equal(km_s[0], mkm[0])
+    for tol, chunk in ((0.0, None), (1e-5, 16)):
+        kw = dict(max_iter=MAX_ITER, docs_chunk=chunk, tol=tol,
+                  impl="fused")
+        a = tdist.build_wmd_batch_fn(lamb=LAMB, with_info=True, **kw)(
+            *args, *one)
+        b = tdist.build_wmd_batch_fn(mesh, lamb=LAMB, with_info=True, **kw)(
+            *args, *placed)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert torch.equal(a[0], tss.sinkhorn_wmd_sparse_batch(
+            t(sel_b), t(r_b), t(ell.cols), t(ell.vals), vecs_t, LAMB,
+            row_mask=t(mask_b), **kw))
+        a = tdist.build_wmd_batch_fn_stripes(**kw)(k_s, km_s, args[1],
+                                                   *one[1:])
+        assert torch.equal(a, tdist.build_wmd_batch_fn_stripes(mesh, **kw)(
+            mk, mkm, args[1], *placed[1:]))
+        assert torch.equal(a, tss.sinkhorn_wmd_sparse_batch_stripes(
+            k_s[0], km_s[0], args[1], t(ell.cols), t(ell.vals), **kw))
+    rows = tdist.build_wmd_batch_fn_stripes(max_iter=MAX_ITER)(
+        k_s, km_s, args[1], *one[1:])
+    kw = dict(lamb=LAMB, max_iter=MAX_ITER, use_kernel=True)
+    for i in range(3):
+        q = (args[0][i], args[1][i], args[2][i])
+        a = tdist.build_wmd_fn(**kw)(*q, *one)
+        assert torch.equal(a, tdist.build_wmd_fn(mesh, **kw)(*q, *placed))
+        assert torch.equal(a, rows[i])
+
+
+@pytest.mark.parametrize("tol,docs_chunk", [(1e-5, 4), (1e-5, 8),
+                                            (1e-3, 4), (1e-3, 8)])
+def test_chunked_vote_on_a_4x1_mesh_keeps_n_iter(tol, docs_chunk):
+    """``tol > 0``, ``chunk_placement="solve"`` and chunks smaller than a
+    doc shard (16 docs on (4, 1)): the c-th chunks of the four doc shards
+    share one vote, so a chunk that has converged iterates on until its
+    group has. n_iter (the per-query maximum over the chunks) is the
+    one-device program's and every distance stays within ``tol``
+    (relative) of it; the bits differ. The (4, 1) service with the same
+    ``tol`` and ``docs_chunk`` holds its rows to the one-device
+    service's the same way."""
+    t = torch.from_numpy
+    vecs, ell, sel_b, r_b, mask_b = _batch_inputs()
+    rb = tf.rebucket_for_vocab_shards(ell, 1)
+    kw = dict(lamb=LAMB, max_iter=400, tol=tol, impl="fused",
+              docs_chunk=docs_chunk, with_info=True)
+    args = (t(vecs[sel_b]), t(r_b), t(mask_b))
+    one = tdist.build_wmd_batch_fn(**kw)(*args, t(vecs), t(rb.cols),
+                                         t(rb.vals))
+    mesh = _mesh((4, 1))
+    four = tdist.build_wmd_batch_fn(mesh, **kw)(
+        *args, *tdist.shard_wmd_inputs(mesh, vecs, rb.cols, rb.vals))
+    assert int(one[1].max()) < 400                    # the vote engaged
+    assert torch.equal(four[1], one[1])
+    assert torch.all(four[2] < tol)
+    assert torch.all((four[0] - one[0]).abs() <= tol * one[0].abs())
+    vecs3, ell3, qs = _problem(3)
+    svc = [WMDService(cfg=_cfg(), vecs=vecs3, ell=ell3, tol=tol,
+                      docs_chunk=docs_chunk, **SVC_KW, **where)
+           for where in (dict(device="cpu"), dict(mesh=mesh))]
+    a, b = (s.query_batch(qs) for s in svc)
+    assert np.all(np.abs(b - a) <= tol * np.abs(a))
+
+
+# -- the service ------------------------------------------------------------
+
+def _cfg():
+    _, ell, _ = _problem(3)
+    return WMDConfig(name="t", vocab_size=V, embed_dim=W, num_docs=N,
+                     nnz_max=ell.nnz_max, v_r=V_R, lamb=LAMB,
+                     max_iter=MAX_ITER)
+
+
+SVC_KW = dict(cache_capacity=48, cache_rows_bucket=8, mcache_capacity=48,
+              prune_chunk=8, bound_docs_chunk=None)
+
+
+@functools.lru_cache(maxsize=None)
+def _services(shape):
+    vecs, ell, _ = _problem(3)
+    one = WMDService(cfg=_cfg(), vecs=vecs, ell=ell, device="cpu", **SVC_KW)
+    return one, WMDService(cfg=_cfg(), vecs=vecs, ell=ell, mesh=_mesh(shape),
+                           **SVC_KW)
+
+
+ENTRY_POINTS = {
+    "query_batch": lambda s, qs: [s.query_batch(qs)],
+    "query_batch_transient": lambda s, qs: [s.query_batch(
+        qs, use_cache=False)],
+    "query_batch_chunked": lambda s, qs: [s.query_batch(qs, docs_chunk=8)],
+    "query": lambda s, qs: [s.query(r) for r in qs],
+    "query_batch_sequential": lambda s, qs: [s.query_batch_sequential(qs)],
+    "top_k": lambda s, qs: list(s.top_k(qs[0], 5)),
+    "top_k_batch": lambda s, qs: list(s.top_k_batch(qs, 5)),
+    "pruned_per_query": lambda s, qs: list(s.top_k_batch(qs, 5,
+                                                         prune=True)),
+    "pruned_union": lambda s, qs: list(s.top_k_batch(
+        qs, 5, prune=True, rerank="union")),
+    "scan": lambda s, qs: list(s.top_k_scan_batch(qs, 5)),
+    "bounds": lambda s, qs: [s.query_batch_bounds(qs)],
+    "bounds_top_k": lambda s, qs: list(s.top_k_batch_bounds(qs, 5)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_service_on_a_4x1_mesh_is_the_one_device_service(entry):
+    one, mesh = _services((4, 1))
+    assert mesh.device == CPU and mesh._rerank_chunk == 8
+    qs = _problem(3)[2]
+    for a, b in zip(ENTRY_POINTS[entry](one, qs),
+                    ENTRY_POINTS[entry](mesh, qs)):
+        assert np.array_equal(a, b), entry
+
+
+def test_service_legacy_route_on_a_4x1_mesh():
+    vecs, ell, _ = _problem(3)
+    qs = _problem(3)[2]
+    a = WMDService(cfg=_cfg(), vecs=vecs, ell=ell, device="cpu")
+    b = WMDService(cfg=_cfg(), vecs=vecs, ell=ell, mesh=_mesh((4, 1)))
+    assert np.array_equal(a.query_batch(qs), b.query_batch(qs))
+    assert b.last_batch_stats["route"] == "legacy_fused"
+
+
+def test_service_on_a_2x2_mesh():
+    """Pruned == scan == union, query(r) == query_batch rows, cache on ==
+    off, bitwise; against the one-device service and per-query
+    single-chip JAX by `_hold`."""
+    vecs, ell, qs = _problem(3)
+    one, svc = _services((2, 2))
+    rows = svc.query_batch(qs)
+    _hold(rows, one.query_batch(qs),
+          np.stack([_jax_wmd(vecs, ell, r) for r in qs]), 2)
+    assert np.array_equal(rows, svc.query_batch(qs, use_cache=False))
+    assert np.array_equal(rows, svc.query_batch(qs))
+    assert svc.cache_stats.hit_rows > 0
+    assert np.array_equal(rows, np.stack([svc.query(r) for r in qs]))
+    pruned = svc.top_k_batch(qs, 5, prune=True)
+    for other in (svc.top_k_scan_batch(qs, 5),
+                  svc.top_k_batch(qs, 5, prune=True, rerank="union"),
+                  svc.top_k_batch(qs, 5)):
+        for a, b in zip(pruned, other):
+            assert np.array_equal(a, b)
+
+
+def test_mesh_service_copies_once_a_model_shard_a_device(monkeypatch):
+    """Doc shards on one device share the vocab-major copies: a (2, 2)
+    kernel-route `query_batch` makes 2 x S = 4 copies, a (4, 1) one 2;
+    the K misses run one row compute a shard a 8-row chunk."""
+    vecs, ell, _ = _problem(3)
+    calls = {"k_vocab_major": 0, "cdist_kexp_rows": 0}
+    for name in calls:
+        orig = getattr(ops, name)
+
+        def counted(*a, _o=orig, _n=name, **k):
+            calls[_n] += 1
+            return _o(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    for shape in ((2, 2), (4, 1)):
+        for c in calls:
+            calls[c] = 0
+        svc = WMDService(cfg=_cfg(), vecs=vecs, ell=ell, mesh=_mesh(shape),
+                         cache_capacity=48, cache_rows_bucket=8)
+        svc.query_batch(_problem(3)[2])
+        misses = svc.last_batch_stats["misses"]
+        assert calls == {"k_vocab_major": 2 * shape[1],
+                         "cdist_kexp_rows": -(-misses // 8) * shape[1]}
+
+
+def test_live_service_on_a_mesh():
+    """A live service (half the docs in the base, half in the delta) on
+    (4, 1) is the one-device live service bitwise; on (2, 2) live pruned
+    == live scan and live rows == the static (2, 2) rows, bitwise."""
+    vecs, ell, _ = _problem(3)
+    docs = tf.doc_lists_from_ell(ell)
+    qs = _problem(3)[2]
+
+    def live(**kw):
+        lc = LiveCorpus(tempfile.mkdtemp(prefix="live-mesh-"), V,
+                        normalize=False)
+        lc.add_docs(range(N // 2), docs[:N // 2])
+        lc.compact()
+        lc.add_docs(range(N // 2, N), docs[N // 2:])
+        return WMDService.from_live(_cfg(), vecs, lc, **SVC_KW, **kw)
+
+    one, m41, m22 = (live(device="cpu"), live(mesh=_mesh((4, 1))),
+                     live(mesh=_mesh((2, 2))))
+    for entry in ("query_batch", "query", "pruned_per_query", "scan",
+                  "pruned_union", "bounds"):
+        for a, b in zip(ENTRY_POINTS[entry](one, qs),
+                        ENTRY_POINTS[entry](m41, qs)):
+            assert np.array_equal(a, b), entry
+    _, static22 = _services((2, 2))
+    assert np.array_equal(m22.query_batch(qs), static22.query_batch(qs))
+    for a, b in zip(m22.top_k_batch(qs, 5, prune=True),
+                    m22.top_k_scan_batch(qs, 5)):
+        assert np.array_equal(a, b)
+
+
+# -- placement ----------------------------------------------------------------
+
+def test_placement_on_a_mesh_of_distinct_devices():
+    """Two device kinds, so a misplaced block shows on the CPU: model
+    shard 1 on "meta". Every block, stripe and cache buffer lies on its
+    position's device, and `check_placement` names a moved one."""
+    meta = torch.device("meta")
+    mesh = _mesh((2, 2), devices=[CPU, meta, CPU, meta])
+    vecs, ell, _ = _problem(3)
+    rb = tf.rebucket_for_vocab_shards(ell, 2)
+    grid = tmesh.shard_grid(mesh)
+    assert [[d.type for d in row] for row in grid] == [["cpu", "meta"]] * 2
+    vecs_d, cols_d, vals_d = tdist.shard_wmd_inputs(mesh, vecs, rb.cols,
+                                                    rb.vals)
+    for blocks in (vecs_d, cols_d, vals_d):
+        tmesh.check_placement(grid, blocks, "blocks")
+    assert vecs_d[0, 0] is vecs_d[1, 0]           # one stripe a device
+    assert [cols_d[d, 0].shape[0] for d in range(2)] == [N // 2] * 2
+    np.testing.assert_array_equal(cols_d[1, 0].numpy(), rb.cols[0, N // 2:])
+    cache = KCache(8, vecs, LAMB, mesh=mesh, rows_bucket=8)
+    assert [b.device.type for b in cache._k_bufs] == ["cpu", "meta"]
+    sel_b, mask_b = np.array([[3, 5]]), np.ones((1, 2), np.float32)
+    k_s, km_s, _ = cache.stripes_for_batch(sel_b, mask_b)
+    tmesh.check_placement(grid, k_s, "K stripes")
+    vm = tdist.vocab_major_stripes(k_s, km_s, "kernel", mesh)
+    assert set(vm) == {(0, CPU), (1, meta)}
+    tmesh.check_placement(grid, vm, "copies")
+    cols_d[1, 1] = torch.empty_like(cols_d[1, 1], device=CPU)
+    with pytest.raises(RuntimeError, match=r"\(1, 1\)"):
+        tmesh.check_placement(grid, cols_d, "ELL cols")
+    with pytest.raises(RuntimeError, match="model shard 1"):
+        tmesh.check_placement(grid, [k_s[0], k_s[0]], "K stripes")
+    fn = tdist.build_wmd_batch_fn_stripes(mesh, max_iter=1, impl="fused")
+    with pytest.raises(RuntimeError, match="misplaced"):
+        fn(k_s, km_s, torch.ones((1, 2)), cols_d, vals_d)
+
+
+def test_launcher_serves_on_a_2x2_mesh():
+    from repro_torch.launch import serve
+    for flags in ([], ["--batch-queries"], ["--top-k", "5", "--prune"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve.main(["--arch", "sinkhorn-wmd", "--smoke", "--device", "cpu",
+                        "--devices", "4", "--mesh", "2x2",
+                        "--num-queries", "3", *flags])
+        text = out.getvalue()
+        assert "Mesh(data=2, model=2; ['cpu'])" in text
+        assert text.count("top5 docs") == 3, text
+        assert ("solves avoided" in text) == ("--prune" in flags)
+    with pytest.raises(SystemExit):
+        with contextlib.redirect_stderr(io.StringIO()):
+            serve.main(["--arch", "sinkhorn-wmd", "--smoke", "--device",
+                        "cpu", "--devices", "4", "--mesh", "3x2"])
+
+
+def test_launcher_keeps_an_indexed_device():
+    """An indexed ``--device`` serves on that one device (the (1, 1) mesh);
+    with ``--devices`` or ``--mesh`` it is refused."""
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "sinkhorn-wmd", "--smoke", "--device", "cpu:0",
+                    "--num-queries", "2"])
+    assert "Mesh(data=1, model=1; ['cpu'])" in out.getvalue()
+    for flags in (["--devices", "2"], ["--mesh", "1x1"]):
+        with pytest.raises(SystemExit):
+            with contextlib.redirect_stderr(io.StringIO()):
+                serve.main(["--arch", "sinkhorn-wmd", "--smoke", "--device",
+                            "cpu:0", *flags])

@@ -159,8 +159,9 @@ def test_stripes_solve_loop_matches_live_jax(docs_chunk, tol):
 @pytest.mark.parametrize("given_copy", [False, True])
 def test_local_batched_solve_matches_live_jax(placement, docs_chunk,
                                               given_copy):
-    """`core.distributed._local_batched_solve` through the stripes program,
-    with the copies made inside or handed in by the caller (the reranks)."""
+    """`core.distributed._batched_solve` on one device through the stripes
+    program, with the copies made inside or handed in by the caller (the
+    reranks)."""
     _, ell, _ = _corpus()
     k, km, r, _ = _stripes()
     rb = tf.rebucket_for_vocab_shards(ell, 1)
