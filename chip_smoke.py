@@ -159,8 +159,35 @@ Phases (any failure exits non-zero before the result line is printed):
      the function must move over 3.35 TB/s and its fp32 operations over
      67 TFLOP/s (H100 SXM data sheet, 700 W).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+  12. (run after phases 1-11 and 5 have released their tensors) the
+     language model: `deepseek-moe-16b` as published (28 layers, d_model
+     2048, 64 routed experts top-6 + 2 shared, vocab 102,400; 16.4 B
+     float32 parameters made on the card from a `torch.Generator` seeded
+     0), batch 4, prefill 64, 32 greedy decode steps, q_block = kv_block
+     = 16 (the reference launcher's defaults), through `build_model` and
+     `serving.build_serve_fns`: (a) with the published top-k router and
+     with the Sinkhorn router on the same parameters: finite logits,
+     tokens in range, a second decode loop from the same cache bitwise
+     the first; prefill ms and decode ms a token (CUDA events), the
+     decode step's `[idle]` line, the peak device memory and the decode
+     step's HBM bound from the bytes the code moves; (d) the coefficient
+     of variation of the expert loads of the first MoE layer's router
+     logits of (a)'s prefill under both routers: Sinkhorn's under half
+     top-k's; (b) decoding 8 tokens one by one gives the prefill's logits
+     on the extended sequence (capacity factor 16, so that no token is
+     dropped, as the reference test's factor 8 does at its smoke size):
+     argmax equal, relative error under 5e-2; (c) two layers of the full width (the dense layer 0
+     and one MoE layer) from one numpy tree through
+     `convert.lm_params_from_numpy` on the CPU and the card: prefill
+     logits within 2e-2 (bfloat16) and 1e-4 (float32 compute) of the
+     largest |logit|; no WMD kernel launched in the phase; (e) the
+     launcher as a subprocess (`python -m repro_torch.launch.serve --arch
+     deepseek-moe-16b --batch 4 --prefill-len 64 --decode-steps 32`):
+     exit 0 and both `[serve]` lines.
+
+The line before the last is a JSON object with one entry per kernel
+(``launches_by_phase`` has phase 12's, which must be 0); the last line is
+``{"ok": true, "device": {...}}``.
 """
 import hashlib
 import json
@@ -1229,14 +1256,332 @@ def _phase11(cfg, data, batches, d_rows, pruned, union1, lb_rows, svc,
     return total
 
 
-def main() -> int:
+def _named(tree, path=""):
+    """(path, tensor) of every tensor of a parameter or cache tree."""
+    if isinstance(tree, dict):
+        return [e for k, v in tree.items() for e in _named(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, v in enumerate(tree) for e in _named(v, f"{path}/{i}")]
+    return [(path, tree)] if hasattr(tree, "numel") else []
+
+
+def _decode_bytes(params, cache, batch: int, vocab: int) -> tuple[int, int]:
+    """(bytes one decode step of the port's code moves at the least, bytes
+    a step that read each weight once in bfloat16 would move). The code's:
+    each weight but the embedding table and the norm scales read in
+    float32, its bfloat16 copy written and read at its use
+    (`sharding_hints.fsdp_use`, the ``.to(dtype)`` of
+    `attention.fwd_decode`); the norm scales read once; the table's
+    ``batch`` rows; each KV-cache buffer read in bfloat16, its float32 copy
+    written and read (`attention.fwd_decode`); the bfloat16 logits
+    written."""
+    named = _named(params)
+    d = params["embedding"]["embed"].shape[1]
+    norm = sum(t.numel() for p, t in named if "norm" in p)
+    weights = sum(t.numel() for p, t in named
+                  if "norm" not in p and p != "/embedding/embed")
+    kv = sum(t.numel() for _, t in _named(cache))
+    rest = 4 * norm + 4 * batch * d + 2 * batch * vocab
+    return (8 * weights + 10 * kv + rest, 2 * weights + 2 * kv + rest)
+
+
+def _phase12(card):
+    """12. The language model on the card (see the module docstring).
+    Returns the kernels' launch counts over the phase, read around it."""
+    import dataclasses
+    import gc
+
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe
+    from repro_torch.serving import build_serve_fns
+
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-moe-16b")
+    b, t, steps = 4, 64, 32                  # the reference launcher's
+    max_len = t + steps
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32)
+    batch = {"tokens": tokens}
+    print(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+          f" {cfg.num_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} (d_ff {cfg.moe.d_ff_expert}) + "
+          f"{cfg.moe.num_shared} shared, layer 0 dense (d_ff "
+          f"{cfg.moe.d_ff_dense_first}); batch {b}, prefill {t}, {steps} "
+          f"decode steps, q_block = kv_block = 16; no depth cut")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+    # -- (a) the full config, both routers, from one set of parameters
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in _named(params))
+    print(f"[lm] {n_params:,} parameters, {4 * n_params / 1e9:.2f} GB "
+          f"float32, made on the card in {time.perf_counter() - t0:.1f} s; "
+          f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def greedy(dec, logits, cache):
+        """``steps`` greedy decode steps from a copy of ``cache``: (logits
+        (B, steps, V), tokens (B, steps), ms a step by CUDA events)."""
+        from repro_torch.models.lm import _tree_map
+        cache = _tree_map(torch.clone, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        outs, toks, events = [], [], []
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = dec(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            stop.record()
+            outs.append(logits)
+            toks.append(tok)
+            events.append((start, stop))
+        torch.cuda.synchronize()
+        return (torch.cat(outs, 1), torch.cat(toks, 1),
+                [s.elapsed_time(e) for s, e in events])
+
+    router_logits = {}
+    for router in ("topk", "sinkhorn"):
+        rcfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, router=router))
+        model = build_model(rcfg, q_block=16, kv_block=16)
+        prefill_for, decode_for = build_serve_fns(model, None,
+                                                  max_len=max_len)
+        prefill, dec = prefill_for(b), decode_for(b)
+        seen, gates = [], moe._gates
+
+        def spy(e, logits):                  # the router logits, for (d)
+            seen.append(logits.detach().to(torch.float32).cpu())
+            return gates(e, logits)
+
+        moe._gates = spy
+        try:
+            logits, cache = prefill(params, batch)
+        finally:
+            moe._gates = gates
+        router_logits[router] = seen
+        torch.cuda.synchronize()
+        prefill_ms = _timed(lambda: prefill(params, batch), 3, warmup=1)
+        l1, t1, ms1 = greedy(dec, logits, cache)
+        l2, t2, ms2 = greedy(dec, logits, cache)
+        _check(bool(torch.isfinite(logits.float()).all())
+               and bool(torch.isfinite(l1.float()).all()),
+               f"{router}: logits not finite")
+        _check(tuple(l1.shape) == (b, steps, cfg.vocab_size)
+               and int(t1.min()) >= 0 and int(t1.max()) < cfg.vocab_size,
+               f"{router}: decoded tokens out of range")
+        _check(torch.equal(l1, l2) and torch.equal(t1, t2),
+               f"{router}: a second decode loop from the same cache is not "
+               f"bitwise the first")
+        med = float(np.median(ms1 + ms2))
+        print(f"[lm] {router}: prefill {prefill_ms:.2f} ms (batch {b} x "
+              f"{t}, CUDA events, warm); decode {med:.2f} ms/token (median "
+              f"of {2 * steps} steps, CUDA events; first {ms1[0]:.2f} ms); "
+              f"a second decode loop from the same cache is bitwise the "
+              f"first ({steps} steps of logits and tokens); tokens "
+              f"{t1[0, :8].tolist()}...")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        wall, wall_prof, busy, largest, _ = _device_busy(
+            lambda: dec(params, cache, tok))
+        if busy is None:
+            print(f"[idle] decode step ({router}): {wall:.2f} ms wall; "
+                  f"device time not measured ({largest})")
+        else:
+            print(f"[idle] decode step ({router}): {wall:.2f} ms wall "
+                  f"({wall_prof:.2f} ms under the profiler), device busy "
+                  f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; largest "
+                  f"device entries: {largest}")
+        if router == "topk":
+            nbytes, ideal = _decode_bytes(params, cache, b, cfg.vocab_size)
+            print(f"[lm] decode step HBM bound: {nbytes / 1e9:.1f} GB the "
+                  f"code moves (float32 weights read, their bfloat16 copy "
+                  f"written and read at each use) / 3.35e12 B/s = "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.1f} ms, measured "
+                  f"{med:.2f} ms ({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} "
+                  f"of the bound); each weight read once in bfloat16: "
+                  f"{ideal / 1e9:.1f} GB, "
+                  f"{ideal / HBM_BYTES_PER_S * 1e3:.1f} ms")
+        del logits, cache, l1, l2
+    print(f"[lm] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB (torch.cuda.max_memory_allocated, (a))")
+
+    # -- (d) the Sinkhorn router balances load: the first MoE layer's router
+    # logits of the top-k prefill (its input does not depend on the router)
+    cv = {}
+    for router in ("topk", "sinkhorn"):
+        e = dataclasses.replace(cfg.moe, router=router)
+        ids, _, _ = moe._gates(e, router_logits["topk"][0])
+        counts = np.bincount(ids.numpy().ravel(),
+                             minlength=cfg.moe.num_experts)
+        load = counts / counts.sum()
+        cv[router] = float(load.std() / load.mean())
+    print(f"[lm] router load over {cfg.moe.num_experts} experts, first MoE "
+          f"layer, {b * t} tokens x top-{cfg.moe.top_k}: coefficient of "
+          f"variation topk {cv['topk']:.4f}, sinkhorn {cv['sinkhorn']:.4f} "
+          f"({cfg.moe.sinkhorn_iters} iterations, lambda "
+          f"{cfg.moe.sinkhorn_lamb})")
+    _check(cv["sinkhorn"] < 0.5 * cv["topk"],
+           "the Sinkhorn router's load CV is not under half the top-k's")
+
+    # -- (b) decode against prefill at full size (the reference's test), in
+    # bfloat16 (the config's) and float32 compute (and cache). Its
+    # capacity factor 8 leaves no token dropped at its smoke size (capacity
+    # 49 for 24 tokens a row); here that takes a factor of 16 (capacity 97
+    # for 64 tokens a row; at 8, 49 slots, a skewed expert drops the last
+    # tokens of the prefill and not of the decode)
+    cf = 16.0
+    cap = int(t * cfg.moe.top_k * cf / cfg.moe.num_experts + 1)
+    _check(cap >= t, f"capacity {cap} drops tokens of a {t}-token row")
+    cfg8 = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32)
+    s1 = t - 8
+
+    def routed(fn):
+        """fn()'s result and the expert ids of each of its MoE layers."""
+        seen, gates = [], moe._gates
+
+        def spy(e, logits):
+            out = gates(e, logits)
+            seen.append(out[0].cpu())
+            return out
+
+        moe._gates = spy
+        try:
+            return fn(), seen
+        finally:
+            moe._gates = gates
+
+    def decode_vs_prefill(c):
+        """Decode tokens s1.. one by one after a prefill of s1, and prefill
+        all t: (decode logits, prefill logits, (token, layer) pairs whose
+        expert set differs between the two)."""
+        model = build_model(c, q_block=16, kv_block=16)
+        if c.compute_dtype == "float32":   # a float32 cache as well
+            from repro_torch.models import lm
+            from repro_torch.models.layers import embedding
+            x = embedding.embed(c, params["embedding"],
+                                torch.from_numpy(toks[:, :s1]).to(dev),
+                                dtype=torch.float32)
+            _, cache = lm.prefill(c, params, x, max_len=t, q_block=16,
+                                  kv_block=16, cache_dtype=torch.float32)
+        else:
+            _, cache = model.prefill(params, {"tokens": toks[:, :s1]},
+                                     max_len=t)
+
+        def steps_():
+            nonlocal cache
+            for i in range(s1, t):
+                out, cache = model.decode(params, cache, toks[:, i:i + 1],
+                                          donate=True)
+            return out
+
+        logits_d, ids_d = routed(steps_)
+        (logits_p, _), ids_p = routed(
+            lambda: model.prefill(params, {"tokens": toks}, max_len=t))
+        n_moe = len(ids_p)
+        flips = sum(int((ids_d[j * n_moe + layer].sort(-1).values
+                         != ids_p[layer].reshape(b, t, -1)[:, s1 + j]
+                         .sort(-1).values).any(-1).sum())
+                    for j in range(t - s1) for layer in range(n_moe))
+        return (logits_d.float().cpu().numpy(),
+                logits_p.float().cpu().numpy(), flips, (t - s1) * n_moe * b)
+
+    for c in (cfg8, dataclasses.replace(cfg8, compute_dtype="float32")):
+        a, r, flips, pairs = decode_vs_prefill(c)
+        rel = float(np.abs(a - r).max() / np.abs(r).max())
+        top2 = np.sort(r[:, -1], axis=-1)[:, -2:]
+        print(f"[lm] decode vs prefill, compute {c.compute_dtype} (tokens "
+              f"{s1}..{t - 1} decoded one by one, capacity factor {cf:g}: "
+              f"{cap} slots an expert, no drop): relative error {rel:.3g} "
+              f"(bound 5e-2), argmax {a.argmax(-1).ravel().tolist()} vs "
+              f"{r.argmax(-1).ravel().tolist()}; the prefill's top-2 margins "
+              f"{np.round(top2[:, 1] - top2[:, 0], 4).tolist()}, max abs "
+              f"difference {float(np.abs(a - r).max()):.4f}; routing "
+              f"differs in {flips} of {pairs} (token, MoE layer) pairs")
+        _check(np.array_equal(a.argmax(-1), r.argmax(-1)),
+               "decode and prefill disagree on the argmax")
+        _check(rel < 5e-2, f"decode vs prefill relative error {rel}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the card against the CPU at full width: layer 0 (dense) and
+    # one MoE layer, from one numpy tree
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    t0 = time.perf_counter()
+    from repro_torch.models.lm import _tree_map
+    tree = _tree_map(lambda x: x.numpy(),
+                     build_model(cfg2, device="cpu").init(0))
+    p_cpu = lm_params_from_numpy(tree, device="cpu")
+    p_gpu = lm_params_from_numpy(tree, device="cuda")
+    print(f"[lm] 2 layers at full width: "
+          f"{sum(x.numel() for _, x in _named(p_cpu)):,} parameters from a "
+          f"numpy tree, on the CPU and the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for dtype, bound in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        c2 = dataclasses.replace(cfg2, compute_dtype=dtype)
+        t0 = time.perf_counter()
+        l_cpu, _ = build_model(c2, q_block=16, kv_block=16,
+                               device="cpu").prefill(p_cpu, batch,
+                                                     max_len=t)
+        cpu_s = time.perf_counter() - t0
+        l_gpu, _ = build_model(c2, q_block=16, kv_block=16).prefill(
+            p_gpu, batch, max_len=t)
+        a = l_gpu.float().cpu().numpy()
+        r = l_cpu.float().numpy()
+        rel = float(np.abs(a - r).max() / np.abs(r).max())
+        print(f"[lm] card vs CPU, prefill logits, compute {dtype}: relative "
+              f"error {rel:.3g} of max |logit| (bound {bound:g}); argmax "
+              f"equal {int((a.argmax(-1) == r.argmax(-1)).sum())}/{b}; CPU "
+              f"{cpu_s:.1f} s")
+        _check(np.isfinite(a).all() and rel <= bound,
+               f"card vs CPU ({dtype}): relative error {rel} > {bound}")
+    del tree, p_cpu, p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(_build.launches)
+    print(f"[lm] kernel launches over phase 12: {launches or 'none'} (the "
+          f"language-model path runs no hand-written kernel)")
+    _check(sum(launches.values()) == 0, "phase 12 launched a WMD kernel")
+
+    # -- (e) the launcher, as a subprocess, on the card it now has to itself
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "deepseek-moe-16b", "--batch", str(b), "--prefill-len", str(t),
+           "--decode-steps", str(steps)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        print(f"[lm launcher] {ln}")
+    _check(run.returncode == 0, f"the launcher exited {run.returncode}: "
+           f"{run.stderr[-2000:]}")
+    _check(any("prefill" in ln for ln in lines)
+           and any("decode steps" in ln for ln in lines),
+           "the launcher did not print both [serve] lines")
+    print(f"[lm launcher] {' '.join(cmd[2:])}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _wmd_phases():
+    """Phases 1-11 and 5 (the Sinkhorn-WMD service and its kernels).
+    Returns (the kernel entries, the card's nvidia-smi line); every tensor
+    of these phases is released when it returns."""
+    import numpy as np
+    import torch
     import repro_torch  # noqa: F401  (precision pins)
     from repro_torch.configs.sinkhorn_wmd import config
     from repro_torch.core import sparse_sinkhorn as ss
@@ -2111,6 +2456,26 @@ def main() -> int:
           f"device time (profiler) {dev_lc:.4f} vs {dev_lib:.4f} ms "
           f"({dev_lib / dev_lc:.2f}x); on a row-major minm (the copy in the "
           f"call) {ms_rm:.4f} ms events, {dev_rm:.4f} ms device")
+
+    return results, card
+
+
+def main() -> int:
+    import gc
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    results, card = _wmd_phases()
+    # -- 12. the language model: phases 1-11's tensors released first ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches12 = _phase12(card)
+    for entry in results:
+        entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

@@ -9,6 +9,11 @@ same slots from the same query stream.
     state = state_from_numpy(vecs, ell.cols, ell.vals, ell.num_vocab,
                              device="cuda")
     svc = WMDService.from_state(cfg, state, cache_capacity=1024)
+
+A language model's state is its parameter tree: `lm_params_from_numpy`
+carries the reference's tree (``jax.tree.map(np.asarray, params)``) into
+the port's, which has the same structure, so both packages compute the
+same function from the same weights.
 """
 from __future__ import annotations
 
@@ -52,3 +57,27 @@ def state_from_numpy(vecs: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     vecs_t = torch.as_tensor(np.ascontiguousarray(vecs, np.float32),
                              device=torch.device(device))
     return WMDState(vecs=vecs_t, ell=ell)
+
+
+def lm_params_from_numpy(tree, *, device: str | torch.device = "cuda"):
+    """The reference's language-model parameter tree, as numpy arrays
+    (dicts, lists, the stacked ``units``), -> the port's tree on
+    ``device``: the same structure, every array copied bit for bit into a
+    tensor of its dtype. ``device`` defaults to the card."""
+    device = torch.device(device)
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, f"{path}/{i}") for i, v in enumerate(node)]
+        arr = np.asarray(node)
+        if arr.dtype.kind != "f":
+            raise ValueError(f"{path or '/'}: a parameter must be a float "
+                             f"array, got {arr.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    if not isinstance(tree, dict) or "embedding" not in tree:
+        raise ValueError("not a language-model parameter tree (no "
+                         "'embedding')")
+    return conv(tree, "")

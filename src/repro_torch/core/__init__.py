@@ -1,8 +1,7 @@
-"""Formats, precompute, the sparse Sinkhorn engine, the K cache and guards.
+"""Formats, precompute, the sparse Sinkhorn engine, the K cache, guards
+and the generic Sinkhorn OT solver (`ot`, the MoE router's).
 
-Re-exports the public names of `repro.core` that the port has, in the
-reference's order. Not ported yet: `ot` (`SinkhornResult`,
-`sinkhorn_divergence`, `sinkhorn_plan`; ROADMAP Queue 1 item 5).
+Re-exports every public name of `repro.core`, in the reference's order.
 """
 from repro_torch.core.cost_matrix import cdist, cdist_direct, cdist_matmul
 from repro_torch.core.formats import (BucketedEll, EllDocs, bucket_by_length,
@@ -28,6 +27,8 @@ from repro_torch.core.sparse_sinkhorn import (
     sddmm_spmm_type1, sddmm_spmm_type2, sddmm_spmm_type1_batch,
     sddmm_spmm_type2_batch, sinkhorn_wmd_sparse, sinkhorn_wmd_sparse_batch,
     sinkhorn_wmd_sparse_batch_stripes)
+from repro_torch.core.ot import (SinkhornResult, sinkhorn_divergence,
+                                 sinkhorn_plan)
 from repro_torch.core.convergence import (BatchConvergedWMD, ConvergedWMD,
                                           sinkhorn_wmd_converged,
                                           sinkhorn_wmd_converged_batch)
@@ -53,6 +54,7 @@ __all__ = [
     "batched_sinkhorn_loop", "sddmm_batch", "spmm_batch",
     "sddmm_spmm_type1_batch", "sddmm_spmm_type2_batch",
     "sinkhorn_wmd_sparse_batch", "sinkhorn_wmd_sparse_batch_stripes",
+    "SinkhornResult", "sinkhorn_divergence", "sinkhorn_plan",
     "ConvergedWMD", "sinkhorn_wmd_converged",
     "BatchConvergedWMD", "sinkhorn_wmd_converged_batch",
 ]

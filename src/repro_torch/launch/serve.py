@@ -1,5 +1,8 @@
-"""Serving launcher for the port: the Sinkhorn-WMD query service.
+"""Serving launcher for the port: the Sinkhorn-WMD query service, or a
+language model's prefill + greedy decode loop.
 
+    python -m repro_torch.launch.serve --arch <lm arch> [--smoke]
+        [--batch B] [--prefill-len T] [--decode-steps N] [--device D]
     python -m repro_torch.launch.serve --arch sinkhorn-wmd [--smoke]
         [--batch-queries] [--num-queries N] [--impl kernel|fused|unfused]
         [--docs-chunk D] [--tol T] [--top-k K] [--prune]
@@ -53,9 +56,17 @@ N logical devices, placed round-robin on the visible cards (all on
 counterpart of the reference's forced host device count; without it, n
 is the number of visible cards (1 on the CPU). An indexed ``--device
 cuda:1`` serves on that one card and takes neither flag. Several shards on
-one card test the program's logic, not its speed across cards. The
-language-model architectures of the reference launcher are not ported
-yet.
+one card test the program's logic, not its speed across cards.
+
+Any other ``--arch`` (`repro_torch.configs.arch_ids`) runs a language
+model as the reference launcher does: the published config (``--smoke``:
+its reduced smoke config), random parameters made on the device by a
+`torch.Generator` seeded 0, ``--batch`` rows of ``--prefill-len`` random
+tokens (numpy seed 0) prefilled, then ``--decode-steps`` greedy decode
+steps with the cache donated; it prints the prefill time and the decode
+time a token. It runs on one device (``--device``; the card by default).
+The multi-device and the recurrent / latent-attention / encoder-decoder
+architectures are not ported yet and raise.
 """
 import argparse
 
@@ -64,6 +75,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="language model: rows of the batch")
+    ap.add_argument("--prefill-len", type=int, default=64,
+                    help="language model: prompt tokens a row")
+    ap.add_argument("--decode-steps", type=int, default=32,
+                    help="language model: greedy decode steps")
     ap.add_argument("--num-queries", type=int, default=4)
     ap.add_argument("--batch-queries", action="store_true",
                     help="serve all queries in one batched (Q, v_r, N) "
@@ -173,8 +190,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.arch != "sinkhorn-wmd":
-        ap.error(f"--arch {args.arch!r}: only sinkhorn-wmd is ported "
-                 f"(the LM substrate is ROADMAP Queue 1, last item)")
+        _serve_lm(args, ap)
+        return
 
     import time
 
@@ -261,16 +278,79 @@ def main(argv=None):
           f"{total / q * 1e3:.2f} ms a query ({q / total:.1f} queries/s)")
 
 
+def _serve_lm(args, ap):
+    """Prefill + greedy decode of a language model (module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import arch_ids, get_config, get_smoke_config
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding_hints import activation_sharding
+    from repro_torch.serving import build_serve_fns
+
+    if args.arch not in arch_ids():
+        ap.error(f"--arch {args.arch!r}: one of sinkhorn-wmd, "
+                 f"{', '.join(arch_ids())}")
+    mesh = _mesh(args, ap) if (args.devices or args.mesh) \
+        else one_device_mesh(_device(args.device))
+    dev = mesh.device()
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg, q_block=16, kv_block=16, device=dev)
+    max_len = args.prefill_len + args.decode_steps
+    prefill_for, decode_for = build_serve_fns(model, mesh, max_len=max_len)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prefill_len)).astype(np.int32)}
+    if cfg.family == "vlm":
+        p = cfg.encoder.num_positions
+        batch["patches"] = rng.normal(
+            size=(args.batch, p, cfg.d_model)).astype(np.float32)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with activation_sharding(mesh):
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill_for(args.batch)(params, batch)
+        sync()
+        print(f"[serve] prefill {args.prefill_len} tokens: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        dec = decode_for(args.batch)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(args.decode_steps):
+            logits, cache = dec(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        sync()
+        dt = time.perf_counter() - t0
+    print(f"[serve] {args.decode_steps} decode steps: {dt * 1e3:.1f} ms "
+          f"({dt / max(args.decode_steps, 1) * 1e3:.2f} ms/tok) on {dev}")
+
+
+def _device(name):
+    """``--device`` as a torch device; a card that is not there raises."""
+    import torch
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs an NVIDIA GPU; pass "
+                           "--device cpu for the plain PyTorch versions")
+    return dev
+
+
 def _mesh(args, ap):
     """The service's mesh from ``--device``, ``--devices`` and ``--mesh``
     (see the module docstring)."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs an NVIDIA GPU; pass "
-                           "--device cpu for the plain PyTorch versions")
+    dev = _device(args.device)
     if dev.index is not None:
         if args.devices or args.mesh:
             ap.error(f"--device {args.device} names one device; --devices "

@@ -1,0 +1,192 @@
+"""Mixture-of-Experts with sort-based dispatch + optional Sinkhorn router.
+
+Port of `repro.models.layers.moe`. Dispatch is **sort-based** (argsort
+tokens by expert, gather into (E, C, D) groups, batched expert matmul,
+gather back): gathers cost bytes, not FLOPs. Tokens beyond per-expert
+capacity C are dropped (standard).
+
+Routers:
+  * ``topk``     -- softmax gate, faithful to mixtral/deepseek.
+  * ``sinkhorn`` -- the paper's technique as a first-class framework feature:
+    token->expert assignment is an entropy-regularized OT problem (uniform
+    expert marginal = perfect balance), solved with the same Sinkhorn-Knopp
+    core (`repro_torch.core.ot`). The transport plan replaces the softmax
+    probabilities before top-k.
+
+The combine has a fixed order. The reference scatter-adds each kept
+contribution into its token (``.at[sorted_tok].add``); on the card an
+index-add uses float atomics, whose order is not fixed. The port puts
+each kept contribution back at its (token, choice) place through the
+inverse of the sort and sums a token's ``top_k`` choices left to right,
+so two runs give the same bits.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.core.ot import sinkhorn_plan
+from repro_torch.models.layers import mlp
+from repro_torch.models.layers._random import normal
+from repro_torch.models.sharding_hints import (fsdp_use, hint_moe_hidden,
+                                               hint_moe_tokens)
+
+
+def init(key: torch.Generator, cfg: ModelConfig, dtype=torch.float32, *,
+         lead: tuple = ()) -> dict:
+    e = cfg.moe
+    d = cfg.d_model
+    s_in, s_out = d ** -0.5, e.d_ff_expert ** -0.5
+    params = {
+        "router": normal(key, (*lead, d, e.num_experts), s_in, dtype),
+        "wi_gate": normal(key, (*lead, e.num_experts, d, e.d_ff_expert),
+                          s_in, dtype),
+        "wi_up": normal(key, (*lead, e.num_experts, d, e.d_ff_expert),
+                        s_in, dtype),
+        "wo": normal(key, (*lead, e.num_experts, e.d_ff_expert, d),
+                     s_out, dtype),
+    }
+    if e.num_shared > 0:
+        params["shared"] = mlp.init(
+            key, "silu_glu", d, e.num_shared * e.d_ff_expert, dtype,
+            lead=lead)
+    return params
+
+
+def _top_k(scores: torch.Tensor, k: int):
+    """The ``k`` largest of each row, in descending order, equal values in
+    index order (as ``jax.lax.top_k``). `torch.topk` leaves the order of
+    equal values open, and it can differ between launches of other shapes:
+    bfloat16 router logits tie often, and a tie broken one way in the
+    prefill and the other in the decode step routes a token to another
+    expert."""
+    values, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], ids[..., :k]
+
+
+def _gates(e: MoEConfig, logits: torch.Tensor):
+    """(T, E) routing logits -> (T, k) expert ids + normalized weights + aux."""
+    t = logits.shape[0]
+    lf = logits.to(torch.float32)
+    probs = torch.softmax(lf, dim=-1)
+    if e.router == "sinkhorn":
+        # OT: uniform token mass -> uniform expert marginal (balanced).
+        a = torch.full((t,), 1.0 / t, dtype=torch.float32,
+                       device=logits.device)
+        b = torch.full((e.num_experts,), 1.0 / e.num_experts,
+                       dtype=torch.float32, device=logits.device)
+        cost = -torch.log_softmax(lf, dim=-1)
+        plan = sinkhorn_plan(cost, a, b, lamb=e.sinkhorn_lamb,
+                             max_iter=e.sinkhorn_iters).plan
+        scores = plan * t                    # rows ~ sum to 1
+    elif e.router == "topk":
+        scores = probs
+    else:
+        raise ValueError(f"unknown router {e.router!r}")
+    weights, ids = _top_k(scores, e.top_k)                 # (T, k)
+    weights = weights / torch.clamp_min(
+        torch.sum(weights, dim=-1, keepdim=True), 1e-9)
+    # switch-style load-balance aux: E * sum_e f_e * p_e
+    assign = F.one_hot(ids[:, 0], e.num_experts).to(torch.float32)
+    f_e = torch.mean(assign, dim=0)
+    p_e = torch.mean(probs, dim=0)
+    aux = e.num_experts * torch.sum(f_e * p_e)
+    return ids, weights, aux
+
+
+def _dispatch_group(e: MoEConfig, xg: torch.Tensor, ids: torch.Tensor,
+                    weights: torch.Tensor, cap: int):
+    """Group-local sort-based dispatch, over a leading batch of groups.
+    xg (B, Tg, D); ids/weights (B, Tg, k). Returns grouped (B, E, C, D) and
+    the combine metadata; every index op stays inside its group."""
+    b, tg, d = xg.shape
+    k = e.top_k
+    dev = xg.device
+    flat_exp = ids.reshape(b, tg * k)
+    flat_tok = torch.arange(tg, device=dev).repeat_interleave(k)
+    flat_w = weights.reshape(b, tg * k)
+    order = torch.argsort(flat_exp, dim=-1, stable=True)
+    sorted_exp = torch.gather(flat_exp, 1, order)
+    sorted_tok = flat_tok[order]                            # (B, Tg*k)
+    sorted_w = torch.gather(flat_w, 1, order)
+    counts = torch.zeros((b, e.num_experts), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, sorted_exp, torch.ones_like(sorted_exp))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos_in_exp = torch.arange(tg * k, device=dev) \
+        - torch.gather(starts, 1, sorted_exp)
+    keep = pos_in_exp < cap
+    slot = torch.where(keep, sorted_exp * cap + pos_in_exp,
+                       e.num_experts * cap)
+    rows = torch.arange(b, device=dev)[:, None]
+    # overflow writes land in the extra slot E*cap, which is cut off
+    buf = torch.zeros((b, e.num_experts * cap + 1, d), dtype=xg.dtype,
+                      device=dev)
+    buf[rows, slot] = xg[rows, sorted_tok]
+    grouped = buf[:, :-1].reshape(b, e.num_experts, cap, d)
+    return grouped, (keep, slot, order, sorted_w)
+
+
+def _combine_group(meta, y: torch.Tensor, tg: int, d: int):
+    """y (B, E, C, D) -> (B, Tg, D): each kept contribution at its (token,
+    choice) place, the choices summed left to right."""
+    keep, slot, order, sorted_w = meta
+    b = y.shape[0]
+    k = keep.shape[1] // tg
+    yf = y.reshape(b, -1, d)                                # (B, E*C, D)
+    rows = torch.arange(b, device=y.device)[:, None]
+    contrib = yf[rows, torch.clamp_max(slot, yf.shape[1] - 1)] \
+        * sorted_w[..., None].to(y.dtype)
+    contrib = torch.where(keep[..., None], contrib,
+                          torch.zeros((), dtype=y.dtype, device=y.device))
+    placed = torch.empty_like(contrib)
+    placed[rows, order] = contrib          # the inverse of the sort
+    placed = placed.reshape(b, tg, k, d)
+    out = placed[:, :, 0]
+    for j in range(1, k):
+        out = out + placed[:, :, j]
+    return out
+
+
+def apply(cfg: ModelConfig, params: dict, x: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B,S,D), aux_loss scalar).
+
+    Grouped sort-based dispatch: each batch row is a dispatch group
+    (GShard's group-local capacity); the reference ``vmap``s the pipeline
+    over the batch axis, the port runs it batched over that axis.
+
+    Capacity C = max(int(S * top_k * cf / E + 1), top_k) per group;
+    overflow drops are group-local (standard GShard semantics).
+    """
+    e = cfg.moe
+    b, s, d = x.shape
+    dtype = x.dtype
+    t = b * s
+
+    logits = x.reshape(t, d) @ params["router"].to(dtype)  # (T, E)
+    ids, weights, aux = _gates(e, logits)                   # (T, k)
+    cap = max(int(s * e.top_k * e.capacity_factor / e.num_experts + 1),
+              e.top_k)
+
+    ids_g = ids.reshape(b, s, e.top_k)
+    w_g = weights.reshape(b, s, e.top_k)
+
+    grouped, meta = _dispatch_group(e, x, ids_g, w_g, cap)
+    rep_dec = (b * cap) < (3 * e.d_ff_expert) // 8
+    grouped = hint_moe_tokens(grouped, rep_dec)             # (B,E,C,D)
+    # "becd,edf->becf" as one batched matmul an expert: (E, B*C, D)
+    xe = grouped.permute(1, 0, 2, 3).reshape(e.num_experts, b * cap, d)
+    gate = torch.bmm(xe, fsdp_use(params["wi_gate"], "wi_gate", dtype))
+    up = torch.bmm(xe, fsdp_use(params["wi_up"], "wi_up", dtype))
+    h = hint_moe_hidden(F.silu(gate) * up, rep_dec)         # (E,B*C,F)
+    y = torch.bmm(h, fsdp_use(params["wo"], "wo", dtype))   # (E,B*C,D)
+    y = y.reshape(e.num_experts, b, cap, d).permute(1, 0, 2, 3)
+    y = hint_moe_tokens(y, rep_dec)
+
+    out = _combine_group(meta, y, s, d)
+
+    if e.num_shared > 0:
+        out = out + mlp.apply("silu_glu", params["shared"],
+                              x.reshape(t, d)).reshape(b, s, d)
+    return out.reshape(b, s, d), aux.to(torch.float32)

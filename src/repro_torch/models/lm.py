@@ -1,0 +1,375 @@
+"""Decoder-only LM assembly: pattern-stacked blocks, train/prefill/decode.
+
+Port of `repro.models.lm`. The parameter tree is the reference's: the
+repeating *pattern units* of the config have their parameters stacked
+along a leading unit axis (``units``: one dict a block of the pattern,
+each leaf (n_units, ...)), and non-conforming layers (deepseek's
+dense-FFN first layer, pattern tails) are unrolled as ``prefix`` /
+``tail`` lists. So weights convert 1:1 (`repro_torch.convert.
+lm_params_from_numpy`). Where the reference runs the units under
+``jax.lax.scan``, the port loops over the leading axis, on views of the
+stacked parameters.
+
+Caches mirror the same prefix/units/tail structure, the units' caches
+stacked on the leading axis. A cache's positions are Python ints.
+
+Block kinds other than attention with GQA/MQA are not ported yet and
+raise: ``rglru`` (`layers/rglru.py`), ``mlstm`` / ``slstm``
+(`layers/xlstm.py`) and multi-head latent attention (``cfg.mla``,
+`layers/mla.py`), all in ROADMAP Queue 1 item 5's next slice.
+
+The VLM (paligemma) path consumes precomputed patch embeddings as a
+full-attention prefix (prefix-LM masking); the frontend is a stub per the
+assignment.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import attention, embedding, mlp, moe, norms
+
+Params = Any
+Cache = Any
+
+_UNPORTED = {
+    "rglru": "layers/rglru.py",
+    "mlstm": "layers/xlstm.py",
+    "slstm": "layers/xlstm.py",
+}
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    """Raise for a block the port does not run yet, naming its module."""
+    if kind in _UNPORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: block kind {kind!r} needs models/"
+            f"{_UNPORTED[kind]}, not ported yet (ROADMAP Queue 1 item 5, "
+            f"the remaining mixers)")
+    if kind != "attn":
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention needs models/layers/"
+            f"mla.py, not ported yet (ROADMAP Queue 1 item 5, the remaining "
+            f"mixers)")
+
+
+def _tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of dicts, lists and (named)
+    tuples; other leaves (a cache's int positions) pass unchanged."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else tuple(vals)
+    return tree
+
+
+def _unit(tree, u: int):
+    """The ``u``-th unit of a stacked tree: views, no copy."""
+    return _tree_map(lambda t: t[u], tree)
+
+
+# ---------------------------------------------------------------------------
+# per-block init / apply
+# ---------------------------------------------------------------------------
+
+def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    return (cfg.moe is not None
+            and layer_idx >= cfg.moe.first_dense_layers)
+
+
+def init_block(key: torch.Generator, cfg: ModelConfig, kind: str,
+               layer_idx: int, dtype=torch.float32, *,
+               lead: tuple = ()) -> dict:
+    """One block's parameters on ``key``'s device; ``lead`` stacks them
+    (the scanned units)."""
+    _check_kind(cfg, kind)
+    dev = key.device
+    p: dict = {"mix_norm": norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                      lead=lead, device=dev),
+               "mix": attention.init(key, cfg, dtype, lead=lead)}
+    if _is_moe_layer(cfg, layer_idx):
+        p["mlp_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                   lead=lead, device=dev)
+        p["mlp"] = moe.init(key, cfg, dtype, lead=lead)
+    elif cfg.moe is not None and layer_idx < cfg.moe.first_dense_layers:
+        p["mlp_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                   lead=lead, device=dev)
+        p["mlp"] = mlp.init(key, "silu_glu", cfg.d_model,
+                            cfg.moe.d_ff_dense_first, dtype, lead=lead)
+    elif cfg.d_ff > 0:
+        p["mlp_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                   lead=lead, device=dev)
+        p["mlp"] = mlp.init(key, cfg.mlp_kind, cfg.d_model, cfg.d_ff, dtype,
+                            lead=lead)
+    return p
+
+
+def _mlp(cfg: ModelConfig, params: dict, x: torch.Tensor, layer_idx: int):
+    """The block's feed-forward half: (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" in params:
+        xn = norms.apply(cfg.norm_kind, params["mlp_norm"], x)
+        if _is_moe_layer(cfg, layer_idx):
+            h, aux = moe.apply(cfg, params["mlp"], xn)
+        elif cfg.moe is not None:
+            h = mlp.apply("silu_glu", params["mlp"], xn)
+        else:
+            h = mlp.apply(cfg.mlp_kind, params["mlp"], xn)
+        x = x + h
+    return x, aux
+
+
+def apply_block_full(cfg: ModelConfig, kind: str, params: dict,
+                     x: torch.Tensor, *, layer_idx: int, prefix_len: int = 0,
+                     q_block: int, kv_block: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block. Returns (x, aux_loss)."""
+    _check_kind(cfg, kind)
+    xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+    x = x + attention.fwd_full(cfg, params["mix"], xn, prefix_len=prefix_len,
+                               q_block=q_block, kv_block=kv_block)
+    return _mlp(cfg, params, x, layer_idx)
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, lead: tuple = (),
+                     device=None):
+    _check_kind(cfg, kind)
+    return attention.init_cache(cfg, batch, max_len, dtype, lead=lead,
+                                device=device)
+
+
+def apply_block_decode(cfg: ModelConfig, kind: str, params: dict,
+                       x: torch.Tensor, cache, *, layer_idx: int,
+                       donate: bool = False):
+    """One decode step of a block; ``donate`` writes into ``cache``."""
+    _check_kind(cfg, kind)
+    h, cache = attention.fwd_decode(
+        cfg, params["mix"],
+        norms.apply(cfg.norm_kind, params["mix_norm"], x), cache,
+        donate=donate)
+    x, _ = _mlp(cfg, params, x + h, layer_idx)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# stack structure: prefix (unrolled) + units (stacked) + tail (unrolled)
+# ---------------------------------------------------------------------------
+
+class StackPlan(NamedTuple):
+    prefix: tuple[str, ...]          # unrolled leading layer kinds
+    unit: tuple[str, ...]            # repeating pattern
+    n_units: int
+    tail: tuple[str, ...]            # unrolled trailing kinds
+
+
+def stack_plan(cfg: ModelConfig) -> StackPlan:
+    kinds = cfg.layer_kinds()
+    n_prefix = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    body = kinds[n_prefix:]
+    unit = cfg.block_pattern
+    n_units = len(body) // len(unit)
+    tail = body[n_units * len(unit):]
+    return StackPlan(prefix=kinds[:n_prefix], unit=unit,
+                     n_units=n_units, tail=tail)
+
+
+def init_params(key: torch.Generator, cfg: ModelConfig, *,
+                max_positions: int = 0, dtype=torch.float32) -> Params:
+    """Random parameters on ``key``'s device, drawn tensor by tensor from
+    ``key``; the units' parameters are drawn straight into their stacked
+    tensors (no per-unit temporary)."""
+    plan = stack_plan(cfg)
+    n_prefix = len(plan.prefix)
+    params: dict = {
+        "embedding": embedding.init(key, cfg, max_positions=max_positions,
+                                    dtype=dtype),
+        "final_norm": norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                 device=key.device),
+    }
+    params["prefix"] = [init_block(key, cfg, kind, i, dtype)
+                        for i, kind in enumerate(plan.prefix)]
+    if plan.n_units > 0:
+        params["units"] = [
+            init_block(key, cfg, kind, n_prefix + p, dtype,
+                       lead=(plan.n_units,))
+            for p, kind in enumerate(plan.unit)]
+    else:
+        params["units"] = []
+    base_tail = n_prefix + plan.n_units * len(plan.unit)
+    params["tail"] = [init_block(key, cfg, kind, base_tail + i, dtype)
+                      for i, kind in enumerate(plan.tail)]
+    return params
+
+
+def forward(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+            prefix_len: int = 0, q_block: int = 512, kv_block: int = 1024,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the block stack on embedded activations x (B, T, D).
+    Returns (hidden (B,T,D), total aux loss). ``remat`` (the reference's
+    rematerialisation of each unit under its gradient) changes nothing in
+    a forward pass."""
+    del remat
+    plan = stack_plan(cfg)
+    n_prefix = len(plan.prefix)
+    kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for i, kind in enumerate(plan.prefix):
+        x, aux = apply_block_full(cfg, kind, params["prefix"][i], x,
+                                  layer_idx=i, **kw)
+        aux_total = aux_total + aux
+
+    for u in range(plan.n_units):
+        unit_params = _unit(params["units"], u)
+        for p, kind in enumerate(plan.unit):
+            # layer_idx only matters for the moe-vs-dense split, which is
+            # uniform inside stacked units
+            x, aux = apply_block_full(cfg, kind, unit_params[p], x,
+                                      layer_idx=n_prefix + p, **kw)
+            aux_total = aux_total + aux
+
+    base_tail = n_prefix + plan.n_units * len(plan.unit)
+    for i, kind in enumerate(plan.tail):
+        x, aux = apply_block_full(cfg, kind, params["tail"][i], x,
+                                  layer_idx=base_tail + i, **kw)
+        aux_total = aux_total + aux
+
+    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
+    return x, aux_total
+
+
+# ---------------------------------------------------------------------------
+# caches: same prefix/units/tail structure
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None) -> Cache:
+    plan = stack_plan(cfg)
+    cache = {
+        "prefix": [init_block_cache(cfg, k, batch, max_len, dtype,
+                                    device=device) for k in plan.prefix],
+        "tail": [init_block_cache(cfg, k, batch, max_len, dtype,
+                                  device=device) for k in plan.tail],
+        "pos": 0,
+    }
+    cache["units"] = [
+        init_block_cache(cfg, k, batch, max_len, dtype,
+                         lead=(plan.n_units,), device=device)
+        for k in plan.unit] if plan.n_units > 0 else []
+    return cache
+
+
+def apply_block_prefill(cfg: ModelConfig, kind: str, params: dict,
+                        x: torch.Tensor, *, layer_idx: int, max_len: int,
+                        prefix_len: int = 0, q_block: int, kv_block: int,
+                        cache_dtype=torch.bfloat16):
+    """Full-sequence block that also emits its decode-cache entry."""
+    _check_kind(cfg, kind)
+    xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+    h, (k_all, v_all) = attention.fwd_full(cfg, params["mix"], xn,
+                                           prefix_len=prefix_len,
+                                           q_block=q_block,
+                                           kv_block=kv_block,
+                                           return_kv=True)
+    cache = attention.fill_cache(cfg, k_all, v_all, max_len, cache_dtype)
+    x, aux = _mlp(cfg, params, x + h, layer_idx)
+    return x, aux, cache
+
+
+def prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+            max_len: int, prefix_len: int = 0, q_block: int = 512,
+            kv_block: int = 1024, cache_dtype=torch.bfloat16
+            ) -> tuple[torch.Tensor, Cache]:
+    """Prefill on embedded activations x (B, T, D). Returns (hidden, cache)."""
+    plan = stack_plan(cfg)
+    n_prefix = len(plan.prefix)
+    b, t = x.shape[0], x.shape[1]
+    kw = dict(max_len=max_len, prefix_len=prefix_len, q_block=q_block,
+              kv_block=kv_block, cache_dtype=cache_dtype)
+
+    new_prefix = []
+    for i, kind in enumerate(plan.prefix):
+        x, _, c = apply_block_prefill(cfg, kind, params["prefix"][i], x,
+                                      layer_idx=i, **kw)
+        new_prefix.append(c)
+
+    new_units = []
+    if plan.n_units > 0:
+        new_units = [init_block_cache(cfg, kind, b, max_len, cache_dtype,
+                                      lead=(plan.n_units,), device=x.device)
+                     for kind in plan.unit]
+        for u in range(plan.n_units):
+            unit_params = _unit(params["units"], u)
+            for p, kind in enumerate(plan.unit):
+                x, _, c = apply_block_prefill(cfg, kind, unit_params[p], x,
+                                              layer_idx=n_prefix + p, **kw)
+                new_units[p].k[u].copy_(c.k)
+                new_units[p].v[u].copy_(c.v)
+        new_units = [c._replace(pos=t) for c in new_units]
+
+    base_tail = n_prefix + plan.n_units * len(plan.unit)
+    new_tail = []
+    for i, kind in enumerate(plan.tail):
+        x, _, c = apply_block_prefill(cfg, kind, params["tail"][i], x,
+                                      layer_idx=base_tail + i, **kw)
+        new_tail.append(c)
+
+    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
+    cache = {"prefix": new_prefix, "units": new_units, "tail": new_tail,
+             "pos": t}
+    return x, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                x: torch.Tensor, *, donate: bool = False
+                ) -> tuple[torch.Tensor, Cache]:
+    """One token step on embedded activations x (B, 1, D).
+
+    ``donate``: update ``cache``'s buffers in place (they become the
+    returned cache's); otherwise ``cache`` is left as it was."""
+    if not donate:
+        cache = _tree_map(torch.clone, cache)
+    plan = stack_plan(cfg)
+    n_prefix = len(plan.prefix)
+    new_prefix = []
+    for i, kind in enumerate(plan.prefix):
+        x, c = apply_block_decode(cfg, kind, params["prefix"][i], x,
+                                  cache["prefix"][i], layer_idx=i,
+                                  donate=True)
+        new_prefix.append(c)
+
+    new_units = cache["units"]
+    if plan.n_units > 0:
+        for u in range(plan.n_units):
+            unit_params = _unit(params["units"], u)
+            for p, kind in enumerate(plan.unit):
+                # the unit's cache entry is a view into the stacked buffer
+                x, _ = apply_block_decode(cfg, kind, unit_params[p], x,
+                                          _unit(cache["units"][p], u),
+                                          layer_idx=n_prefix + p,
+                                          donate=True)
+        new_units = [c._replace(pos=c.pos + 1) for c in cache["units"]]
+
+    base_tail = n_prefix + plan.n_units * len(plan.unit)
+    new_tail = []
+    for i, kind in enumerate(plan.tail):
+        x, c = apply_block_decode(cfg, kind, params["tail"][i], x,
+                                  cache["tail"][i], layer_idx=base_tail + i,
+                                  donate=True)
+        new_tail.append(c)
+
+    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
+    new_cache = {"prefix": new_prefix, "units": new_units, "tail": new_tail,
+                 "pos": cache["pos"] + 1}
+    return x, new_cache

@@ -1,11 +1,11 @@
-"""Serving substrate: the WMD query service, the async admission layer
+"""Serving substrate: language-model prefill / decode steps, the WMD
+query service, the async admission layer
 (request coalescer + load generators), AOT warmup, the offline
 bulk-scoring driver, and the resilience layer (circuit breakers, retry,
 brownout degradation; fault injection lives in serving.faultinject and is
 test-only by contract).
 
-Re-exports every public name of `repro.serving` in the reference's order
-except `build_serve_fns` (the LM substrate, ROADMAP Queue 1 item 5).
+Re-exports every public name of `repro.serving`, in the reference's order.
 """
 from repro_torch.serving.coalescer import (CoalescerClosedError,
                                            QueryCoalescer, QueueFullError,
@@ -13,6 +13,7 @@ from repro_torch.serving.coalescer import (CoalescerClosedError,
 from repro_torch.serving.loadgen import LoadgenResult, closed_loop, open_loop
 from repro_torch.serving.offline import (OfflineResult, load_query_file,
                                          run_offline, save_query_file)
+from repro_torch.serving.serve_step import build_serve_fns
 from repro_torch.serving.resilience import (BrownoutController,
                                             CircuitBreaker, DegradedResult,
                                             EngineGuard, ResiliencePolicy,
@@ -24,7 +25,7 @@ from repro_torch.serving.warmup import (ProgramShape, ShapeRegistry,
                                         measure_compiles, warm)
 from repro_torch.serving.wmd_service import WMDService
 
-__all__ = ["WMDService", "QueryCoalescer",
+__all__ = ["build_serve_fns", "WMDService", "QueryCoalescer",
            "ServingStats", "QueueFullError", "CoalescerClosedError",
            "LoadgenResult", "open_loop", "closed_loop",
            "ProgramShape", "ShapeRegistry", "WarmupReport", "warm",

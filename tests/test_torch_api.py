@@ -1,6 +1,7 @@
 """The port's public names and keywords against the reference's, on the CPU.
 
-* `repro_torch.{core,data,obs,kernels,serving,distributed}` re-export
+* `repro_torch.{core,data,obs,kernels,serving,distributed,configs,models}`
+  re-export
   every public name of the reference's subpackage that the port has, in
   the reference's order; a name the port lacks must be listed in
   `NOT_PORTED` with the ROADMAP Queue 1 item that ports it, and must
@@ -20,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs
 import repro.core
 import repro.data
 import repro.distributed
 import repro.kernels
+import repro.models
 import repro.obs
 import repro.serving
 from repro.kernels import ops as ref_ops
@@ -35,22 +38,25 @@ from repro_torch.kernels import rwmd as t_rwmd
 from repro_torch.kernels import sddmm_spmm as t_sddmm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("core", "data", "obs", "kernels", "serving", "distributed")
+SUBPACKAGES = ("core", "data", "obs", "kernels", "serving", "distributed",
+               "configs", "models")
 
 # reference names the port does not have yet -> the ROADMAP Queue 1 item
 NOT_PORTED = {
-    "core": {"SinkhornResult": 5, "sinkhorn_divergence": 5,
-             "sinkhorn_plan": 5},
-    "data": {"TokenPipeline": 5, "batch_struct": 5},
+    "core": {},
+    "data": {},
     "obs": {},
     "kernels": {},
-    "serving": {"build_serve_fns": 5},
+    "serving": {},
     "distributed": {"partitioning": 5},
+    "configs": {},
+    "models": {},
 }
 
 REF = {"core": repro.core, "data": repro.data, "obs": repro.obs,
        "kernels": repro.kernels, "serving": repro.serving,
-       "distributed": repro.distributed}
+       "distributed": repro.distributed, "configs": repro.configs,
+       "models": repro.models}
 
 
 def _port(sub):
@@ -103,6 +109,19 @@ def test_reexports_are_the_modules_objects():
     assert distributed.fault_tolerance is fault_tolerance
     from repro_torch.distributed import elastic
     assert distributed.elastic is elastic
+    import repro_torch.configs as configs
+    import repro_torch.models as models
+    from repro_torch.configs import registry
+    from repro_torch.core import ot
+    from repro_torch.data import tokens
+    from repro_torch.models import registry as model_registry
+    from repro_torch.serving import serve_step
+    assert configs.get_config is registry.get_config
+    assert models.build_model is model_registry.build_model
+    assert core.sinkhorn_plan is ot.sinkhorn_plan
+    from repro_torch.data import TokenPipeline
+    assert TokenPipeline is tokens.TokenPipeline
+    assert serving.build_serve_fns is serve_step.build_serve_fns
 
 
 def _reference_imports():

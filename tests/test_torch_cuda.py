@@ -1229,3 +1229,79 @@ def test_mesh_2x2_service_on_card():
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(rows, one.query_batch(rs), rtol=2e-3,
                                atol=1e-5)
+
+
+# -- the language model: chip_smoke.py phase 12's full-width checks -----------
+
+def _lm_tokens(vocab, b=4, t=64):
+    return np.random.default_rng(0).integers(0, vocab, (b, t)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("router", ["topk", "sinkhorn"])
+def test_lm_full_config_on_card_decodes_repeatably(router):
+    """deepseek-moe-16b as published (16.4 B float32 parameters on the
+    card): prefill 4 x 64 tokens, then 8 greedy decode steps twice from
+    the same cache; finite logits, tokens in range, the two loops bitwise
+    equal (the MoE combine has a fixed order)."""
+    dev = _card()
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _tree_map
+    from repro_torch.serving import build_serve_fns
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           router=router))
+    model = build_model(cfg, q_block=16, kv_block=16)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    try:
+        prefill_for, decode_for = build_serve_fns(model, None, max_len=72)
+        logits, cache = prefill_for(4)(params, {"tokens": _lm_tokens(
+            cfg.vocab_size)})
+        runs = []
+        for _ in range(2):
+            c = _tree_map(torch.clone, cache)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            outs = []
+            for _ in range(8):
+                out, c = decode_for(4)(params, c, tok)
+                tok = out[:, -1].argmax(-1)[:, None]
+                outs.append(out)
+            runs.append(torch.cat(outs, 1))
+        assert torch.isfinite(runs[0].float()).all()
+        assert torch.equal(runs[0], runs[1])
+        assert 0 <= int(runs[0].argmax(-1).min()) and \
+            int(runs[0].argmax(-1).max()) < cfg.vocab_size
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype,bound", [("bfloat16", 2e-2),
+                                         ("float32", 1e-4)])
+def test_lm_two_full_width_layers_card_matches_cpu(dtype, bound):
+    """Layer 0 (dense) and one MoE layer of deepseek-moe-16b at full width,
+    one numpy tree on the CPU and the card: prefill logits within ``bound``
+    of the largest |logit|."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _tree_map
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=2,
+                              compute_dtype=dtype)
+    tree = _tree_map(lambda x: x.numpy(),
+                     build_model(cfg, device="cpu").init(1))
+    batch = {"tokens": _lm_tokens(cfg.vocab_size)}
+    want, _ = build_model(cfg, q_block=16, kv_block=16, device="cpu").prefill(
+        lm_params_from_numpy(tree, device="cpu"), batch, max_len=64)
+    got, _ = build_model(cfg, q_block=16, kv_block=16, device=dev).prefill(
+        lm_params_from_numpy(tree, device=dev), batch, max_len=64)
+    a, r = got.float().cpu().numpy(), want.float().numpy()
+    assert np.abs(a - r).max() <= bound * np.abs(r).max()
