@@ -185,9 +185,38 @@ Phases (any failure exits non-zero before the result line is printed):
      deepseek-moe-16b --batch 4 --prefill-len 64 --decode-steps 32`):
      exit 0 and both `[serve]` lines.
 
+  13. (run after phase 12 has released its parameters) the remaining
+     mixers, each config as published and freed before the next:
+     `recurrentgemma-9b` (RG-LRU + local attention, 38 layers, d_model
+     4096), `minicpm3-4b` (multi-head latent attention, 62 layers),
+     `whisper-small` (encoder-decoder, 12 + 12 layers, 1,500 frames) and
+     `xlstm-125m` (mLSTM + sLSTM, 12 layers); parameters made on the card
+     from a `torch.Generator` seeded 0; phase 12's traffic (batch 4,
+     prefill 64, 32 greedy decode steps, q_block = kv_block = 16; whisper
+     with (4, 1500, 768) frames from the same numpy seed) through
+     `build_model` and `serving.build_serve_fns`. Each: (a) two decode
+     loops from one cache, one donated and one not, bitwise equal, and the
+     cache of the loop without donation unchanged; prefill ms and decode ms
+     a token (CUDA events, median), the traced decode step's `[idle]` line,
+     its HBM bound (`_decode_bytes`), peak memory and seconds; (b) decoding
+     8 tokens one by one gives the prefill's logits on the extended
+     sequence, in bfloat16 and in float32 compute and cache: argmax equal,
+     relative error under 2e-2; (c) the card against the CPU at full width
+     and reduced depth (one pattern unit of recurrentgemma, 2 layers of
+     minicpm3, 2 + 2 of whisper, all 12 of xlstm) from one numpy tree: the
+     prefill logits and a decode step from the CPU's cache within 2e-2
+     (bfloat16) and 1e-4 (float32) of the largest |logit| (whisper's
+     decoder prefill runs in bfloat16 at either compute dtype, as the
+     reference's: its prefill logits 2e-2, its encoder output 1e-4); (d)
+     minicpm3 only: `mla.fwd_decode_absorbed` against `mla.fwd_decode` at
+     full width in float32, max abs difference within 2e-5. No WMD kernel
+     is launched in the phase; (f) the launcher as a subprocess
+     (`--arch whisper-small --decode-steps 8`): exit 0 and both `[serve]`
+     lines.
+
 The line before the last is a JSON object with one entry per kernel
-(``launches_by_phase`` has phase 12's, which must be 0); the last line is
-``{"ok": true, "device": {...}}``.
+(``launches_by_phase`` has phase 12's and 13's, which must be 0); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import hashlib
 import json
@@ -1265,21 +1294,22 @@ def _named(tree, path=""):
     return [(path, tree)] if hasattr(tree, "numel") else []
 
 
-def _decode_bytes(params, cache, batch: int, vocab: int) -> tuple[int, int]:
+def _decode_bytes(params, cache, batch: int, vocab: int, *,
+                  tied: bool = False) -> tuple[int, int]:
     """(bytes one decode step of the port's code moves at the least, bytes
     a step that read each weight once in bfloat16 would move). The code's:
     each weight but the embedding table and the norm scales read in
     float32, its bfloat16 copy written and read at its use
     (`sharding_hints.fsdp_use`, the ``.to(dtype)`` of
     `attention.fwd_decode`); the norm scales read once; the table's
-    ``batch`` rows; each KV-cache buffer read in bfloat16, its float32 copy
-    written and read (`attention.fwd_decode`); the bfloat16 logits
-    written."""
+    ``batch`` rows (``tied``: the whole table as well, the head's weight);
+    each cache buffer read in bfloat16, its float32 copy written and read
+    (`attention.fwd_decode`); the bfloat16 logits written."""
     named = _named(params)
     d = params["embedding"]["embed"].shape[1]
     norm = sum(t.numel() for p, t in named if "norm" in p)
     weights = sum(t.numel() for p, t in named
-                  if "norm" not in p and p != "/embedding/embed")
+                  if "norm" not in p and (tied or p != "/embedding/embed"))
     kv = sum(t.numel() for _, t in _named(cache))
     rest = 4 * norm + 4 * batch * d + 2 * batch * vocab
     return (8 * weights + 10 * kv + rest, 2 * weights + 2 * kv + rest)
@@ -1329,25 +1359,10 @@ def _phase12(card):
           f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     def greedy(dec, logits, cache):
-        """``steps`` greedy decode steps from a copy of ``cache``: (logits
-        (B, steps, V), tokens (B, steps), ms a step by CUDA events)."""
+        """``steps`` greedy decode steps from a copy of ``cache``."""
         from repro_torch.models.lm import _tree_map
-        cache = _tree_map(torch.clone, cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        outs, toks, events = [], [], []
-        for _ in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, cache = dec(params, cache, tok)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            stop.record()
-            outs.append(logits)
-            toks.append(tok)
-            events.append((start, stop))
-        torch.cuda.synchronize()
-        return (torch.cat(outs, 1), torch.cat(toks, 1),
-                [s.elapsed_time(e) for s, e in events])
+        return _greedy_loop(dec, params, logits,
+                            _tree_map(torch.clone, cache), steps)
 
     router_logits = {}
     for router in ("topk", "sinkhorn"):
@@ -1468,13 +1483,7 @@ def _phase12(card):
         expert set differs between the two)."""
         model = build_model(c, q_block=16, kv_block=16)
         if c.compute_dtype == "float32":   # a float32 cache as well
-            from repro_torch.models import lm
-            from repro_torch.models.layers import embedding
-            x = embedding.embed(c, params["embedding"],
-                                torch.from_numpy(toks[:, :s1]).to(dev),
-                                dtype=torch.float32)
-            _, cache = lm.prefill(c, params, x, max_len=t, q_block=16,
-                                  kv_block=16, cache_dtype=torch.float32)
+            _, cache = _f32_prefill(c, params, {"tokens": toks[:, :s1]}, t)
         else:
             _, cache = model.prefill(params, {"tokens": toks[:, :s1]},
                                      max_len=t)
@@ -1573,6 +1582,359 @@ def _phase12(card):
            "the launcher did not print both [serve] lines")
     print(f"[lm launcher] {' '.join(cmd[2:])}: exit 0 in "
           f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# the remaining mixers (phase 13): each config as published, one at a time
+MIXER_ARCHS = ("recurrentgemma-9b", "minicpm3-4b", "whisper-small",
+               "xlstm-125m")
+# (c)'s depth: one pattern unit, 2 layers, 2 + 2, all 12
+_REDUCED = {"recurrentgemma-9b": dict(num_layers=3),
+            "minicpm3-4b": dict(num_layers=2),
+            "whisper-small": dict(num_layers=2, encoder_layers=2),
+            "xlstm-125m": {}}
+MLA_ATOL = 2e-5               # the reference's, `tests/test_layers.py:171`
+
+
+def _greedy_loop(dec, params, logits, cache, steps):
+    """``steps`` greedy decode steps of ``dec`` from ``cache`` (donated
+    or not, as ``dec`` says): (logits (B, steps, V), tokens (B, steps),
+    ms a step by CUDA events)."""
+    import torch
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    outs, toks, events = [], [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = dec(params, cache, tok)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        stop.record()
+        outs.append(logits)
+        toks.append(tok)
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return (torch.cat(outs, 1), torch.cat(toks, 1),
+            [s.elapsed_time(e) for s, e in events])
+
+
+def _rel_err(a, r) -> float:
+    import numpy as np
+    return float(np.abs(a - r).max() / np.abs(r).max())
+
+
+def _bf16_bound(own: float) -> float:
+    """The bound of a comparison of two bfloat16 runs: 2e-2, or twice the
+    model's own bfloat16 error ``own`` (its bfloat16 prefill logits
+    against its float32 ones, same inputs and parameters) where that is
+    larger: each run may lie ``own`` from the exact logits. The xLSTM's
+    mLSTM cell divides by max(|q . n|, exp(-m)), and one mLSTM block at
+    xlstm-125m's width has a bfloat16 error of 3.5e-2 in the reference
+    itself."""
+    return max(2e-2, 2 * own)
+
+
+def _f32_prefill(cfg, params, batch, max_len):
+    """Prefill at float32 compute with a float32 cache (the model API's
+    cache is bfloat16): (last-position logits, cache)."""
+    import torch
+
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.layers import embedding
+    dev = params["embedding"]["embed"].device
+    toks = torch.as_tensor(batch["tokens"]).to(dev)
+    kw = dict(max_len=max_len, q_block=16, kv_block=16,
+              cache_dtype=torch.float32)
+    if cfg.family == "audio":
+        frames = torch.as_tensor(batch["frames"]).to(dev)
+        h, cache = encdec.prefill(cfg, params, frames, toks, **kw)
+    else:
+        x = embedding.embed(cfg, params["embedding"], toks,
+                            dtype=torch.float32)
+        h, cache = lm.prefill(cfg, params, x, **kw)
+    return embedding.logits(cfg, params["embedding"], h[:, -1:]), cache
+
+
+def _phase13_arch(arch):
+    """One config of phase 13 (see the module docstring): its checks and
+    measurements, every tensor freed on return."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.layers import mla
+    from repro_torch.models.lm import _leaves, _tree_map, _unit, stack_plan
+    from repro_torch.serving import build_serve_fns
+
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    b, t, steps = 4, 64, 32                  # the reference launcher's
+    max_len = t + steps
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(size=(
+            b, cfg.encoder.num_positions, cfg.d_model)).astype(np.float32)
+    kinds = ("encoder-decoder, " + f"{cfg.encoder.num_layers} + "
+             f"{cfg.num_layers} layers, {cfg.encoder.num_positions} frames"
+             if cfg.family == "audio" else
+             f"{cfg.num_layers} layers, units of {stack_plan(cfg).unit} x "
+             f"{stack_plan(cfg).n_units} + tail {stack_plan(cfg).tail}")
+    print(f"[mix] {arch}: {kinds}, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads (kv {cfg.num_kv_heads}), vocab {cfg.vocab_size}"
+          f"{', MLA' if cfg.mla is not None else ''}; batch {b}, prefill "
+          f"{t}, {steps} decode steps, q_block = kv_block = 16; no depth "
+          f"cut")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, q_block=16, kv_block=16)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in _named(params))
+    print(f"[mix] {arch}: {n_params:,} parameters, "
+          f"{4 * n_params / 1e9:.2f} GB float32, made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (a) serve: prefill, then two decode loops from one cache
+    prefill_for, decode_for = build_serve_fns(model, None, max_len=max_len)
+    prefill = prefill_for(b)
+    dec, dec_kept = decode_for(b), decode_for(b, donate_cache=False)
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = _timed(lambda: prefill(params, batch), 3, warmup=1)
+    snap = _tree_map(torch.clone, cache)
+    l1, t1, ms1 = _greedy_loop(dec, params, logits,
+                               _tree_map(torch.clone, cache), steps)
+    l2, t2, ms2 = _greedy_loop(dec_kept, params, logits, cache, steps)
+    _check(bool(torch.isfinite(logits.float()).all())
+           and bool(torch.isfinite(l1.float()).all()),
+           f"{arch}: logits not finite")
+    _check(tuple(l1.shape) == (b, steps, cfg.vocab_size)
+           and int(t1.min()) >= 0 and int(t1.max()) < cfg.vocab_size,
+           f"{arch}: decoded tokens out of range")
+    _check(torch.equal(l1, l2) and torch.equal(t1, t2),
+           f"{arch}: the loop without donation is not bitwise the donated "
+           f"one")
+    _check(all(torch.equal(x, y) for x, y in zip(_leaves(cache),
+                                                 _leaves(snap),
+                                                 strict=True))
+           and cache["pos"] == snap["pos"] == t,
+           f"{arch}: a decode step without donation changed its cache")
+    del snap
+    med = float(np.median(ms1 + ms2))
+    print(f"[mix] {arch}: prefill {prefill_ms:.2f} ms (batch {b} x {t}, "
+          f"CUDA events, warm); decode {med:.2f} ms/token (median of "
+          f"{2 * steps} steps, CUDA events; first {ms1[0]:.2f} ms; donated "
+          f"{float(np.median(ms1)):.2f}, without donation "
+          f"{float(np.median(ms2)):.2f} ms); the loop "
+          f"without donation is bitwise the donated one ({steps} steps of "
+          f"logits and tokens) and left its cache as it was; tokens "
+          f"{t1[0, :8].tolist()}...")
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    wall, wall_prof, busy, largest, _ = _device_busy(
+        lambda: dec(params, cache, tok))
+    if busy is None:
+        print(f"[idle] decode step ({arch}): {wall:.2f} ms wall; device "
+              f"time not measured ({largest})")
+    else:
+        print(f"[idle] decode step ({arch}): {wall:.2f} ms wall "
+              f"({wall_prof:.2f} ms under the profiler), device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; largest "
+              f"device entries: {largest}")
+    # the decode step reads the decoder's weights (not the encoder's) and
+    # one row of a learned position table
+    used = params if cfg.family != "audio" else {
+        "embedding": {k: v for k, v in params["embedding"].items()
+                      if k != "pos"},
+        "decoder": params["decoder"], "final_norm": params["final_norm"]}
+    nbytes, ideal = _decode_bytes(used, cache, b, cfg.vocab_size,
+                                  tied=cfg.tie_embeddings)
+    print(f"[mix] {arch}: decode step HBM bound {nbytes / 1e9:.2f} GB the "
+          f"code moves / 3.35e12 B/s = {nbytes / HBM_BYTES_PER_S * 1e3:.2f} "
+          f"ms, measured {med:.2f} ms "
+          f"({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} of the bound); each "
+          f"weight read once in bfloat16: {ideal / 1e9:.2f} GB, "
+          f"{ideal / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    del logits, cache, l1, l2
+
+    # -- (b) decode against prefill, bfloat16 and float32 (and cache)
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32)
+    s1 = t - 8
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    runs = {}
+    for c in (cfg, dataclasses.replace(cfg, compute_dtype="float32")):
+        m = build_model(c, q_block=16, kv_block=16)
+        head = {"tokens": toks[:, :s1], **extra}
+        if c.compute_dtype == "float32":
+            _, cache = _f32_prefill(c, params, head, t)
+        else:
+            _, cache = m.prefill(params, head, max_len=t)
+        for i in range(s1, t):
+            out, cache = m.decode(params, cache, toks[:, i:i + 1],
+                                  donate=True)
+        ref, _ = m.prefill(params, {"tokens": toks, **extra}, max_len=t)
+        runs[c.compute_dtype] = (out.float().cpu().numpy(),
+                                 ref.float().cpu().numpy())
+        del cache, out, ref
+    own = _rel_err(runs["bfloat16"][1], runs["float32"][1])
+    print(f"[mix] {arch}: the model's own bfloat16 error: bfloat16 prefill "
+          f"logits {own:.3g} of max |logit| from the float32 ones")
+    for dtype, (a, r) in runs.items():
+        rel = _rel_err(a, r)
+        bound = _bf16_bound(own) if dtype == "bfloat16" else 2e-2
+        print(f"[mix] {arch}: decode vs prefill, compute {dtype}"
+              f"{' and cache' if dtype == 'float32' else ''} (tokens "
+              f"{s1}..{t - 1} decoded one by one): relative error {rel:.3g} "
+              f"(bound {bound:.3g}), argmax {a.argmax(-1).ravel().tolist()} "
+              f"vs {r.argmax(-1).ravel().tolist()}")
+        _check(np.array_equal(a.argmax(-1), r.argmax(-1)),
+               f"{arch} ({dtype}): decode and prefill disagree on the argmax")
+        _check(rel < bound, f"{arch} ({dtype}): decode vs prefill relative "
+               f"error {rel}")
+
+    # -- (d) MLA: the absorbed decode (the served one) against the naive
+    if cfg.mla is not None:
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        p0 = _unit(params["units"], 0)[0]["mix"]
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(b, t, cfg.d_model, generator=g, device=dev)
+        _, (c_kv, k_rope) = mla.fwd_full(c32, p0, x, q_block=16,
+                                         kv_block=16, return_latent=True)
+        mc = mla.fill_cache(c32, c_kv, k_rope, max_len, torch.float32)
+        worst, top = 0.0, 0.0
+        for _ in range(4):
+            x1 = torch.randn(b, 1, cfg.d_model, generator=g, device=dev)
+            o_n, mc_n = mla.fwd_decode(c32, p0, x1, mc)
+            o_a, _ = mla.fwd_decode_absorbed(c32, p0, x1, mc)
+            worst = max(worst, float((o_a - o_n).abs().max()))
+            top = max(top, float(o_n.abs().max()))
+            mc = mc_n
+        print(f"[mix] {arch}: MLA absorbed vs naive decode, float32, layer "
+              f"0 at full width ({cfg.num_heads} heads, kv_lora "
+              f"{cfg.mla.kv_lora_rank}, 4 steps after {t} tokens): max abs "
+              f"difference {worst:.3g} (bound {MLA_ATOL:g}; "
+              f"max |naive| {top:.3f})")
+        _check(worst <= MLA_ATOL, f"{arch}: absorbed vs naive decode "
+               f"{worst} > {MLA_ATOL}")
+        del x, mc, mc_n, c_kv, k_rope
+    print(f"[mix] {arch}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, (a), (b)"
+          f"{', (d)' if cfg.mla is not None else ''})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the card against the CPU at full width and reduced depth, from
+    # one numpy tree: prefill logits and a decode step from one cache
+    cut = dict(_REDUCED[arch])
+    if "encoder_layers" in cut:
+        cut["encoder"] = dataclasses.replace(
+            cfg.encoder, num_layers=cut.pop("encoder_layers"))
+    cfg_r = dataclasses.replace(cfg, **cut)
+    t0 = time.perf_counter()
+    tree = _tree_map(lambda x: x.numpy(),
+                     build_model(cfg_r, device="cpu").init(0))
+    p_cpu = lm_params_from_numpy(tree, device="cpu")
+    p_gpu = lm_params_from_numpy(tree, device="cuda")
+    depth = (f"{cfg_r.encoder.num_layers} + {cfg_r.num_layers} layers"
+             if cfg.family == "audio" else f"{cfg_r.num_layers} layers")
+    print(f"[mix] {arch}: {depth} at full width: "
+          f"{sum(x.numel() for _, x in _named(p_cpu)):,} parameters from a "
+          f"numpy tree, on the CPU and the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    nxt = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    rels = {}
+    for dtype in ("bfloat16", "float32"):
+        c2 = dataclasses.replace(cfg_r, compute_dtype=dtype)
+        m_cpu = build_model(c2, q_block=16, kv_block=16, device="cpu")
+        m_gpu = build_model(c2, q_block=16, kv_block=16)
+        t0 = time.perf_counter()
+        l_cpu, c_cpu = m_cpu.prefill(p_cpu, batch, max_len=max_len)
+        d_cpu, _ = m_cpu.decode(p_cpu, c_cpu, nxt)
+        cpu_s = time.perf_counter() - t0
+        l_gpu, _ = m_gpu.prefill(p_gpu, batch, max_len=max_len)
+        d_gpu, _ = m_gpu.decode(
+            p_gpu, _tree_map(lambda x: x.to(dev), c_cpu), nxt)
+        rels[dtype] = [l_cpu.float().numpy(), cpu_s,
+                       _rel_err(l_gpu.float().cpu().numpy(),
+                                l_cpu.float().numpy()),
+                       _rel_err(d_gpu.float().cpu().numpy(),
+                                d_cpu.float().numpy())]
+        if cfg.family == "audio":
+            e_cpu = encdec.encode(c2, p_cpu, torch.from_numpy(
+                batch["frames"]))
+            e_gpu = encdec.encode(c2, p_gpu, torch.from_numpy(
+                batch["frames"]).to(dev))
+            rels[dtype].append(_rel_err(e_gpu.float().cpu().numpy(),
+                                        e_cpu.float().numpy()))
+        del c_cpu, l_gpu, d_gpu
+    own = _rel_err(rels["bfloat16"][0], rels["float32"][0])
+    for dtype, (_, cpu_s, rel_p, rel_d, *rel_e) in rels.items():
+        bound = _bf16_bound(own) if dtype == "bfloat16" else 1e-4
+        # whisper's decoder prefill runs in bfloat16 whatever the compute
+        # dtype (the reference embeds at embed()'s default): its logits get
+        # the bfloat16 bound, its encoder the float32 one
+        p_bound = _bf16_bound(own) if cfg.family == "audio" else bound
+        msg = (f"[mix] {arch}: card vs CPU, compute {dtype}: prefill logits "
+               f"{rel_p:.3g} of max |logit| (bound {p_bound:.3g}), a decode "
+               f"step from the CPU's cache {rel_d:.3g} (bound {bound:.3g})")
+        ok = rel_p <= p_bound and rel_d <= bound
+        if rel_e:
+            msg += f", encoder output {rel_e[0]:.3g} (bound {bound:.3g})"
+            ok = ok and rel_e[0] <= bound
+        print(f"{msg}; CPU {cpu_s:.1f} s")
+        _check(ok, f"{arch}: card vs CPU ({dtype}) outside its bounds")
+    print(f"[mix] {arch}: the model's own bfloat16 error at this depth, on "
+          f"the CPU: {own:.3g} of max |logit|")
+    del tree, p_cpu, p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mix] {arch}: {time.perf_counter() - t_arch:.1f} s")
+
+
+def _phase13():
+    """13. The remaining mixers on the card (see the module docstring).
+    Returns the kernels' launch counts over the phase, read around it."""
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    for arch in MIXER_ARCHS:
+        _phase13_arch(arch)
+    launches = dict(_build.launches)
+    print(f"[mix] kernel launches over phase 13: {launches or 'none'} (the "
+          f"mixers run no hand-written kernel)")
+    _check(sum(launches.values()) == 0, "phase 13 launched a WMD kernel")
+
+    # -- (f) the launcher, as a subprocess, on the encoder-decoder (the
+    # launcher's one new batch field, the frames)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "whisper-small", "--decode-steps", "8"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        print(f"[mix launcher] {ln}")
+    _check(run.returncode == 0, f"the launcher exited {run.returncode}: "
+           f"{run.stderr[-2000:]}")
+    _check(any("prefill" in ln for ln in lines)
+           and any("decode steps" in ln for ln in lines),
+           "the launcher did not print both [serve] lines")
+    print(f"[mix launcher] {' '.join(cmd[2:])}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[mix] phase 13: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2474,8 +2836,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches12 = _phase12(card)
+    # -- 13. the remaining mixers: phase 12's parameters released first -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches13 = _phase13()
     for entry in results:
         entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
+        entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

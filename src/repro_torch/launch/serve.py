@@ -62,11 +62,11 @@ Any other ``--arch`` (`repro_torch.configs.arch_ids`) runs a language
 model as the reference launcher does: the published config (``--smoke``:
 its reduced smoke config), random parameters made on the device by a
 `torch.Generator` seeded 0, ``--batch`` rows of ``--prefill-len`` random
-tokens (numpy seed 0) prefilled, then ``--decode-steps`` greedy decode
+tokens (numpy seed 0) prefilled (with random patch or frame embeddings
+for the vlm / audio families), then ``--decode-steps`` greedy decode
 steps with the cache donated; it prints the prefill time and the decode
-time a token. It runs on one device (``--device``; the card by default).
-The multi-device and the recurrent / latent-attention / encoder-decoder
-architectures are not ported yet and raise.
+time a token. It runs on one device (``--device``; the card by default);
+a mesh beyond one device raises (ROADMAP Queue 1 item 5b).
 """
 import argparse
 
@@ -309,6 +309,10 @@ def _serve_lm(args, ap):
         p = cfg.encoder.num_positions
         batch["patches"] = rng.normal(
             size=(args.batch, p, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        f = cfg.encoder.num_positions
+        batch["frames"] = rng.normal(
+            size=(args.batch, f, cfg.d_model)).astype(np.float32)
 
     def sync():
         if dev.type == "cuda":

@@ -1,1 +1,2 @@
-"""Model layers of the port: attention, MoE, MLP, norms, RoPE, embedding."""
+"""Model layers of the port: attention, multi-head latent attention, the
+RG-LRU and xLSTM mixers, MoE, MLP, norms, RoPE, embedding."""

@@ -13,10 +13,12 @@ stacked parameters.
 Caches mirror the same prefix/units/tail structure, the units' caches
 stacked on the leading axis. A cache's positions are Python ints.
 
-Block kinds other than attention with GQA/MQA are not ported yet and
-raise: ``rglru`` (`layers/rglru.py`), ``mlstm`` / ``slstm``
-(`layers/xlstm.py`) and multi-head latent attention (``cfg.mla``,
-`layers/mla.py`), all in ROADMAP Queue 1 item 5's next slice.
+Block kinds: ``attn`` (GQA/MQA attention, `layers/attention.py`, or
+multi-head latent attention when ``cfg.mla`` is set, `layers/mla.py`),
+``rglru`` (`layers/rglru.py`), ``mlstm`` and ``slstm``
+(`layers/xlstm.py`). A recurrent block's cache entry is its state (a
+NamedTuple of tensors and a Python-int ``pos``); a donated decode step
+writes the new state into the given state's buffers.
 
 The VLM (paligemma) path consumes precomputed patch embeddings as a
 full-attention prefix (prefix-LM masking); the frontend is a stub per the
@@ -29,32 +31,13 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import attention, embedding, mlp, moe, norms
+from repro_torch.models.layers import (attention, embedding, mla, mlp, moe,
+                                       norms)
+from repro_torch.models.layers import rglru as rglru_mod
+from repro_torch.models.layers import xlstm
 
 Params = Any
 Cache = Any
-
-_UNPORTED = {
-    "rglru": "layers/rglru.py",
-    "mlstm": "layers/xlstm.py",
-    "slstm": "layers/xlstm.py",
-}
-
-
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    """Raise for a block the port does not run yet, naming its module."""
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind {kind!r} needs models/"
-            f"{_UNPORTED[kind]}, not ported yet (ROADMAP Queue 1 item 5, "
-            f"the remaining mixers)")
-    if kind != "attn":
-        raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention needs models/layers/"
-            f"mla.py, not ported yet (ROADMAP Queue 1 item 5, the remaining "
-            f"mixers)")
 
 
 def _tree_map(fn, tree):
@@ -78,6 +61,19 @@ def _unit(tree, u: int):
     return _tree_map(lambda t: t[u], tree)
 
 
+def _leaves(tree) -> list:
+    """The tensor leaves of a tree, in `_tree_map`'s order."""
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """Write every tensor leaf of ``src`` into ``dst``'s (same structure)."""
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        d.copy_(s)
+
+
 # ---------------------------------------------------------------------------
 # per-block init / apply
 # ---------------------------------------------------------------------------
@@ -92,11 +88,25 @@ def init_block(key: torch.Generator, cfg: ModelConfig, kind: str,
                lead: tuple = ()) -> dict:
     """One block's parameters on ``key``'s device; ``lead`` stacks them
     (the scanned units)."""
-    _check_kind(cfg, kind)
     dev = key.device
-    p: dict = {"mix_norm": norms.init(cfg.norm_kind, cfg.d_model, dtype,
-                                      lead=lead, device=dev),
-               "mix": attention.init(key, cfg, dtype, lead=lead)}
+    p: dict = {}
+    if kind == "attn":
+        p["mix_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                   lead=lead, device=dev)
+        p["mix"] = (mla.init(key, cfg, dtype, lead=lead)
+                    if cfg.mla is not None
+                    else attention.init(key, cfg, dtype, lead=lead))
+    elif kind == "rglru":
+        p["mix_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
+                                   lead=lead, device=dev)
+        p["mix"] = rglru_mod.init(key, cfg, dtype, lead=lead)
+    elif kind == "mlstm":
+        p["mix"] = xlstm.init_mlstm(key, cfg, dtype, lead=lead)  # owns its LN
+    elif kind == "slstm":
+        p["mix"] = xlstm.init_slstm(key, cfg, dtype, lead=lead)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+
     if _is_moe_layer(cfg, layer_idx):
         p["mlp_norm"] = norms.init(cfg.norm_kind, cfg.d_model, dtype,
                                    lead=lead, device=dev)
@@ -134,30 +144,72 @@ def apply_block_full(cfg: ModelConfig, kind: str, params: dict,
                      q_block: int, kv_block: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block. Returns (x, aux_loss)."""
-    _check_kind(cfg, kind)
-    xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-    x = x + attention.fwd_full(cfg, params["mix"], xn, prefix_len=prefix_len,
-                               q_block=q_block, kv_block=kv_block)
-    return _mlp(cfg, params, x, layer_idx)
+    if kind == "attn":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        if cfg.mla is not None:
+            h = mla.fwd_full(cfg, params["mix"], xn, q_block=q_block,
+                             kv_block=kv_block)
+        else:
+            h = attention.fwd_full(cfg, params["mix"], xn,
+                                   prefix_len=prefix_len, q_block=q_block,
+                                   kv_block=kv_block)
+    elif kind == "rglru":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        h = rglru_mod.fwd_full(cfg, params["mix"], xn)
+    elif kind == "mlstm":
+        h = xlstm.mlstm_block(cfg, params["mix"], x)
+    elif kind == "slstm":
+        h = xlstm.slstm_block(cfg, params["mix"], x)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return _mlp(cfg, params, x + h, layer_idx)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, lead: tuple = (),
                      device=None):
-    _check_kind(cfg, kind)
-    return attention.init_cache(cfg, batch, max_len, dtype, lead=lead,
-                                device=device)
+    """A block's empty decode cache: a KV or latent cache in ``dtype``
+    (attention), or a float32 recurrent state."""
+    if kind == "attn":
+        mod = mla if cfg.mla is not None else attention
+        return mod.init_cache(cfg, batch, max_len, dtype, lead=lead,
+                              device=device)
+    if kind == "rglru":
+        return rglru_mod.init_state(cfg, batch, lead=lead, device=device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_state(cfg, batch, lead=lead, device=device)
+    if kind == "slstm":
+        return xlstm.init_slstm_state(cfg, batch, lead=lead, device=device)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def apply_block_decode(cfg: ModelConfig, kind: str, params: dict,
                        x: torch.Tensor, cache, *, layer_idx: int,
                        donate: bool = False):
     """One decode step of a block; ``donate`` writes into ``cache``."""
-    _check_kind(cfg, kind)
-    h, cache = attention.fwd_decode(
-        cfg, params["mix"],
-        norms.apply(cfg.norm_kind, params["mix_norm"], x), cache,
-        donate=donate)
+    if kind == "attn":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        if cfg.mla is not None:
+            decode_fn = mla.fwd_decode_absorbed if cfg.mla_absorbed \
+                else mla.fwd_decode
+        else:
+            decode_fn = attention.fwd_decode
+        h, cache = decode_fn(cfg, params["mix"], xn, cache, donate=donate)
+    else:
+        if kind == "rglru":
+            h, new = rglru_mod.fwd_decode(
+                cfg, params["mix"],
+                norms.apply(cfg.norm_kind, params["mix_norm"], x), cache)
+        elif kind == "mlstm":
+            h, new = xlstm.mlstm_block_decode(cfg, params["mix"], x, cache)
+        elif kind == "slstm":
+            h, new = xlstm.slstm_block_decode(cfg, params["mix"], x, cache)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
+        if donate:                    # the new state into the given buffers
+            _copy_into(cache, new)
+            new = cache._replace(pos=new.pos)
+        cache = new
     x, _ = _mlp(cfg, params, x + h, layer_idx)
     return x, cache
 
@@ -275,14 +327,32 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, params: dict,
                         prefix_len: int = 0, q_block: int, kv_block: int,
                         cache_dtype=torch.bfloat16):
     """Full-sequence block that also emits its decode-cache entry."""
-    _check_kind(cfg, kind)
-    xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-    h, (k_all, v_all) = attention.fwd_full(cfg, params["mix"], xn,
-                                           prefix_len=prefix_len,
-                                           q_block=q_block,
-                                           kv_block=kv_block,
-                                           return_kv=True)
-    cache = attention.fill_cache(cfg, k_all, v_all, max_len, cache_dtype)
+    if kind == "attn":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        if cfg.mla is not None:
+            h, (c_kv, k_rope) = mla.fwd_full(cfg, params["mix"], xn,
+                                             q_block=q_block,
+                                             kv_block=kv_block,
+                                             return_latent=True)
+            cache = mla.fill_cache(cfg, c_kv, k_rope, max_len, cache_dtype)
+        else:
+            h, (k_all, v_all) = attention.fwd_full(cfg, params["mix"], xn,
+                                                   prefix_len=prefix_len,
+                                                   q_block=q_block,
+                                                   kv_block=kv_block,
+                                                   return_kv=True)
+            cache = attention.fill_cache(cfg, k_all, v_all, max_len,
+                                         cache_dtype)
+    elif kind == "rglru":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        h, cache = rglru_mod.fwd_full(cfg, params["mix"], xn,
+                                      return_state=True)
+    elif kind == "mlstm":
+        h, cache = xlstm.mlstm_block(cfg, params["mix"], x, return_state=True)
+    elif kind == "slstm":
+        h, cache = xlstm.slstm_block(cfg, params["mix"], x, return_state=True)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     x, aux = _mlp(cfg, params, x + h, layer_idx)
     return x, aux, cache
 
@@ -294,7 +364,7 @@ def prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     """Prefill on embedded activations x (B, T, D). Returns (hidden, cache)."""
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
-    b, t = x.shape[0], x.shape[1]
+    t = x.shape[1]
     kw = dict(max_len=max_len, prefix_len=prefix_len, q_block=q_block,
               kv_block=kv_block, cache_dtype=cache_dtype)
 
@@ -304,19 +374,18 @@ def prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                                       layer_idx=i, **kw)
         new_prefix.append(c)
 
-    new_units = []
-    if plan.n_units > 0:
-        new_units = [init_block_cache(cfg, kind, b, max_len, cache_dtype,
-                                      lead=(plan.n_units,), device=x.device)
-                     for kind in plan.unit]
-        for u in range(plan.n_units):
-            unit_params = _unit(params["units"], u)
-            for p, kind in enumerate(plan.unit):
-                x, _, c = apply_block_prefill(cfg, kind, unit_params[p], x,
-                                              layer_idx=n_prefix + p, **kw)
-                new_units[p].k[u].copy_(c.k)
-                new_units[p].v[u].copy_(c.v)
-        new_units = [c._replace(pos=t) for c in new_units]
+    # the units' entries stacked on a leading axis, each buffer made from
+    # unit 0's entry (its shapes, its ``pos``) and filled unit by unit
+    new_units = [None] * len(plan.unit) if plan.n_units > 0 else []
+    for u in range(plan.n_units):
+        unit_params = _unit(params["units"], u)
+        for p, kind in enumerate(plan.unit):
+            x, _, c = apply_block_prefill(cfg, kind, unit_params[p], x,
+                                          layer_idx=n_prefix + p, **kw)
+            if u == 0:
+                new_units[p] = _tree_map(
+                    lambda a: a.new_empty((plan.n_units, *a.shape)), c)
+            _copy_into(_unit(new_units[p], u), c)
 
     base_tail = n_prefix + plan.n_units * len(plan.unit)
     new_tail = []

@@ -15,10 +15,10 @@ tokens; stub modalities per the assignment):
 
     lm:    {tokens (B,S), labels (B,S)}
     vlm:   {patches (B,P,D) f32, tokens (B,S-P), labels (B,S-P)}
+    audio: {frames (B,F,D) f32, tokens (B,S), labels (B,S)}
 
 Batch arrays may be numpy or torch; they are moved to the parameters'
-device. The encoder-decoder family (``audio``, whisper) is not ported
-yet: `models/encdec.py` is in ROADMAP Queue 1 item 5's next slice.
+device.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.layers import embedding
 
 # decode tables for whisper's learned positions are sized to the largest
@@ -70,17 +70,21 @@ def build_model(cfg: ModelConfig, *, q_block: int = 512,
     an int seed and `init_cache` its caches (the card unless the caller
     asks for the CPU); the other functions run where their parameters
     lie."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family needs models/encdec.py, "
-            f"not ported yet (ROADMAP Queue 1 item 5, the remaining mixers)")
-    return _build_lm(cfg, q_block, kv_block, remat, torch.device(device))
+    build = _build_encdec if cfg.family == "audio" else _build_lm
+    return build(cfg, q_block, kv_block, remat, torch.device(device))
 
 
 def _on(params, x):
     """A batch array (numpy or torch) on the parameters' device."""
     dev = params["embedding"]["embed"].device
     return torch.as_tensor(x).to(dev)
+
+
+def _generator(key, device: torch.device) -> torch.Generator:
+    """``key`` itself, or a generator on ``device`` seeded with it."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +97,8 @@ def _build_lm(cfg: ModelConfig, q_block: int, kv_block: int,
     dtype = _compute_dtype(cfg)
 
     def init(key):
-        if not isinstance(key, torch.Generator):
-            key = torch.Generator(device=device).manual_seed(int(key))
-        return lm.init_params(key, cfg, max_positions=_MAX_LEARNED_POS
+        return lm.init_params(_generator(key, device), cfg,
+                              max_positions=_MAX_LEARNED_POS
                               if cfg.learned_pos else 0)
 
     def _embed_inputs(params, batch):
@@ -140,6 +143,54 @@ def _build_lm(cfg: ModelConfig, q_block: int, kv_block: int,
 
     def init_cache(batch, max_len):
         return lm.init_cache(cfg, batch, max_len, device=device)
+
+    return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill_fn,
+                    decode=decode, init_cache=init_cache)
+
+
+# ---------------------------------------------------------------------------
+# enc-dec (whisper)
+# ---------------------------------------------------------------------------
+
+def _build_encdec(cfg: ModelConfig, q_block: int, kv_block: int,
+                  remat: bool, device: torch.device) -> ModelAPI:
+    dtype = _compute_dtype(cfg)
+
+    def init(key):
+        return encdec.init_params(_generator(key, device), cfg,
+                                  max_positions=_MAX_LEARNED_POS)
+
+    def loss(params, batch):
+        enc_out = encdec.encode(cfg, params, _on(params, batch["frames"]),
+                                remat=remat)
+        h = encdec.decode_full(cfg, params, _on(params, batch["tokens"]),
+                               enc_out, q_block=q_block, kv_block=kv_block,
+                               remat=remat)
+        logits = embedding.logits(cfg, params["embedding"], h)
+        ce = cross_entropy(logits, _on(params, batch["labels"]))
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=ce.device)}
+
+    def prefill_fn(params, batch, *, max_len: int):
+        h, cache = encdec.prefill(cfg, params, _on(params, batch["frames"]),
+                                  _on(params, batch["tokens"]),
+                                  max_len=max_len, q_block=q_block,
+                                  kv_block=kv_block)
+        logits = embedding.logits(cfg, params["embedding"], h[:, -1:])
+        return logits, cache
+
+    def decode(params, cache, tokens, *, donate: bool = False):
+        """``donate``: update ``cache`` in place (it is the returned
+        cache); otherwise ``cache`` is left as it was."""
+        pos = cache["pos"]
+        x = embedding.embed(cfg, params["embedding"], _on(params, tokens),
+                            positions=torch.tensor([pos]), dtype=dtype)
+        h, cache = encdec.decode_step(cfg, params, cache, x, donate=donate)
+        logits = embedding.logits(cfg, params["embedding"], h)
+        return logits, cache
+
+    def init_cache(batch, max_len):
+        return encdec.init_cache(cfg, batch, max_len, device=device)
 
     return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill_fn,
                     decode=decode, init_cache=init_cache)

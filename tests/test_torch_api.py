@@ -124,6 +124,45 @@ def test_reexports_are_the_modules_objects():
     assert serving.build_serve_fns is serve_step.build_serve_fns
 
 
+def _public(mod) -> dict:
+    """The public names a module defines (not its imports): functions,
+    classes and constants."""
+    out = {}
+    for name, value in vars(mod).items():
+        if name.startswith("_") or name == "annotations" or \
+                inspect.ismodule(value):
+            continue
+        if callable(value) and getattr(value, "__module__", None) != \
+                mod.__name__:
+            continue
+        out[name] = value
+    return out
+
+
+@pytest.mark.parametrize("module", ["models.layers.mla", "models.layers.rglru",
+                                    "models.layers.xlstm", "models.encdec"])
+def test_mixer_modules_have_every_reference_name(module):
+    """The remaining mixers' modules have each public name of the
+    reference's module; a function takes the reference's parameters in
+    its order (the port adds keyword-only ones: ``lead``, ``device``,
+    ``donate``); a state or cache has the reference's fields."""
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    want, got = _public(ref), _public(port)
+    assert sorted(want) == sorted(got)
+    for name, item in want.items():
+        if hasattr(item, "_fields"):
+            assert got[name]._fields == item._fields, name
+        elif inspect.isfunction(item):
+            ref_params = list(inspect.signature(item).parameters)
+            mine = inspect.signature(got[name]).parameters
+            assert list(mine)[:len(ref_params)] == ref_params, name
+            assert all(p.kind is p.KEYWORD_ONLY
+                       for p in list(mine.values())[len(ref_params):]), name
+        else:
+            assert got[name] == item, name
+
+
 def _reference_imports():
     """(file, subpackage, name) of every ``from repro.<sub> import name`` in
     the reference's examples and benchmarks."""

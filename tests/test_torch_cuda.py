@@ -1305,3 +1305,88 @@ def test_lm_two_full_width_layers_card_matches_cpu(dtype, bound):
         lm_params_from_numpy(tree, device=dev), batch, max_len=64)
     a, r = got.float().cpu().numpy(), want.float().numpy()
     assert np.abs(a - r).max() <= bound * np.abs(r).max()
+
+
+# -- the remaining mixers: chip_smoke.py phase 13's checks at smoke size ------
+
+MIXER_ARCHS = ("minicpm3-4b", "recurrentgemma-9b", "xlstm-125m",
+               "whisper-small")
+
+
+def _mixer_batch(cfg, b=2, t=16):
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(size=(
+            b, cfg.encoder.num_positions, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+@pytest.mark.parametrize("dtype,bound", [("bfloat16", 2e-2),
+                                         ("float32", 1e-4)])
+def test_mixers_on_card_match_cpu(arch, dtype, bound):
+    """One numpy tree on the CPU and the card: prefill logits, then 3
+    decode steps from the CPU's cache, each within ``bound`` of the
+    largest |logit| (whisper's decoder prefill runs in bfloat16 at either
+    compute dtype, as the reference's: its prefill logits at 2e-2)."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    tree = _tree_map(lambda x: x.numpy(),
+                     build_model(cfg, device="cpu").init(1))
+    p_cpu = lm_params_from_numpy(tree, device="cpu")
+    p_gpu = lm_params_from_numpy(tree, device=dev)
+    m_cpu = build_model(cfg, q_block=8, kv_block=8, device="cpu")
+    m_gpu = build_model(cfg, q_block=8, kv_block=8, device=dev)
+    batch = _mixer_batch(cfg)
+
+    def rel(a, r):
+        a, r = a.float().cpu().numpy(), r.float().numpy()
+        return np.abs(a - r).max() / np.abs(r).max()
+
+    l_cpu, c_cpu = m_cpu.prefill(p_cpu, batch, max_len=24)
+    l_gpu, _ = m_gpu.prefill(p_gpu, batch, max_len=24)
+    assert rel(l_gpu, l_cpu) <= (2e-2 if cfg.family == "audio" else bound)
+    c_gpu = _tree_map(lambda x: x.to(dev), c_cpu)
+    tok = l_cpu[:, -1].argmax(-1)[:, None]
+    for _ in range(3):
+        d_cpu, c_cpu = m_cpu.decode(p_cpu, c_cpu, tok)
+        d_gpu, c_gpu = m_gpu.decode(p_gpu, c_gpu, tok.to(dev))
+        assert rel(d_gpu, d_cpu) <= bound
+        tok = d_cpu[:, -1].argmax(-1)[:, None]
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_mixers_on_card_decode_repeatably(arch):
+    """Two decode loops of 8 greedy steps from one cache, one donated and
+    one not, are bitwise equal; the loop without donation leaves its cache
+    as it was."""
+    dev = _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _leaves, _tree_map
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, q_block=8, kv_block=8, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    logits, cache = model.prefill(params, _mixer_batch(cfg), max_len=24)
+    snap = _tree_map(torch.clone, cache)
+    runs = []
+    for donate, c in ((True, _tree_map(torch.clone, cache)), (False, cache)):
+        tok = logits[:, -1].argmax(-1)[:, None]
+        outs = []
+        for _ in range(8):
+            out, c = model.decode(params, c, tok, donate=donate)
+            tok = out[:, -1].argmax(-1)[:, None]
+            outs.append(out)
+        runs.append(torch.cat(outs, 1))
+    assert torch.isfinite(runs[0].float()).all()
+    assert torch.equal(runs[0], runs[1])
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(cache),
+                                                 _leaves(snap), strict=True))

@@ -16,7 +16,10 @@ Tolerances:
   model's API (bfloat16 cache) at the bfloat16 bounds.
 * bfloat16 compute: relative error (max |port - ref| / max |ref|) at most
   2e-2 for dense models and 5e-2 for MoE models (the reference's own
-  bounds, `tests/test_archs_smoke.py:110`), and the port's greedy token is
+  bounds, `tests/test_archs_smoke.py:110`) and for the xLSTM (``ssm``)
+  smoke model, whose bfloat16 logits lie up to 3.05e-2 from its own
+  float32 ones in live JAX (seed 11, step 2; the port's 2.39e-2), so that
+  two bfloat16 runs cannot be held closer; and the port's greedy token is
   the reference's, or one whose reference logit is within one bfloat16
   step of the reference's largest: the logits are bfloat16, and two
   tokens that close tie at their own resolution (seen: olmo-1b, two
@@ -61,7 +64,8 @@ from repro_torch.serving import build_serve_fns
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 SERVED = ("deepseek-moe-16b", "mixtral-8x22b", "olmo-1b", "gemma-2b",
-          "starcoder2-3b", "paligemma-3b")
+          "starcoder2-3b", "paligemma-3b", "minicpm3-4b", "recurrentgemma-9b",
+          "xlstm-125m")
 
 
 def _t(x):
@@ -138,7 +142,25 @@ def _batch(cfg, rng, b, s):
         out["patches"] = rng.normal(
             size=(b, cfg.encoder.num_positions, cfg.d_model)).astype(
                 np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(
+            size=(b, cfg.encoder.num_positions, cfg.d_model)).astype(
+                np.float32)
     return out
+
+
+def _leaves(tree):
+    """The tensor / array leaves of a cache, in order; the positions
+    (``pos``, an int in the port, an array in the reference) left out."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) if k != "pos"
+                for x in _leaves(tree[k])]
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields if f != "pos"
+                for x in _leaves(getattr(tree, f))]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree] if hasattr(tree, "shape") else []
 
 
 def _jnp(batch):
@@ -481,7 +503,7 @@ def _serve_both(arch, dtype, router=None, b=2, s=24, steps=4):
                             ("deepseek-moe-16b", "sinkhorn")])
 def test_prefill_and_decode_match_reference_bf16(arch, router):
     cfg, out = _serve_both(arch, "bfloat16", router)
-    bound = 5e-2 if cfg.moe is not None else 2e-2
+    bound = 5e-2 if cfg.moe is not None or cfg.family == "ssm" else 2e-2
     for got, want in out:
         assert got.shape == want.shape
         assert _rel(got, want) <= bound
@@ -524,12 +546,14 @@ def test_lm_prefill_and_decode_steps_match_reference_f32(arch, router):
         h_r, c_r = ref_lm.decode_step(rcfg, params, c_r, jnp.asarray(xs))
         h_t, c_t = lm.decode_step(cfg, tp, c_t, _t(xs))
         np.testing.assert_allclose(_np(h_t), _np(h_r), **F32)
-    for part in ("prefix", "units", "tail"):
-        for got, want in zip(c_t[part], c_r[part]):
-            np.testing.assert_allclose(_np(got.k), _np(want.k), **F32)
+    got, want = _leaves(c_t), _leaves(c_r)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), **F32)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + ("whisper-small",))
 def test_decode_matches_prefill(arch):
     """The reference's own test (`tests/test_archs_smoke.py:74-113`) on the
     port: decoding tokens one by one gives the prefill's logits on the
@@ -543,10 +567,10 @@ def test_decode_matches_prefill(arch):
     b, s1, s2, maxlen = 2, 16, 24, 32
     toks = rng.integers(0, tcfg.vocab_size, (b, s2)).astype(np.int32)
     batch = {"tokens": toks[:, :s1]}
-    if tcfg.family == "vlm":
+    if tcfg.family in ("vlm", "audio"):
         p = tcfg.encoder.num_positions
-        batch["patches"] = rng.normal(size=(b, p, tcfg.d_model)).astype(
-            np.float32)
+        batch["patches" if tcfg.family == "vlm" else "frames"] = rng.normal(
+            size=(b, p, tcfg.d_model)).astype(np.float32)
     _, cache = model.prefill(params, batch, max_len=maxlen)
     for t in range(s1, s2):
         logits_d, cache = model.decode(params, cache, toks[:, t:t + 1])
@@ -557,21 +581,31 @@ def test_decode_matches_prefill(arch):
     assert _rel(a, r) < (5e-2 if tcfg.moe is not None else 2e-2)
 
 
-def test_decode_leaves_the_cache_unless_donated():
-    model = build_model(get_smoke_config("deepseek-moe-16b"), q_block=8,
-                        kv_block=8, device="cpu")
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b",
+                                  "recurrentgemma-9b", "xlstm-125m",
+                                  "whisper-small"])
+def test_decode_leaves_the_cache_unless_donated(arch):
+    """Every tensor of the cache (KV, latent, recurrent state, the
+    stacked units, prefix and tail) is bitwise as it was after a decode
+    that was not donated; a donated one writes into its buffers."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, q_block=8, kv_block=8, device="cpu")
     params = model.init(3)
-    toks = np.random.default_rng(0).integers(0, 256, (2, 9)).astype(
-        np.int32)
-    _, cache = model.prefill(params, {"tokens": toks[:, :8]}, max_len=12)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (2, 9)).astype(np.int32)
+    batch = _batch(cfg, rng, 2, 8)
+    batch["tokens"] = toks[:, :8]
+    _, cache = model.prefill(params, batch, max_len=12)
     snap = lm._tree_map(torch.clone, cache)
     l1, c1 = model.decode(params, cache, toks[:, 8:])
-    for got, want in zip(cache["units"], snap["units"]):
-        assert torch.equal(got.k, want.k) and got.pos == want.pos
+    for got, want in zip(_leaves(cache), _leaves(snap), strict=True):
+        assert torch.equal(got, want)
+    assert cache["pos"] == 8
     l2, c2 = model.decode(params, cache, toks[:, 8:], donate=True)
     assert torch.equal(l1, l2)
-    assert c2["units"][0].k is cache["units"][0].k
-    assert torch.equal(c2["units"][0].k, c1["units"][0].k)
+    for got, was, ref in zip(_leaves(c2), _leaves(cache), _leaves(c1),
+                             strict=True):
+        assert got is was and torch.equal(got, ref)
     assert c1["pos"] == c2["pos"] == 9
 
 
@@ -618,7 +652,9 @@ def test_serve_fns_run_the_model_and_donate():
             prefill_for(3)(params, {"tokens": toks})
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "paligemma-3b",
+                                  "minicpm3-4b", "recurrentgemma-9b",
+                                  "xlstm-125m", "whisper-small"])
 def test_launcher_lm_path_on_cpu(arch, capsys):
     from repro_torch.launch import serve
     serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch",
@@ -657,16 +693,34 @@ def test_batch_struct_has_the_reference_shapes(arch):
         assert str(mine[k].dtype).split(".")[1] == str(ref[k].dtype)
 
 
-# -- what the port refuses ---------------------------------------------------
+@pytest.mark.parametrize("arch,kinds", [
+    ("minicpm3-4b", ("MLACache",)),
+    ("recurrentgemma-9b", ("RGLRUState", "KVCache")),
+    ("xlstm-125m", ("MLSTMState", "SLSTMState")),
+    ("whisper-small", ("KVCache",))])
+def test_remaining_mixers_build_and_serve_on_cpu(arch, kinds):
+    """Each of the four architectures builds at smoke size and serves a
+    prefill and decode steps; its cache holds the mixers' own entries."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, q_block=8, kv_block=8, device="cpu")
+    params = model.init(0)
+    rng = np.random.default_rng(1)
+    logits, cache = model.prefill(params, _batch(cfg, rng, 2, 8), max_len=12)
+    for _ in range(3):
+        tok = logits[:, -1].argmax(-1)[:, None]
+        logits, cache = model.decode(params, cache, tok)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all() and cache["pos"] == 11
+    entries = cache.values() if cfg.family == "audio" else \
+        cache["prefix"] + cache["units"] + cache["tail"]
+    assert {type(e).__name__ for e in entries if hasattr(e, "_fields")} == \
+        set(kinds)
+    empty = model.init_cache(2, 12)
+    assert [(x.shape, x.dtype) for x in _leaves(empty)] == \
+        [(x.shape, x.dtype) for x in _leaves(cache)] and empty["pos"] == 0
 
-@pytest.mark.parametrize("arch,match", [("minicpm3-4b", "mla.py"),
-                                        ("recurrentgemma-9b", "rglru.py"),
-                                        ("xlstm-125m", "xlstm.py"),
-                                        ("whisper-small", "encdec.py")])
-def test_unported_mixers_raise(arch, match):
-    with pytest.raises(NotImplementedError, match=match) as err:
-        build_model(get_smoke_config(arch), device="cpu").init(0)
-    assert "ROADMAP Queue 1 item 5" in str(err.value)
+
+# -- what the port refuses ---------------------------------------------------
 
 
 def test_a_mesh_beyond_one_device_is_refused():
