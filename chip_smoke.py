@@ -214,9 +214,40 @@ Phases (any failure exits non-zero before the result line is printed):
      (`--arch whisper-small --decode-steps 8`): exit 0 and both `[serve]`
      lines.
 
+  14. (run after phase 13 has released its parameters) language-model
+     training: `deepseek-moe-16b` at full width (d_model 2048, 64 routed
+     experts top-6 + 2 shared, vocab 102,400) with its depth cut to 4
+     layers (dense layer 0 + 3 stacked MoE units, 2,267,039,744 float32
+     parameters; the published 28 layers need about 245 GiB of parameters,
+     gradients and moments), bfloat16 compute, remat on, through
+     `train.Trainer` with the reference launcher's defaults (batch 8 x 128
+     tokens of `TokenPipeline(seed=0)`, `adamw(warmup_cosine(3e-4,
+     warmup_steps=1, total_steps=10))`), 10 steps with each router (top-k,
+     then Sinkhorn: 8 iterations, lambda 8). (a) The step ms (CUDA events,
+     median of steps 2-10), tokens/s, peak memory and the losses (the
+     last below the first); one profiled step's wall, device busy, idle
+     share and largest device entries; the step's HBM bound from the
+     bytes the code moves (`_train_bytes`) and the AdamW update alone. The
+     trainer's checkpoints are not written here (`_NoCheckpoint`: 27 GB a
+     state; (d) writes them). (b) Two steps from one state through two
+     `build_train_step` calls: parameters, moments and metrics bitwise
+     equal, both routers. (c) Two layers at full width, float32 compute,
+     batch 2 x 32, one numpy tree on the card and the CPU: the donated
+     step is the kept one bitwise and the kept step leaves its input as it
+     was; microbatches 2 against 1 (no load-balance loss); a compressed
+     step's residual finite; card against CPU: loss, grad_norm, per-leaf
+     gradients and the update criterion (`_update_rel`) within their
+     bounds (TOL_TRAIN_*). (d) `xlstm-125m` as published: 8 steps
+     checkpointed every 4 with a failure injected at step 6, a fresh
+     `Trainer` resumes at step 4 and ends bitwise where an uninterrupted
+     run ends, its loss falls, the temporary directories are gone. (e) No
+     WMD kernel launched. (f) The training launcher as a subprocess twice
+     on one ``--ckpt-dir`` (`--arch deepseek-moe-16b --smoke`): exit 0,
+     the second prints ``restoring step 4``.
+
 The line before the last is a JSON object with one entry per kernel
-(``launches_by_phase`` has phase 12's and 13's, which must be 0); the
-last line is ``{"ok": true, "device": {...}}``.
+(``launches_by_phase`` has phase 12's, 13's and 14's, which must be 0);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 import hashlib
 import json
@@ -284,14 +315,16 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _device_busy(call, marks=()):
+def _device_busy(call, marks=(), top=5, groups=()):
     """Run ``call`` (warm) once on the host clock, then once under
     torch.profiler. Returns (wall ms, wall ms under the profiler, summed
-    device ms, the five largest device entries, {mark: (count, ms)} of the
-    device entries whose name holds each of ``marks``) from the device
-    events of the trace (kernels and copies, one stream, no overlap); the
-    device ms is None, with the reason in place of the entries, when the
-    trace holds no device time."""
+    device ms, the ``top`` largest device entries, {mark: (count, ms)} of the
+    device entries whose name holds each of ``marks``, and of each
+    (label, substrings) of ``groups``: the entries whose lower-cased name
+    holds one of its substrings and none of an earlier group's, "other"
+    the rest) from the device events of the trace (kernels and copies, one
+    stream, no overlap); the device ms is None, with the reason in place of
+    the entries, when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -318,9 +351,17 @@ def _device_busy(call, marks=()):
         return wall, wall_prof, None, "the trace holds no device events", {}
     marked = {m: (sum(c for _, k, c in dev if m in k),
                   sum(ms for ms, k, _ in dev if m in k)) for m in marks}
+    if groups:
+        for label, _ in (*groups, ("other", ())):
+            marked[label] = (0, 0.0)
+        for ms, key, count in dev:
+            label = next((lb for lb, subs in groups
+                          if any(x in key.lower() for x in subs)), "other")
+            marked[label] = (marked[label][0] + count,
+                             marked[label][1] + ms)
     return wall, wall_prof, busy, ", ".join(
         f"{key[:40]} {ms:.2f} ms x{count}"
-        for ms, key, count in sorted(dev, reverse=True)[:5]), marked
+        for ms, key, count in sorted(dev, reverse=True)[:top]), marked
 
 
 def _idle_line(what, call, copies, *kernels):
@@ -1938,6 +1979,473 @@ def _phase13():
     return launches
 
 
+# -- 14. language-model training -------------------------------------------
+
+TRAIN_ARCH = "deepseek-moe-16b"
+TRAIN_LAYERS = 4          # dense layer 0 + 3 stacked MoE units (module doc)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 128, 10   # the reference launcher's
+TOL_TRAIN_LOSS = 1e-5     # card vs CPU, float32: relative
+TOL_TRAIN_GRAD = 1e-4     # per leaf, of the leaf's largest |gradient|
+TOL_TRAIN_UPDATE = 1e-2   # per leaf, ||dp_card - dp_cpu|| / ||dp_cpu||
+TOL_MICRO = 1e-5          # microbatches 2 vs 1, no load-balance loss:
+                          # the loss, relative; the first moments per leaf
+                          # (`_phase14_depth2`) at TOL_TRAIN_GRAD
+
+
+# the kinds of a train step's device entries, first match wins
+# (`_device_busy`): the fp32 <-> bf16 casts are copies
+TRAIN_GROUPS = (("casts and copies", ("copy",)),
+                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+                ("reductions", ("reduce",)),
+                ("sort", ("sort", "radix")),
+                ("indexing", ("index", "gather", "scatter")),
+                ("element-wise", ("elementwise",)))
+
+
+class _NoCheckpoint:
+    """(a)'s checkpointer: it records the saves the trainer asks for and
+    writes nothing. A depth-4 deepseek state is 27 GB: its host copy, the
+    msgpack payload and the file would not fit the host's 96 GiB; (d) runs
+    the checkpoint path."""
+
+    def __init__(self):
+        self.saved = []
+
+    def save(self, step, state, *, mesh_signature=""):
+        self.saved.append(step)
+
+    def wait(self):
+        pass
+
+
+def _train_bytes(params) -> tuple[int, int]:
+    """(bytes one training step of the port's code moves at the least,
+    bytes a step would move that read each weight once in bfloat16 forward
+    and backward and ran a fused AdamW). The code's, a parameter: forward,
+    each weight but the embedding table and the norm scales read in
+    float32, its bfloat16 copy written and read at its use (8 B), the
+    stacked units' again in the remat recompute (8 B); backward, the
+    bfloat16 copy read again, the bfloat16 gradient written, read and
+    cast to float32 (10 B), the table's float32 gradient written whole (4
+    B), the units' per-unit gradients read and stacked (8 B); every
+    gradient read twice for the norms (8 B: `train.step`'s grad_norm,
+    `optim.global_norm`); AdamW's 17 element-wise passes (160 B,
+    `optim.adamw` ``upd``); the norm scales read (4 B). The ideal: 2 + 2 B
+    a weight, the float32 gradient written (4 B), a fused AdamW (read g,
+    p, m, v; write p, m, v: 28 B)."""
+    named = _named(params)
+    total = sum(t.numel() for _, t in named)
+    table = params["embedding"]["embed"].numel()
+    norm = sum(t.numel() for p, t in named if "norm" in p)
+    units = sum(t.numel() for p, t in named if p.startswith("/units/"))
+    weights = total - table - norm
+    code = (18 * weights + 4 * norm + 16 * units + 4 * table
+            + 168 * total)
+    return code, 4 * weights + 32 * total
+
+
+def _phase14_run(cfg, router):
+    """(a) and (b) for one router (module docstring); every tensor freed
+    on return."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import partitioning
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer, build_train_step
+    from repro_torch.train.step import place
+
+    dev = torch.device("cuda")
+    rcfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            router=router))
+    model = build_model(rcfg, device=dev)
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                              total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(rcfg, batch=TRAIN_B, seq_len=TRAIN_T, seed=0)
+    mesh = one_device_mesh(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as td:
+        trainer = Trainer(model, opt, mesh, pipe, ckpt_dir=td,
+                          log_fn=lambda s: None)
+        trainer.async_ckpt = _NoCheckpoint()
+        inner, events = trainer.step_fn, []
+
+        def timed(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(state, batch)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        trainer.step_fn = timed
+        t0 = time.perf_counter()
+        out = trainer.run(torch.Generator(device=dev).manual_seed(0),
+                          TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        saved = trainer.async_ckpt.saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [a.elapsed_time(b) for a, b in events]
+    med = float(np.median(ms[1:]))
+    losses = [h["loss"] for h in out["history"]]
+    state = out["final_state"]
+    n_params = sum(x.numel() for _, x in _named(state.params))
+    _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+           f"{router}: {len(losses)} finite losses of {TRAIN_STEPS}")
+    _check(losses[-1] < losses[0], f"{router}: the loss did not fall: "
+           f"{losses[0]} -> {losses[-1]}")
+    _check(saved == [TRAIN_STEPS], f"{router}: checkpoints asked {saved}")
+    print(f"[train] {router}: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_T} "
+          f"tokens through Trainer.run in {run_s:.1f} s; step "
+          f"{med:.2f} ms (CUDA events, median of steps 2-{TRAIN_STEPS}; "
+          f"first {ms[0]:.2f} ms), {TRAIN_B * TRAIN_T / med * 1e3:,.0f} "
+          f"tokens/s; stragglers {out['stragglers']}; peak device memory "
+          f"{peak:.2f} GiB; losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+
+    host = pipe.batch_at(TRAIN_STEPS)
+    batch = place(host, partitioning.batch_shardings(mesh, host))
+    wall, wall_prof, busy, largest, groups = _device_busy(
+        lambda: inner(state, batch), top=4, groups=TRAIN_GROUPS)
+    if busy is None:
+        print(f"[idle] train step ({router}): {wall:.2f} ms wall; device "
+              f"time not measured ({largest})")
+    else:
+        print(f"[idle] train step ({router}): {wall:.2f} ms wall "
+              f"({wall_prof:.2f} ms under the profiler), device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; by kind: "
+              + ", ".join(f"{label} {ms:.2f} ms (x{n})"
+                          for label, (n, ms) in groups.items())
+              + f"; largest device entries: {largest}")
+    if router == "topk":
+        nbytes, ideal = _train_bytes(state.params)
+        grads = _tree.tree_map(lambda p: torch.full_like(p, 1e-3),
+                               state.params)
+        opt_ms = _timed(lambda: opt.update(grads, state.opt, state.params,
+                                           donate=True), 2, warmup=1)
+        del grads
+        print(f"[train] {n_params:,} parameters ({TRAIN_LAYERS} layers at "
+              f"full width); step HBM bound: {nbytes / 1e9:.1f} GB the code "
+              f"moves / 3.35e12 B/s = {nbytes / HBM_BYTES_PER_S * 1e3:.1f} "
+              f"ms, measured {med:.2f} ms "
+              f"({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} of the bound); "
+              f"bf16 weights and a fused AdamW: {ideal / 1e9:.1f} GB, "
+              f"{ideal / HBM_BYTES_PER_S * 1e3:.1f} ms; the AdamW update "
+              f"alone {opt_ms:.2f} ms (CUDA events) against "
+              f"{160 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms for its "
+              f"160 B a parameter, "
+              f"{28 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms fused")
+
+    # -- (b) two steps from one state, through two build_train_step calls
+    saved_state = [x.to("cpu", copy=True) for x in _tree.leaves(state)]
+    s1, m1 = build_train_step(model, opt, mesh)(state, batch)
+    h1 = [x.to("cpu", copy=True) for x in _tree.leaves(s1)]
+    m1 = {k: v.to("cpu", copy=True) for k, v in m1.items()}
+    del s1
+    with torch.no_grad():
+        for x, h in zip(_tree.leaves(state), saved_state, strict=True):
+            x.copy_(h)
+    del saved_state
+    s2, m2 = build_train_step(model, opt, mesh)(state, batch)
+    same = all(torch.equal(h, x.to("cpu"))
+               for h, x in zip(h1, _tree.leaves(s2), strict=True))
+    same_m = all(torch.equal(m1[k], m2[k].to("cpu")) for k in m1)
+    _check(same and same_m, f"{router}: two steps from one state differ "
+           f"(state {same}, metrics {same_m})")
+    print(f"[train] {router}: two steps from one state (two "
+          f"build_train_step calls, donated) bitwise equal: {len(h1)} "
+          f"tensors (parameters, moments, step) and the metrics "
+          f"{sorted(m1)}; loss {float(m1['loss']):.6f}")
+
+
+def _grads(model, params, batch):
+    """(loss, the float gradients in flatten order) of one batch."""
+    import torch
+
+    from repro_torch import _tree
+    leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
+    loss, _ = model.loss(_tree.unflatten(params, leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _update_rel(before, after_a, after_b) -> float:
+    """max over leaves of ||(a - p) - (b - p)|| / ||b - p||, in float64 on
+    the CPU: the update criterion (Adam's first steps move an element by
+    about +-lr, so an element whose gradient sits at rounding level may
+    flip between two correct runs)."""
+    import torch
+    worst = 0.0
+    for p, a, b in zip(before, after_a, after_b, strict=True):
+        p, a, b = (x.to("cpu", dtype=torch.float64) for x in (p, a, b))
+        da, db = a - p, b - p
+        worst = max(worst, float((da - db).norm() / max(db.norm(), 1e-30)))
+    return worst
+
+
+def _phase14_depth2(cfg):
+    """(c) depth 2, full width, float32 compute, batch 2 x 32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _tree_map
+    from repro_torch.optim import adamw, compression, warmup_cosine
+    from repro_torch.train import TrainState, build_train_step
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, compute_dtype="float32")
+    t0 = time.perf_counter()
+    tree = _tree_map(lambda x: x.numpy(),
+                     build_model(cfg2, device="cpu").init(0))
+    params = {d: lm_params_from_numpy(tree, device=d) for d in ("cpu",
+                                                                 "cuda")}
+    del tree
+    models = {d: build_model(cfg2, device=d) for d in ("cpu", "cuda")}
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=1, total_steps=10))
+    batch = TokenPipeline(cfg2, batch=2, seq_len=32, seed=0).batch_at(0)
+    n = sum(x.numel() for x in _tree.leaves(params["cpu"]))
+    print(f"[train] (c) 2 layers at full width, float32 compute: {n:,} "
+          f"parameters from one numpy tree on the CPU and the card in "
+          f"{time.perf_counter() - t0:.1f} s; batch 2 x 32")
+
+    def fresh(d, comp=False):
+        p = _tree.tree_map(torch.clone, params[d])
+        return TrainState(params=p, opt=opt.init(p),
+                          comp=compression.init_state(p) if comp else None)
+
+    model = models["cuda"]
+    state = fresh("cuda")
+    before = [x.clone() for x in _tree.leaves(state)]
+    kept, mk = build_train_step(model, opt, None, donate=False)(state, batch)
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(before, _tree.leaves(state), strict=True))
+    donated, md = build_train_step(model, opt, None)(state, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves(kept), _tree.leaves(donated), strict=True))
+    same = same and all(torch.equal(mk[k], md[k]) for k in mk)
+    _check(unchanged, "(c) the kept step changed its input state")
+    _check(same, "(c) the donated step is not the kept step bitwise")
+    print(f"[train] (c) donated step == kept step bitwise "
+          f"({len(before)} tensors and the metrics), the kept step's input "
+          f"unchanged")
+    del donated, md, state, kept, mk, before
+
+    # microbatches 2 against 1, on the same parameters: the router's
+    # load-balance loss is a product of means over a call's tokens, so it
+    # is set to 0 here; then the two differ by rounding only
+    nobal = build_model(dataclasses.replace(cfg2, moe=dataclasses.replace(
+        cfg2.moe, router_aux_loss=0.0)), device="cuda")
+    runs = []
+    for mb in (1, 2):                  # one state on the card at a time
+        s1, met = build_train_step(nobal, opt, None, microbatches=mb)(
+            fresh("cuda"), batch)
+        runs.append((_tree.leaves(s1.opt.mu), met))
+        del s1
+    (mu1, m1), (mu2, m2) = runs
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) \
+        / abs(float(m1["loss"]))
+    mu_rel = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(mu2, mu1, strict=True))
+    print(f"[train] (c) microbatches 2 against 1 (load-balance loss 0): "
+          f"loss {float(m2['loss']):.7f} / {float(m1['loss']):.7f} "
+          f"(relative {loss_rel:.3g}, bound {TOL_MICRO:g}), grad_norm "
+          f"{float(m2['grad_norm']):.6f} / {float(m1['grad_norm']):.6f}, "
+          f"first moments {mu_rel:.3g} of each leaf's largest (bound "
+          f"{TOL_TRAIN_GRAD:g})")
+    _check(loss_rel <= TOL_MICRO and mu_rel <= TOL_TRAIN_GRAD,
+           f"(c) microbatches 2 vs 1: loss {loss_rel}, moments {mu_rel}")
+    del runs, mu1, mu2, nobal
+
+    state = fresh("cuda", comp=True)
+    kc, mc = build_train_step(model, opt, None, grad_compression=True,
+                              donate=False)(state, batch)
+    finite = all(bool(torch.isfinite(r).all())
+                 for r in _tree.leaves(kc.comp.residual))
+    res = max(float(r.abs().max()) for r in _tree.leaves(kc.comp.residual))
+    _check(finite and np.isfinite(float(mc["loss"])),
+           "(c) compressed step: residual or loss not finite")
+    print(f"[train] (c) grad_compression: loss {float(mc['loss']):.6f}, "
+          f"grad_norm {float(mc['grad_norm']):.6f}, residual finite, "
+          f"largest |residual| {res:.3g}")
+    del kc, state
+
+    # card against CPU: loss, per-leaf gradients, one step
+    out = {}
+    for d in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        loss, g = _grads(models[d], params[d], batch)
+        state = fresh(d)
+        s1, m1 = build_train_step(models[d], opt, None,
+                                  donate=False)(state, batch)
+        out[d] = (float(loss), [x.to("cpu") for x in g],
+                  [x.to("cpu") for x in _tree.leaves(s1.params)],
+                  float(m1["grad_norm"]), time.perf_counter() - t0)
+        del g, state, s1
+    (l_c, g_c, s_c, n_c, sec_c), (l_g, g_g, s_g, n_g, sec_g) = \
+        out["cpu"], out["cuda"]
+    p_c = _tree.leaves(params["cpu"])
+    g_rel = max(float((a - b).abs().max() / max(float(b.abs().max()),
+                                                 1e-30))
+                for a, b in zip(g_g, g_c, strict=True))
+    l_rel = abs(l_g - l_c) / abs(l_c)
+    n_rel = abs(n_g - n_c) / abs(n_c)
+    upd = _update_rel(p_c, s_g, s_c)
+    print(f"[train] (c) card vs CPU, one step: loss {l_g:.7f} / {l_c:.7f} "
+          f"(relative {l_rel:.3g}, bound {TOL_TRAIN_LOSS:g}); grad_norm "
+          f"relative {n_rel:.3g}; per-leaf gradients {g_rel:.3g} of each "
+          f"leaf's largest (bound {TOL_TRAIN_GRAD:g}); update criterion "
+          f"{upd:.3g} (bound {TOL_TRAIN_UPDATE:g}); CPU {sec_c:.1f} s, card "
+          f"{sec_g:.1f} s")
+    _check(l_rel <= TOL_TRAIN_LOSS and n_rel <= TOL_TRAIN_GRAD
+           and g_rel <= TOL_TRAIN_GRAD and upd <= TOL_TRAIN_UPDATE,
+           f"(c) card vs CPU: loss {l_rel}, grad_norm {n_rel}, gradients "
+           f"{g_rel}, update {upd}")
+
+
+def _phase14_restart():
+    """(d) kill and restart on xlstm-125m as published."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer
+
+    cfg = get_config("xlstm-125m")
+    model = build_model(cfg, device="cuda")
+    steps = 8
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=max(steps // 10, 1),
+                              total_steps=steps))
+    pipe = TokenPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_T, seed=0)
+    mesh = one_device_mesh("cuda")
+    logs = []
+    os.environ.pop("REPRO_FAILED_ONCE", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            tempfile.TemporaryDirectory() as td2:
+        first = Trainer(model, opt, mesh, pipe, ckpt_dir=td, ckpt_every=4,
+                        log_fn=logs.append)
+        try:
+            first.run(0, steps, fail_at=6)
+            failed = False
+        except RuntimeError:
+            failed = True
+        _check(failed, "(d) the injected failure at step 6 did not fire")
+        shard = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(td) for f in fs)
+        out = Trainer(model, opt, mesh, pipe, ckpt_dir=td, ckpt_every=4,
+                      log_fn=logs.append).run(0, steps)
+        ref = Trainer(model, opt, mesh, pipe, ckpt_dir=td2, ckpt_every=4,
+                      log_fn=lambda s: None).run(0, steps)
+        ckpts = sorted(os.listdir(td))
+    os.environ.pop("REPRO_FAILED_ONCE", None)
+    h = out["history"]
+    _check(h[0]["step"] == 4 and h[-1]["step"] == steps - 1,
+           f"(d) resumed at {h[0]['step']}, ended at {h[-1]['step']}")
+    _check(any("restoring step 4" in s for s in logs),
+           "(d) no 'restoring step 4' log line")
+    same = all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves(out["final_state"]), _tree.leaves(ref["final_state"]),
+        strict=True))
+    _check(same, "(d) the resumed run is not the uninterrupted run bitwise")
+    _check(h[-1]["loss"] < h[0]["loss"],
+           f"(d) the resumed run's loss did not fall: {h[0]['loss']} -> "
+           f"{h[-1]['loss']}")
+    _check(not os.path.exists(td) and not os.path.exists(td2),
+           "(d) a checkpoint directory was left behind")
+    n = sum(x.numel() for x in _tree.leaves(out["final_state"].params))
+    print(f"[train] (d) xlstm-125m ({n:,} parameters): {steps} steps, "
+          f"checkpoints every 4 ({shard / 1e9:.2f} GB a checkpoint on disk, "
+          f"{ckpts}), a failure injected at step 6; a fresh Trainer resumed "
+          f"at step 4 and its final state is the uninterrupted run's, "
+          f"bitwise; losses {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s (steps of the uninterrupted "
+          f"run: median {np.median([r['sec'] for r in ref['history'][1:]]) * 1e3:.1f}"
+          f" ms, host clock); the directories removed")
+
+
+def _phase14_launcher():
+    """(f) the training launcher twice on one --ckpt-dir."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAILED_ONCE", None)
+    with tempfile.TemporaryDirectory() as td:
+        for steps, want in ((4, None), (6, "restoring step 4")):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", TRAIN_ARCH, "--smoke", "--steps", str(steps),
+                   "--ckpt-every", "2", "--batch", "2", "--seq-len", "32",
+                   "--ckpt-dir", td]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=ROOT, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in run.stdout.splitlines()
+                     if ln.startswith("[train")]
+            for ln in lines:
+                print(f"[train launcher] {ln}")
+            _check(run.returncode == 0, f"the training launcher exited "
+                   f"{run.returncode}: {run.stderr[-2000:]}")
+            _check(any(ln.startswith("[train] done") for ln in lines)
+                   and (want is None or any(want in ln for ln in lines)),
+                   f"the training launcher's lines: {lines}")
+            print(f"[train launcher] {' '.join(cmd[2:-2])}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+
+def _phase14():
+    """14. Language-model training on the card (module docstring). Returns
+    the kernels' launch counts over the phase, read around it."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    print(f"[train] {TRAIN_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared} shared, vocab {cfg.vocab_size}), depth cut "
+          f"to {TRAIN_LAYERS} layers (dense layer 0 + "
+          f"{TRAIN_LAYERS - 1} stacked MoE units), bfloat16 compute, remat "
+          f"on; adamw(warmup_cosine(3e-4, warmup 1, total {TRAIN_STEPS}))")
+    for router in ("topk", "sinkhorn"):
+        _phase14_run(cfg, router)
+        gc.collect()
+        torch.cuda.empty_cache()
+    _phase14_depth2(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase14_restart()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(_build.launches)
+    print(f"[train] kernel launches over phase 14: {launches or 'none'} "
+          f"(training runs no hand-written kernel)")
+    _check(sum(launches.values()) == 0, "phase 14 launched a WMD kernel")
+    _phase14_launcher()
+    print(f"[train] phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _wmd_phases():
     """Phases 1-11 and 5 (the Sinkhorn-WMD service and its kernels).
     Returns (the kernel entries, the card's nvidia-smi line); every tensor
@@ -2840,9 +3348,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches13 = _phase13()
+    # -- 14. training: phase 13's parameters released first -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches14 = _phase14()
     for entry in results:
         entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
         entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)
+        entry["launches_by_phase"]["14"] = launches14.get(entry["name"], 0)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

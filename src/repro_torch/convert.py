@@ -13,7 +13,10 @@ same slots from the same query stream.
 A language model's state is its parameter tree: `lm_params_from_numpy`
 carries the reference's tree (``jax.tree.map(np.asarray, params)``) into
 the port's, which has the same structure, so both packages compute the
-same function from the same weights.
+same function from the same weights. A training state carries the same
+way: `train_state_from_numpy` takes the reference's ``TrainState``
+(``jax.tree.map(np.asarray, state)``: the parameters, the AdamW step and
+moments, the optional compression residual) to the port's.
 """
 from __future__ import annotations
 
@@ -75,9 +78,37 @@ def lm_params_from_numpy(tree, *, device: str | torch.device = "cuda"):
         if arr.dtype.kind != "f":
             raise ValueError(f"{path or '/'}: a parameter must be a float "
                              f"array, got {arr.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.tensor(np.ascontiguousarray(arr), device=device)
 
     if not isinstance(tree, dict) or "embedding" not in tree:
         raise ValueError("not a language-model parameter tree (no "
                          "'embedding')")
     return conv(tree, "")
+
+
+def train_state_from_numpy(tree, *, device: str | torch.device = "cuda"):
+    """The reference's training state as numpy (its ``TrainState``: fields
+    ``params``, ``opt`` = (``step``, ``mu``, ``nu``), ``comp`` = None or
+    (``residual``,)) -> the port's `train.TrainState` on ``device``, every
+    array copied bit for bit (the step as an int32 scalar). ``device``
+    defaults to the card."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.compression import CompressionState
+    from repro_torch.train.step import TrainState
+
+    device = torch.device(device)
+    step = np.asarray(tree.opt.step)
+    if step.shape != () or step.dtype.kind not in "iu":
+        raise ValueError(f"opt.step must be an int scalar, got "
+                         f"{step.dtype}{list(step.shape)}")
+    opt = AdamWState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=device),
+        mu=lm_params_from_numpy(tree.opt.mu, device=device),
+        nu=lm_params_from_numpy(tree.opt.nu, device=device))
+    comp = None
+    if tree.comp is not None:
+        comp = CompressionState(residual=lm_params_from_numpy(
+            tree.comp.residual, device=device))
+    return TrainState(params=lm_params_from_numpy(tree.params, device=device),
+                      opt=opt,
+                      comp=comp)

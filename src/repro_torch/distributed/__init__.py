@@ -1,9 +1,7 @@
-"""Distribution substrate: elasticity and fault tolerance.
+"""Distribution substrate: partitioning rules, fault tolerance, elasticity.
 
-Re-exports the reference's `repro.distributed` modules that the port has.
-Not ported yet: `partitioning` (the LM substrate's sharding rules, ROADMAP
-Queue 1, item 5).
+Re-exports the reference's `repro.distributed` modules, in its order.
 """
-from repro_torch.distributed import elastic, fault_tolerance
+from repro_torch.distributed import elastic, fault_tolerance, partitioning
 
-__all__ = ["elastic", "fault_tolerance"]
+__all__ = ["elastic", "fault_tolerance", "partitioning"]

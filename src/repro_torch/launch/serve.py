@@ -66,7 +66,7 @@ tokens (numpy seed 0) prefilled (with random patch or frame embeddings
 for the vlm / audio families), then ``--decode-steps`` greedy decode
 steps with the cache donated; it prints the prefill time and the decode
 time a token. It runs on one device (``--device``; the card by default);
-a mesh beyond one device raises (ROADMAP Queue 1 item 5b).
+a mesh beyond one device raises (ROADMAP Queue 1 item 5d).
 """
 import argparse
 

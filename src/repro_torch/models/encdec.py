@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import attention, embedding, mlp, norms
 from repro_torch.models.layers._random import normal
-from repro_torch.models.lm import _unit
+from repro_torch.models.lm import _unbind_units, _unit, remat_call
 
 Params = Any
 Cache = Any
@@ -87,31 +87,34 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            q_block: int = 512, kv_block: int = 512,
            remat: bool = True) -> torch.Tensor:
     """frames (B, Tenc, D) stub embeddings -> encoder output (B, Tenc, D).
-    ``remat`` (the reference's rematerialisation under a gradient)
-    changes nothing in a forward pass."""
-    del remat
+    ``remat``: each layer runs under `lm.remat_call` (recomputed in the
+    backward pass when gradients are recorded, the reference's
+    ``jax.checkpoint(layer)``)."""
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     x = frames.to(dtype) @ params["frame_adapter"].to(dtype)
     x = x + params["enc_pos"].to(dtype)
-    for i in range(cfg.encoder.num_layers):
-        p = _unit(params["encoder"], i)
+
+    def layer(x, p):
         xn = norms.apply(cfg.norm_kind, p["attn_norm"], x)
         x = x + attention.fwd_full(cfg, p["attn"], xn, causal=False,
                                    q_block=q_block, kv_block=kv_block)
         xn = norms.apply(cfg.norm_kind, p["mlp_norm"], x)
-        x = x + mlp.apply(cfg.mlp_kind, p["mlp"], xn)
+        return x + mlp.apply(cfg.mlp_kind, p["mlp"], xn)
+
+    for p in _unbind_units(params["encoder"], cfg.encoder.num_layers):
+        x = remat_call(remat, layer, x, p)
     return norms.apply(cfg.norm_kind, params["enc_norm"], x)
 
 
 def decode_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 enc_out: torch.Tensor, *, q_block: int = 512,
                 kv_block: int = 1024, remat: bool = True) -> torch.Tensor:
-    """Teacher-forced decoder pass -> hidden states (B, T, D)."""
-    del remat
+    """Teacher-forced decoder pass -> hidden states (B, T, D). ``remat``:
+    each layer under `lm.remat_call`, as in `encode`."""
     x = embedding.embed(cfg, params["embedding"], tokens)
-    for i in range(cfg.num_layers):
-        p = _unit(params["decoder"], i)
+
+    def layer(x, p, enc_out):
         xn = norms.apply(cfg.norm_kind, p["self_norm"], x)
         x = x + attention.fwd_full(cfg, p["self_attn"], xn, causal=True,
                                    q_block=q_block, kv_block=kv_block)
@@ -120,7 +123,10 @@ def decode_full(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                    kv_src=enc_out.to(x.dtype),
                                    q_block=q_block, kv_block=kv_block)
         xn = norms.apply(cfg.norm_kind, p["mlp_norm"], x)
-        x = x + mlp.apply(cfg.mlp_kind, p["mlp"], xn)
+        return x + mlp.apply(cfg.mlp_kind, p["mlp"], xn)
+
+    for p in _unbind_units(params["decoder"], cfg.num_layers):
+        x = remat_call(remat, layer, x, p, enc_out)
     return norms.apply(cfg.norm_kind, params["final_norm"], x)
 
 

@@ -23,11 +23,39 @@ def init(key: torch.Generator, cfg: ModelConfig, *, max_positions: int = 0,
     return p
 
 
+class _TableRows(torch.autograd.Function):
+    """``table[idx]``, whose gradient sums the rows read more than once in
+    a fixed order: the reads sorted stably by row, then one sequential sum
+    a row (`torch.segment_reduce`). Plain indexing's backward is an
+    index-add, which on the card adds a row's duplicates with float
+    atomics in no fixed order (a Zipf batch reads token 0 hundreds of
+    times)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = g.reshape(flat.numel(), -1)
+        ids, perm = torch.sort(flat, stable=True)
+        rows, counts = torch.unique_consecutive(ids, return_counts=True)
+        out = g.new_zeros((ctx.table_shape[0], g.shape[1]))
+        out[rows] = torch.segment_reduce(g[perm], "sum", lengths=counts,
+                                         axis=0)
+        return out.reshape(ctx.table_shape), None
+
+
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
           *, positions: torch.Tensor | None = None,
           dtype=torch.bfloat16) -> torch.Tensor:
     table = params["embed"]
-    x = hint_activations(table[tokens.to(table.device).long()].to(dtype))
+    x = hint_activations(
+        _TableRows.apply(table, tokens.to(table.device).long()).to(dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     if cfg.learned_pos and "pos" in params:

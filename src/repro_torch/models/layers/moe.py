@@ -65,21 +65,51 @@ def _top_k(scores: torch.Tensor, k: int):
     return values[..., :k], ids[..., :k]
 
 
+def _sinkhorn_scores(e: MoEConfig, cost: torch.Tensor) -> torch.Tensor:
+    """The transport plan times T (rows ~ sum to 1) of the (T, E) costs:
+    the reference's float32 Sinkhorn, uniform token mass onto a uniform
+    expert marginal, in the cost's dtype."""
+    t = cost.shape[0]
+    a = torch.full((t,), 1.0 / t, dtype=cost.dtype, device=cost.device)
+    b = torch.full((e.num_experts,), 1.0 / e.num_experts, dtype=cost.dtype,
+                   device=cost.device)
+    plan = sinkhorn_plan(cost, a, b, lamb=e.sinkhorn_lamb,
+                         max_iter=e.sinkhorn_iters).plan
+    return plan * t
+
+
+class _SinkhornScores(torch.autograd.Function):
+    """`_sinkhorn_scores`: the forward is the reference's float32 loop, bit
+    for bit; its gradient is taken through the same loop in float64. The
+    float32 backward overflows (the derivative of ``b / (K^T u)`` is
+    ``-b / (K^T u)^2``: inf, then inf * 0 in the exponential's backward)
+    once an expert's column of K fades -- in the reference too
+    (`tests/test_torch_train.py`), and in deepseek-moe-16b at full width
+    after one AdamW step (chip_smoke.py phase 14)."""
+
+    @staticmethod
+    def forward(ctx, cost, e):
+        ctx.save_for_backward(cost)
+        ctx.e = e
+        return _sinkhorn_scores(e, cost)
+
+    @staticmethod
+    def backward(ctx, g):
+        (cost,) = ctx.saved_tensors
+        with torch.enable_grad():
+            c64 = cost.detach().to(torch.float64).requires_grad_(True)
+            (grad,) = torch.autograd.grad(_sinkhorn_scores(ctx.e, c64), c64,
+                                          g.to(torch.float64))
+        return grad.to(cost.dtype), None
+
+
 def _gates(e: MoEConfig, logits: torch.Tensor):
     """(T, E) routing logits -> (T, k) expert ids + normalized weights + aux."""
-    t = logits.shape[0]
     lf = logits.to(torch.float32)
     probs = torch.softmax(lf, dim=-1)
     if e.router == "sinkhorn":
         # OT: uniform token mass -> uniform expert marginal (balanced).
-        a = torch.full((t,), 1.0 / t, dtype=torch.float32,
-                       device=logits.device)
-        b = torch.full((e.num_experts,), 1.0 / e.num_experts,
-                       dtype=torch.float32, device=logits.device)
-        cost = -torch.log_softmax(lf, dim=-1)
-        plan = sinkhorn_plan(cost, a, b, lamb=e.sinkhorn_lamb,
-                             max_iter=e.sinkhorn_iters).plan
-        scores = plan * t                    # rows ~ sum to 1
+        scores = _SinkhornScores.apply(-torch.log_softmax(lf, dim=-1), e)
     elif e.router == "topk":
         scores = probs
     else:
@@ -103,12 +133,10 @@ def _dispatch_group(e: MoEConfig, xg: torch.Tensor, ids: torch.Tensor,
     b, tg, d = xg.shape
     k = e.top_k
     dev = xg.device
-    flat_exp = ids.reshape(b, tg * k)
-    flat_tok = torch.arange(tg, device=dev).repeat_interleave(k)
+    flat_exp = ids.reshape(b, tg * k)         # (token, choice) row-major
     flat_w = weights.reshape(b, tg * k)
     order = torch.argsort(flat_exp, dim=-1, stable=True)
     sorted_exp = torch.gather(flat_exp, 1, order)
-    sorted_tok = flat_tok[order]                            # (B, Tg*k)
     sorted_w = torch.gather(flat_w, 1, order)
     counts = torch.zeros((b, e.num_experts), dtype=torch.int64, device=dev)
     counts.scatter_add_(1, sorted_exp, torch.ones_like(sorted_exp))
@@ -122,7 +150,12 @@ def _dispatch_group(e: MoEConfig, xg: torch.Tensor, ids: torch.Tensor,
     # overflow writes land in the extra slot E*cap, which is cut off
     buf = torch.zeros((b, e.num_experts * cap + 1, d), dtype=xg.dtype,
                       device=dev)
-    buf[rows, slot] = xg[rows, sorted_tok]
+    # each token read once a choice, from its k-fold expand: the gradient
+    # is written once a (token, choice) and summed over the choices by the
+    # expand's backward, with no index-add (whose float atomics on the card
+    # add duplicates in no fixed order)
+    xk = xg[:, :, None, :].expand(b, tg, k, d)
+    buf[rows, slot] = xk[rows, order // k, order % k]
     grouped = buf[:, :-1].reshape(b, e.num_experts, cap, d)
     return grouped, (keep, slot, order, sorted_w)
 

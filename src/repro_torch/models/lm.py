@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (attention, embedding, mla, mlp, moe,
@@ -59,6 +60,30 @@ def _tree_map(fn, tree):
 def _unit(tree, u: int):
     """The ``u``-th unit of a stacked tree: views, no copy."""
     return _tree_map(lambda t: t[u], tree)
+
+
+def _unbind_units(tree, n: int) -> list:
+    """All ``n`` units of a stacked tree (views, no copy), from one
+    ``unbind`` a leaf: under autograd each stacked leaf's gradient is then
+    written once, where ``n`` selects would each make a zero-filled
+    gradient the size of the whole stack and sum them."""
+    split = [t.unbind(0) for t in _leaves(tree)]
+    units = []
+    for u in range(n):
+        it = iter([s[u] for s in split])
+        units.append(_tree_map(lambda _: next(it), tree))
+    return units
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, rematerialised under its gradient when ``remat`` and
+    gradients are being recorded (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward pass instead of kept. The
+    forward computes the same ops either way."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _leaves(tree) -> list:
@@ -268,10 +293,10 @@ def forward(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             prefix_len: int = 0, q_block: int = 512, kv_block: int = 1024,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the block stack on embedded activations x (B, T, D).
-    Returns (hidden (B,T,D), total aux loss). ``remat`` (the reference's
-    rematerialisation of each unit under its gradient) changes nothing in
-    a forward pass."""
-    del remat
+    Returns (hidden (B,T,D), total aux loss). ``remat``: each stacked
+    unit runs under `remat_call` (recomputed in the backward pass when
+    gradients are recorded, as the reference's ``jax.checkpoint(unit_fn)``
+    in its scan); the dense prefix and the tail are not rematerialised."""
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
     kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block)
@@ -282,14 +307,22 @@ def forward(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                                   layer_idx=i, **kw)
         aux_total = aux_total + aux
 
-    for u in range(plan.n_units):
-        unit_params = _unit(params["units"], u)
+    def unit_fn(x, unit_params):
+        aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, kind in enumerate(plan.unit):
             # layer_idx only matters for the moe-vs-dense split, which is
             # uniform inside stacked units
             x, aux = apply_block_full(cfg, kind, unit_params[p], x,
                                       layer_idx=n_prefix + p, **kw)
-            aux_total = aux_total + aux
+            aux_u = aux_u + aux
+        return x, aux_u
+
+    if plan.n_units > 0:
+        aux_units = []
+        for unit_params in _unbind_units(params["units"], plan.n_units):
+            x, aux_u = remat_call(remat, unit_fn, x, unit_params)
+            aux_units.append(aux_u)
+        aux_total = aux_total + torch.sum(torch.stack(aux_units))
 
     base_tail = n_prefix + plan.n_units * len(plan.unit)
     for i, kind in enumerate(plan.tail):

@@ -1,10 +1,14 @@
 """Uniform model API over the assembly families.
 
 Port of `repro.models.registry`. ``build_model(cfg)`` returns a ModelAPI
-whose five functions are what the serving loop needs:
+whose five functions are what the training and serving loops need:
 
     init(key)                  -> params
-    loss(params, batch)        -> (scalar loss, metrics dict), forward only
+    loss(params, batch)        -> (scalar loss, metrics dict); its gradient
+                                  comes from `torch.autograd` on leaf
+                                  parameters (`train.build_train_step`),
+                                  each stacked unit rematerialised when
+                                  ``remat``
     prefill(params, batch)     -> (last-position logits, cache)
     decode(params, cache, tok) -> (logits, new cache)
     init_cache(batch, max_len) -> cache

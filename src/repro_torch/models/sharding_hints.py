@@ -7,9 +7,9 @@ language model on one device: every hint is the identity, and
 `fsdp_use` is what remains of the reference's FSDP gather point, the
 cast of the (float32) weight to the compute dtype at every use.
 
-A mesh of more than one position is refused: sharding a language model
-over devices needs `distributed/partitioning.py`, which the port has not
-yet (ROADMAP Queue 1 item 5, the training half).
+A mesh of more than one position is refused: the sharding rules are
+ported (`distributed/partitioning.py`), but placing a language model over
+devices is not yet (ROADMAP Queue 1 item 5d, the multi-device LM mesh).
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ def check_one_device(mesh, what: str) -> None:
     if mesh is not None and mesh.size != 1:
         raise NotImplementedError(
             f"{what} on {mesh}: a language model runs on one device in the "
-            f"port; sharding it over a mesh needs distributed/"
-            f"partitioning.py (ROADMAP Queue 1 item 5, the training half)")
+            f"port; its sharding rules are ported (distributed/"
+            f"partitioning.py), placing it over a mesh is ROADMAP Queue 1 "
+            f"item 5d, the multi-device LM mesh")
 
 
 @contextlib.contextmanager

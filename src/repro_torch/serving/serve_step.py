@@ -3,8 +3,8 @@
 Port of `repro.serving.serve_step`. The reference jits prefill and decode
 with explicit shardings over its mesh; the port serves on one device, so
 there is nothing to shard: ``mesh`` is None or the port's one-position
-`launch.mesh.Mesh`, and a larger mesh raises (sharding a language model
-needs `distributed/partitioning.py`, ROADMAP Queue 1 item 5). The steps
+`launch.mesh.Mesh`, and a larger mesh raises (placing a language model
+over a mesh is ROADMAP Queue 1 item 5d, the multi-device LM mesh). The steps
 run where the parameters lie.
 """
 from __future__ import annotations

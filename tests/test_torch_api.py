@@ -1,7 +1,7 @@
 """The port's public names and keywords against the reference's, on the CPU.
 
-* `repro_torch.{core,data,obs,kernels,serving,distributed,configs,models}`
-  re-export
+* `repro_torch.{core,data,obs,kernels,serving,distributed,configs,models,
+  optim,train,checkpoint}` re-export
   every public name of the reference's subpackage that the port has, in
   the reference's order; a name the port lacks must be listed in
   `NOT_PORTED` with the ROADMAP Queue 1 item that ports it, and must
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.checkpoint
 import repro.configs
 import repro.core
 import repro.data
@@ -28,7 +29,9 @@ import repro.distributed
 import repro.kernels
 import repro.models
 import repro.obs
+import repro.optim
 import repro.serving
+import repro.train
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import cdist as t_cdist
 from repro_torch.kernels import kexp as t_kexp
@@ -39,7 +42,7 @@ from repro_torch.kernels import sddmm_spmm as t_sddmm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("core", "data", "obs", "kernels", "serving", "distributed",
-               "configs", "models")
+               "configs", "models", "optim", "train", "checkpoint")
 
 # reference names the port does not have yet -> the ROADMAP Queue 1 item
 NOT_PORTED = {
@@ -48,15 +51,19 @@ NOT_PORTED = {
     "obs": {},
     "kernels": {},
     "serving": {},
-    "distributed": {"partitioning": 5},
+    "distributed": {},
     "configs": {},
     "models": {},
+    "optim": {},
+    "train": {},
+    "checkpoint": {},
 }
 
 REF = {"core": repro.core, "data": repro.data, "obs": repro.obs,
        "kernels": repro.kernels, "serving": repro.serving,
        "distributed": repro.distributed, "configs": repro.configs,
-       "models": repro.models}
+       "models": repro.models, "optim": repro.optim, "train": repro.train,
+       "checkpoint": repro.checkpoint}
 
 
 def _port(sub):
@@ -122,6 +129,20 @@ def test_reexports_are_the_modules_objects():
     from repro_torch.data import TokenPipeline
     assert TokenPipeline is tokens.TokenPipeline
     assert serving.build_serve_fns is serve_step.build_serve_fns
+    import repro_torch.checkpoint as checkpoint
+    import repro_torch.optim as optim
+    import repro_torch.train as train
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.distributed import partitioning
+    from repro_torch.optim import compression
+    from repro_torch.train import step, trainer
+    assert distributed.partitioning is partitioning
+    assert optim.adamw is importlib.import_module(
+        "repro_torch.optim.adamw").adamw
+    assert optim.init_compression_state is compression.init_state
+    assert train.Trainer is trainer.Trainer
+    assert train.build_train_step is step.build_train_step
+    assert checkpoint.restore is checkpointer.restore
 
 
 def _public(mod) -> dict:
@@ -159,6 +180,60 @@ def test_mixer_modules_have_every_reference_name(module):
             assert list(mine)[:len(ref_params)] == ref_params, name
             assert all(p.kind is p.KEYWORD_ONLY
                        for p in list(mine.values())[len(ref_params):]), name
+        else:
+            assert got[name] == item, name
+
+
+# names the port's training modules define beyond the reference's: the
+# spec and sharding records the reference imports from jax, the state's
+# meta-device structure and the placement helper of the train step
+TRAINING_EXTRAS = {"distributed.partitioning": {"P", "NamedSharding"},
+                   "train.step": {"state_struct", "place"}}
+
+
+def _params_extend(ref_fn, port_fn, name):
+    """The port's parameters are the reference's, in order, then keyword-
+    only ones (a launcher's ``main`` also takes ``argv=None``, as
+    `launch.serve.main` does)."""
+    ref_params = list(inspect.signature(ref_fn).parameters)
+    mine = inspect.signature(port_fn).parameters
+    assert list(mine)[:len(ref_params)] == ref_params, name
+    extra = list(mine.values())[len(ref_params):]
+    if name == "main":
+        assert [p.name for p in extra] == ["argv"] and \
+            extra[0].default is None, name
+        return
+    assert all(p.kind is p.KEYWORD_ONLY for p in extra), name
+
+
+@pytest.mark.parametrize("module", [
+    "optim.adamw", "optim.schedules", "optim.compression",
+    "checkpoint.checkpointer", "distributed.partitioning", "train.step",
+    "train.trainer", "launch.train"])
+def test_training_modules_have_every_reference_name(module):
+    """Each public name of the reference's training modules is in the
+    port's (plus `TRAINING_EXTRAS`); functions and public methods take the
+    reference's parameters in its order (the port adds keyword-only ones:
+    ``donate``), NamedTuples have its fields, constants its values."""
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    want, got = _public(ref), _public(port)
+    assert sorted(want) == sorted(set(got) - TRAINING_EXTRAS.get(module,
+                                                                 set()))
+    for name, item in want.items():
+        if hasattr(item, "_fields"):
+            assert got[name]._fields == item._fields, name
+        elif inspect.isclass(item):
+            for meth, fn in vars(item).items():
+                if inspect.isfunction(fn) and (not meth.startswith("_")
+                                               or meth == "__init__"):
+                    _params_extend(fn, getattr(got[name], meth),
+                                   f"{name}.{meth}")
+            for meth in vars(item):
+                if not meth.startswith("__"):
+                    assert hasattr(got[name], meth), f"{name}.{meth}"
+        elif inspect.isfunction(item):
+            _params_extend(item, got[name], name)
         else:
             assert got[name] == item, name
 

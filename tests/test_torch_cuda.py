@@ -1390,3 +1390,112 @@ def test_mixers_on_card_decode_repeatably(arch):
     assert torch.equal(runs[0], runs[1])
     assert all(torch.equal(x, y) for x, y in zip(_leaves(cache),
                                                  _leaves(snap), strict=True))
+
+
+# -- training: chip_smoke.py phase 14's checks at the smoke size ---------------
+
+TRAIN_ARCHS = ("deepseek-moe-16b", "xlstm-125m", "whisper-small")
+
+
+def _train_setup(arch, dev, *, router=None, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    cfg = get_smoke_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    if router is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router=router))
+    model = build_model(cfg, q_block=16, kv_block=16, device=dev)
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=1, total_steps=10))
+    return cfg, model, opt, TokenPipeline(cfg, batch=8, seq_len=32)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(arch, monkeypatch):
+    """One float32 train step from one numpy tree on the card and the CPU:
+    loss and grad_norm within 1e-5 relative, the update criterion
+    ||dp_card - dp_cpu|| / ||dp_cpu|| per leaf within 1e-2. Whisper's
+    decoder runs in bfloat16 at any compute dtype (the reference's
+    design); its embedding's default dtype is lifted to float32 here, as
+    `tests/test_torch_train_grads_mixers.py` does against JAX."""
+    dev = _card()
+    import functools
+
+    from repro_torch import _tree
+    from repro_torch.models.layers import embedding
+    monkeypatch.setattr(embedding, "embed", functools.partial(
+        embedding.embed, dtype=torch.float32))
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.lm import _tree_map
+    from repro_torch.train import TrainState, build_train_step
+    cfg, m_gpu, opt, pipe = _train_setup(arch, dev, dtype="float32")
+    _, m_cpu, _, _ = _train_setup(arch, "cpu", dtype="float32")
+    tree = _tree_map(lambda x: x.numpy(), m_cpu.init(0))
+    batch = pipe.batch_at(0)
+    out = {}
+    for d, model in (("cpu", m_cpu), (dev, m_gpu)):
+        p = lm_params_from_numpy(tree, device=d)
+        s, m = build_train_step(model, opt, None, donate=False)(
+            TrainState(params=p, opt=opt.init(p), comp=None), batch)
+        out[str(d)] = ([x.cpu().double() for x in _tree.leaves(s.params)],
+                       float(m["loss"]), float(m["grad_norm"]))
+    (pc, lc, nc), (pg, lg, ng) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(ng - nc) <= 1e-5 * nc
+    p0 = [torch.from_numpy(x).double() for x in _tree.leaves(tree)]
+    for a, b, c in zip(p0, pg, pc, strict=True):
+        assert float(((b - a) - (c - a)).norm()) <= \
+            1e-2 * max(float((c - a).norm()), 1e-30)
+
+
+@pytest.mark.parametrize("router", ["topk", "sinkhorn"])
+def test_two_train_steps_from_one_state_on_card_are_bitwise_equal(router):
+    """deepseek-moe-16b's smoke config in bfloat16: the MoE dispatch reads
+    each token top_k times and the Zipf batch repeats token 0 (the
+    embedding's gradient sums its duplicates): two steps from one state
+    through two build_train_step calls give the same bits."""
+    dev = _card()
+    from repro_torch import _tree
+    from repro_torch.train import build_train_step, init_state
+    cfg, model, opt, pipe = _train_setup("deepseek-moe-16b", dev,
+                                         router=router)
+    batch = pipe.batch_at(0)
+    assert int((batch["tokens"] == 0).sum()) > 20
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    runs = [build_train_step(model, opt, None, donate=False)(state, batch)
+            for _ in range(2)]
+    for a, b in zip(_tree.leaves(runs[0]), _tree.leaves(runs[1]),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert torch.isfinite(runs[0][1]["loss"])
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_trainer_resume_on_card_is_bitwise(arch, tmp_path, monkeypatch):
+    """8 steps checkpointed every 4 with a failure injected at step 6; a
+    fresh Trainer resumes at step 4 and ends bitwise where an
+    uninterrupted run ends."""
+    dev = _card()
+    monkeypatch.delenv("REPRO_FAILED_ONCE", raising=False)
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.train import Trainer
+    _, model, opt, pipe = _train_setup(arch, dev)
+    mesh = one_device_mesh(dev)
+
+    def trainer(d):
+        return Trainer(model, opt, mesh, pipe, ckpt_dir=str(tmp_path / d),
+                       ckpt_every=4, log_fn=lambda s: None)
+
+    with pytest.raises(RuntimeError, match="injected"):
+        trainer("a").run(0, 8, fail_at=6)
+    out = trainer("a").run(0, 8)
+    ref = trainer("b").run(0, 8)
+    assert out["history"][0]["step"] == 4
+    for a, b in zip(_tree.leaves(out["final_state"]),
+                    _tree.leaves(ref["final_state"]), strict=True):
+        assert a.device.type == "cuda" and torch.equal(a, b)

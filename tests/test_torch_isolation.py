@@ -74,3 +74,16 @@ def test_blocker_is_exact():
     assert _banned("repro") and _banned("repro.core.formats")
     assert _banned("jax") and _banned("jax.numpy")
     assert not _banned("repro_torch") and not _banned("repro_torch.core")
+
+
+def test_sources_cover_every_subpackage():
+    """The checks above walk every module of the port, the training
+    substrate's subpackages and modules among them."""
+    mods = {_module_name(p) for p in SOURCES if PKG in p.parents}
+    for name in ("repro_torch.optim.adamw", "repro_torch.optim.compression",
+                 "repro_torch.optim.schedules",
+                 "repro_torch.checkpoint.checkpointer",
+                 "repro_torch.distributed.partitioning",
+                 "repro_torch.train.step", "repro_torch.train.trainer",
+                 "repro_torch.launch.train", "repro_torch._tree"):
+        assert name in mods, name
