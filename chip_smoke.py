@@ -245,9 +245,44 @@ Phases (any failure exits non-zero before the result line is printed):
      on one ``--ckpt-dir`` (`--arch deepseek-moe-16b --smoke`): exit 0,
      the second prints ``restoring step 4``.
 
+  15. (run after phase 14 has released its state) the language-model
+     mesh, on a (2, 2) ("data", "model") mesh of logical shards of
+     `cuda:0` (`launch.mesh.make_mesh(..., devices=[cuda:0] * 4)`; the
+     count of visible cards printed). (a) `deepseek-moe-16b` as
+     published, phase 12's traffic cut to 8 decode steps (batch 4, 64
+     prompt tokens of numpy seed 0, q_block = kv_block = 16), both
+     routers, bfloat16 (the config's) and float32 compute (a float32
+     cache): the 1 x 1 runs first, their logits kept on the host and their
+     greedy tokens fed to every run's decode; then the same parameters are
+     placed on the mesh as views (`partitioning.shard`: moved, not
+     copied). The mesh's prefill and decode logits within 1e-4 of the
+     largest |logit| of the 1 x 1's in float32 with the same greedy tokens
+     -- or, where a router call picks other experts, the first such call
+     at a near-tie of the 1 x 1 scores (relative k-th / k+1-th gap under
+     1e-4) after router logits within 1e-4 (the Sinkhorn router at decode
+     saturates its expert marginal over 4 tokens, ROADMAP Queue 3) -- and
+     within `_bf16_bound` in bfloat16; a kept and a donated decode loop
+     from one cache bitwise equal; prefill and decode ms (CUDA events),
+     the top-k bfloat16 decode step's `[idle]` line on each layout and the
+     peak memory. (b) `deepseek-moe-16b` at full width, depth 4, float32
+     compute, batch 8 x 128, both routers: one step on the mesh against
+     the 1 x 1 step from one state (loss and grad_norm within 1e-5
+     relative, the update criterion within phase 14's TOL_TRAIN_UPDATE),
+     two mesh steps from one state bitwise (parameters and metrics), step
+     ms and a profiled step's `[idle]` line. (c) A (2, 1, 2)
+     ("pod", "data", "model") mesh, grad compression, depth 2, Sinkhorn,
+     float32: the pod replicas of every parameter, moment and residual
+     bitwise equal after each of 2 steps, the losses and the update within
+     (b)'s bounds of the 1 x 1 run. (d) A deepseek smoke state placed on
+     (2, 2) and saved: shard files byte-equal to a 1 x 1 save; restored on
+     (1, 1) and (4, 1) bitwise. No WMD kernel launched. (e) Both
+     launchers as subprocesses with ``--devices 4 --mesh 2x2`` (serve
+     deepseek-moe-16b ``--smoke``; train gemma-2b ``--smoke`` twice on one
+     ``--ckpt-dir``, the second resuming).
+
 The line before the last is a JSON object with one entry per kernel
-(``launches_by_phase`` has phase 12's, 13's and 14's, which must be 0);
-the last line is ``{"ok": true, "device": {...}}``.
+(``launches_by_phase`` has phases 12 to 15's, which must be 0); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import hashlib
 import json
@@ -2446,6 +2481,607 @@ def _phase14():
     return launches
 
 
+# -- 15. the language-model mesh ---------------------------------------------
+
+MESH_SHAPE = (2, 2)            # logical shards of cuda:0 (module docstring)
+MESH_TOL_F32 = 1e-4            # mesh vs 1 x 1 logits, of the largest |logit|
+MESH_TOL_TRAIN = 1e-5          # mesh vs 1 x 1 loss and grad_norm: relative
+ROUTE_TIE = 1e-4               # a near-tie of a token's k-th / k+1-th score
+
+
+def _first_routing_flip(e, one, mesh):
+    """The first router call (execution order) whose experts differ
+    between the 1 x 1 run and the mesh: (its index, the relative gap
+    between the differing tokens' k-th and k+1-th 1 x 1 scores, a
+    description, the call's router logits' relative difference); the
+    index is None when every call routes alike. The Sinkhorn router at
+    decode balances T = 4 tokens over 64 experts: an expert's column
+    saturates at T / E, so a token's top-6 scores can tie within ~1e-6
+    relative and float32 reassociation flips them (ROADMAP Queue 3)."""
+    import torch
+
+    from repro_torch.models.layers import moe
+    for j, ((lg1, id1), (lgm, idm)) in enumerate(zip(one, mesh,
+                                                     strict=True)):
+        diff = (id1.sort(-1).values != idm.sort(-1).values).any(-1)
+        if not bool(diff.any()):
+            continue
+        lg_rel = float((lgm - lg1).abs().max() / lg1.abs().max())
+        scores = (moe._sinkhorn_scores(e, -torch.log_softmax(lg1, -1))
+                  if e.router == "sinkhorn" else torch.softmax(lg1, -1))
+        top = scores.sort(-1, descending=True).values[diff]
+        k = e.top_k
+        gap = float(((top[:, k - 1] - top[:, k]) / top[:, k - 1]).max())
+        return j, gap, (
+            f"first routing difference at router call {j} of {len(one)} "
+            f"({int(diff.sum())} of {diff.numel()} tokens, "
+            f"{lg1.shape[0]} routed): the 1 x 1 scores' k-th / k+1-th "
+            f"relative gap there {gap:.3g} (near-tie bound {ROUTE_TIE:g}), "
+            f"router logits {lg_rel:.3g} apart"), lg_rel
+    return None, 0.0, f"routing equal in all {len(one)} router calls", 0.0
+
+
+def _lm_mesh(shape, axes=("data", "model")):
+    """A mesh of logical shards on cuda:0."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes,
+                     devices=[torch.device("cuda", 0)] * math.prod(shape))
+
+
+def _mesh_prefill(cfg, params, tokens, max_len, cache_dtype):
+    """The model API's prefill with a cache of ``cache_dtype``, on the
+    layout of ``params`` (placed on a mesh, or one device): (last-position
+    logits, cache). For the float32 runs, whose float32 cache the serve
+    entry (a bfloat16 cache) does not make."""
+    from repro_torch.distributed import spmd
+    from repro_torch.models import lm
+    from repro_torch.models.layers import embedding
+    from repro_torch.models.registry import _compute_dtype
+    lay = lm.program_layout(cfg, params)
+    toks = [spmd.rows_of(lay, tokens, g) for g in range(lay.n_groups)]
+    x = embedding.mesh_embed(lay, cfg, params["embedding"], toks,
+                             dtype=_compute_dtype(cfg))
+    h, cache = lm.prefill(cfg, params, x, max_len=max_len, q_block=16,
+                          kv_block=16, cache_dtype=cache_dtype)
+    parts, split = embedding.mesh_logits(lay, cfg, params["embedding"],
+                                         [hh[:, -1:] for hh in h])
+    return embedding.mesh_unshard_logits(lay, parts, split), cache
+
+
+def _forced_loop(dec, params, cache, feed):
+    """Decode steps fed the tokens ``feed`` (B, steps): (logits (B, steps,
+    V) on the host, ms a step by CUDA events)."""
+    import torch
+    outs, events = [], []
+    for i in range(feed.shape[1]):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = dec(params, cache, feed[:, i:i + 1])
+        stop.record()
+        outs.append(logits)
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return (torch.cat(outs, 1).float().cpu(),
+            [s.elapsed_time(e) for s, e in events])
+
+
+def _launch_count(call):
+    """(wall ms, device busy ms, idle share, device entries) of one warm
+    ``call`` (`_device_busy`); None where the trace holds no device time."""
+    wall, _, busy, largest, groups = _device_busy(
+        call, top=3, groups=(("all", ("",)),))
+    if busy is None:
+        return wall, None, None, None, largest
+    return wall, busy, 1 - busy / wall, groups["all"][0], largest
+
+
+def _phase15_serve(mesh):
+    """(a) deepseek-moe-16b as published, 1 x 1 then the mesh, both routers,
+    bfloat16 and float32 compute."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partitioning
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe
+    from repro_torch.models.lm import _tree_map
+    from repro_torch.models.sharding_hints import activation_sharding
+    from repro_torch.serving import build_serve_fns
+
+    cfg = get_config("deepseek-moe-16b")
+    b, t, steps = 4, 64, 8
+    max_len = t + steps
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32)
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    runs, feeds, report = {}, {}, {}
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers   # calls a forward
+
+    def serve(c, p, m, key):
+        model = build_model(c, q_block=16, kv_block=16)
+        prefill_for, decode_for = build_serve_fns(model, m, max_len=max_len)
+        if c.compute_dtype == "bfloat16":   # the serve entry's own cache
+            def pre():
+                return prefill_for(b)(p, {"tokens": tokens})
+        else:
+            def pre():
+                return _mesh_prefill(c, p, tokens, max_len, torch.float32)
+        groups = 1 if m is None else m.size // m.shape["model"]
+        routed, gates, spying = [], moe._gates, [True]
+
+        def spy(e, lg):           # each router call's logits and experts
+            out = gates(e, lg)
+            if spying[0]:
+                routed.append((lg.detach().float().cpu(), out[0].cpu()))
+            return out
+
+        moe._gates = spy
+        try:
+            with activation_sharding(m, "prefill"):
+                logits, cache = pre()
+            out = _serve_rest(c, p, m, key, logits, cache, pre, decode_for,
+                              spying)
+        finally:
+            moe._gates = gates
+        # the mesh runs the router on every batch group (all T tokens
+        # each): group 0's calls stand for the layer's
+        return out + (routed[::groups],)
+
+    def _serve_rest(c, p, m, key, logits, cache, pre, decode_for, spying):
+        if key not in feeds:                  # the 1 x 1 run: greedy
+            spying[0] = False
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            fed = [tok]
+            cur = _tree_map(torch.clone, cache)
+            dec = decode_for(b)
+            for _ in range(steps - 1):
+                out, cur = dec(p, cur, tok)
+                tok = torch.argmax(out[:, -1], -1)[:, None]
+                fed.append(tok)
+            feeds[key] = torch.cat(fed, 1)
+            del cur
+            spying[0] = True
+        feed = feeds[key]
+        with activation_sharding(m, "decode"):
+            kept, ms = _forced_loop(decode_for(b, donate_cache=False), p,
+                                    cache, feed)
+            spying[0] = False
+            donated, _ = _forced_loop(decode_for(b), p, cache, feed)
+        _check(torch.equal(kept, donated), f"{key} on {m}: the donated "
+               f"decode loop is not the kept one bitwise")
+        torch.cuda.synchronize()
+        with activation_sharding(m, "prefill"):
+            pre_ms = _timed(pre, 1, warmup=0)
+        out = (logits.float().cpu(), kept, feed.cpu(), pre_ms,
+               float(np.median(ms)))
+        if c.compute_dtype == "bfloat16" and c.moe.router == "topk":
+            tok = feed[:, :1]
+            with activation_sharding(m, "decode"):
+                report[1 if m is None else m.size] = _launch_count(
+                    lambda: decode_for(b, donate_cache=False)(p, cache, tok))
+        del cache
+        return out
+
+    variants = [(r, d) for r in ("topk", "sinkhorn")
+                for d in ("bfloat16", "float32")]
+    cfgs = {(r, d): dataclasses.replace(
+        cfg, compute_dtype=d, moe=dataclasses.replace(cfg.moe, router=r))
+        for r, d in variants}
+    torch.cuda.reset_peak_memory_stats()
+    for key in variants:
+        runs[("1x1",) + key] = serve(cfgs[key], params, None, key)
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    placed = partitioning.shard(params,
+                                partitioning.param_shardings(mesh, params))
+    del params          # the blocks are views: the parameters moved, no copy
+    print(f"[mesh] (a) deepseek-moe-16b's parameters placed on {mesh} in "
+          f"{time.perf_counter() - t0:.2f} s (blocks that are views of "
+          f"the one-card tensors); memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    for key in variants:
+        runs[("mesh",) + key] = serve(cfgs[key], placed, mesh, key)
+    peak_m = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    for r in ("topk", "sinkhorn"):
+        f1 = runs[("1x1", r, "float32")]
+        b1 = runs[("1x1", r, "bfloat16")]
+        own = _rel_err(b1[0].numpy(), f1[0].numpy())
+        for d in ("bfloat16", "float32"):
+            one, mesh_run = runs[("1x1", r, d)], runs[("mesh", r, d)]
+            pre = _rel_err(mesh_run[0].numpy(), one[0].numpy())
+            dec = _rel_err(mesh_run[1].numpy(), one[1].numpy())
+            bound = MESH_TOL_F32 if d == "float32" else _bf16_bound(own)
+            same_tok = bool((mesh_run[1].argmax(-1)
+                             == one[1].argmax(-1)).all())
+            flip = _first_routing_flip(cfgs[(r, d)].moe, one[5],
+                                       mesh_run[5])
+            print(f"[mesh] (a) {r}, {d}: mesh vs 1 x 1 prefill logits "
+                  f"{pre:.3g}, {steps} decode steps {dec:.3g} of the "
+                  f"largest |logit| (bound {bound:g}); greedy tokens equal "
+                  f"{same_tok}; prefill {mesh_run[3]:.2f} ms [1 x 1 "
+                  f"{one[3]:.2f}], decode {mesh_run[4]:.2f} ms a token "
+                  f"[{one[4]:.2f}] (CUDA events); donated and kept decode "
+                  f"loops bitwise equal; {flip[2]}")
+            _check(pre <= bound, f"(a) {r} {d}: mesh vs 1 x 1 prefill "
+                   f"{pre} > {bound}")
+            if d == "float32" and flip[0] is None:
+                _check(dec <= bound and same_tok, f"(a) {r}: decode {dec} "
+                       f"> {bound} or greedy tokens differ with the same "
+                       f"routing")
+            elif d == "float32":
+                # a routing difference is allowed only at a near-tie of
+                # the 1 x 1 scores, after router logits that agree; every
+                # decode step before the step of that router call is held
+                # as with equal routing
+                _check(flip[1] <= ROUTE_TIE and flip[3] <= MESH_TOL_F32,
+                       f"(a) {r}: the first routing difference is not at "
+                       f"a near-tie: {flip[2]}")
+                _check(len(one[5]) == n_moe * (steps + 1),
+                       f"(a) {r}: {len(one[5])} router calls, not "
+                       f"{n_moe} a forward over {steps + 1} forwards")
+                held = flip[0] // n_moe - 1   # -1: in the prefill
+                dec_h, tok_h = 0.0, True
+                if held > 0:
+                    dec_h = _rel_err(mesh_run[1][:, :held].numpy(),
+                                     one[1][:, :held].numpy())
+                    tok_h = bool((mesh_run[1][:, :held].argmax(-1)
+                                  == one[1][:, :held].argmax(-1)).all())
+                where = "the prefill" if held < 0 \
+                    else f"decode step {held} (0-based)"
+                print(f"[mesh] (a) {r}, {d}: the flip falls in {where}; "
+                      f"the {max(held, 0)} decode steps before "
+                      f"it {dec_h:.3g} of the largest |logit| (bound "
+                      f"{bound:g}), greedy tokens equal {tok_h}")
+                _check(dec_h <= bound and tok_h, f"(a) {r}: decode steps "
+                       f"before the routing difference {dec_h} > {bound} "
+                       f"or greedy tokens differ")
+            else:
+                _check(dec <= bound, f"(a) {r} {d}: decode {dec} > {bound}")
+    for size, (wall, busy, idle, n, largest) in sorted(report.items()):
+        where = "1 x 1" if size == 1 else str(mesh)
+        if busy is None:
+            print(f"[idle] (a) decode step on {where}: {wall:.2f} ms wall; "
+                  f"device time not measured ({largest})")
+        else:
+            print(f"[idle] (a) decode step (top-k, bfloat16) on {where}: "
+                  f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
+                  f"share {idle:.3f}, {n} device entries; largest: "
+                  f"{largest}")
+    print(f"[mesh] (a) peak device memory {peak_m:.2f} GiB on the mesh "
+          f"[1 x 1 {peak1:.2f}] (torch.cuda.max_memory_allocated)")
+
+
+def _phase15_step(model, opt, mesh, batch, fresh, n_steps, check=None):
+    """``n_steps`` donated steps from ``fresh()`` on ``mesh`` (None: one
+    device): (metrics of each step on the host, the final state, ms a
+    step by CUDA events)."""
+    import torch
+
+    from repro_torch.models.sharding_hints import activation_sharding
+    from repro_torch.train import build_train_step, state_shardings
+    from repro_torch.train.step import place
+
+    state = fresh()
+    if mesh is not None:
+        state = place(state, state_shardings(mesh, state))
+    step = build_train_step(model, opt, mesh, grad_compression=state.comp
+                            is not None)
+    mets, ms = [], []
+    for _ in range(n_steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with activation_sharding(mesh):
+            state, met = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        mets.append({k: float(v) for k, v in met.items()})
+        if check is not None:
+            check(state)
+    return mets, state, ms, step
+
+
+def _host_leaves(tree):
+    from repro_torch import _tree
+    from repro_torch.distributed import partitioning
+    return [x.unshard("cpu") if isinstance(x, partitioning.Placed)
+            else x.to("cpu", copy=True) for x in _tree.leaves(tree)]
+
+
+def _phase15_train(mesh):
+    """(b) deepseek-moe-16b at full width, depth 4, float32 compute, both
+    routers: the mesh step against the 1 x 1 step from one state, two mesh
+    steps from one state bitwise."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding_hints import activation_sharding
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_state
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config(TRAIN_ARCH),
+                               num_layers=TRAIN_LAYERS,
+                               compute_dtype="float32")
+    for router in ("topk", "sinkhorn"):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, router=router))
+        model = build_model(cfg, device=dev)
+        opt = adamw(warmup_cosine(3e-4, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS))
+        batch = TokenPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_T,
+                              seed=0).batch_at(0)
+
+        def fresh():
+            return init_state(model, opt,
+                              torch.Generator(device=dev).manual_seed(0))
+
+        torch.cuda.reset_peak_memory_stats()
+        st = fresh()
+        p0 = _host_leaves(st.params)
+        del st
+        after_one = []           # the 1 x 1 parameters after step 1
+
+        def keep_first(state):
+            if not after_one:
+                after_one.append(_host_leaves(state.params))
+
+        m_one, s1, ms1, _ = _phase15_step(model, opt, None, batch, fresh, 2,
+                                          check=keep_first)
+        peak1 = torch.cuda.max_memory_allocated() / 2**30
+        p_one = after_one.pop()
+        del s1
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mm, sm, msm, step = _phase15_step(model, opt, mesh, batch, fresh, 1)
+        peak_m = torch.cuda.max_memory_allocated() / 2**30
+        first = _host_leaves(sm.params)
+        del sm
+        gc.collect()
+        torch.cuda.empty_cache()
+        mm2, sm2, msm2, step = _phase15_step(model, opt, mesh, batch, fresh,
+                                             1)
+        second = _host_leaves(sm2.params)
+        same = all(torch.equal(a, b) for a, b in zip(first, second,
+                                                     strict=True))
+        _check(same and mm[0] == mm2[0], f"(b) {router}: two mesh steps "
+               f"from one state differ")
+        with activation_sharding(mesh):
+            wall, busy, idle, n, largest = _launch_count(
+                lambda: step(sm2, batch))
+        del sm2, second
+        upd = _update_rel(p0, first, p_one)
+        l_rel = abs(mm[0]["loss"] - m_one[0]["loss"]) / abs(m_one[0]["loss"])
+        n_rel = abs(mm[0]["grad_norm"] - m_one[0]["grad_norm"]) \
+            / abs(m_one[0]["grad_norm"])
+        print(f"[mesh] (b) {router}: one step on {mesh} against 1 x 1, "
+              f"float32: loss {mm[0]['loss']:.7f} / {m_one[0]['loss']:.7f} "
+              f"(relative {l_rel:.3g}), grad_norm relative {n_rel:.3g} "
+              f"(bound {MESH_TOL_TRAIN:g}); update criterion {upd:.3g} "
+              f"(bound {TOL_TRAIN_UPDATE:g}); two mesh steps from one "
+              f"state bitwise ({len(first)} parameter tensors, which the "
+              f"moments update, and the metrics)")
+        _check(l_rel <= MESH_TOL_TRAIN and n_rel <= MESH_TOL_TRAIN
+               and upd <= TOL_TRAIN_UPDATE,
+               f"(b) {router}: loss {l_rel}, grad_norm {n_rel}, update "
+               f"{upd}")
+        tok = TRAIN_B * TRAIN_T
+        print(f"[mesh] (b) {router}: step {msm[0]:.2f} / {msm2[0]:.2f} ms on "
+              f"the mesh ({tok / msm2[0] * 1e3:,.0f} tokens/s) [1 x 1 "
+              f"{ms1[1]:.2f} ms, second step; {tok / ms1[1] * 1e3:,.0f} "
+              f"tokens/s] (CUDA events); peak {peak_m:.2f} GiB [{peak1:.2f}]")
+        if busy is None:
+            print(f"[idle] (b) train step ({router}) on the mesh: "
+                  f"{wall:.2f} ms wall; device time not measured "
+                  f"({largest})")
+        else:
+            print(f"[idle] (b) train step ({router}) on the mesh: "
+                  f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
+                  f"share {idle:.3f}, {n} device entries; largest: "
+                  f"{largest}")
+        del first, p0, p_one
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _phase15_pods():
+    """(c) a (2, 1, 2) pod mesh with grad compression, depth 2."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_state
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                              compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router="sinkhorn"))
+    model = build_model(cfg, device=dev)
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=1, total_steps=TRAIN_STEPS))
+    batch = TokenPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_T,
+                          seed=0).batch_at(0)
+    mesh = _lm_mesh((2, 1, 2), ("pod", "data", "model"))
+
+    def fresh():
+        return init_state(model, opt,
+                          torch.Generator(device=dev).manual_seed(0),
+                          grad_compression=True)
+
+    st = fresh()
+    n = sum(x.numel() for x in _tree.leaves(st.params))
+    p0 = _host_leaves(st.params)
+    del st
+    print(f"[mesh] (c) {TRAIN_ARCH} depth 2, float32, Sinkhorn, grad "
+          f"compression on {mesh}: {n:,} parameters; a pod replica holds "
+          f"{16 * n / 1e9:.1f} GB of parameters, moments and residuals "
+          f"({2 * 16 * n / 1e9:.1f} GB for both pods on the one card)")
+    m1, s1, _, _ = _phase15_step(model, opt, None, batch, fresh, 2)
+    p1 = _host_leaves(s1.params)
+    del s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked = []
+
+    def replicas_equal(state):
+        ok = all(torch.equal(leaf.blocks[(0, *c)], leaf.blocks[(1, *c)])
+                 for leaf in _tree.leaves((state.params, state.opt.mu,
+                                           state.opt.nu, state.comp.residual))
+                 for c in np.ndindex(leaf.blocks.shape[1:]))
+        checked.append(ok)
+        _check(ok, f"(c) pod replicas differ after step {len(checked)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    mm, sm, ms, _ = _phase15_step(model, opt, mesh, batch, fresh, 2,
+                                  check=replicas_equal)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pm = _host_leaves(sm.params)
+    del sm
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(mm, m1)]
+    upd = _update_rel(p0, pm, p1)
+    print(f"[mesh] (c) pod replicas bitwise equal after each of "
+          f"{len(checked)} steps; losses {[round(m['loss'], 6) for m in mm]}"
+          f" vs 1 x 1 {[round(m['loss'], 6) for m in m1]} (relative "
+          f"{max(rel):.3g}, bound {MESH_TOL_TRAIN:g}); update criterion "
+          f"after 2 steps {upd:.3g} (bound {TOL_TRAIN_UPDATE:g}); step "
+          f"{ms[1]:.2f} ms (CUDA events); peak {peak:.2f} GiB")
+    _check(max(rel) <= MESH_TOL_TRAIN and upd <= TOL_TRAIN_UPDATE,
+           f"(c) pods vs 1 x 1: loss {rel}, update {upd}")
+    del p0, p1, pm
+
+
+def _phase15_checkpoint():
+    """(d) a deepseek smoke state written on (2, 2), restored on (1, 1)
+    and (4, 1)."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import partitioning
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_state, state_shardings
+    from repro_torch.train.step import place, state_struct
+
+    model = build_model(get_smoke_config(TRAIN_ARCH))
+    opt = adamw(1e-3)
+    state = init_state(model, opt, torch.Generator(device="cuda")
+                       .manual_seed(0), grad_compression=True)
+    placed = place(state, state_shardings(_lm_mesh(MESH_SHAPE), state))
+    want = _host_leaves(state)
+    with tempfile.TemporaryDirectory() as td:
+        ckpt.save(os.path.join(td, "mesh"), 1, placed,
+                  mesh_signature="data=2xmodel=2")
+        ckpt.save(os.path.join(td, "one"), 1, state)
+        step_dir = "step_00000001"
+        names = sorted(os.listdir(os.path.join(td, "one", step_dir)))
+        same = all(pathlib.Path(td, "mesh", step_dir, f).read_bytes()
+                   == pathlib.Path(td, "one", step_dir, f).read_bytes()
+                   for f in names if f.startswith("shard_"))
+        struct = state_struct(model, opt, grad_compression=True)
+        ok = {}
+        for shape in ((1, 1), (4, 1)):
+            got = ckpt.restore(os.path.join(td, "mesh"), 1, struct,
+                               shardings=state_shardings(_lm_mesh(shape),
+                                                         struct))
+            placed_ok = all(isinstance(x, partitioning.Placed)
+                            == (shape != (1, 1))
+                            for x in _tree.leaves(got.params))
+            ok[shape] = placed_ok and all(
+                torch.equal(a, b) for a, b in zip(_host_leaves(got), want,
+                                                  strict=True))
+    print(f"[mesh] (d) a smoke state written on (2, 2): shard files "
+          f"{names} byte-equal to a 1 x 1 save {same}; restored on (1, 1) "
+          f"and (4, 1) bitwise {ok[(1, 1)]} / {ok[(4, 1)]}")
+    _check(same and all(ok.values()), "(d) the elastic checkpoint")
+
+
+def _phase15_launchers():
+    """(e) both launchers as subprocesses on --devices 4 --mesh 2x2."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAILED_ONCE", None)
+    mesh = ["--devices", "4", "--mesh", "2x2"]
+    with tempfile.TemporaryDirectory() as td:
+        cmds = [([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                  "deepseek-moe-16b", "--smoke", *mesh], "[serve]",
+                 "decode steps"),
+                *[([sys.executable, "-m", "repro_torch.launch.train",
+                    "--arch", "gemma-2b", "--smoke", "--steps", str(steps),
+                    "--ckpt-every", "2", "--batch", "4", "--seq-len", "32",
+                    "--ckpt-dir", td, *mesh], "[train", want)
+                  for steps, want in ((2, "[train] done"),
+                                      (4, "restoring step 2"))]]
+        for cmd, prefix, want in cmds:
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=ROOT, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in run.stdout.splitlines()
+                     if ln.startswith(prefix)]
+            for ln in lines:
+                print(f"[mesh launcher] {ln}")
+            _check(run.returncode == 0, f"{cmd[2]} exited {run.returncode}:"
+                   f" {run.stderr[-2000:]}")
+            _check(any(want in ln for ln in lines),
+                   f"{cmd[2]}: no line with {want!r}: {lines}")
+            print(f"[mesh launcher] {' '.join(cmd[2:])}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+
+def _phase15():
+    """15. The language-model mesh (module docstring). Returns the kernels'
+    launch counts over the phase, read around it."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    mesh = _lm_mesh(MESH_SHAPE)
+    print(f"[mesh] phase 15 on {mesh}: {mesh.size} logical shards of one "
+          f"card ({torch.cuda.device_count()} visible)")
+    for part in (lambda: _phase15_serve(mesh), lambda: _phase15_train(mesh),
+                 _phase15_pods, _phase15_checkpoint):
+        t0 = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[mesh] ({time.perf_counter() - t0:.1f} s)")
+    launches = dict(_build.launches)
+    print(f"[mesh] kernel launches over phase 15: {launches or 'none'} (the "
+          f"language-model mesh runs no hand-written kernel)")
+    _check(sum(launches.values()) == 0, "phase 15 launched a WMD kernel")
+    _phase15_launchers()
+    print(f"[mesh] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _wmd_phases():
     """Phases 1-11 and 5 (the Sinkhorn-WMD service and its kernels).
     Returns (the kernel entries, the card's nvidia-smi line); every tensor
@@ -3352,10 +3988,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches14 = _phase14()
+    # -- 15. the language-model mesh: phase 14's state released first -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches15 = _phase15()
     for entry in results:
         entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
         entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)
         entry["launches_by_phase"]["14"] = launches14.get(entry["name"], 0)
+        entry["launches_by_phase"]["15"] = launches15.get(entry["name"], 0)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

@@ -22,9 +22,12 @@ shard bytes, checksum and tree signature.
     writer never corrupts the latest checkpoint;
   * **async**: `AsyncCheckpointer.save` copies the tensors to host memory
     synchronously and serializes / writes on a background thread;
-  * **placed on restore**: `restore` puts each array where ``shardings``
-    says (a `distributed.partitioning.NamedSharding` of a one-position
-    mesh: its device), else where the target leaf lies;
+  * **logical on disk, placed on restore**: a leaf placed on a mesh
+    (`distributed.partitioning.Placed`) is written as its logical tensor,
+    so a state's shard bytes do not depend on its mesh; `restore` places
+    each array by ``shardings`` (the current mesh's: a one-position mesh
+    puts it on its device, a larger one cuts it into blocks -- the
+    elastic path), else where the target leaf lies;
   * **self-describing**: dtypes / shapes / tree paths in the file, the
     tree's paths checked against the restore target.
 """
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.data import _msgpack
+from repro_torch.distributed.partitioning import Placed
 
 try:  # optional dep (`pip install .[zstd]`): fall back to uncompressed
     import zstandard
@@ -75,8 +79,8 @@ def _host(state: Any) -> dict:
     """{path string: a contiguous CPU copy} in flatten order: a copy even
     of a CPU tensor, which a donated train step updates in place while the
     background thread writes."""
-    return {_path_str(p): torch.as_tensor(v).detach().to(
-                "cpu", copy=True).contiguous()
+    return {_path_str(p): v.unshard("cpu") if isinstance(v, Placed) else
+            torch.as_tensor(v).detach().to("cpu", copy=True).contiguous()
             for p, v in _tree.flatten_with_path(state)}
 
 
@@ -212,11 +216,9 @@ def _verify_shard(meta: dict, name: str, blob: bytes) -> None:
             f"got {len(blob)}B) -- the checkpoint is corrupt")
 
 
-def _target_device(leaf, shard) -> torch.device:
-    """Where a restored leaf goes: its sharding's device, else the target
-    leaf's own, the card for a shape-only (``meta``) target."""
-    if shard is not None:
-        return shard.device()
+def _target_device(leaf) -> torch.device:
+    """Where a restored leaf without a sharding goes: the target leaf's
+    device, the card for a shape-only (``meta``) target."""
     dev = getattr(leaf, "device", None)
     if dev is None or dev.type == "meta":
         return torch.device("cuda")
@@ -226,7 +228,8 @@ def _target_device(leaf, shard) -> torch.device:
 def restore(ckpt_dir: str, step: int, like: Any, *,
             shardings: Any = None, process_index: int = 0) -> Any:
     """Restore into the structure of ``like`` (tensors, possibly on the
-    ``meta`` device); place each array on ``shardings``' device if given."""
+    ``meta`` device); place each array by ``shardings`` if given (re-sharded
+    onto the current mesh, whatever mesh wrote it: the elastic path)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -261,5 +264,7 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
                                dtype=_DTYPES[rec["dtype"]]
                                ) if rec["data"] else \
             torch.empty(0, dtype=_DTYPES[rec["dtype"]])
-        out.append(arr.reshape(rec["shape"]).to(_target_device(leaf, shard)))
+        arr = arr.reshape(rec["shape"])
+        out.append(arr.to(_target_device(leaf)) if shard is None else
+                   shard.shard(arr, copy=shard.mesh.size > 1))
     return _tree.unflatten(like, out)

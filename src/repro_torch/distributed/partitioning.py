@@ -15,18 +15,26 @@ of names, ranks, shapes and the mesh's axis sizes, equal to the
 reference's on any mesh shape. The port has no GSPMD: `P` is a tuple of
 per-dimension entries (canonicalized as ``jax.sharding.PartitionSpec``
 canonicalizes them) and `NamedSharding` pairs a spec with a
-`launch.mesh.Mesh`. Placing a language model over more than one position
-is not ported (ROADMAP Queue 1 item 5d): `NamedSharding.device` gives the
-device of a one-position mesh and refuses a larger one.
+`launch.mesh.Mesh`.
+
+Placement: `NamedSharding.shard` cuts a logical tensor by its (sanitized)
+spec into one block a mesh position, on that position's device, and
+returns a `Placed` record (mesh, spec, logical shape, the object array of
+blocks); a replicated axis (``pod`` always) holds one copy a position. On
+a one-position mesh the single block is the tensor itself, on its device:
+no record, no copy. A 0-d leaf (the optimizer's step) is one number, held
+once on the mesh's first device. `shard` / `unshard` do the same for
+trees. The mesh program that computes on the blocks is
+`distributed.spmd`.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
-from repro_torch.models.sharding_hints import check_one_device
 
 
 def _canonical(entry):
@@ -51,6 +59,133 @@ class P(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry, in order."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_slices(mesh, spec, shape, coords) -> tuple:
+    """The slices of a logical tensor of ``shape`` that the position at
+    ``coords`` (one index an axis of ``mesh``) holds under ``spec``: a dim
+    split over axes (a0, a1, ...) is cut into prod(sizes) equal blocks,
+    indexed row major over those axes' coordinates."""
+    at = dict(zip(mesh.axis_names, coords))
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        k, b = 1, 0
+        for a in _axes(entry):
+            b = b * mesh.shape[a] + int(at[a])
+            k *= mesh.shape[a]
+        out.append(slice(b * (n // k), (b + 1) * (n // k)))
+    return tuple(out)
+
+
+class Placed:
+    """A logical tensor placed on a mesh of more than one position.
+
+    ``mesh``, ``spec`` (sanitized against ``shape``), ``shape`` (the
+    logical shape) and ``blocks``: an object ndarray of the mesh's shape,
+    one tensor a position, on that position's device, holding
+    `block_slices` of the logical tensor. Positions that differ only on
+    axes the spec does not name hold equal blocks (replicas)."""
+
+    __slots__ = ("mesh", "spec", "shape", "blocks")
+
+    def __init__(self, mesh, spec: P, shape, blocks: np.ndarray):
+        self.mesh = mesh
+        self.spec = spec
+        self.shape = torch.Size(shape)
+        self.blocks = blocks
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks.flat[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def block(self, coords) -> torch.Tensor:
+        return self.blocks[tuple(coords)]
+
+    def map(self, fn) -> "Placed":
+        """``fn`` on every block (a shape-preserving op)."""
+        out = np.empty(self.blocks.shape, dtype=object)
+        for c in np.ndindex(self.blocks.shape):
+            out[c] = fn(self.blocks[c])
+        return Placed(self.mesh, self.spec, self.shape, out)
+
+    def unbind0(self) -> list:
+        """The leaf's slices along an unsharded leading axis (the stacked
+        units), as views of the blocks, from one ``unbind`` a block."""
+        if self.spec and self.spec[0] is not None:
+            raise ValueError(f"leading axis sharded: {self.spec}")
+        n = self.shape[0]
+        parts = {c: self.blocks[c].unbind(0)
+                 for c in np.ndindex(self.blocks.shape)}
+        out = []
+        for u in range(n):
+            arr = np.empty(self.blocks.shape, dtype=object)
+            for c, p in parts.items():
+                arr[c] = p[u]
+            out.append(Placed(self.mesh, P(*self.spec[1:]), self.shape[1:],
+                              arr))
+        return out
+
+    def unique(self) -> list:
+        """The coordinates of one position a distinct block (the first of
+        its replicas, row major), in row-major order."""
+        seen, out = set(), []
+        for c in np.ndindex(self.blocks.shape):
+            key = block_slices(self.mesh, self.spec, self.shape, c)
+            key = tuple((s.start, s.stop) for s in key)
+            if key not in seen:
+                seen.add(key)
+                out.append(c)
+        return out
+
+    def replica_sets(self) -> list:
+        """Lists of the coordinates that hold the same block, each in row
+        major order (the order a replica sum folds in)."""
+        sets: dict = {}
+        for c in np.ndindex(self.blocks.shape):
+            key = tuple((s.start, s.stop) for s in block_slices(
+                self.mesh, self.spec, self.shape, c))
+            sets.setdefault(key, []).append(c)
+        return list(sets.values())
+
+    def aliased(self) -> bool:
+        """Whether two blocks begin at one address of one device: replicas
+        that are views of one tensor (`NamedSharding.shard` without
+        ``copy``), which an in-place update would write more than once."""
+        seen = set()
+        for b in self.blocks.flat:
+            if b.numel():
+                key = (b.device, b.data_ptr())
+                if key in seen:
+                    return True
+                seen.add(key)
+        return False
+
+    def unshard(self, device=None) -> torch.Tensor:
+        """The logical tensor on ``device`` (the mesh's first device by
+        default), assembled from one block a distinct slice."""
+        dev = torch.device(device) if device is not None \
+            else self.mesh.device()
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        for c in self.unique():
+            out[block_slices(self.mesh, self.spec, self.shape, c)] = \
+                self.blocks[c].to(dev)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Placed({tuple(self.shape)}, {self.dtype}, {self.spec!r}, "
+                f"{self.mesh!r})")
+
+
 class NamedSharding:
     """A spec over a mesh's named axes."""
 
@@ -59,13 +194,62 @@ class NamedSharding:
         self.spec = spec
 
     def device(self) -> torch.device:
-        """The device of a one-position mesh (placing a tensor over more
-        positions is not ported)."""
-        check_one_device(self.mesh, "a NamedSharding's placement")
+        """The device of a one-position mesh (a larger mesh has one device
+        a position: `shard`)."""
+        if self.mesh.size != 1:
+            raise ValueError(f"{self.mesh} has {self.mesh.size} positions: "
+                             f"NamedSharding.shard places a tensor on it")
         return self.mesh.device()
+
+    def shard(self, x, *, copy: bool = False):
+        """``x`` (a tensor or a numpy array) placed by this sharding.
+
+        One position (or a 0-d leaf): the tensor on the mesh's first
+        device, ``x`` itself when it is there. Otherwise a `Placed` whose
+        blocks are views of ``x`` where a position's device is ``x``'s and
+        ``copy`` is false, else contiguous copies (a donated train step
+        updates its blocks in place, so they must not share storage)."""
+        x = torch.as_tensor(x)
+        if self.mesh.size == 1 or x.ndim == 0:
+            dev = self.mesh.device()
+            if copy and x.device == dev:
+                return x.clone()
+            return x.to(dev)
+        spec = sanitize_spec(self.mesh, P(*self.spec), x.shape)
+        blocks = np.empty(self.mesh.devices.shape, dtype=object)
+        for c in np.ndindex(blocks.shape):
+            dev = self.mesh.devices[c]
+            b = x[block_slices(self.mesh, spec, x.shape, c)]
+            if b.device == dev and not copy:
+                blocks[c] = b
+            else:
+                blocks[c] = b.to(dev, copy=True,
+                                 memory_format=torch.contiguous_format)
+        return Placed(self.mesh, spec, x.shape, blocks)
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def shard(tree: Any, shardings: Any, *, copy: bool = False) -> Any:
+    """Each leaf of ``tree`` placed by the sharding at its place in
+    ``shardings`` (`NamedSharding.shard`); a leaf already `Placed` on that
+    mesh is returned as it is, one placed on another mesh is re-placed
+    through its logical tensor."""
+    def one(x, s):
+        if isinstance(x, Placed):
+            if x.mesh is s.mesh:
+                return x
+            x = x.unshard()
+        return s.shard(x, copy=copy)
+    return _tree.tree_map(one, tree, shardings)
+
+
+def unshard(tree: Any, device=None) -> Any:
+    """Every `Placed` leaf of ``tree`` as its logical tensor on ``device``
+    (the mesh's first device by default); other leaves unchanged."""
+    return _tree.tree_map(
+        lambda x: x.unshard(device) if isinstance(x, Placed) else x, tree)
 
 
 # leaf-name -> base spec (by decreasing specificity)

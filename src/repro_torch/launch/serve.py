@@ -65,8 +65,12 @@ its reduced smoke config), random parameters made on the device by a
 tokens (numpy seed 0) prefilled (with random patch or frame embeddings
 for the vlm / audio families), then ``--decode-steps`` greedy decode
 steps with the cache donated; it prints the prefill time and the decode
-time a token. It runs on one device (``--device``; the card by default);
-a mesh beyond one device raises (ROADMAP Queue 1 item 5d).
+time a token. It runs on one device (``--device``; the card by default),
+or with ``--devices`` / ``--mesh`` on a mesh as the WMD service does: the
+parameters placed by the partitioning rules (moved, a block a position),
+the cache by `cache_shardings`, the batch over (pod, data); the attention
+decoders run on any mesh, MLA, RG-LRU, xLSTM and whisper on one position
+(ROADMAP Queue 1 item 5e).
 """
 import argparse
 
@@ -286,6 +290,7 @@ def _serve_lm(args, ap):
     import torch
 
     from repro_torch.configs import arch_ids, get_config, get_smoke_config
+    from repro_torch.distributed import partitioning
     from repro_torch.launch.mesh import one_device_mesh
     from repro_torch.models import build_model
     from repro_torch.models.sharding_hints import activation_sharding
@@ -302,6 +307,10 @@ def _serve_lm(args, ap):
     max_len = args.prefill_len + args.decode_steps
     prefill_for, decode_for = build_serve_fns(model, mesh, max_len=max_len)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
+    if mesh.size > 1:        # moved onto the mesh: a block a position
+        params = partitioning.shard(
+            params, partitioning.param_shardings(mesh, params))
+        print(f"[serve] {cfg.name} on {mesh}")
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(
         0, cfg.vocab_size, (args.batch, args.prefill_len)).astype(np.int32)}
@@ -318,15 +327,16 @@ def _serve_lm(args, ap):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    with activation_sharding(mesh):
+    with activation_sharding(mesh, "prefill"):
         sync()
         t0 = time.perf_counter()
         logits, cache = prefill_for(args.batch)(params, batch)
         sync()
-        print(f"[serve] prefill {args.prefill_len} tokens: "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-        dec = decode_for(args.batch)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    print(f"[serve] prefill {args.prefill_len} tokens: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    dec = decode_for(args.batch)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    with activation_sharding(mesh, "decode"):
         sync()
         t0 = time.perf_counter()
         for _ in range(args.decode_steps):

@@ -1,16 +1,24 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Port of `repro.launch.train`: the fault-tolerant trainer on one device
-(``--device``, the card by default; ``--device cpu`` for the CPU). It
-takes the reference's flags; ``--devices`` / ``--mesh`` beyond one
-position raise `NotImplementedError` (the multi-device LM mesh is ROADMAP
-Queue 1 item 5d). ``--smoke`` uses the reduced config. A rerun with the
-same ``--ckpt-dir`` resumes from its latest checkpoint (``[trainer]
-restoring step N``). The checkpoint directory defaults to
+Port of `repro.launch.train`: the fault-tolerant trainer on a
+single-controller mesh (`launch.mesh`). ``--mesh DxM`` (data x model) or
+``PxDxM`` (pod x data x model), by default (n, 1); ``--devices N`` makes N
+logical devices, placed round-robin on the visible cards (all on
+``cuda:0`` on a one-card machine; on the CPU with ``--device cpu``), the
+counterpart of the reference's forced host device count; without it, one
+device. The parameters and moments are placed by the partitioning rules
+(FSDP over ``data``, TP over ``model``, replicated over ``pod``) and the
+batch over (pod, data). The attention decoders run on any mesh; MLA,
+RG-LRU, xLSTM and the encoder-decoder on one position (ROADMAP Queue 1
+item 5e). ``--smoke`` uses the reduced config. A rerun with the same
+``--ckpt-dir`` resumes from its latest checkpoint (``[trainer] restoring
+step N``), on whatever mesh it runs. The checkpoint directory defaults to
 ``repro_torch_ckpt`` under the temporary directory.
 
     python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 4 \\
         --ckpt-every 2 --batch 2 --seq-len 32 --device cpu
+    python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 4 \\
+        --batch 4 --seq-len 32 --devices 4 --mesh 2x2 --device cpu
 """
 import argparse
 import os
@@ -34,20 +42,22 @@ def main(argv=None):
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--devices", type=int, default=0,
-                    help="devices of the mesh (one: more raise)")
+                    help="logical devices of the mesh, round-robin on the "
+                         "visible cards (or the CPU)")
     ap.add_argument("--mesh", default="",
-                    help="e.g. 1x1 -> (data=1, model=1); more positions "
-                         "raise")
+                    help="mesh shape DxM (data x model) or PxDxM; default "
+                         "(devices, 1)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (the card by default)")
+                    help="torch device type to train on (the card by "
+                         "default), or one indexed device")
     args = ap.parse_args(argv)
 
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.serve import _device
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.launch.serve import _device, _mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import Trainer
@@ -57,22 +67,11 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, router=args.router))
 
-    n_dev = args.devices or 1
-    if args.mesh:
-        shape = tuple(int(x) for x in args.mesh.split("x"))
-        axes = ("data", "model") if len(shape) == 2 \
-            else ("pod", "data", "model")
-    else:
-        shape, axes = (n_dev, 1), ("data", "model")
-    if n_dev != 1 or any(s != 1 for s in shape):
-        raise NotImplementedError(
-            f"--devices {args.devices} --mesh {args.mesh or 'default'}: the "
-            f"port trains a language model on one device; the multi-device "
-            f"LM mesh is ROADMAP Queue 1 item 5d")
-    dev = _device(args.device)
-    mesh = make_mesh(shape, axes, devices=[dev])
-    print(f"[train] arch={cfg.name} devices={n_dev} "
-          f"mesh={dict(zip(axes, shape))} on {dev}")
+    mesh = _mesh(args, ap) if (args.devices or args.mesh) \
+        else one_device_mesh(_device(args.device))
+    dev = mesh.device()
+    print(f"[train] arch={cfg.name} devices={mesh.size} "
+          f"mesh={dict(mesh.shape)} on {dev}")
 
     model = build_model(cfg, device=dev)
     opt = adamw(warmup_cosine(args.lr, warmup_steps=max(args.steps // 10, 1),

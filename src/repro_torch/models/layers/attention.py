@@ -25,6 +25,7 @@ host picks the ring slot without reading the device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -169,12 +170,18 @@ def fwd_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
              kv_src: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
              q_block: int = 512, kv_block: int = 1024,
-             return_kv: bool = False):
+             return_kv: bool = False, kv_range: Optional[tuple] = None):
     """Full-sequence attention (train / prefill). kv_src enables cross-attn.
-    With return_kv, also returns the post-rope (k, v) for cache filling."""
+    With return_kv, also returns the post-rope (k, v) for cache filling.
+
+    ``kv_range`` (lo, hi): the queries (a model shard's heads) attend to
+    kv heads [lo, hi) of the ``cfg.num_kv_heads`` that the weights make
+    (a mesh shard whose heads share gathered kv heads); (k, v) returned
+    are all of them."""
     b, t, d = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // kv
+    lo, hi = kv_range if kv_range is not None else (0, kv)
+    g = h // (hi - lo)
     dtype = x.dtype
     src = x if kv_src is None else kv_src
     tk = src.shape[1]
@@ -186,9 +193,10 @@ def fwd_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
             else torch.arange(t, device=x.device)
         q = apply_rope(q, pos, theta=cfg.rope_theta)
         k = apply_rope(k, pos, theta=cfg.rope_theta)
-    q = q.reshape(b, t, kv, g, hd)
+    q = q.reshape(b, t, hi - lo, g, hd)
     window = cfg.window if cfg.attn_kind in ("swa", "local") else 0
-    out = blockwise_attention(q, k, v, causal=causal and kv_src is None,
+    ku, vu = (k, v) if kv_range is None else (k[:, :, lo:hi], v[:, :, lo:hi])
+    out = blockwise_attention(q, ku, vu, causal=causal and kv_src is None,
                               window=window, prefix_len=prefix_len,
                               q_block=q_block, kv_block=kv_block)
     out = out.reshape(b, t, h * hd)
@@ -251,9 +259,9 @@ def fwd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // kv
     dtype = x.dtype
-    q = (x @ params["wq"].to(dtype)).reshape(b, 1, h, hd)
 
     if cross_kv is not None:
+        q = (x @ params["wq"].to(dtype)).reshape(b, 1, h, hd)
         k_all, v_all = cross_kv
         qg = q.reshape(b, kv, g, hd).to(torch.float32) * hd ** -0.5
         s = torch.einsum("bkgh,bskh->bkgs", qg, k_all.to(torch.float32))
@@ -263,30 +271,259 @@ def fwd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
         return out @ params["wo"].to(dtype), cache
 
     pos = int(cache.pos)                                   # tokens so far
-    k_new = (x @ params["wk"].to(dtype)).reshape(b, 1, kv, hd)
-    v_new = (x @ params["wv"].to(dtype)).reshape(b, 1, kv, hd)
-    if cfg.use_rope:
-        p_now = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, p_now, theta=cfg.rope_theta)
-        k_new = apply_rope(k_new, p_now, theta=cfg.rope_theta)
-
+    q, k_new, v_new = decode_qkv(cfg, params, x, pos)
     buf = cache.k.shape[1]
     slot = pos % buf                                       # ring slot
     k_buf = cache.k if donate else cache.k.clone()
     v_buf = cache.v if donate else cache.v.clone()
     k_buf[:, slot] = k_new[:, 0].to(k_buf.dtype)
     v_buf[:, slot] = v_new[:, 0].to(v_buf.dtype)
+    out = decode_attend(cfg, params, q, k_buf, v_buf, pos)
+    return out, KVCache(k=k_buf, v=v_buf, pos=pos + 1)
 
+
+def decode_qkv(cfg: ModelConfig, params: dict, x: torch.Tensor, pos: int):
+    """The decode step's rotated q (B,1,H,hd) and new k / v (B,1,KV,hd)
+    at position ``pos``."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dtype = x.dtype
+    q = (x @ params["wq"].to(dtype)).reshape(b, 1, h, hd)
+    k_new = (x @ params["wk"].to(dtype)).reshape(b, 1, kv, hd)
+    v_new = (x @ params["wv"].to(dtype)).reshape(b, 1, kv, hd)
+    if cfg.use_rope:
+        p_now = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, p_now, theta=cfg.rope_theta)
+        k_new = apply_rope(k_new, p_now, theta=cfg.rope_theta)
+    return q, k_new, v_new
+
+
+def decode_attend(cfg: ModelConfig, params: dict, q: torch.Tensor,
+                  k_buf: torch.Tensor, v_buf: torch.Tensor, pos: int
+                  ) -> torch.Tensor:
+    """q (B,1,H,hd) against the cache buffers (B,buf,KVu,hd) that hold
+    the token at ``pos`` (the ring's absolute positions), through ``wo``:
+    (B,1,D). ``KVu`` may be a shard's share of the kv heads."""
+    b, _, h, hd = q.shape
+    kvu = k_buf.shape[2]
+    dtype = q.dtype
+    buf = k_buf.shape[1]
     # absolute position held by each slot after this write
-    s_idx = torch.arange(buf, device=x.device)
+    s_idx = torch.arange(buf, device=q.device)
     abs_pos = pos - torch.remainder(pos - s_idx, buf)      # <= pos
     valid = abs_pos >= 0
 
-    qg = q.reshape(b, kv, g, hd).to(torch.float32) * hd ** -0.5
+    qg = q.reshape(b, kvu, h // kvu, hd).to(torch.float32) * hd ** -0.5
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_buf.to(torch.float32))
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v_buf.to(torch.float32))
     out = o.reshape(b, 1, h * hd).to(dtype)
-    out = out @ params["wo"].to(dtype)
-    return out, KVCache(k=k_buf, v=v_buf, pos=pos + 1)
+    return out @ params["wo"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (`distributed.spmd`): whole heads a model shard, cache blocks
+# ---------------------------------------------------------------------------
+
+def mesh_plan(cfg: ModelConfig, n_model: int):
+    """How the heads split over ``n_model`` shards: (the shard's config,
+    leaf name -> dims whose model split stays, each shard's kv-head range
+    or None where its kv heads are its own split), or None where the heads
+    do not split into whole units (the attention then runs whole on each
+    batch group's owner). A shard takes H / M whole query heads; the kv
+    heads split with them when M divides them, else a shard whose heads
+    all read one kv head takes that head of the gathered wk / wv (MQA)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if n_model == 1:
+        return cfg, {}, [None]
+    if h % n_model:
+        return None
+    hl = h // n_model
+    if kv % n_model == 0:
+        return (dataclasses.replace(cfg, num_heads=hl,
+                                    num_kv_heads=kv // n_model),
+                {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,)},
+                [None] * n_model)
+    grp = h // kv
+    if grp % hl == 0:
+        return (dataclasses.replace(cfg, num_heads=hl),
+                {"wq": (1,), "wo": (0,)},
+                [((m * hl) // grp, (m * hl) // grp + 1)
+                 for m in range(n_model)])
+    return None
+
+
+def _cache_spec(lay, cfg: ModelConfig, shape):
+    from repro_torch.distributed.partitioning import cache_shardings
+    meta = torch.empty(shape, device="meta")
+    return cache_shardings(lay.mesh, KVCache(k=meta, v=meta, pos=0)).k.spec
+
+
+def _cache_blocks(lay, cfg: ModelConfig, local: list, t: int, max_len: int,
+                  dtype) -> KVCache:
+    """The prefill's decode cache as blocks per `cache_shardings`:
+    ``local[i]`` = (k, v, first kv head) that position i computed for its
+    batch group (B_g, T, KVi, hd), or None where its group's owner's
+    holds the heads."""
+    import numpy as np
+
+    from repro_torch.distributed.partitioning import Placed, block_slices
+    m = lay.n_model
+    k0 = next(x for x in local if x is not None)[0]
+    b_g, hd = k0.shape[0], k0.shape[3]
+    shape = (b_g * lay.n_groups, cache_len(cfg, max_len), cfg.num_kv_heads,
+             hd)
+    spec = _cache_spec(lay, cfg, shape)
+    filled = {}
+    kb = np.empty(lay.mesh.devices.shape, dtype=object)
+    vb = np.empty(lay.mesh.devices.shape, dtype=object)
+    for i, c in enumerate(lay.coords):
+        g = i // m
+        src = i if local[i] is not None else g * m
+        k, v, off = local[src]
+        if src not in filled:
+            filled[src] = fill_cache(cfg, k, v, max_len, dtype)
+        f = filled[src]
+        r = block_slices(lay.mesh, spec, shape, c)
+        rel = (slice(r[0].start - g * b_g, r[0].stop - g * b_g), r[1],
+               slice(r[2].start - off, r[2].stop - off), r[3])
+        dev = lay.dev(i)
+        whole = src == i and tuple(f.k[rel].shape) == tuple(f.k.shape)
+        kb[c] = f.k if whole else f.k[rel].to(
+            dev, copy=True, memory_format=torch.contiguous_format)
+        vb[c] = f.v if whole else f.v[rel].to(
+            dev, copy=True, memory_format=torch.contiguous_format)
+    return KVCache(k=Placed(lay.mesh, spec, shape, kb),
+                   v=Placed(lay.mesh, spec, shape, vb), pos=t)
+
+
+def mesh_full(lay, cfg: ModelConfig, params: dict, xn: list, *,
+              prefix_len: int = 0, q_block: int = 512, kv_block: int = 1024,
+              fill: Optional[tuple] = None):
+    """`fwd_full` of one (B_g, T, D) tensor a batch group on the mesh of
+    ``lay``: each model shard computes its whole heads (`mesh_plan`) from
+    its gathered weights and the shards' ``wo`` partials are summed.
+    Returns (one output a group, the decode cache or None); ``fill`` =
+    (max_len, cache dtype) asks for the cache, as blocks per
+    `cache_shardings` on a mesh (`fill_cache`'s on one position)."""
+    from repro_torch.distributed import spmd
+    dtype = xn[0].dtype
+    want = fill is not None
+    kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block,
+              return_kv=want)
+    plan = mesh_plan(cfg, lay.n_model)
+    if plan is None:
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
+        outs = [fwd_full(cfg, w[g], xn[g], **kw)
+                for g in range(lay.n_groups)]
+        h = [o[0] if want else o for o in outs]
+        local = [(outs[i // lay.n_model][1] + (0,))
+                 if i % lay.n_model == 0 else None
+                 for i in lay.positions()] if want else None
+    else:
+        lcfg, keep, ranges = plan
+        w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
+        xs = spmd.replicate(lay, xn)
+        outs = [fwd_full(lcfg, w[i], xs[i], kv_range=ranges[i % lay.n_model],
+                         **kw) for i in lay.positions()]
+        h = spmd.model_sum(lay, [o[0] if want else o for o in outs])
+        split = ranges[0] is None
+        local = [o[1] + ((i % lay.n_model) * lcfg.num_kv_heads
+                         if split else 0,)
+                 for i, o in enumerate(outs)] if want else None
+    if not want:
+        return h, None
+    max_len, cache_dtype = fill
+    if lay.single:
+        return h, fill_cache(cfg, local[0][0], local[0][1], max_len,
+                             cache_dtype)
+    return h, _cache_blocks(lay, cfg, local, xn[0].shape[1], max_len,
+                            cache_dtype)
+
+
+def _assemble(lay, placed, g: int, dev) -> torch.Tensor:
+    """Batch group ``g``'s (B_g, buf, KV, hd) cache from its model
+    shards' blocks, on ``dev`` (the block itself where one holds it
+    all)."""
+    from repro_torch.distributed.partitioning import block_slices
+    m = lay.n_model
+    b_g = placed.shape[0] // lay.n_groups
+    own = placed.blocks[lay.coords[g * m]]
+    if tuple(own.shape[1:]) == tuple(placed.shape[1:]):
+        return own.to(dev)
+    out = torch.empty((b_g, *placed.shape[1:]), dtype=own.dtype, device=dev)
+    for j in range(m):
+        c = lay.coords[g * m + j]
+        r = block_slices(lay.mesh, placed.spec, placed.shape, c)
+        out[:, r[1], r[2]] = placed.blocks[c].to(dev)
+    return out
+
+
+def mesh_decode(lay, cfg: ModelConfig, params: dict, xn: list,
+                cache: KVCache):
+    """`fwd_decode` of one (B_g, 1, D) tensor a batch group on the mesh of
+    ``lay``, writing the new token into ``cache`` (blocks per
+    `cache_shardings`, or one position's tensors) in place. Where a
+    shard's kv heads are its block's, the shard runs `fwd_decode` on its
+    block; otherwise the token is written into the block that holds its
+    slot and each shard reads its group's cache gathered from the blocks.
+    Returns (one output a group, the cache)."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.partitioning import block_slices
+    dtype = xn[0].dtype
+    pos = int(cache.pos)
+    m = lay.n_model
+    plan = mesh_plan(cfg, m)
+    if plan is not None and plan[2][0] is None:
+        lcfg, keep, _ = plan
+        w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
+        xs = spmd.replicate(lay, xn)
+        parts = []
+        for i, c in enumerate(lay.coords):
+            blk = cache if lay.single else KVCache(
+                k=cache.k.blocks[c], v=cache.v.blocks[c], pos=pos)
+            parts.append(fwd_decode(lcfg, w[i], xs[i], blk, donate=True)[0])
+        return spmd.model_sum(lay, parts), cache._replace(pos=pos + 1)
+
+    if plan is None:
+        users = lay.owners()
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=users)
+        qkv = [decode_qkv(cfg, w[g], xn[g], pos)
+               for g in range(lay.n_groups)]
+        src = [g for g in range(lay.n_groups) for _ in range(m)]
+    else:
+        lcfg, keep, ranges = plan
+        w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
+        xs = spmd.replicate(lay, xn)
+        qkv = [decode_qkv(lcfg, w[i], xs[i], pos) for i in lay.positions()]
+        src = lay.positions()
+    buf = cache.k.shape[1]
+    slot = pos % buf
+    for i, c in enumerate(lay.coords):
+        r = block_slices(lay.mesh, cache.k.spec, cache.k.shape, c)
+        if r[1].start <= slot < r[1].stop:
+            _, k_new, v_new = qkv[src[i]]
+            for blk, new in ((cache.k.blocks[c], k_new),
+                             (cache.v.blocks[c], v_new)):
+                blk[:, slot - r[1].start] = \
+                    new[:, 0, r[2]].to(blk.device, blk.dtype)
+    if plan is None:
+        h = []
+        for g in range(lay.n_groups):
+            dev = lay.group_dev(g)
+            h.append(decode_attend(cfg, w[g], qkv[g][0],
+                                   _assemble(lay, cache.k, g, dev),
+                                   _assemble(lay, cache.v, g, dev), pos))
+    else:
+        parts = []
+        for i in lay.positions():
+            lo, hi = ranges[i % m]
+            dev = lay.dev(i)
+            k_all = _assemble(lay, cache.k, i // m, dev)
+            v_all = _assemble(lay, cache.v, i // m, dev)
+            parts.append(decode_attend(lcfg, w[i], qkv[i][0],
+                                       k_all[:, :, lo:hi],
+                                       v_all[:, :, lo:hi], pos))
+        h = spmd.model_sum(lay, parts)
+    return h, cache._replace(pos=pos + 1)

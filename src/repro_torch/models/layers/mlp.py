@@ -46,3 +46,29 @@ def apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
         return h @ fsdp_use(params["wo"], "wo", dtype) \
             + params["bo"].to(dtype)
     raise ValueError(f"unknown mlp kind {kind!r}")
+
+
+_KEEP = {"wi_gate": (1,), "wi_up": (1,), "wi": (1,), "bi": (0,), "wo": (0,)}
+
+
+def mesh_apply(lay, kind: str, params: dict, xn: list) -> list:
+    """`apply` of one (..., D) tensor a batch group on the mesh of ``lay``:
+    each model shard computes its share of the hidden units (``wi*``
+    column-parallel, ``wo`` row-parallel; ``bo`` added by the first
+    shard) and the shards' partials are summed. Where the hidden units do
+    not split over the model axis, the block runs whole on each group's
+    owner. Returns one output a group."""
+    from repro_torch.distributed import spmd
+    dtype = xn[0].dtype
+    wi = params["wi"] if kind == "gelu" else params["wi_gate"]
+    if lay.n_model > 1 and not spmd.splits_model(wi, 1):
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
+        return [apply(kind, w[g], xn[g]) for g in range(lay.n_groups)]
+    w = spmd.gather_tree(lay, params, dtype=dtype, keep=_KEEP)
+    if "bo" in params:
+        for i in lay.positions():
+            if i % lay.n_model:
+                w[i]["bo"] = torch.zeros_like(w[i]["bo"])
+    xs = spmd.replicate(lay, xn)
+    return spmd.model_sum(lay, [apply(kind, w[i], xs[i])
+                                for i in lay.positions()])

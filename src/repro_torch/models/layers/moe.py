@@ -194,32 +194,191 @@ def apply(cfg: ModelConfig, params: dict, x: torch.Tensor
     """
     e = cfg.moe
     b, s, d = x.shape
-    dtype = x.dtype
-    t = b * s
-
-    logits = x.reshape(t, d) @ params["router"].to(dtype)  # (T, E)
+    logits = x.reshape(b * s, d) @ params["router"].to(x.dtype)  # (T, E)
     ids, weights, aux = _gates(e, logits)                   # (T, k)
-    cap = max(int(s * e.top_k * e.capacity_factor / e.num_experts + 1),
-              e.top_k)
+    out = experts(cfg, params, x, ids, weights)
+    return out, aux.to(torch.float32)
 
-    ids_g = ids.reshape(b, s, e.top_k)
-    w_g = weights.reshape(b, s, e.top_k)
 
-    grouped, meta = _dispatch_group(e, x, ids_g, w_g, cap)
+def capacity(e: MoEConfig, s: int) -> int:
+    """Slots an expert a dispatch group (one sequence of ``s`` tokens)."""
+    return max(int(s * e.top_k * e.capacity_factor / e.num_experts + 1),
+               e.top_k)
+
+
+def dispatch(cfg: ModelConfig, x: torch.Tensor, ids: torch.Tensor,
+             weights: torch.Tensor):
+    """x (B,S,D), ids / weights (B*S, k) -> the experts' input (E, B*C, D)
+    and the combine metadata."""
+    e = cfg.moe
+    b, s, d = x.shape
+    cap = capacity(e, s)
+    grouped, meta = _dispatch_group(e, x, ids.reshape(b, s, e.top_k),
+                                    weights.reshape(b, s, e.top_k), cap)
     rep_dec = (b * cap) < (3 * e.d_ff_expert) // 8
     grouped = hint_moe_tokens(grouped, rep_dec)             # (B,E,C,D)
     # "becd,edf->becf" as one batched matmul an expert: (E, B*C, D)
     xe = grouped.permute(1, 0, 2, 3).reshape(e.num_experts, b * cap, d)
+    return xe, meta
+
+
+def combine(cfg: ModelConfig, meta, y: torch.Tensor, b: int, s: int
+            ) -> torch.Tensor:
+    """The experts' output (E, B*C, D) -> (B, S, D)."""
+    e = cfg.moe
+    d = y.shape[-1]
+    cap = capacity(e, s)
+    rep_dec = (b * cap) < (3 * e.d_ff_expert) // 8
+    y = y.reshape(e.num_experts, b, cap, d).permute(1, 0, 2, 3)
+    y = hint_moe_tokens(y, rep_dec)
+    return _combine_group(meta, y, s, d)
+
+
+def experts(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The routed experts (dispatch, the three batched matmuls, combine)
+    and the shared experts of x (B, S, D) routed by ids / weights (B*S,
+    k): (B, S, D). On a mesh, a model shard's share of every expert's
+    hidden units (a partial sum over the shards)."""
+    e = cfg.moe
+    b, s, d = x.shape
+    dtype = x.dtype
+    xe, meta = dispatch(cfg, x, ids, weights)
+    rep_dec = xe.shape[1] < (3 * e.d_ff_expert) // 8
     gate = torch.bmm(xe, fsdp_use(params["wi_gate"], "wi_gate", dtype))
     up = torch.bmm(xe, fsdp_use(params["wi_up"], "wi_up", dtype))
     h = hint_moe_hidden(F.silu(gate) * up, rep_dec)         # (E,B*C,F)
     y = torch.bmm(h, fsdp_use(params["wo"], "wo", dtype))   # (E,B*C,D)
-    y = y.reshape(e.num_experts, b, cap, d).permute(1, 0, 2, 3)
-    y = hint_moe_tokens(y, rep_dec)
-
-    out = _combine_group(meta, y, s, d)
-
+    out = combine(cfg, meta, y, b, s)
     if e.num_shared > 0:
         out = out + mlp.apply("silu_glu", params["shared"],
-                              x.reshape(t, d)).reshape(b, s, d)
-    return out.reshape(b, s, d), aux.to(torch.float32)
+                              x.reshape(b * s, d)).reshape(b, s, d)
+    return out.reshape(b, s, d)
+
+
+_KEEP = {"wi_gate": (2,), "wi_up": (2,), "wo": (1,)}
+
+
+def mesh_apply(lay, cfg: ModelConfig, params: dict, xn: list, *,
+               decode: bool = False) -> tuple[list, torch.Tensor]:
+    """`apply` of one (B_g, S, D) tensor a batch group on the mesh of
+    ``lay``: (one output a group, the aux loss).
+
+    The router stays global: the groups' float32 logits are gathered
+    (`spmd.gather_rows`), each group runs `_gates` on all T tokens of the
+    call (the reference's Sinkhorn balances them, uniform marginals 1/T
+    and 1/E) and keeps its own rows; the aux loss is group 0's. Dispatch
+    groups are sequences, so a group's dispatch and drops are the global
+    ones. Each model shard computes its share of every expert's hidden
+    units (and the shared experts'), and the partials are summed. At
+    ``decode`` the 3-D expert weights stay where they are (the reference's
+    decode rule): tokens are gathered to them over ``data``
+    (`_experts_in_place`)."""
+    from repro_torch.distributed import spmd
+    e = cfg.moe
+    dtype = xn[0].dtype
+    d = xn[0].shape[-1]
+    router = spmd.gather(lay, params["router"], dtype=dtype,
+                         users=lay.owners())
+    logits = [x.reshape(-1, d) @ r.to(dtype) for x, r in zip(xn, router)]
+    if lay.n_groups == 1:
+        ids, weights, aux = _gates(e, logits[0])
+        ids, weights = [ids], [weights]
+    else:
+        full = spmd.gather_rows(lay, [lg.to(torch.float32) for lg in logits])
+        ids, weights, auxes, lo = [], [], [], 0
+        for g, lg in enumerate(logits):
+            i_g, w_g, a_g = _gates(e, full[g])
+            n = lg.shape[0]
+            ids.append(i_g[lo:lo + n])
+            weights.append(w_g[lo:lo + n])
+            auxes.append(a_g)
+            lo += n
+        aux = auxes[0]
+    if lay.n_model > 1 and not spmd.splits_model(params["wi_gate"], 2):
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
+        out = [experts(cfg, w[g], xn[g], ids[g], weights[g])
+               for g in range(lay.n_groups)]
+        return out, aux.to(torch.float32)
+    m = lay.n_model
+    xs = spmd.replicate(lay, xn)
+    if decode and lay.n_data > 1:
+        parts = _experts_in_place(lay, cfg, params, xn, ids, weights)
+        if e.num_shared > 0:
+            sh = spmd.gather_tree(lay, params["shared"], dtype=dtype,
+                                  keep=mlp._KEEP)
+            for i in lay.positions():
+                b, s, _ = xs[i].shape
+                parts[i] = parts[i] + mlp.apply(
+                    "silu_glu", sh[i], xs[i].reshape(b * s, d)
+                ).reshape(b, s, d)
+    else:
+        w = spmd.gather_tree(lay, {k: params[k] for k in _KEEP},
+                             dtype=dtype, keep=_KEEP)
+        if e.num_shared > 0:
+            sh = spmd.gather_tree(lay, params["shared"], dtype=dtype,
+                                  keep=mlp._KEEP)
+            for i in lay.positions():
+                w[i]["shared"] = sh[i]
+        ws = spmd.replicate(lay, weights)
+        parts = [experts(cfg, w[i], xs[i], ids[i // m].to(lay.dev(i)), ws[i])
+                 for i in lay.positions()]
+    return spmd.model_sum(lay, parts), aux.to(torch.float32)
+
+
+def _experts_in_place(lay, cfg: ModelConfig, params: dict, xn: list,
+                      ids: list, weights: list) -> list:
+    """The routed experts at decode with the 3-D weights where they lie
+    (no gradient): each position multiplies its own blocks. Its pod's
+    dispatched tokens are gathered to it over ``data``; the partial
+    products over the ``data``-split contraction (D for ``wi_*``) are
+    folded in data-shard order; each position's ``wo`` block gives its
+    D-slice of the output, and a group's rows of every slice, gathered
+    back, are its model shard's partial. One partial a position."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.partitioning import block_slices
+    e = cfg.moe
+    m, nd = lay.n_model, lay.n_data
+    dtype = xn[0].dtype
+    b, s, d = xn[0].shape
+    disp = [dispatch(cfg, xn[g], ids[g], weights[g])
+            for g in range(lay.n_groups)]               # (E, B_g*C, D)
+    nrow = disp[0][0].shape[1]
+    pl = {k: params[k] for k in ("wi_gate", "wi_up", "wo")}
+
+    def cut(k, i):                # position i's block of leaf k, its slices
+        c = lay.coords[i]
+        return pl[k].blocks[c], block_slices(lay.mesh, pl[k].spec,
+                                             pl[k].shape, c)
+
+    out = {}
+    for p in range(lay.n_groups // nd):
+        gs = range(p * nd, (p + 1) * nd)                # the pod's groups
+        for j in range(m):
+            pos = [lay.pos(g, j) for g in gs]
+            x_all = {i: torch.cat([disp[h][0].to(lay.dev(i)) for h in gs], 1)
+                     for i in pos}                      # (E, N, D)
+            acc = {}
+            for k in ("wi_gate", "wi_up"):
+                parts = []
+                for i in pos:
+                    blk, r = cut(k, i)
+                    parts.append(torch.bmm(x_all[i][:, :, r[1]],
+                                           blk.to(dtype)))
+                    if pl[k].spec[1] is None:
+                        break                           # D not split
+                acc[k] = spmd.fold(parts, lay.dev(pos[0]), dtype)
+            hid = F.silu(acc["wi_gate"]) * acc["wi_up"]       # (E, N, F/M)
+            ys = {}                        # each position's D-slice, all rows
+            for i in pos:
+                blk, r = cut("wo", i)
+                ys[i] = (torch.bmm(hid.to(lay.dev(i)), blk.to(dtype)), r[2])
+            for dd, (g, i) in enumerate(zip(gs, pos)):
+                dev = lay.dev(i)
+                y = torch.empty((e.num_experts, nrow, d), dtype=dtype,
+                                device=dev)
+                for part, cols in ys.values():
+                    y[:, :, cols] = part[:, dd * nrow:(dd + 1) * nrow].to(dev)
+                meta = tuple(t.to(dev) for t in disp[g][1])
+                out[i] = combine(cfg, meta, y, b, s)
+    return [out[i] for i in lay.positions()]

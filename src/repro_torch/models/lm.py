@@ -23,15 +23,33 @@ writes the new state into the given state's buffers.
 The VLM (paligemma) path consumes precomputed patch embeddings as a
 full-attention prefix (prefix-LM masking); the frontend is a stub per the
 assignment.
+
+One program body runs every layout (`program_layout`): parameters placed
+on a `launch.mesh.Mesh` (`distributed.partitioning.Placed` leaves) run
+on that mesh, plain tensors on the (1, 1) mesh of their device, where
+every collective of `distributed.spmd` is the identity and the program
+is the one-device program op for op. Activations travel as one tensor a
+batch group (`forward`, `prefill` and `decode_step` take and return such
+a list on a mesh, a tensor on one device); norms run on each group's
+owner, attention, the MLP and the MoE experts on every model shard with
+the shards' partial outputs summed (`attention.mesh_full` /
+`mesh_decode`, `mlp.mesh_apply`, `moe.mesh_apply`). The attention
+decoders run on any mesh; the other mixers on one position
+(`check_mesh_support`, ROADMAP Queue 1 item 5e).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
+from repro_torch.distributed.partitioning import P, Placed
+from repro_torch.launch.mesh import one_device_mesh
+from repro_torch.models import sharding_hints
 from repro_torch.models.layers import (attention, embedding, mla, mlp, moe,
                                        norms)
 from repro_torch.models.layers import rglru as rglru_mod
@@ -43,9 +61,12 @@ Cache = Any
 
 def _tree_map(fn, tree):
     """Apply ``fn`` to every tensor leaf of dicts, lists and (named)
-    tuples; other leaves (a cache's int positions) pass unchanged."""
+    tuples, and to every block of a `Placed` leaf (a shape-preserving
+    ``fn``); other leaves (a cache's int positions) pass unchanged."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
+    if isinstance(tree, Placed):
+        return tree.map(fn)
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -57,9 +78,33 @@ def _tree_map(fn, tree):
     return tree
 
 
+def _stacked_map(fn, tree):
+    """``fn`` on every tensor leaf, and on each `Placed` leaf (whose
+    leading, stacked axis ``fn`` may take or add)."""
+    if isinstance(tree, (torch.Tensor, Placed)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _stacked_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_stacked_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_stacked_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else tuple(vals)
+    return tree
+
+
+def _select(t, u: int):
+    """Index ``u`` of a leaf's leading axis: a view (of each block)."""
+    if isinstance(t, Placed):
+        out = t.map(lambda b: b[u])
+        return Placed(t.mesh, P(*t.spec[1:]), t.shape[1:], out.blocks)
+    return t[u]
+
+
 def _unit(tree, u: int):
     """The ``u``-th unit of a stacked tree: views, no copy."""
-    return _tree_map(lambda t: t[u], tree)
+    return _stacked_map(lambda t: _select(t, u), tree)
 
 
 def _unbind_units(tree, n: int) -> list:
@@ -67,11 +112,13 @@ def _unbind_units(tree, n: int) -> list:
     ``unbind`` a leaf: under autograd each stacked leaf's gradient is then
     written once, where ``n`` selects would each make a zero-filled
     gradient the size of the whole stack and sum them."""
-    split = [t.unbind(0) for t in _leaves(tree)]
+    split = []
+    _stacked_map(lambda t: split.append(
+        t.unbind0() if isinstance(t, Placed) else t.unbind(0)), tree)
     units = []
     for u in range(n):
         it = iter([s[u] for s in split])
-        units.append(_tree_map(lambda _: next(it), tree))
+        units.append(_stacked_map(lambda _: next(it), tree))
     return units
 
 
@@ -87,10 +134,19 @@ def remat_call(remat: bool, fn, *args):
 
 
 def _leaves(tree) -> list:
-    """The tensor leaves of a tree, in `_tree_map`'s order."""
+    """The tensor leaves of a tree (a `Placed` leaf's blocks), in
+    `_tree_map`'s order."""
     out = []
     _tree_map(out.append, tree)
     return out
+
+
+def _stack_empty(t, n: int):
+    """An empty stack of ``n`` leaves like ``t`` (each block's, placed)."""
+    if isinstance(t, Placed):
+        out = t.map(lambda b: b.new_empty((n, *b.shape)))
+        return Placed(t.mesh, P(None, *t.spec), (n, *t.shape), out.blocks)
+    return t.new_empty((n, *t.shape))
 
 
 def _copy_into(dst, src) -> None:
@@ -149,47 +205,6 @@ def init_block(key: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _mlp(cfg: ModelConfig, params: dict, x: torch.Tensor, layer_idx: int):
-    """The block's feed-forward half: (x, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if "mlp" in params:
-        xn = norms.apply(cfg.norm_kind, params["mlp_norm"], x)
-        if _is_moe_layer(cfg, layer_idx):
-            h, aux = moe.apply(cfg, params["mlp"], xn)
-        elif cfg.moe is not None:
-            h = mlp.apply("silu_glu", params["mlp"], xn)
-        else:
-            h = mlp.apply(cfg.mlp_kind, params["mlp"], xn)
-        x = x + h
-    return x, aux
-
-
-def apply_block_full(cfg: ModelConfig, kind: str, params: dict,
-                     x: torch.Tensor, *, layer_idx: int, prefix_len: int = 0,
-                     q_block: int, kv_block: int
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence block. Returns (x, aux_loss)."""
-    if kind == "attn":
-        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-        if cfg.mla is not None:
-            h = mla.fwd_full(cfg, params["mix"], xn, q_block=q_block,
-                             kv_block=kv_block)
-        else:
-            h = attention.fwd_full(cfg, params["mix"], xn,
-                                   prefix_len=prefix_len, q_block=q_block,
-                                   kv_block=kv_block)
-    elif kind == "rglru":
-        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-        h = rglru_mod.fwd_full(cfg, params["mix"], xn)
-    elif kind == "mlstm":
-        h = xlstm.mlstm_block(cfg, params["mix"], x)
-    elif kind == "slstm":
-        h = xlstm.slstm_block(cfg, params["mix"], x)
-    else:
-        raise ValueError(f"unknown block kind {kind!r}")
-    return _mlp(cfg, params, x + h, layer_idx)
-
-
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, lead: tuple = (),
                      device=None):
@@ -206,37 +221,6 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "slstm":
         return xlstm.init_slstm_state(cfg, batch, lead=lead, device=device)
     raise ValueError(f"unknown block kind {kind!r}")
-
-
-def apply_block_decode(cfg: ModelConfig, kind: str, params: dict,
-                       x: torch.Tensor, cache, *, layer_idx: int,
-                       donate: bool = False):
-    """One decode step of a block; ``donate`` writes into ``cache``."""
-    if kind == "attn":
-        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-        if cfg.mla is not None:
-            decode_fn = mla.fwd_decode_absorbed if cfg.mla_absorbed \
-                else mla.fwd_decode
-        else:
-            decode_fn = attention.fwd_decode
-        h, cache = decode_fn(cfg, params["mix"], xn, cache, donate=donate)
-    else:
-        if kind == "rglru":
-            h, new = rglru_mod.fwd_decode(
-                cfg, params["mix"],
-                norms.apply(cfg.norm_kind, params["mix_norm"], x), cache)
-        elif kind == "mlstm":
-            h, new = xlstm.mlstm_block_decode(cfg, params["mix"], x, cache)
-        elif kind == "slstm":
-            h, new = xlstm.slstm_block_decode(cfg, params["mix"], x, cache)
-        else:
-            raise ValueError(f"unknown block kind {kind!r}")
-        if donate:                    # the new state into the given buffers
-            _copy_into(cache, new)
-            new = cache._replace(pos=new.pos)
-        cache = new
-    x, _ = _mlp(cfg, params, x + h, layer_idx)
-    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -289,49 +273,209 @@ def init_params(key: torch.Generator, cfg: ModelConfig, *,
     return params
 
 
-def forward(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Params, x, *,
             prefix_len: int = 0, q_block: int = 512, kv_block: int = 1024,
-            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the block stack on embedded activations x (B, T, D).
-    Returns (hidden (B,T,D), total aux loss). ``remat``: each stacked
-    unit runs under `remat_call` (recomputed in the backward pass when
-    gradients are recorded, as the reference's ``jax.checkpoint(unit_fn)``
-    in its scan); the dense prefix and the tail are not rematerialised."""
+            remat: bool = True):
+    """Run the block stack on embedded activations x (B, T, D) -- on a
+    mesh, a list of one (B_g, T, D) tensor a batch group (the output is
+    then a list too). Returns (hidden (B,T,D), total aux loss). ``remat``:
+    each stacked unit runs under `remat_call` (recomputed in the backward
+    pass when gradients are recorded, as the reference's
+    ``jax.checkpoint(unit_fn)`` in its scan); the dense prefix and the tail
+    are not rematerialised."""
+    lay = program_layout(cfg, params)
+    one = isinstance(x, torch.Tensor)
+    xg = [x] if one else list(x)
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
     kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=xg[0].device)
 
     for i, kind in enumerate(plan.prefix):
-        x, aux = apply_block_full(cfg, kind, params["prefix"][i], x,
-                                  layer_idx=i, **kw)
+        xg, aux = _block_full(lay, cfg, kind, params["prefix"][i], xg,
+                              layer_idx=i, **kw)
         aux_total = aux_total + aux
 
-    def unit_fn(x, unit_params):
-        aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
+    def unit_fn(xg, unit_params):
+        aux_u = torch.zeros((), dtype=torch.float32, device=xg[0].device)
         for p, kind in enumerate(plan.unit):
             # layer_idx only matters for the moe-vs-dense split, which is
             # uniform inside stacked units
-            x, aux = apply_block_full(cfg, kind, unit_params[p], x,
-                                      layer_idx=n_prefix + p, **kw)
+            xg, aux = _block_full(lay, cfg, kind, unit_params[p], xg,
+                                  layer_idx=n_prefix + p, **kw)
             aux_u = aux_u + aux
-        return x, aux_u
+        return xg, aux_u
 
     if plan.n_units > 0:
         aux_units = []
         for unit_params in _unbind_units(params["units"], plan.n_units):
-            x, aux_u = remat_call(remat, unit_fn, x, unit_params)
+            xg, aux_u = remat_call(remat, unit_fn, xg, unit_params)
             aux_units.append(aux_u)
         aux_total = aux_total + torch.sum(torch.stack(aux_units))
 
     base_tail = n_prefix + plan.n_units * len(plan.unit)
     for i, kind in enumerate(plan.tail):
-        x, aux = apply_block_full(cfg, kind, params["tail"][i], x,
-                                  layer_idx=base_tail + i, **kw)
+        xg, aux = _block_full(lay, cfg, kind, params["tail"][i], xg,
+                              layer_idx=base_tail + i, **kw)
         aux_total = aux_total + aux
 
-    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
-    return x, aux_total
+    xg = _norm(lay, cfg, params["final_norm"], xg)
+    return (xg[0] if one else xg), aux_total
+
+
+# ---------------------------------------------------------------------------
+# the program on a mesh (`distributed.spmd`)
+# ---------------------------------------------------------------------------
+
+MESH_ITEM = "ROADMAP Queue 1 item 5e"
+
+
+def check_mesh_support(cfg: ModelConfig, mesh) -> None:
+    """Raise unless ``cfg``'s model runs on ``mesh`` (None or one position:
+    every model; more: attention decoders, no MLA)."""
+    if mesh is None or mesh.size == 1:
+        return
+    if cfg.family == "audio" or cfg.mla is not None \
+            or set(cfg.layer_kinds()) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name} on {mesh}: the port places the attention decoders "
+            f"(GQA / MQA attention, dense and MoE feed-forward) on a mesh; "
+            f"MLA, RG-LRU, xLSTM and the encoder-decoder run on one "
+            f"position until {MESH_ITEM}")
+
+
+@functools.lru_cache(maxsize=16)
+def _one_device_layout(dev: torch.device) -> spmd.Layout:
+    return spmd.layout(one_device_mesh(dev))
+
+
+def program_layout(cfg: ModelConfig, params: Params) -> spmd.Layout:
+    """The layout the program runs on: the mesh that the parameters are
+    placed on (`partitioning.Placed`), else the one-position mesh of their
+    device. Inside `sharding_hints.activation_sharding` the parameters
+    must lie on its mesh."""
+    leaf = params["embedding"]["embed"]
+    if isinstance(leaf, Placed):
+        check_mesh_support(cfg, leaf.mesh)
+        lay = spmd.layout(leaf.mesh)
+    else:
+        lay = _one_device_layout(leaf.device)
+    ctx = sharding_hints.current()
+    if ctx is not None and not lay.single and ctx[0] is not lay.mesh:
+        raise ValueError(f"parameters placed on {lay.mesh} inside the "
+                         f"sharding context of {ctx[0]}")
+    return lay
+
+
+def _norm(lay, cfg: ModelConfig, params: dict, xg: list) -> list:
+    """A norm on each batch group's owner (its weights replicated)."""
+    w = spmd.gather_tree(lay, params, users=lay.owners())
+    return [norms.apply(cfg.norm_kind, w[g], x) for g, x in enumerate(xg)]
+
+
+def _mlp(lay, cfg: ModelConfig, params: dict, xg: list, layer_idx: int,
+         decode: bool = False):
+    """The block's feed-forward half: (xg, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=xg[0].device)
+    if "mlp" in params:
+        xn = _norm(lay, cfg, params["mlp_norm"], xg)
+        if _is_moe_layer(cfg, layer_idx):
+            h, aux = moe.mesh_apply(lay, cfg, params["mlp"], xn,
+                                    decode=decode)
+        elif cfg.moe is not None:
+            h = mlp.mesh_apply(lay, "silu_glu", params["mlp"], xn)
+        else:
+            h = mlp.mesh_apply(lay, cfg.mlp_kind, params["mlp"], xn)
+        xg = [x + hh for x, hh in zip(xg, h)]
+    return xg, aux
+
+
+def _mixer_full(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
+                *, q_block: int, kv_block: int, fill: tuple | None):
+    """The mixing half of an MLA, RG-LRU or xLSTM block on one position:
+    (h, the block's decode-cache entry with ``fill``, else None)."""
+    cache = None
+    if kind == "attn":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        if fill is None:
+            h = mla.fwd_full(cfg, params["mix"], xn, q_block=q_block,
+                             kv_block=kv_block)
+        else:
+            h, (c_kv, k_rope) = mla.fwd_full(cfg, params["mix"], xn,
+                                             q_block=q_block,
+                                             kv_block=kv_block,
+                                             return_latent=True)
+            cache = mla.fill_cache(cfg, c_kv, k_rope, fill[0], fill[1])
+        return h, cache
+    state = fill is not None
+    if kind == "rglru":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        out = rglru_mod.fwd_full(cfg, params["mix"], xn, return_state=state)
+    elif kind == "mlstm":
+        out = xlstm.mlstm_block(cfg, params["mix"], x, return_state=state)
+    elif kind == "slstm":
+        out = xlstm.slstm_block(cfg, params["mix"], x, return_state=state)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return out if state else (out, None)
+
+
+def _mixer_decode(cfg: ModelConfig, kind: str, params: dict,
+                  x: torch.Tensor, cache):
+    """One decode step of an MLA, RG-LRU or xLSTM mixer on one position,
+    writing into ``cache``: (h, cache)."""
+    if kind == "attn":
+        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
+        decode_fn = mla.fwd_decode_absorbed if cfg.mla_absorbed \
+            else mla.fwd_decode
+        return decode_fn(cfg, params["mix"], xn, cache, donate=True)
+    if kind == "rglru":
+        h, new = rglru_mod.fwd_decode(
+            cfg, params["mix"],
+            norms.apply(cfg.norm_kind, params["mix_norm"], x), cache)
+    elif kind == "mlstm":
+        h, new = xlstm.mlstm_block_decode(cfg, params["mix"], x, cache)
+    elif kind == "slstm":
+        h, new = xlstm.slstm_block_decode(cfg, params["mix"], x, cache)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    _copy_into(cache, new)            # the new state into the given buffers
+    return h, cache._replace(pos=new.pos)
+
+
+def _block_full(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
+                *, layer_idx: int, prefix_len: int, q_block: int,
+                kv_block: int, fill: tuple | None = None):
+    """A full-sequence block: (xg, aux), and the block's decode cache with
+    ``fill`` = (max_len, cache dtype). The mixers beyond GQA / MQA
+    attention run on one position (`check_mesh_support`)."""
+    if kind == "attn" and cfg.mla is None:
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        h, cache = attention.mesh_full(lay, cfg, params["mix"], xn,
+                                       prefix_len=prefix_len,
+                                       q_block=q_block, kv_block=kv_block,
+                                       fill=fill)
+    else:
+        h, cache = _mixer_full(cfg, kind, params, xg[0], q_block=q_block,
+                               kv_block=kv_block, fill=fill)
+        h = [h]
+    xg, aux = _mlp(lay, cfg, params, [x + hh for x, hh in zip(xg, h)],
+                   layer_idx)
+    return (xg, aux) if fill is None else (xg, aux, cache)
+
+
+def _block_decode(lay, cfg: ModelConfig, kind: str, params: dict,
+                  xg: list, cache, *, layer_idx: int):
+    """One decode step of a block, writing into ``cache``."""
+    if kind == "attn" and cfg.mla is None:
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        h, cache = attention.mesh_decode(lay, cfg, params["mix"], xn, cache)
+    else:
+        h, cache = _mixer_decode(cfg, kind, params, xg[0], cache)
+        h = [h]
+    xg, _ = _mlp(lay, cfg, params, [x + hh for x, hh in zip(xg, h)],
+                 layer_idx, decode=True)
+    return xg, cache
 
 
 # ---------------------------------------------------------------------------
@@ -355,56 +499,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def apply_block_prefill(cfg: ModelConfig, kind: str, params: dict,
-                        x: torch.Tensor, *, layer_idx: int, max_len: int,
-                        prefix_len: int = 0, q_block: int, kv_block: int,
-                        cache_dtype=torch.bfloat16):
-    """Full-sequence block that also emits its decode-cache entry."""
-    if kind == "attn":
-        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-        if cfg.mla is not None:
-            h, (c_kv, k_rope) = mla.fwd_full(cfg, params["mix"], xn,
-                                             q_block=q_block,
-                                             kv_block=kv_block,
-                                             return_latent=True)
-            cache = mla.fill_cache(cfg, c_kv, k_rope, max_len, cache_dtype)
-        else:
-            h, (k_all, v_all) = attention.fwd_full(cfg, params["mix"], xn,
-                                                   prefix_len=prefix_len,
-                                                   q_block=q_block,
-                                                   kv_block=kv_block,
-                                                   return_kv=True)
-            cache = attention.fill_cache(cfg, k_all, v_all, max_len,
-                                         cache_dtype)
-    elif kind == "rglru":
-        xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
-        h, cache = rglru_mod.fwd_full(cfg, params["mix"], xn,
-                                      return_state=True)
-    elif kind == "mlstm":
-        h, cache = xlstm.mlstm_block(cfg, params["mix"], x, return_state=True)
-    elif kind == "slstm":
-        h, cache = xlstm.slstm_block(cfg, params["mix"], x, return_state=True)
-    else:
-        raise ValueError(f"unknown block kind {kind!r}")
-    x, aux = _mlp(cfg, params, x + h, layer_idx)
-    return x, aux, cache
-
-
-def prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+def prefill(cfg: ModelConfig, params: Params, x, *,
             max_len: int, prefix_len: int = 0, q_block: int = 512,
-            kv_block: int = 1024, cache_dtype=torch.bfloat16
-            ) -> tuple[torch.Tensor, Cache]:
-    """Prefill on embedded activations x (B, T, D). Returns (hidden, cache)."""
+            kv_block: int = 1024, cache_dtype=torch.bfloat16):
+    """Prefill on embedded activations x (B, T, D), or one (B_g, T, D)
+    tensor a batch group on a mesh. Returns (hidden, cache); on a mesh the
+    cache's tensors are blocks per `partitioning.cache_shardings`."""
+    lay = program_layout(cfg, params)
+    one = isinstance(x, torch.Tensor)
+    xg = [x] if one else list(x)
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
-    t = x.shape[1]
-    kw = dict(max_len=max_len, prefix_len=prefix_len, q_block=q_block,
-              kv_block=kv_block, cache_dtype=cache_dtype)
+    t = xg[0].shape[1]
+    kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block,
+              fill=(max_len, cache_dtype))
 
     new_prefix = []
     for i, kind in enumerate(plan.prefix):
-        x, _, c = apply_block_prefill(cfg, kind, params["prefix"][i], x,
-                                      layer_idx=i, **kw)
+        xg, _, c = _block_full(lay, cfg, kind, params["prefix"][i], xg,
+                               layer_idx=i, **kw)
         new_prefix.append(c)
 
     # the units' entries stacked on a leading axis, each buffer made from
@@ -413,42 +526,44 @@ def prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     for u in range(plan.n_units):
         unit_params = _unit(params["units"], u)
         for p, kind in enumerate(plan.unit):
-            x, _, c = apply_block_prefill(cfg, kind, unit_params[p], x,
-                                          layer_idx=n_prefix + p, **kw)
+            xg, _, c = _block_full(lay, cfg, kind, unit_params[p], xg,
+                                   layer_idx=n_prefix + p, **kw)
             if u == 0:
-                new_units[p] = _tree_map(
-                    lambda a: a.new_empty((plan.n_units, *a.shape)), c)
+                new_units[p] = _stacked_map(
+                    lambda a: _stack_empty(a, plan.n_units), c)
             _copy_into(_unit(new_units[p], u), c)
 
     base_tail = n_prefix + plan.n_units * len(plan.unit)
     new_tail = []
     for i, kind in enumerate(plan.tail):
-        x, _, c = apply_block_prefill(cfg, kind, params["tail"][i], x,
-                                      layer_idx=base_tail + i, **kw)
+        xg, _, c = _block_full(lay, cfg, kind, params["tail"][i], xg,
+                               layer_idx=base_tail + i, **kw)
         new_tail.append(c)
 
-    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
+    xg = _norm(lay, cfg, params["final_norm"], xg)
     cache = {"prefix": new_prefix, "units": new_units, "tail": new_tail,
              "pos": t}
-    return x, cache
+    return (xg[0] if one else xg), cache
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                x: torch.Tensor, *, donate: bool = False
-                ) -> tuple[torch.Tensor, Cache]:
-    """One token step on embedded activations x (B, 1, D).
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache, x, *,
+                donate: bool = False):
+    """One token step on embedded activations x (B, 1, D), or one
+    (B_g, 1, D) tensor a batch group on a mesh.
 
     ``donate``: update ``cache``'s buffers in place (they become the
     returned cache's); otherwise ``cache`` is left as it was."""
+    lay = program_layout(cfg, params)
+    one = isinstance(x, torch.Tensor)
+    xg = [x] if one else list(x)
     if not donate:
         cache = _tree_map(torch.clone, cache)
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
     new_prefix = []
     for i, kind in enumerate(plan.prefix):
-        x, c = apply_block_decode(cfg, kind, params["prefix"][i], x,
-                                  cache["prefix"][i], layer_idx=i,
-                                  donate=True)
+        xg, c = _block_decode(lay, cfg, kind, params["prefix"][i], xg,
+                              cache["prefix"][i], layer_idx=i)
         new_prefix.append(c)
 
     new_units = cache["units"]
@@ -457,21 +572,19 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
             unit_params = _unit(params["units"], u)
             for p, kind in enumerate(plan.unit):
                 # the unit's cache entry is a view into the stacked buffer
-                x, _ = apply_block_decode(cfg, kind, unit_params[p], x,
-                                          _unit(cache["units"][p], u),
-                                          layer_idx=n_prefix + p,
-                                          donate=True)
+                xg, _ = _block_decode(lay, cfg, kind, unit_params[p], xg,
+                                      _unit(cache["units"][p], u),
+                                      layer_idx=n_prefix + p)
         new_units = [c._replace(pos=c.pos + 1) for c in cache["units"]]
 
     base_tail = n_prefix + plan.n_units * len(plan.unit)
     new_tail = []
     for i, kind in enumerate(plan.tail):
-        x, c = apply_block_decode(cfg, kind, params["tail"][i], x,
-                                  cache["tail"][i], layer_idx=base_tail + i,
-                                  donate=True)
+        xg, c = _block_decode(lay, cfg, kind, params["tail"][i], xg,
+                              cache["tail"][i], layer_idx=base_tail + i)
         new_tail.append(c)
 
-    x = norms.apply(cfg.norm_kind, params["final_norm"], x)
+    xg = _norm(lay, cfg, params["final_norm"], xg)
     new_cache = {"prefix": new_prefix, "units": new_units, "tail": new_tail,
                  "pos": cache["pos"] + 1}
-    return x, new_cache
+    return (xg[0] if one else xg), new_cache

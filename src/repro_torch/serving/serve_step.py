@@ -1,16 +1,24 @@
-"""Serving steps: prefill + decode of a language model on one device.
+"""Serving steps: prefill + decode of a language model, on one device or
+a mesh.
 
 Port of `repro.serving.serve_step`. The reference jits prefill and decode
-with explicit shardings over its mesh; the port serves on one device, so
-there is nothing to shard: ``mesh`` is None or the port's one-position
-`launch.mesh.Mesh`, and a larger mesh raises (placing a language model
-over a mesh is ROADMAP Queue 1 item 5d, the multi-device LM mesh). The steps
-run where the parameters lie.
+with explicit shardings over its mesh: parameters per the partitioning
+rules, caches per `cache_shardings`, tokens per the batch spec. The port
+places the same way: on a mesh of more than one position the parameters
+are placed by `param_shardings` (`partitioning.shard`, blocks that are
+views where a position's device is the parameter's: no copy) unless they
+are placed on it already, the prefill returns its cache as blocks per
+`cache_shardings`, and the mesh program (`models.lm`) cuts the tokens
+into the batch groups' rows; logits come back as one logical tensor on
+the mesh's first device (the reference's replicated output). ``mesh``
+None or one position serves where the parameters lie.
 """
 from __future__ import annotations
 
+from repro_torch.distributed import partitioning
+from repro_torch.distributed.partitioning import Placed
+from repro_torch.models import lm
 from repro_torch.models.registry import ModelAPI
-from repro_torch.models.sharding_hints import check_one_device
 
 
 def build_serve_fns(model: ModelAPI, mesh, *, max_len: int):
@@ -22,22 +30,31 @@ def build_serve_fns(model: ModelAPI, mesh, *, max_len: int):
     (logits, cache)``. With ``donate_cache`` the decode step writes the
     new token into the given cache's buffers (as the reference donates
     them), otherwise it leaves the given cache as it was."""
-    check_one_device(mesh, "build_serve_fns")
+    lm.check_mesh_support(model.cfg, mesh)
+    multi = mesh is not None and mesh.size > 1
 
     def _check_batch(what, n, batch_size):
         if n != batch_size:
             raise ValueError(f"{what} for batch {batch_size} got {n} rows")
 
+    def _placed(params):
+        leaf = params["embedding"]["embed"]
+        if not multi or (isinstance(leaf, Placed) and leaf.mesh is mesh):
+            return params
+        return partitioning.shard(params,
+                                  partitioning.param_shardings(mesh, params))
+
     def prefill_for(batch_size):
         def prefill(params, batch):
             _check_batch("prefill", len(batch["tokens"]), batch_size)
-            return model.prefill(params, batch, max_len=max_len)
+            return model.prefill(_placed(params), batch, max_len=max_len)
         return prefill
 
     def decode_for(batch_size, *, donate_cache: bool = True):
         def decode(params, cache, tokens):
             _check_batch("decode", len(tokens), batch_size)
-            return model.decode(params, cache, tokens, donate=donate_cache)
+            return model.decode(_placed(params), cache, tokens,
+                                donate=donate_cache)
         return decode
 
     return prefill_for, decode_for

@@ -2,26 +2,36 @@
 accumulation and optional int8 gradient compression.
 
 Port of `repro.train.step`. ``build_train_step`` returns a function
-(state, batch) -> (state, metrics) on one device: the gradient comes from
+(state, batch) -> (state, metrics): the gradient comes from
 `torch.autograd` on leaf tensors that share the parameters' storage,
 remat is already applied inside the model stack, and ``donate`` (the
 reference's ``donate_argnums``) updates the state's parameters and
 moments in place. The reference jits the step with explicit in/out
 shardings over its mesh; the port computes the same shardings
-(`state_shardings`, `batch_shardings`) and places nothing over more than
-one position (ROADMAP Queue 1 item 5d): a larger mesh is refused.
+(`state_shardings`, `batch_shardings`) and places the state by them
+(`place`): on a mesh of more than one position each parameter and moment
+is a `partitioning.Placed` leaf, every block an autograd leaf of the one
+graph the mesh program (`models.lm`, `distributed.spmd`) builds. After
+the backward each block's replicas' gradients are summed in row-major
+order and written to every replica (`spmd.replica_sum`: the ``pod``
+gradient sum, and the ``model`` / ``data`` sums of the leaves those axes
+replicate), so replicas stay bitwise equal; AdamW then updates each block
+(it is element-wise). Grad compression quantizes the logical gradient
+(the blocks of the int8 codec are runs of the logical row-major leaf):
+the gradients are gathered for the round trip and re-split.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
-from repro_torch.distributed import partitioning
-from repro_torch.distributed.partitioning import P, NamedSharding
+from repro_torch.distributed import partitioning, spmd
+from repro_torch.distributed.partitioning import NamedSharding, P, Placed
+from repro_torch.models import lm
 from repro_torch.models.registry import ModelAPI
-from repro_torch.models.sharding_hints import check_one_device
 from repro_torch.optim import AdamW, AdamWState
 from repro_torch.optim import compression as comp
 
@@ -72,36 +82,98 @@ def state_shardings(mesh, state: TrainState) -> TrainState:
 
 
 def place(tree, shardings):
-    """Each leaf of ``tree`` (tensors or numpy arrays) as a tensor on its
-    sharding's device; a tensor already there is returned as it is."""
-    return _tree.tree_map(lambda x, s: torch.as_tensor(x).to(s.device()),
+    """Each leaf of ``tree`` (tensors or numpy arrays) placed by its
+    sharding: on a one-position mesh a tensor on its device (a tensor
+    already there is returned as it is), else a `Placed` of contiguous
+    block copies (the step updates them in place)."""
+    return _tree.tree_map(lambda x, s: s.shard(x, copy=s.mesh.size > 1),
                           tree, shardings)
+
+
+def _own_blocks(x):
+    """A `Placed` leaf whose blocks alias one another (`Placed.aliased`)
+    with each block copied, so that the donated update writes every
+    replica once; any other leaf as it is."""
+    if isinstance(x, Placed) and x.aliased():
+        return x.map(lambda b: b.clone(memory_format=torch.contiguous_format))
+    return x
+
+
+def _blockwise(fn, *leaves):
+    """``fn`` on tensors, or on every block of `Placed` leaves (at the
+    same coordinates), giving a `Placed` like the first."""
+    if not isinstance(leaves[0], Placed):
+        return fn(*leaves)
+    first = leaves[0]
+    out = np.empty(first.blocks.shape, dtype=object)
+    for c in np.ndindex(out.shape):
+        out[c] = fn(*[x.blocks[c] for x in leaves])
+    return Placed(first.mesh, first.spec, first.shape, out)
+
+
+def _logical(x):
+    """A batch leaf as one tensor (a placed one unsharded)."""
+    return x.unshard() if isinstance(x, Placed) else torch.as_tensor(x)
 
 
 def build_train_step(model: ModelAPI, optimizer: AdamW, mesh, *,
                      microbatches: int = 1, grad_compression: bool = False,
                      donate: bool = True):
     """Returns (state, batch) -> (state, metrics). ``mesh``: None or a
-    one-position `launch.mesh.Mesh`. ``donate``: the returned state's
-    parameters and moments are the given state's tensors, updated in place,
-    and the gradients are freed once applied; otherwise the given state is
-    left as it was. Both give the same bits."""
-    check_one_device(mesh, "build_train_step")
+    `launch.mesh.Mesh`; on more than one position the state is expected
+    placed by `state_shardings` (`place`; a state that is not is placed on
+    the first call, and a placed leaf whose replicas are views of one
+    tensor gets its own blocks before a donated step) and the batch may be host arrays, tensors or placed by
+    `batch_shardings`. ``donate``: the returned state's parameters and
+    moments are the given state's tensors, updated in place, and the
+    gradients are freed once applied; otherwise the given state is left
+    as it was. Both give the same bits."""
+    lm.check_mesh_support(model.cfg, mesh)
+    multi = mesh is not None and mesh.size > 1
 
     def grads_of(params, batch):
-        """(loss, metrics, float gradients in flatten order) of one batch."""
-        leaves = [p.detach().requires_grad_(True)
-                  for p in _tree.leaves(params)]
-        loss, metrics = model.loss(_tree.unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        """(loss, metrics, float gradients in flatten order) of one batch;
+        a placed leaf's gradient is placed, its replicas summed."""
+        leaves = _tree.leaves(params)
+        new, flat = [], []
+        for p in leaves:
+            if isinstance(p, Placed):
+                q = p.map(lambda b: b.detach().requires_grad_(True))
+                flat.extend(q.blocks[c] for c in np.ndindex(q.blocks.shape))
+            else:
+                q = p.detach().requires_grad_(True)
+                flat.append(q)
+            new.append(q)
+        loss, metrics = model.loss(_tree.unflatten(params, new), batch)
+        grads = list(torch.autograd.grad(loss, flat, allow_unused=multi))
+        out = []
+        for q in new:
+            if isinstance(q, Placed):
+                coords = list(np.ndindex(q.blocks.shape))
+                got = spmd.replica_sum(q, dict(zip(coords, grads[:len(
+                    coords)])))
+                del grads[:len(coords)]
+                arr = np.empty(q.blocks.shape, dtype=object)
+                for c in coords:
+                    arr[c] = got[c]
+                out.append(Placed(q.mesh, q.spec, q.shape, arr))
+            else:
+                out.append(grads.pop(0))
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                list(grads))
+                out)
 
     def step(state: TrainState, batch):
+        if multi and not isinstance(
+                state.params["embedding"]["embed"], Placed):
+            state = place(state, state_shardings(mesh, state))
+        elif multi and donate:
+            state = _tree.tree_map(_own_blocks, state)
         if microbatches > 1:
-            # gradient accumulation over microbatch slices, in order
+            # gradient accumulation over microbatch slices of the global
+            # batch, in order (on a mesh each slice is cut into the batch
+            # groups' rows again)
             def split(x, i):
-                x = torch.as_tensor(x)
+                x = _logical(x)
                 n = x.shape[0] // microbatches
                 return x.reshape(microbatches, n, *x.shape[1:])[i]
 
@@ -110,13 +182,15 @@ def build_train_step(model: ModelAPI, optimizer: AdamW, mesh, *,
                 mbatch = {k: split(v, i) for k, v in batch.items()}
                 loss_i, _, g = grads_of(state.params, mbatch)
                 if gsum is None:
-                    gsum = [torch.zeros_like(x, dtype=torch.float32) + x
-                            for x in g]
+                    gsum = [_blockwise(lambda x: torch.zeros_like(
+                        x, dtype=torch.float32) + x, x) for x in g]
                 else:
-                    gsum = [a + x for a, x in zip(gsum, g)]
+                    gsum = [_blockwise(torch.add, a, x)
+                            for a, x in zip(gsum, g)]
                 del g
                 lsum = lsum + loss_i
-            grads = [x / microbatches for x in gsum]
+            grads = [_blockwise(lambda x: x / microbatches, x)
+                     for x in gsum]
             del gsum
             loss = lsum / microbatches
             metrics = {}
@@ -126,12 +200,21 @@ def build_train_step(model: ModelAPI, optimizer: AdamW, mesh, *,
 
         cstate = state.comp
         if grad_compression and cstate is not None:
-            grads, cstate = comp.compress_grads(grads, cstate)
+            if multi:
+                shards = partitioning.param_shardings(mesh, grads)
+                grads, cstate = comp.compress_grads(
+                    partitioning.unshard(grads),
+                    comp.CompressionState(residual=partitioning.unshard(
+                        cstate.residual)))
+                grads = place(grads, shards)
+                cstate = comp.CompressionState(
+                    residual=place(cstate.residual, shards))
+            else:
+                grads, cstate = comp.compress_grads(grads, cstate)
 
         grad_norm = 0.0
         for g in _tree.leaves(grads):
-            grad_norm = grad_norm + torch.sum(torch.square(
-                g.to(torch.float32)))
+            grad_norm = grad_norm + spmd.sq_sum(g)
         grad_norm = grad_norm ** 0.5
         params, opt = optimizer.update(grads, state.opt, state.params,
                                        donate=donate)

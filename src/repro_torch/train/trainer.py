@@ -14,9 +14,11 @@ the point of fault tolerance:
   * per-step wall-time tracking with a straggler monitor (steps slower than
     ``straggler_factor`` x median are counted and logged).
 
-``mesh`` is the port's one-position `launch.mesh.Mesh` (a larger one is
-refused by the train step); the state and each batch are placed on its
-device.
+``mesh`` is a `launch.mesh.Mesh` of the port: the state is placed by
+`train.step.state_shardings` (restored onto it whatever mesh wrote the
+checkpoint), each batch by `partitioning.batch_shardings`, and the step
+runs inside ``activation_sharding(mesh)``. The checkpoints hold logical
+tensors and record the mesh's signature.
 """
 from __future__ import annotations
 

@@ -185,9 +185,13 @@ def test_mixer_modules_have_every_reference_name(module):
 
 
 # names the port's training modules define beyond the reference's: the
-# spec and sharding records the reference imports from jax, the state's
-# meta-device structure and the placement helper of the train step
-TRAINING_EXTRAS = {"distributed.partitioning": {"P", "NamedSharding"},
+# spec and sharding records the reference imports from jax, the placed
+# leaf and its cutting and assembling (the reference's jax.Array and
+# device_put), the state's meta-device structure and the placement helper
+# of the train step
+TRAINING_EXTRAS = {"distributed.partitioning": {"P", "NamedSharding",
+                                                "Placed", "block_slices",
+                                                "shard", "unshard"},
                    "train.step": {"state_struct", "place"}}
 
 

@@ -121,13 +121,27 @@ def test_restore_refuses_another_structure(tmp_path):
 
 
 def test_restore_refuses_a_mesh_beyond_one_position(tmp_path):
+    """Restore on a mesh beyond one position (the elastic path, which the
+    port once refused): each leaf placed by its sharding, blocks on their
+    positions, the logical tensors bitwise the saved ones; the structure
+    check still refuses another tree."""
     td = str(tmp_path)
     ckpt.save(td, 1, _state())
     mesh = make_mesh((2, 1), ("data", "model"),
                      devices=[torch.device("cpu")] * 2)
-    shard = _tree.tree_map(lambda _: NamedSharding(mesh, P()), _state())
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        ckpt.restore(td, 1, _state(), shardings=shard)
+    shard = _tree.tree_map(lambda x: NamedSharding(mesh, P("data")),
+                           _state())
+    got = ckpt.restore(td, 1, _state(), shardings=shard)
+    # w's 4 rows split over data; b's 3 do not (replicated)
+    assert got["w"].spec == P("data", None) and got["b"].spec == P(None)
+    assert [tuple(got["w"].blocks[i, 0].shape) for i in (0, 1)] == \
+        [(2, 3), (2, 3)]
+    for name, want in _state().items():
+        for c in np.ndindex(2, 1):
+            assert got[name].blocks[c].device == mesh.devices[c]
+        assert torch.equal(got[name].unshard(), want)
+    with pytest.raises(ValueError, match="structure"):
+        ckpt.restore(td, 1, {"w": torch.zeros(4, 3)}, shardings=shard)
 
 
 def test_async_checkpointer_keeps_the_newest(tmp_path):

@@ -1499,3 +1499,86 @@ def test_trainer_resume_on_card_is_bitwise(arch, tmp_path, monkeypatch):
     for a, b in zip(_tree.leaves(out["final_state"]),
                     _tree.leaves(ref["final_state"]), strict=True):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- the language-model mesh (logical shards of one card) ---------------------
+
+def _card_mesh(dev, shape):
+    from repro_torch.launch.mesh import make_mesh
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return make_mesh(shape, axes,
+                     devices=[dev] * int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("arch,router", [("deepseek-moe-16b", "topk"),
+                                         ("deepseek-moe-16b", "sinkhorn"),
+                                         ("gemma-2b", None),
+                                         ("olmo-1b", None)])
+def test_lm_mesh_on_card_matches_one_device(arch, router):
+    """Smoke configs in float32 on a (2, 2) mesh of logical shards of the
+    card: prefill logits and a train step's loss, grad_norm and update
+    against the one-device run (float32 tolerances)."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import partitioning
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.serving import build_serve_fns
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train import state_shardings
+    from repro_torch.train.step import place
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    if router:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router=router))
+    model = build_model(cfg, q_block=8, kv_block=8, device=dev)
+    mesh = _card_mesh(dev, (2, 2))
+    params = model.init(0)
+    toks = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)}
+    one = build_serve_fns(model, None, max_len=20)[0](4)(params, toks)[0]
+    got = build_serve_fns(model, mesh, max_len=20)[0](4)(params, toks)[0]
+    torch.testing.assert_close(got, one, rtol=1e-4, atol=1e-5)
+    opt = adamw(1e-3)
+    batch = TokenPipeline(cfg, batch=8, seq_len=16).batch_at(0)
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    s1, m1 = build_train_step(model, opt, None, donate=False)(state, batch)
+    sm, mm = build_train_step(model, opt, mesh, donate=False)(
+        place(state, state_shardings(mesh, state)), batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mm[k]) - float(m1[k])) <= 1e-5 * abs(float(m1[k]))
+    for a, b, c in zip(_tree.leaves(state.params),
+                       _tree.leaves(partitioning.unshard(sm.params)),
+                       _tree.leaves(s1.params), strict=True):
+        da, dc = (b - a).double(), (c - a).double()
+        assert float((da - dc).norm()) <= 1e-3 * max(float(dc.norm()), 1e-30)
+
+
+@pytest.mark.parametrize("router", ["topk", "sinkhorn"])
+def test_two_mesh_train_steps_on_card_are_bitwise_equal(router):
+    """deepseek-moe-16b's smoke config in bfloat16 on a (2, 2) mesh of
+    logical shards of the card: two steps from one placed state give the
+    same bits (fixed-order folds, no float atomics)."""
+    dev = _card()
+    from repro_torch import _tree
+    from repro_torch.distributed import partitioning
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train import state_shardings
+    from repro_torch.train.step import place
+    cfg, model, opt, pipe = _train_setup("deepseek-moe-16b", dev,
+                                         router=router)
+    mesh = _card_mesh(dev, (2, 2))
+    batch = pipe.batch_at(0)
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    placed = place(state, state_shardings(mesh, state))
+    runs = [build_train_step(model, opt, mesh, donate=False)(placed, batch)
+            for _ in range(2)]
+    for a, b in zip(_tree.leaves(partitioning.unshard(runs[0])),
+                    _tree.leaves(partitioning.unshard(runs[1])),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert torch.isfinite(runs[0][1]["loss"])

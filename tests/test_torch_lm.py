@@ -724,14 +724,22 @@ def test_remaining_mixers_build_and_serve_on_cpu(arch, kinds):
 
 
 def test_a_mesh_beyond_one_device_is_refused():
+    """A mesh beyond one device is refused only by the mixers that stay on
+    one position (ROADMAP Queue 1 item 5e); an attention decoder serves on
+    it (`tests/test_torch_lm_mesh.py` holds the numbers), and the sharding
+    context takes any mesh."""
     model = build_model(get_smoke_config("olmo-1b"), device="cpu")
     mesh = make_mesh((2, 1), ("data", "model"),
                      devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="partitioning.py"):
-        build_serve_fns(model, mesh, max_len=8)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        with activation_sharding(mesh):
-            pass
+    prefill_for, _ = build_serve_fns(model, mesh, max_len=8)
+    params = model.init(0)
+    toks = np.zeros((2, 4), np.int32)
+    with activation_sharding(mesh):
+        logits, cache = prefill_for(2)(params, {"tokens": toks})
+    assert tuple(logits.shape) == (2, 1, 256) and cache["pos"] == 4
+    mixer = build_model(get_smoke_config("minicpm3-4b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5e"):
+        build_serve_fns(mixer, mesh, max_len=8)
     with activation_sharding(one_device_mesh("cpu"), "decode"):
         pass
     with activation_sharding(None):

@@ -158,14 +158,25 @@ def test_sanitize_spec_drops_what_does_not_divide(shape):
 
 
 def test_one_position_sharding_places_and_a_larger_mesh_refuses():
+    """One position: the device. A larger mesh has no one device (its
+    ``device()`` refuses); its `shard` cuts blocks by the sanitized spec,
+    and the train step takes it for an attention decoder while a mixer
+    that stays on one position refuses it (ROADMAP Queue 1 item 5e)."""
     mesh = make_mesh((1, 1), ("data", "model"),
                      devices=[torch.device("cpu")])
     s = part.NamedSharding(mesh, part.P("data"))
     assert s.device() == torch.device("cpu")
     big = make_mesh((2, 2), ("data", "model"),
                     devices=[torch.device("cpu")] * 4)
-    with pytest.raises(NotImplementedError, match="item 5d"):
+    with pytest.raises(ValueError, match="positions"):
         part.NamedSharding(big, part.P()).device()
+    x = torch.arange(24.0).reshape(4, 6)
+    placed = part.NamedSharding(big, part.P("data", "model")).shard(x)
+    assert tuple(placed.blocks[1, 0].shape) == (2, 3)
+    assert torch.equal(placed.blocks[1, 0], x[2:, :3])
+    assert torch.equal(placed.unshard(), x)
     model = build_model(get_config("olmo-1b"), device="meta")
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        train_step.build_train_step(model, adamw(1e-3), big)
+    train_step.build_train_step(model, adamw(1e-3), big)
+    mixer = build_model(get_config("xlstm-125m"), device="meta")
+    with pytest.raises(NotImplementedError, match="item 5e"):
+        train_step.build_train_step(mixer, adamw(1e-3), big)

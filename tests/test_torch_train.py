@@ -343,10 +343,15 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, no_failure_flag):
     second = _launch(["--steps", "6", *common])
     assert f"[trainer] restoring step 4 from {td}" in second
     assert "[train] done: step 5 loss" in second
-    for flags in (["--devices", "2"], ["--mesh", "2x1"],
-                  ["--mesh", "1x1x2"]):
-        with pytest.raises(NotImplementedError, match="item 5d"):
-            _launch(["--steps", "1", *common, *flags])
+    for i, (flags, shape) in enumerate((
+            (["--devices", "2"], "{'data': 2, 'model': 1}"),
+            (["--devices", "2", "--mesh", "2x1"], "{'data': 2, 'model': 1}"),
+            (["--devices", "2", "--mesh", "1x1x2"],
+             "{'pod': 1, 'data': 1, 'model': 2}"))):
+        on_mesh = _launch(["--steps", "1", *common, *flags, "--ckpt-dir",
+                           str(tmp_path / f"mesh{i}")])
+        assert f"devices=2 mesh={shape} on cpu" in on_mesh
+        assert "[train] done: step 0 loss" in on_mesh
     moe_run = _launch(["--arch", "deepseek-moe-16b", "--smoke", "--steps",
                        "2", "--router", "sinkhorn", "--microbatches", "2",
                        "--grad-compression", "--batch", "2", "--seq-len",
