@@ -186,11 +186,13 @@ Phases (any failure exits non-zero before the result line is printed):
      exit 0 and both `[serve]` lines.
 
   13. (run after phase 12 has released its parameters) the remaining
-     mixers, each config as published and freed before the next:
-     `recurrentgemma-9b` (RG-LRU + local attention, 38 layers, d_model
-     4096), `minicpm3-4b` (multi-head latent attention, 62 layers),
-     `whisper-small` (encoder-decoder, 12 + 12 layers, 1,500 frames) and
-     `xlstm-125m` (mLSTM + sLSTM, 12 layers); parameters made on the card
+     mixers at full width, each freed before the next:
+     `recurrentgemma-9b` (RG-LRU + local attention, d_model 4096; cut to
+     one pattern unit of its 38 layers), `minicpm3-4b` (multi-head latent
+     attention, 62 layers), `whisper-small` (encoder-decoder, cut to 2 + 2
+     of its 12 + 12 layers, 1,500 frames) and `xlstm-125m` (mLSTM + sLSTM,
+     12 layers; `_SERVE_CUT`: phase 16(a) serves the two cut ones at their
+     published depths); parameters made on the card
      from a `torch.Generator` seeded 0; phase 12's traffic (batch 4,
      prefill 64, 32 greedy decode steps, q_block = kv_block = 16; whisper
      with (4, 1500, 768) frames from the same numpy seed) through
@@ -248,8 +250,10 @@ Phases (any failure exits non-zero before the result line is printed):
   15. (run after phase 14 has released its state) the language-model
      mesh, on a (2, 2) ("data", "model") mesh of logical shards of
      `cuda:0` (`launch.mesh.make_mesh(..., devices=[cuda:0] * 4)`; the
-     count of visible cards printed). (a) `deepseek-moe-16b` as
-     published, phase 12's traffic cut to 8 decode steps (batch 4, 64
+     count of visible cards printed). (a) `deepseek-moe-16b` at full
+     width, its depth cut to 8 layers (dense layer 0 and 7 MoE layers;
+     phase 12 serves all 28), phase 12's traffic cut to 8 decode steps
+     (batch 4, 64
      prompt tokens of numpy seed 0, q_block = kv_block = 16), both
      routers, bfloat16 (the config's) and float32 compute (a float32
      cache): the 1 x 1 runs first, their logits kept on the host and their
@@ -264,7 +268,8 @@ Phases (any failure exits non-zero before the result line is printed):
      within `_bf16_bound` in bfloat16; a kept and a donated decode loop
      from one cache bitwise equal; prefill and decode ms (CUDA events),
      the top-k bfloat16 decode step's `[idle]` line on each layout and the
-     peak memory. (b) `deepseek-moe-16b` at full width, depth 4, float32
+     peak memory. (b) `deepseek-moe-16b` at full width, depth 2
+     (`MESH_TRAIN_LAYERS`: phase 14 trains depth 4), float32
      compute, batch 8 x 128, both routers: one step on the mesh against
      the 1 x 1 step from one state (loss and grad_norm within 1e-5
      relative, the update criterion within phase 14's TOL_TRAIN_UPDATE),
@@ -280,8 +285,34 @@ Phases (any failure exits non-zero before the result line is printed):
      deepseek-moe-16b ``--smoke``; train gemma-2b ``--smoke`` twice on one
      ``--ckpt-dir``, the second resuming).
 
+  16. (run after phase 15 has released its tensors) the mixers on the
+     mesh, on phase 15's (2, 2) logical shards of `cuda:0`: (a)
+     `recurrentgemma-9b`, `minicpm3-4b`, `whisper-small` and `xlstm-125m`
+     as published (full width, full depth), one at a time, phase 15(a)'s
+     traffic (batch 4, 64 prompt tokens of numpy seed 0, 8 decode steps
+     fed the 1 x 1 run's greedy tokens; whisper with (4, 1500, 768) frames
+     of the same seed), 1 x 1 first, then the same parameters moved onto
+     the mesh, bfloat16 and float32 compute (a float32 run makes a float32
+     cache and lifts whisper's bfloat16 decoder embedding to float32,
+     `_Float32Run`): the mesh's prefill and every decode step within 1e-4
+     of the largest |logit| with equal greedy tokens in float32, within
+     `_bf16_bound` in bfloat16; a kept and a donated decode loop bitwise
+     equal on both layouts; prefill and decode ms, each layout's traced
+     bfloat16 decode step (`[idle]`) and peak memory. (b) One float32 step
+     of each at full width, batch 8 x 128 (minicpm3-4b cut to 1 layer and
+     recurrentgemma-9b to one pattern unit of 3, the others whole): the
+     mesh against the 1 x 1 step from one state (loss and grad_norm within
+     1e-5 relative, the first moments within TOL_TRAIN_GRAD of each leaf's
+     largest and the update criterion within phase 14's TOL_TRAIN_UPDATE;
+     xlstm-125m's moments within TOL_MOMENT_XLSTM and its update criterion
+     reported, `_UPDATE_REPORTED`), two mesh steps from one state bitwise.
+     (c) An xlstm-125m step on a (2, 1, 2) pod mesh with grad compression,
+     twice: pod replicas bitwise equal after each, losses within (b)'s
+     bound and the first moments after step 1 within TOL_MOMENT_INT8 of
+     the 1 x 1 run's. (d) No WMD kernel launched.
+
 The line before the last is a JSON object with one entry per kernel
-(``launches_by_phase`` has phases 12 to 15's, which must be 0); the last
+(``launches_by_phase`` has phases 12 to 16's, which must be 0); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import hashlib
@@ -1661,7 +1692,7 @@ def _phase12(card):
     return launches
 
 
-# the remaining mixers (phase 13): each config as published, one at a time
+# the remaining mixers (phase 13): each config at full width, one at a time
 MIXER_ARCHS = ("recurrentgemma-9b", "minicpm3-4b", "whisper-small",
                "xlstm-125m")
 # (c)'s depth: one pattern unit, 2 layers, 2 + 2, all 12
@@ -1669,6 +1700,21 @@ _REDUCED = {"recurrentgemma-9b": dict(num_layers=3),
             "minicpm3-4b": dict(num_layers=2),
             "whisper-small": dict(num_layers=2, encoder_layers=2),
             "xlstm-125m": {}}
+# (a), (b) and (d)'s depth: recurrentgemma-9b and whisper-small cut as in
+# (c) (phase 16(a) serves them at their published depths), the others
+# as published
+_SERVE_CUT = {"recurrentgemma-9b": _REDUCED["recurrentgemma-9b"],
+              "whisper-small": _REDUCED["whisper-small"]}
+
+
+def _cut(cfg, cut: dict):
+    """``cfg`` with the depth ``cut`` (``encoder_layers``: the encoder's)."""
+    import dataclasses
+    cut = dict(cut)
+    if "encoder_layers" in cut:
+        cut["encoder"] = dataclasses.replace(
+            cfg.encoder, num_layers=cut.pop("encoder_layers"))
+    return dataclasses.replace(cfg, **cut)
 MLA_ATOL = 2e-5               # the reference's, `tests/test_layers.py:171`
 
 
@@ -1749,7 +1795,7 @@ def _phase13_arch(arch):
 
     t_arch = time.perf_counter()
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = _cut(get_config(arch), _SERVE_CUT.get(arch, {}))
     b, t, steps = 4, 64, 32                  # the reference launcher's
     max_len = t + steps
     rng = np.random.default_rng(0)
@@ -1766,8 +1812,9 @@ def _phase13_arch(arch):
     print(f"[mix] {arch}: {kinds}, d_model {cfg.d_model}, {cfg.num_heads} "
           f"heads (kv {cfg.num_kv_heads}), vocab {cfg.vocab_size}"
           f"{', MLA' if cfg.mla is not None else ''}; batch {b}, prefill "
-          f"{t}, {steps} decode steps, q_block = kv_block = 16; no depth "
-          f"cut")
+          f"{t}, {steps} decode steps, q_block = kv_block = 16; "
+          + ("depth cut (`_SERVE_CUT`; phase 16(a) serves the published "
+             "depth)" if arch in _SERVE_CUT else "no depth cut"))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, q_block=16, kv_block=16)
@@ -1911,11 +1958,7 @@ def _phase13_arch(arch):
 
     # -- (c) the card against the CPU at full width and reduced depth, from
     # one numpy tree: prefill logits and a decode step from one cache
-    cut = dict(_REDUCED[arch])
-    if "encoder_layers" in cut:
-        cut["encoder"] = dataclasses.replace(
-            cfg.encoder, num_layers=cut.pop("encoder_layers"))
-    cfg_r = dataclasses.replace(cfg, **cut)
+    cfg_r = _cut(cfg, _REDUCED[arch])
     t0 = time.perf_counter()
     tree = _tree_map(lambda x: x.numpy(),
                      build_model(cfg_r, device="cpu").init(0))
@@ -2487,6 +2530,8 @@ MESH_SHAPE = (2, 2)            # logical shards of cuda:0 (module docstring)
 MESH_TOL_F32 = 1e-4            # mesh vs 1 x 1 logits, of the largest |logit|
 MESH_TOL_TRAIN = 1e-5          # mesh vs 1 x 1 loss and grad_norm: relative
 ROUTE_TIE = 1e-4               # a near-tie of a token's k-th / k+1-th score
+MESH_SERVE_LAYERS = 8          # (a)'s depth: dense layer 0 + 7 MoE layers
+MESH_TRAIN_LAYERS = 2          # (b)'s: dense layer 0 + one MoE layer
 
 
 def _first_routing_flip(e, one, mesh):
@@ -2594,7 +2639,8 @@ def _phase15_serve(mesh):
     from repro_torch.models.sharding_hints import activation_sharding
     from repro_torch.serving import build_serve_fns
 
-    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=MESH_SERVE_LAYERS)
     b, t, steps = 4, 64, 8
     max_len = t + steps
     tokens = np.random.default_rng(0).integers(
@@ -2682,7 +2728,8 @@ def _phase15_serve(mesh):
     placed = partitioning.shard(params,
                                 partitioning.param_shardings(mesh, params))
     del params          # the blocks are views: the parameters moved, no copy
-    print(f"[mesh] (a) deepseek-moe-16b's parameters placed on {mesh} in "
+    print(f"[mesh] (a) deepseek-moe-16b ({cfg.num_layers} layers at full "
+          f"width)'s parameters placed on {mesh} in "
           f"{time.perf_counter() - t0:.2f} s (blocks that are views of "
           f"the one-card tensors); memory allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2799,7 +2846,7 @@ def _host_leaves(tree):
 
 
 def _phase15_train(mesh):
-    """(b) deepseek-moe-16b at full width, depth 4, float32 compute, both
+    """(b) deepseek-moe-16b at full width, depth 2, float32 compute, both
     routers: the mesh step against the 1 x 1 step from one state, two mesh
     steps from one state bitwise."""
     import dataclasses
@@ -2816,7 +2863,7 @@ def _phase15_train(mesh):
 
     dev = torch.device("cuda")
     base = dataclasses.replace(get_config(TRAIN_ARCH),
-                               num_layers=TRAIN_LAYERS,
+                               num_layers=MESH_TRAIN_LAYERS,
                                compute_dtype="float32")
     for router in ("topk", "sinkhorn"):
         cfg = dataclasses.replace(base, moe=dataclasses.replace(
@@ -3079,6 +3126,409 @@ def _phase15():
     _check(sum(launches.values()) == 0, "phase 15 launched a WMD kernel")
     _phase15_launchers()
     print(f"[mesh] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -- 16. the mixers on the mesh ----------------------------------------------
+
+# (b)'s depth: minicpm3-4b and recurrentgemma-9b cut to one pattern unit
+# (AdamW's state at full depth would not fit the card: 16 B a parameter),
+# xlstm-125m and whisper-small whole
+_MIX_TRAIN_CUT = {"minicpm3-4b": dict(num_layers=1),
+                  "recurrentgemma-9b": dict(num_layers=3),
+                  "xlstm-125m": {}, "whisper-small": {}}
+# the configs whose update criterion is reported, not held, and whose
+# first moments (0.1 x the gradient after one step) are held at
+# TOL_MOMENT_XLSTM: xlstm-125m's gradients move with the order of any sum
+# (the mLSTM divides by max(|q . n|, exp(-m))): a (2, 1) mesh, whose only
+# change from 1 x 1 is the order in which the two batch groups'
+# gradients are summed, moves them 2.0e-4 of a leaf's largest
+# (`scripts/mesh_moments.py`),
+# and its sLSTM bias has gradient elements at rounding level, which
+# Adam's first step moves by a rounding-decided part of the learning
+# rate (the port's and the reference's one-device steps at smoke size
+# lie 8.5e-3 apart, `tests/test_torch_train_mixers_mesh.py`)
+_UPDATE_REPORTED = ("xlstm-125m",)
+TOL_MOMENT_XLSTM = 1e-3
+TOL_MOMENT_INT8 = 1e-2     # (c): an int8 code at a rounding edge moves an
+                           # element by one step, 1/127 of its block's max
+
+
+def _moment_rel(a, b) -> float:
+    """max over leaves of max |a - b| / max |b| (first moments)."""
+    return max(float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+               for x, y in zip(a, b, strict=True))
+
+
+def _logical_leaves(tree):
+    """The logical tensors of a tree's leaves on the card, one at a time
+    (a placed leaf unsharded, a tensor as it is)."""
+    from repro_torch import _tree
+    from repro_torch.distributed import partitioning
+    for x in _tree.leaves(tree):
+        yield x.unshard() if isinstance(x, partitioning.Placed) else x
+
+
+def _update_rel_card(before, after_a, after_b) -> float:
+    """`_update_rel` on the card, leaf by leaf in float64 chunks (no host
+    copy of a state: (b)'s recurrentgemma holds 1.7 B parameters)."""
+    import torch
+    worst, step = 0.0, 1 << 24
+    for p, a, b in zip(before, after_a, after_b, strict=True):
+        p, a, b = p.reshape(-1), a.reshape(-1), b.reshape(-1)
+        num = den = 0.0
+        for lo in range(0, p.numel(), step):
+            pp = p[lo:lo + step].double()
+            da, db = a[lo:lo + step].double() - pp, b[lo:lo + step].double() - pp
+            num += float(torch.sum(torch.square(da - db)))
+            den += float(torch.sum(torch.square(db)))
+        worst = max(worst, num ** 0.5 / max(den ** 0.5, 1e-30))
+    return worst
+
+
+class _Float32Run:
+    """A float32 run of the model API: its prefill makes a float32 cache
+    (`lm.prefill` / `encdec.prefill` with ``cache_dtype`` float32), and
+    whisper's decoder, which embeds at bfloat16 whatever the compute
+    dtype (ROADMAP Queue 3), embeds at float32 (`embedding.mesh_embed`'s
+    default lifted, as `tests/test_torch_mixers_mesh.py` lifts it).
+    Nothing changes for a bfloat16 config."""
+
+    def __init__(self, cfg):
+        self.on = cfg.compute_dtype == "float32"
+
+    def __enter__(self):
+        import functools
+
+        import torch
+
+        from repro_torch.models import encdec, lm
+        from repro_torch.models.layers import embedding
+        self.saved = [(m, n, getattr(m, n)) for m, n in
+                      ((lm, "prefill"), (encdec, "prefill"),
+                       (embedding, "mesh_embed"))]
+        if self.on:
+            for m, n, f in self.saved:
+                kw = ({"dtype": torch.float32} if n == "mesh_embed"
+                      else {"cache_dtype": torch.float32})
+                setattr(m, n, functools.partial(f, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+        return False
+
+
+def _phase16_serve_arch(arch, mesh, card):
+    """(a) One config as published, 1 x 1 then the same parameters moved
+    onto the mesh, bfloat16 and float32 compute."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partitioning
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _tree_map
+    from repro_torch.models.sharding_hints import activation_sharding
+    from repro_torch.serving import build_serve_fns
+
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    b, t, steps = 4, 64, 8
+    max_len = t + steps
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(size=(
+            b, cfg.encoder.num_positions, cfg.d_model)).astype(np.float32)
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    feeds, report, peak = {}, {}, {}
+
+    def serve(c, p, m):
+        model = build_model(c, q_block=16, kv_block=16)
+        prefill_for, decode_for = build_serve_fns(model, m, max_len=max_len)
+
+        def pre():
+            return prefill_for(b)(p, batch)
+
+        with _Float32Run(c):
+            with activation_sharding(m, "prefill"):
+                logits, cache = pre()
+            key = c.compute_dtype
+            if key not in feeds:                  # the 1 x 1 run: greedy
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                fed, cur = [tok], _tree_map(torch.clone, cache)
+                dec = decode_for(b)
+                for _ in range(steps - 1):
+                    out, cur = dec(p, cur, tok)
+                    tok = torch.argmax(out[:, -1], -1)[:, None]
+                    fed.append(tok)
+                feeds[key] = torch.cat(fed, 1)
+                del cur
+            feed = feeds[key]
+            with activation_sharding(m, "decode"):
+                kept, ms = _forced_loop(decode_for(b, donate_cache=False),
+                                        p, cache, feed)
+                donated, _ = _forced_loop(decode_for(b), p,
+                                          _tree_map(torch.clone, cache),
+                                          feed)
+            _check(torch.equal(kept, donated), f"{arch} {key} on {m}: the "
+                   f"donated decode loop is not the kept one bitwise")
+            torch.cuda.synchronize()
+            with activation_sharding(m, "prefill"):
+                pre_ms = _timed(pre, 1, warmup=0)
+            if key == "bfloat16":
+                tok = feed[:, :1]
+                with activation_sharding(m, "decode"):
+                    report[1 if m is None else m.size] = _launch_count(
+                        lambda: decode_for(b, donate_cache=False)(
+                            p, cache, tok))
+        del cache
+        return (logits.float().cpu(), kept, pre_ms, float(np.median(ms)))
+
+    cfgs = {d: dataclasses.replace(cfg, compute_dtype=d)
+            for d in ("bfloat16", "float32")}
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for d, c in cfgs.items():
+        runs[("1x1", d)] = serve(c, params, None)
+    peak[1] = torch.cuda.max_memory_allocated() / 2**30
+    placed = partitioning.shard(params,
+                                partitioning.param_shardings(mesh, params))
+    del params          # the blocks are views: the parameters moved
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for d, c in cfgs.items():
+        runs[("mesh", d)] = serve(c, placed, mesh)
+    peak[mesh.size] = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    own = _rel_err(runs[("1x1", "bfloat16")][0].numpy(),
+                   runs[("1x1", "float32")][0].numpy())
+    for d in cfgs:
+        one, mr = runs[("1x1", d)], runs[("mesh", d)]
+        pre = _rel_err(mr[0].numpy(), one[0].numpy())
+        dec = _rel_err(mr[1].numpy(), one[1].numpy())
+        bound = MESH_TOL_F32 if d == "float32" else _bf16_bound(own)
+        same_tok = bool((mr[1].argmax(-1) == one[1].argmax(-1)).all()
+                        and (mr[0].argmax(-1) == one[0].argmax(-1)).all())
+        print(f"[mesh16] (a) {arch}, {d}: mesh vs 1 x 1 prefill logits "
+              f"{pre:.3g}, {steps} decode steps {dec:.3g} of the largest "
+              f"|logit| (bound {bound:.3g}); greedy tokens equal {same_tok};"
+              f" prefill {mr[2]:.2f} ms [1 x 1 {one[2]:.2f}], decode "
+              f"{mr[3]:.2f} ms a token [{one[3]:.2f}] (CUDA events); "
+              f"donated and kept decode loops bitwise equal; {card}")
+        _check(pre <= bound and dec <= bound, f"(a) {arch} {d}: mesh vs "
+               f"1 x 1 prefill {pre}, decode {dec} > {bound}")
+        if d == "float32":
+            _check(same_tok, f"(a) {arch}: greedy tokens differ")
+    for size, (wall, busy, idle, n, largest) in sorted(report.items()):
+        where = "1 x 1" if size == 1 else str(mesh)
+        if busy is None:
+            print(f"[idle] (a) {arch} decode step (bfloat16) on {where}: "
+                  f"{wall:.2f} ms wall; device time not measured "
+                  f"({largest})")
+        else:
+            print(f"[idle] (a) {arch} decode step (bfloat16) on {where}: "
+                  f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
+                  f"share {idle:.3f}, {n} device entries; largest: "
+                  f"{largest}")
+    print(f"[mesh16] (a) {arch}: peak device memory {peak[mesh.size]:.2f} "
+          f"GiB on the mesh [1 x 1 {peak[1]:.2f}] "
+          f"(torch.cuda.max_memory_allocated); the model's own bfloat16 "
+          f"error {own:.3g}; {time.perf_counter() - t_arch:.1f} s")
+
+
+def _phase16_train(mesh):
+    """(b) One float32 mesh step of each config at full width against the
+    1 x 1 step from one state; two mesh steps from one state bitwise."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_state
+
+    dev = torch.device("cuda")
+    for arch in MIXER_ARCHS:
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cut = dict(_MIX_TRAIN_CUT[arch])
+        cfg = dataclasses.replace(base, compute_dtype="float32", **cut)
+        model = build_model(cfg, device=dev)
+        opt = adamw(warmup_cosine(3e-4, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS))
+        batch = TokenPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_T,
+                              seed=0).batch_at(0)
+
+        def fresh():
+            return init_state(model, opt,
+                              torch.Generator(device=dev).manual_seed(0))
+
+        # every state compared on the card, leaf by leaf
+        with _Float32Run(cfg):
+            st = fresh()
+            n_par = sum(x.numel() for x in _tree.leaves(st.params))
+            p0 = [x.clone() for x in _tree.leaves(st.params)]
+            del st
+            m_one, s1, ms1, _ = _phase15_step(model, opt, None, batch, fresh,
+                                              1)
+            p_one, mu_one = _tree.leaves(s1.params), _tree.leaves(s1.opt.mu)
+            del s1
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mm, sm, _, _ = _phase15_step(model, opt, mesh, batch, fresh, 1)
+            first = list(_logical_leaves(sm.params))
+            mu_rel = _moment_rel(_logical_leaves(sm.opt.mu), mu_one)
+            del sm, mu_one
+            gc.collect()
+            torch.cuda.empty_cache()
+            mm2, sm, ms_b, _ = _phase15_step(model, opt, mesh, batch, fresh,
+                                             1)
+            same = mm[0] == mm2[0] and all(
+                torch.equal(x, y) for x, y in zip(
+                    _logical_leaves(sm.params), first, strict=True))
+            del sm
+            peak_m = torch.cuda.max_memory_allocated() / 2**30
+        ma, ms_b = mm[0], ms_b[0]
+        upd = _update_rel_card(p0, first, p_one)
+        held = arch not in _UPDATE_REPORTED
+        mu_bound = TOL_TRAIN_GRAD if held else TOL_MOMENT_XLSTM
+        l_rel = abs(ma["loss"] - m_one[0]["loss"]) / abs(m_one[0]["loss"])
+        n_rel = abs(ma["grad_norm"] - m_one[0]["grad_norm"]) \
+            / abs(m_one[0]["grad_norm"])
+        depth = (f"{cfg.encoder.num_layers} + {cfg.num_layers} layers"
+                 if cfg.family == "audio" else f"{cfg.num_layers} layers")
+        print(f"[mesh16] (b) {arch} ({depth}, {n_par:,} parameters, "
+              f"float32, batch {TRAIN_B} x {TRAIN_T}): one step on {mesh} "
+              f"against 1 x 1: loss {ma['loss']:.7f} / "
+              f"{m_one[0]['loss']:.7f} (relative {l_rel:.3g}), grad_norm "
+              f"relative {n_rel:.3g} (bound {MESH_TOL_TRAIN:g}); first "
+              f"moments {mu_rel:.3g} of each leaf's largest (bound "
+              f"{mu_bound:g}); update criterion {upd:.3g} "
+              f"({f'bound {TOL_TRAIN_UPDATE:g}' if held else 'reported'});"
+              f" two mesh steps from one state bitwise {same}; step "
+              f"{ms_b:.2f} ms on "
+              f"the mesh [1 x 1 {ms1[0]:.2f}] (CUDA events, first step "
+              f"each); peak {peak_m:.2f} GiB on the mesh; "
+              f"{time.perf_counter() - t0:.1f} s")
+        _check(same, f"(b) {arch}: two mesh steps from one state differ")
+        _check(l_rel <= MESH_TOL_TRAIN and n_rel <= MESH_TOL_TRAIN
+               and mu_rel <= mu_bound
+               and (upd <= TOL_TRAIN_UPDATE or not held),
+               f"(b) {arch}: loss {l_rel}, grad_norm {n_rel}, moments "
+               f"{mu_rel}, update {upd}")
+        del first, p0, p_one
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _phase16_pods():
+    """(c) xlstm-125m on a (2, 1, 2) pod mesh with grad compression."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_state
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    opt = adamw(warmup_cosine(3e-4, warmup_steps=1, total_steps=TRAIN_STEPS))
+    batch = TokenPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_T,
+                          seed=0).batch_at(0)
+    mesh = _lm_mesh((2, 1, 2), ("pod", "data", "model"))
+
+    def fresh():
+        return init_state(model, opt,
+                          torch.Generator(device=dev).manual_seed(0),
+                          grad_compression=True)
+
+    p0 = _host_leaves(fresh().params)
+    mu1 = []
+    m1, s1, _, _ = _phase15_step(
+        model, opt, None, batch, fresh, 2,
+        check=lambda st: mu1.append(_host_leaves(st.opt.mu)))
+    p1 = _host_leaves(s1.params)
+    del s1
+    checked, mum = [], []
+
+    def replicas_equal(state):
+        ok = all(torch.equal(leaf.blocks[(0, *c)], leaf.blocks[(1, *c)])
+                 for leaf in _tree.leaves((state.params, state.opt.mu,
+                                           state.opt.nu, state.comp.residual))
+                 for c in np.ndindex(leaf.blocks.shape[1:]))
+        checked.append(ok)
+        _check(ok, f"(c) pod replicas differ after step {len(checked)}")
+        mum.append(_host_leaves(state.opt.mu))
+
+    mm, sm, ms, _ = _phase15_step(model, opt, mesh, batch, fresh, 2,
+                                  check=replicas_equal)
+    pm = _host_leaves(sm.params)
+    del sm
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(mm, m1)]
+    upd = _update_rel(p0, pm, p1)
+    mu_rel = _moment_rel(mum[0], mu1[0])
+    print(f"[mesh16] (c) xlstm-125m, float32, grad compression on {mesh}: "
+          f"pod replicas bitwise equal after each of {len(checked)} steps; "
+          f"losses {[round(m['loss'], 6) for m in mm]} vs 1 x 1 "
+          f"{[round(m['loss'], 6) for m in m1]} (relative {max(rel):.3g}, "
+          f"bound {MESH_TOL_TRAIN:g}); first moments after step 1 "
+          f"{mu_rel:.3g} of each leaf's largest (bound {TOL_MOMENT_INT8:g});"
+          f" update criterion after 2 steps {upd:.3g} (reported, as in "
+          f"(b)); step {ms[1]:.2f} ms (CUDA events)")
+    _check(max(rel) <= MESH_TOL_TRAIN and mu_rel <= TOL_MOMENT_INT8,
+           f"(c) pods vs 1 x 1: loss {rel}, moments {mu_rel}")
+
+
+def _phase16(card):
+    """16. The mixers on the mesh (module docstring). Returns the kernels'
+    launch counts over the phase, read around it."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    mesh = _lm_mesh(MESH_SHAPE)
+    print(f"[mesh16] phase 16 on {mesh}: {mesh.size} logical shards of one "
+          f"card; {card}")
+    parts = [(f"(a) {a}", lambda a=a: _phase16_serve_arch(a, mesh, card))
+             for a in MIXER_ARCHS]
+    parts += [("(b)", lambda: _phase16_train(mesh)), ("(c)", _phase16_pods)]
+    for what, part in parts:
+        t0 = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[mesh16] {what}: {time.perf_counter() - t0:.1f} s")
+    launches = dict(_build.launches)
+    print(f"[mesh16] (d) kernel launches over phase 16: "
+          f"{launches or 'none'} (the mixers on the mesh run no "
+          f"hand-written kernel)")
+    _check(sum(launches.values()) == 0, "phase 16 launched a WMD kernel")
+    print(f"[mesh16] phase 16: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3992,11 +4442,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches15 = _phase15()
+    # -- 16. the mixers on the mesh: phase 15's tensors released first -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches16 = _phase16(card)
     for entry in results:
         entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
         entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)
         entry["launches_by_phase"]["14"] = launches14.get(entry["name"], 0)
         entry["launches_by_phase"]["15"] = launches15.get(entry["name"], 0)
+        entry["launches_by_phase"]["16"] = launches16.get(entry["name"], 0)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

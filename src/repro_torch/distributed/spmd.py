@@ -33,6 +33,15 @@ axis replicates live once a group, on the group's first position (its
   a whole unit); backward: each block's gradient folded over its users in
   user order (the reduce-scatter). The caller casts the blocks first, so
   the gather moves compute-dtype bytes.
+* `model_gather` -- a group's channel-split shares concatenated on each
+  of its model shards (the mLSTM's up and conv outputs, which its q / k /
+  v read whole); backward: each share's gradient folded over the shards
+  in model order.
+* `model_sum_scatter` -- the row-parallel partials of a layer whose
+  outputs stay channel-split (the RG-LRU's gate pre-activations), each
+  shard's slice of the group's sum folded in model order; backward: the
+  slices' gradients concatenated to each shard. `model_allsum` is
+  `replicate` of `model_sum` (a norm's statistic over split channels).
 * `gather_rows` -- every group's rows to every group (the MoE router's
   logits); backward: each group's rows folded over the users in group
   order.
@@ -45,6 +54,13 @@ axis replicates live once a group, on the group's first position (its
 
 On a one-position mesh every collective is the identity on its input: the
 one-device program is the mesh program, op for op.
+
+Decode caches (no autograd): `state_specs`, `place_rows`, `place_blocks`
+and `place_state` place a cache entry's tensors as blocks per
+`partitioning.cache_shardings` (a cache's ``pos`` stays a Python int);
+`group_rows` assembles a batch group's rows from its blocks at use and
+`write_rows` writes a group's new rows (or one position's token) back
+into the blocks that hold them.
 """
 from __future__ import annotations
 
@@ -218,6 +234,80 @@ def batch_fold(lay: Layout, xs: list) -> torch.Tensor:
     return _BatchFold.apply(lay, *xs)
 
 
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lay, dim, *parts):
+        ctx.lay, ctx.dim = lay, dim
+        ctx.dtype = parts[0].dtype
+        ctx.n = parts[0].shape[dim]
+        m = lay.n_model
+        return tuple(torch.cat([p.to(lay.dev(i)) for p in parts[g * m:(g + 1)
+                                                            * m]], dim)
+                     for g in range(lay.n_groups)
+                     for i in range(g * m, (g + 1) * m))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        lay, m, n, dim = ctx.lay, ctx.lay.n_model, ctx.n, ctx.dim
+        return (None, None, *[
+            fold([None if gs[g * m + k] is None
+                  else gs[g * m + k].narrow(dim, j * n, n)
+                  for k in range(m)], lay.dev(g * m + j), ctx.dtype)
+            for g in range(lay.n_groups) for j in range(m)])
+
+
+def model_gather(lay: Layout, parts: list, dim: int) -> list:
+    """One channel-split share a position -> the group's shares
+    concatenated along ``dim`` in model order, on every position of the
+    group (an all-gather over ``model``); backward: each share's gradient
+    folded over the group's positions in model order."""
+    if lay.n_model == 1:
+        return list(parts)
+    return list(_ModelGather.apply(lay, dim % parts[0].ndim, *parts))
+
+
+class _ModelSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lay, dim, *parts):
+        ctx.lay, ctx.dim = lay, dim
+        m = lay.n_model
+        n = parts[0].shape[dim] // m
+        ctx.piece = parts[0].narrow(dim, 0, n).shape
+        ctx.dtype = parts[0].dtype
+        return tuple(fold([parts[g * m + k].narrow(dim, j * n, n)
+                           for k in range(m)], lay.dev(g * m + j),
+                          parts[0].dtype)
+                     for g in range(lay.n_groups) for j in range(m))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        lay, m = ctx.lay, ctx.lay.n_model
+        gs = [torch.zeros(ctx.piece, dtype=ctx.dtype, device=lay.dev(i))
+              if x is None else x
+              for i, x in enumerate(gs)]
+        return (None, None, *[
+            torch.cat([gs[g * m + j].to(lay.dev(g * m + k))
+                       for j in range(m)], ctx.dim)
+            for g in range(lay.n_groups) for k in range(m)])
+
+
+def model_sum_scatter(lay: Layout, parts: list, dim: int) -> list:
+    """One full-width partial a position -> position j of each group gets
+    the j-th of M equal slices along ``dim`` of its group's sum, folded in
+    model order (a reduce-scatter over ``model``: the row-parallel
+    partials of a layer whose outputs stay channel-split); backward: the
+    slices' gradients concatenated, to every position."""
+    if lay.n_model == 1:
+        return list(parts)
+    return list(_ModelSumScatter.apply(lay, dim % parts[0].ndim, *parts))
+
+
+def model_allsum(lay: Layout, parts: list) -> list:
+    """One partial a position -> its group's sum (model order) on every
+    position of the group (a norm's statistic over split channels)."""
+    return replicate(lay, model_sum(lay, parts))
+
+
 def max_over_model(lay: Layout, parts: list) -> list:
     """The element-wise max of a group's model shards' (detached)
     tensors, one a group (no gradient: a stabiliser)."""
@@ -382,3 +472,109 @@ def sq_sum(leaf) -> torch.Tensor:
     parts = [torch.sum(torch.square(leaf.blocks[c].to(_F32)))
              for c in leaf.unique()]
     return fold(parts, parts[0].device, _F32)
+
+
+# ---------------------------------------------------------------------------
+# decode caches: blocks per `partitioning.cache_shardings` (no autograd)
+# ---------------------------------------------------------------------------
+
+def state_specs(lay: Layout, template):
+    """The `cache_shardings` specs of a cache entry (a NamedTuple of
+    tensors and an int ``pos``) from ``template``, an entry (meta tensors
+    will do) that holds one batch group's rows: the NamedTuple with each
+    tensor field's spec, for the logical tensor of all groups' rows."""
+    from repro_torch.distributed.partitioning import cache_shardings
+    meta = type(template)(*[
+        torch.empty((v.shape[0] * lay.n_groups, *v.shape[1:]),
+                    device="meta") if isinstance(v, torch.Tensor) else v
+        for v in template])
+    sh = cache_shardings(lay.mesh, meta)
+    return type(template)(*[s.spec if isinstance(v, torch.Tensor) else v
+                            for s, v in zip(sh, template)])
+
+
+def place_blocks(lay: Layout, spec, shape, blocks: list) -> Placed:
+    """A `Placed` of logical ``shape`` under ``spec`` from one block a
+    position (position order), each already its region on its device."""
+    arr = np.empty(lay.mesh.devices.shape, dtype=object)
+    for c, b in zip(lay.coords, blocks):
+        arr[c] = b
+    return Placed(lay.mesh, spec, shape, arr)
+
+
+def place_rows(lay: Layout, spec, rows: list) -> Placed:
+    """A cache leaf placed as ``spec`` cuts it, from each batch group's
+    rows (``rows[g]``, (B_g, ...)): each position's block a copy of its
+    region, on its device."""
+    b_g = rows[0].shape[0]
+    shape = (b_g * lay.n_groups, *rows[0].shape[1:])
+    blocks = []
+    for i, c in enumerate(lay.coords):
+        g = i // lay.n_model
+        r = block_slices(lay.mesh, spec, shape, c)
+        rel = (slice(r[0].start - g * b_g, r[0].stop - g * b_g), *r[1:])
+        blocks.append(rows[g][rel].to(lay.dev(i), copy=True,
+                                      memory_format=torch.contiguous_format))
+    return place_blocks(lay, spec, shape, blocks)
+
+
+def place_state(lay: Layout, states: list):
+    """A cache entry from one entry a batch group (each holding its
+    group's rows; ``pos`` from the first), its tensors placed by
+    `state_specs` (`place_rows`); on one position the group's entry
+    itself."""
+    if lay.single:
+        return states[0]
+    specs = state_specs(lay, states[0])
+    return type(states[0])(*[
+        place_rows(lay, spec, [s[k] for s in states])
+        if isinstance(v, torch.Tensor) else v
+        for k, (spec, v) in enumerate(zip(specs, states[0]))])
+
+
+def group_rows(lay: Layout, leaf, g: int, dev=None) -> torch.Tensor:
+    """Batch group ``g``'s rows of a cache leaf, (B_g, ...) on ``dev``
+    (the group's owner by default), assembled from the group's blocks:
+    the owner's block itself where it holds them all on ``dev``, and the
+    tensor itself on one position."""
+    if not isinstance(leaf, Placed):
+        return leaf if dev is None else leaf.to(dev)
+    dev = lay.group_dev(g) if dev is None else dev
+    m = lay.n_model
+    b_g = leaf.shape[0] // lay.n_groups
+    own = leaf.blocks[lay.coords[g * m]]
+    if tuple(own.shape[1:]) == tuple(leaf.shape[1:]):
+        return own.to(dev)
+    out = torch.empty((b_g, *leaf.shape[1:]), dtype=own.dtype, device=dev)
+    for j in range(m):
+        c = lay.coords[g * m + j]
+        r = block_slices(lay.mesh, leaf.spec, leaf.shape, c)
+        out[(slice(None), *r[1:])] = leaf.blocks[c].to(dev)
+    return out
+
+
+def write_rows(lay: Layout, leaf, g: int, value: torch.Tensor,
+               dim: int = 0, index: int | None = None) -> None:
+    """Write batch group ``g``'s rows ``value`` into its blocks of a cache
+    leaf, in place. With ``index``: ``value`` is the rows at ``index`` of
+    dim ``dim`` (that dim dropped), written into the blocks whose region
+    holds ``index``. On one position the tensor itself is written."""
+    if not isinstance(leaf, Placed):
+        dst = leaf if index is None else leaf.select(dim, index)
+        if dst.data_ptr() != value.data_ptr():
+            dst.copy_(value)
+        return
+    m = lay.n_model
+    for j in range(m):
+        c = lay.coords[g * m + j]
+        r = block_slices(lay.mesh, leaf.spec, leaf.shape, c)
+        blk = leaf.blocks[c]
+        src = (slice(None), *r[1:])
+        if index is not None:
+            if not r[dim].start <= index < r[dim].stop:
+                continue
+            blk = blk.select(dim, index - r[dim].start)
+            src = src[:dim] + src[dim + 1:]
+        part = value[src]
+        if blk.data_ptr() != part.data_ptr() or blk.device != part.device:
+            blk.copy_(part)

@@ -68,9 +68,8 @@ steps with the cache donated; it prints the prefill time and the decode
 time a token. It runs on one device (``--device``; the card by default),
 or with ``--devices`` / ``--mesh`` on a mesh as the WMD service does: the
 parameters placed by the partitioning rules (moved, a block a position),
-the cache by `cache_shardings`, the batch over (pod, data); the attention
-decoders run on any mesh, MLA, RG-LRU, xLSTM and whisper on one position
-(ROADMAP Queue 1 item 5e).
+the cache by `cache_shardings`, the batch over (pod, data) (whisper's
+random frames with the tokens); every config runs on any mesh.
 """
 import argparse
 

@@ -8,9 +8,8 @@ logical devices, placed round-robin on the visible cards (all on
 counterpart of the reference's forced host device count; without it, one
 device. The parameters and moments are placed by the partitioning rules
 (FSDP over ``data``, TP over ``model``, replicated over ``pod``) and the
-batch over (pod, data). The attention decoders run on any mesh; MLA,
-RG-LRU, xLSTM and the encoder-decoder on one position (ROADMAP Queue 1
-item 5e). ``--smoke`` uses the reduced config. A rerun with the same
+batch over (pod, data); every config runs on any mesh. ``--smoke`` uses
+the reduced config. A rerun with the same
 ``--ckpt-dir`` resumes from its latest checkpoint (``[trainer] restoring
 step N``), on whatever mesh it runs. The checkpoint directory defaults to
 ``repro_torch_ckpt`` under the temporary directory.

@@ -399,40 +399,21 @@ def _cache_blocks(lay, cfg: ModelConfig, local: list, t: int, max_len: int,
 
 
 def mesh_full(lay, cfg: ModelConfig, params: dict, xn: list, *,
-              prefix_len: int = 0, q_block: int = 512, kv_block: int = 1024,
-              fill: Optional[tuple] = None):
+              causal: bool = True, prefix_len: int = 0,
+              kv_src: Optional[list] = None, q_block: int = 512,
+              kv_block: int = 1024, fill: Optional[tuple] = None):
     """`fwd_full` of one (B_g, T, D) tensor a batch group on the mesh of
     ``lay``: each model shard computes its whole heads (`mesh_plan`) from
-    its gathered weights and the shards' ``wo`` partials are summed.
+    its gathered weights and the shards' ``wo`` partials are summed;
+    ``kv_src`` (cross-attention): one (B_g, Tk, D) source a group.
     Returns (one output a group, the decode cache or None); ``fill`` =
     (max_len, cache dtype) asks for the cache, as blocks per
     `cache_shardings` on a mesh (`fill_cache`'s on one position)."""
-    from repro_torch.distributed import spmd
-    dtype = xn[0].dtype
-    want = fill is not None
-    kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block,
-              return_kv=want)
-    plan = mesh_plan(cfg, lay.n_model)
-    if plan is None:
-        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
-        outs = [fwd_full(cfg, w[g], xn[g], **kw)
-                for g in range(lay.n_groups)]
-        h = [o[0] if want else o for o in outs]
-        local = [(outs[i // lay.n_model][1] + (0,))
-                 if i % lay.n_model == 0 else None
-                 for i in lay.positions()] if want else None
-    else:
-        lcfg, keep, ranges = plan
-        w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
-        xs = spmd.replicate(lay, xn)
-        outs = [fwd_full(lcfg, w[i], xs[i], kv_range=ranges[i % lay.n_model],
-                         **kw) for i in lay.positions()]
-        h = spmd.model_sum(lay, [o[0] if want else o for o in outs])
-        split = ranges[0] is None
-        local = [o[1] + ((i % lay.n_model) * lcfg.num_kv_heads
-                         if split else 0,)
-                 for i, o in enumerate(outs)] if want else None
-    if not want:
+    h, local = _mesh_full(lay, cfg, params, xn, causal=causal,
+                          prefix_len=prefix_len, kv_src=kv_src,
+                          q_block=q_block, kv_block=kv_block,
+                          want_kv=fill is not None)
+    if fill is None:
         return h, None
     max_len, cache_dtype = fill
     if lay.single:
@@ -442,22 +423,79 @@ def mesh_full(lay, cfg: ModelConfig, params: dict, xn: list, *,
                             cache_dtype)
 
 
-def _assemble(lay, placed, g: int, dev) -> torch.Tensor:
-    """Batch group ``g``'s (B_g, buf, KV, hd) cache from its model
-    shards' blocks, on ``dev`` (the block itself where one holds it
-    all)."""
-    from repro_torch.distributed.partitioning import block_slices
-    m = lay.n_model
-    b_g = placed.shape[0] // lay.n_groups
-    own = placed.blocks[lay.coords[g * m]]
-    if tuple(own.shape[1:]) == tuple(placed.shape[1:]):
-        return own.to(dev)
-    out = torch.empty((b_g, *placed.shape[1:]), dtype=own.dtype, device=dev)
-    for j in range(m):
-        c = lay.coords[g * m + j]
-        r = block_slices(lay.mesh, placed.spec, placed.shape, c)
-        out[:, r[1], r[2]] = placed.blocks[c].to(dev)
-    return out
+def _mesh_full(lay, cfg: ModelConfig, params: dict, xn: list, *,
+               causal: bool, prefix_len: int, kv_src: Optional[list],
+               q_block: int, kv_block: int, want_kv: bool):
+    """`mesh_full`'s outputs and, with ``want_kv``, each position's
+    (k, v, first kv head) of its group (None where its group's owner's
+    hold the heads)."""
+    from repro_torch.distributed import spmd
+    dtype = xn[0].dtype
+    kw = dict(causal=causal, prefix_len=prefix_len, q_block=q_block,
+              kv_block=kv_block, return_kv=want_kv)
+    plan = mesh_plan(cfg, lay.n_model)
+    if plan is None:
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
+        outs = [fwd_full(cfg, w[g], xn[g], kv_src=None if kv_src is None
+                         else kv_src[g], **kw)
+                for g in range(lay.n_groups)]
+        h = [o[0] if want_kv else o for o in outs]
+        local = [(outs[i // lay.n_model][1] + (0,))
+                 if i % lay.n_model == 0 else None
+                 for i in lay.positions()] if want_kv else None
+    else:
+        lcfg, keep, ranges = plan
+        w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
+        xs = spmd.replicate(lay, xn)
+        srcs = None if kv_src is None else spmd.replicate(lay, kv_src)
+        outs = [fwd_full(lcfg, w[i], xs[i], kv_range=ranges[i % lay.n_model],
+                         kv_src=None if srcs is None else srcs[i], **kw)
+                for i in lay.positions()]
+        h = spmd.model_sum(lay, [o[0] if want_kv else o for o in outs])
+        split = ranges[0] is None
+        local = [o[1] + ((i % lay.n_model) * lcfg.num_kv_heads
+                         if split else 0,)
+                 for i, o in enumerate(outs)] if want_kv else None
+    return h, local
+
+
+def mesh_cross_kv(lay, cfg: ModelConfig, params: dict, xn: list,
+                  src: list, *, q_block: int = 512, kv_block: int = 1024,
+                  dtype=torch.bfloat16):
+    """Cross-attention of one (B_g, T, D) tensor a batch group against
+    its (B_g, Tk, D) ``src`` on the mesh of ``lay`` (`mesh_full`), and
+    the source's K / V in ``dtype``: on one position (B, Tk, KV, hd)
+    tensors, on a mesh blocks per `cache_shardings`' cross K / V rule
+    (batch over the groups, the kv heads over ``model`` where they
+    divide it). Returns (one output a group, (k, v))."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.partitioning import (block_slices,
+                                                      cache_shardings)
+    h, local = _mesh_full(lay, cfg, params, xn, causal=False, prefix_len=0,
+                          kv_src=src, q_block=q_block, kv_block=kv_block,
+                          want_kv=True)
+    if lay.single:
+        k, v, _ = local[0]
+        return h, (k.to(dtype), v.to(dtype))
+    k0 = next(x for x in local if x is not None)[0]
+    shape = (k0.shape[0] * lay.n_groups, k0.shape[1], cfg.num_kv_heads,
+             k0.shape[3])
+    spec = cache_shardings(lay.mesh, {"cross_k": torch.empty(
+        shape, device="meta")})["cross_k"].spec
+    kv = []
+    for which in (0, 1):
+        blocks = []
+        for i, c in enumerate(lay.coords):
+            g = i // lay.n_model
+            src_i = i if local[i] is not None else g * lay.n_model
+            x, off = local[src_i][which], local[src_i][2]
+            r = block_slices(lay.mesh, spec, shape, c)
+            rel = (slice(None), slice(None),
+                   slice(r[2].start - off, r[2].stop - off), slice(None))
+            blocks.append(x[rel].to(lay.dev(i), dtype, copy=True,
+                                    memory_format=torch.contiguous_format))
+        kv.append(spmd.place_blocks(lay, spec, shape, blocks))
+    return h, tuple(kv)
 
 
 def mesh_decode(lay, cfg: ModelConfig, params: dict, xn: list,
@@ -470,7 +508,6 @@ def mesh_decode(lay, cfg: ModelConfig, params: dict, xn: list,
     slot and each shard reads its group's cache gathered from the blocks.
     Returns (one output a group, the cache)."""
     from repro_torch.distributed import spmd
-    from repro_torch.distributed.partitioning import block_slices
     dtype = xn[0].dtype
     pos = int(cache.pos)
     m = lay.n_model
@@ -498,32 +535,62 @@ def mesh_decode(lay, cfg: ModelConfig, params: dict, xn: list,
         xs = spmd.replicate(lay, xn)
         qkv = [decode_qkv(lcfg, w[i], xs[i], pos) for i in lay.positions()]
         src = lay.positions()
-    buf = cache.k.shape[1]
-    slot = pos % buf
-    for i, c in enumerate(lay.coords):
-        r = block_slices(lay.mesh, cache.k.spec, cache.k.shape, c)
-        if r[1].start <= slot < r[1].stop:
-            _, k_new, v_new = qkv[src[i]]
-            for blk, new in ((cache.k.blocks[c], k_new),
-                             (cache.v.blocks[c], v_new)):
-                blk[:, slot - r[1].start] = \
-                    new[:, 0, r[2]].to(blk.device, blk.dtype)
+    slot = pos % cache.k.shape[1]
+    for g in range(lay.n_groups):
+        _, k_new, v_new = qkv[src[g * m]]
+        spmd.write_rows(lay, cache.k, g, k_new[:, 0], dim=1, index=slot)
+        spmd.write_rows(lay, cache.v, g, v_new[:, 0], dim=1, index=slot)
     if plan is None:
         h = []
         for g in range(lay.n_groups):
             dev = lay.group_dev(g)
             h.append(decode_attend(cfg, w[g], qkv[g][0],
-                                   _assemble(lay, cache.k, g, dev),
-                                   _assemble(lay, cache.v, g, dev), pos))
+                                   spmd.group_rows(lay, cache.k, g, dev),
+                                   spmd.group_rows(lay, cache.v, g, dev),
+                                   pos))
     else:
         parts = []
         for i in lay.positions():
             lo, hi = ranges[i % m]
             dev = lay.dev(i)
-            k_all = _assemble(lay, cache.k, i // m, dev)
-            v_all = _assemble(lay, cache.v, i // m, dev)
+            k_all = spmd.group_rows(lay, cache.k, i // m, dev)
+            v_all = spmd.group_rows(lay, cache.v, i // m, dev)
             parts.append(decode_attend(lcfg, w[i], qkv[i][0],
                                        k_all[:, :, lo:hi],
                                        v_all[:, :, lo:hi], pos))
         h = spmd.model_sum(lay, parts)
     return h, cache._replace(pos=pos + 1)
+
+
+def mesh_cross_decode(lay, cfg: ModelConfig, params: dict, xn: list,
+                      k, v) -> list:
+    """`fwd_decode`'s cross-attention step of one (B_g, 1, D) tensor a
+    batch group on the mesh of ``lay``, against the cross K / V (blocks
+    per `mesh_cross_kv`, or one position's tensors): each model shard
+    attends with its heads over its kv heads' block (or its kv head of
+    the group's K / V gathered from the blocks) and the ``wo`` partials
+    are summed. One output a group."""
+    from repro_torch.distributed import spmd
+    dtype = xn[0].dtype
+    plan = mesh_plan(cfg, lay.n_model)
+    if plan is None:
+        w = spmd.gather_tree(lay, params, dtype=dtype, users=lay.owners())
+        return [fwd_decode(cfg, w[g], xn[g], None, cross_kv=(
+            spmd.group_rows(lay, k, g), spmd.group_rows(lay, v, g)))[0]
+            for g in range(lay.n_groups)]
+    lcfg, keep, ranges = plan
+    w = spmd.gather_tree(lay, params, dtype=dtype, keep=keep)
+    xs = spmd.replicate(lay, xn)
+    parts = []
+    for i, c in enumerate(lay.coords):
+        rng = ranges[i % lay.n_model]
+        if rng is None:
+            kv = (k, v) if lay.single else (k.blocks[c], v.blocks[c])
+            cfg_i = lcfg
+        else:
+            g, dev = i // lay.n_model, lay.dev(i)
+            kv = tuple(spmd.group_rows(lay, x, g, dev)[:, :, rng[0]:rng[1]]
+                       for x in (k, v))
+            cfg_i = dataclasses.replace(lcfg, num_kv_heads=rng[1] - rng[0])
+        parts.append(fwd_decode(cfg_i, w[i], xs[i], None, cross_kv=kv)[0])
+    return spmd.model_sum(lay, parts)

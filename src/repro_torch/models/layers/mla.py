@@ -165,38 +165,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _decode_common(cfg, params, x, cache, donate):
     pos = int(cache.pos)
-    p_now = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _project_q(cfg, params, x, p_now)
-    c_new, kr_new = _project_kv_latent(cfg, params, x, p_now)
+    q_nope, q_rope = _decode_q(cfg, params, x, pos)
+    c_new, kr_new = _decode_latent(cfg, params, x, pos)
     c_kv = cache.c_kv if donate else cache.c_kv.clone()
     k_rope = cache.k_rope if donate else cache.k_rope.clone()
-    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
-    new_cache = MLACache(c_kv=c_kv, k_rope=k_rope, pos=pos + 1)
-    s_mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
-    return q_nope[:, 0], q_rope[:, 0], new_cache, s_mask
+    c_kv[:, pos] = c_new.to(c_kv.dtype)
+    k_rope[:, pos] = kr_new.to(k_rope.dtype)
+    return q_nope, q_rope, MLACache(c_kv=c_kv, k_rope=k_rope, pos=pos + 1)
+
+
+def _decode_q(cfg, params, x, pos: int):
+    """The decode token's q_nope (B,H,nope), q_rope (B,H,rope)."""
+    p_now = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _project_q(cfg, params, x, p_now)
+    return q_nope[:, 0], q_rope[:, 0]
+
+
+def _decode_latent(cfg, params, x, pos: int):
+    """The decode token's latent (B,kv_lora) and rope key (B,rope)."""
+    p_now = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    c_new, kr_new = _project_kv_latent(cfg, params, x, p_now)
+    return c_new[:, 0], kr_new[:, 0]
 
 
 def fwd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                cache: MLACache, *, donate: bool = False
                ) -> tuple[torch.Tensor, MLACache]:
     """Naive decode: expand K/V from latent for every cached position."""
-    m = cfg.mla
-    h = cfg.num_heads
-    b = x.shape[0]
-    dtype = x.dtype
-    f32 = torch.float32
-    qn, qr, cache, s_mask = _decode_common(cfg, params, x, cache, donate)
-    k_nope, v = _expand_kv(cfg, params, cache.c_kv.to(dtype))
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    s = (torch.einsum("bhe,bshe->bhs", qn.to(f32), k_nope.to(f32))
-         + torch.einsum("bhr,bsr->bhs", qr.to(f32),
-                        cache.k_rope.to(f32))) * scale
-    s = torch.where(s_mask[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhs,bshv->bhv", p, v.to(f32))
-    out = o.reshape(b, 1, h * m.v_head_dim).to(dtype)
-    return out @ params["wo"].to(dtype), cache
+    qn, qr, cache = _decode_common(cfg, params, x, cache, donate)
+    return _attend(cfg, params, qn, qr, cache.c_kv, cache.k_rope,
+                   cache.pos - 1, x.dtype, absorbed=False), cache
 
 
 def fwd_decode_absorbed(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -205,26 +203,137 @@ def fwd_decode_absorbed(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """Absorbed decode: attend in latent space; W_uk folds into q, W_uv into
     the output head, in float32. FLOPs per step drop from O(S*r*H*(nope+v))
     to O(S*H*(r+rope))."""
+    qn, qr, cache = _decode_common(cfg, params, x, cache, donate)
+    return _attend(cfg, params, qn, qr, cache.c_kv, cache.k_rope,
+                   cache.pos - 1, x.dtype, absorbed=True), cache
+
+
+def _attend(cfg: ModelConfig, params: dict, qn, qr, c_kv, k_rope,
+            pos: int, dtype, *, absorbed: bool) -> torch.Tensor:
+    """The decode token's heads (``cfg.num_heads``, the weights' columns)
+    against the latent cache that holds positions 0..``pos``, through
+    ``wo``: (B, 1, D)."""
     m = cfg.mla
     h = cfg.num_heads
-    b = x.shape[0]
-    dtype = x.dtype
+    b = qn.shape[0]
     f32 = torch.float32
-    qn, qr, cache, s_mask = _decode_common(cfg, params, x, cache, donate)
-    wkv_up = params["wkv_up"].to(f32).reshape(
-        m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
-    w_uk = wkv_up[..., :m.qk_nope_head_dim]                # (r, H, nope)
-    w_uv = wkv_up[..., m.qk_nope_head_dim:]                # (r, H, v)
-    # fold: q_lat[b,h,r] = sum_e q_nope[b,h,e] * w_uk[r,h,e]
-    q_lat = torch.einsum("bhe,rhe->bhr", qn.to(f32), w_uk)
+    s_mask = torch.arange(c_kv.shape[1], device=qn.device) <= pos
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    c = cache.c_kv.to(f32)
-    s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
-         + torch.einsum("bhr,bsr->bhs", qr.to(f32),
-                        cache.k_rope.to(f32))) * scale
-    s = torch.where(s_mask[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", p, c)             # latent output
-    o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv)          # absorbed W_uv
+    if absorbed:
+        wkv_up = params["wkv_up"].to(f32).reshape(
+            m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+        w_uk = wkv_up[..., :m.qk_nope_head_dim]            # (r, H, nope)
+        w_uv = wkv_up[..., m.qk_nope_head_dim:]            # (r, H, v)
+        # fold: q_lat[b,h,r] = sum_e q_nope[b,h,e] * w_uk[r,h,e]
+        q_lat = torch.einsum("bhe,rhe->bhr", qn.to(f32), w_uk)
+        c = c_kv.to(f32)
+        s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
+             + torch.einsum("bhr,bsr->bhs", qr.to(f32),
+                            k_rope.to(f32))) * scale
+        s = torch.where(s_mask[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", p, c)         # latent output
+        o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv)      # absorbed W_uv
+    else:
+        k_nope, v = _expand_kv(cfg, params, c_kv.to(dtype))
+        s = (torch.einsum("bhe,bshe->bhs", qn.to(f32), k_nope.to(f32))
+             + torch.einsum("bhr,bsr->bhs", qr.to(f32),
+                            k_rope.to(f32))) * scale
+        s = torch.where(s_mask[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhs,bshv->bhv", p, v.to(f32))
     out = o.reshape(b, 1, h * m.v_head_dim).to(dtype)
-    return out @ params["wo"].to(dtype), cache
+    return out @ params["wo"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (`distributed.spmd`): whole query heads a model shard
+# ---------------------------------------------------------------------------
+
+_KEEP = {"wq_up": (1,), "wkv_up": (1,), "wo": (0,)}
+
+
+def splits(lay, cfg: ModelConfig, params: dict) -> bool:
+    """Whether the block runs head-split on ``lay``: one shard, or whole
+    query heads a model shard (H divisible by M, ``wq_up``'s columns
+    split over ``model``); else it runs whole on each batch group's
+    owner."""
+    from repro_torch.distributed import spmd
+    return lay.n_model == 1 or (cfg.num_heads % lay.n_model == 0
+                                and spmd.splits_model(params["wq_up"], 1))
+
+
+def _shard(lay, cfg: ModelConfig, params: dict, dtype, *,
+           absorbed: bool = False):
+    """(the shard's config, each position's weights): ``wq_up`` /
+    ``wkv_up``'s columns and ``wo``'s rows of the shard's heads, the
+    down projections and norms gathered whole. The matrices are cast to
+    ``dtype`` before the gather, as the layer casts them at use; the
+    norms' scales stay float32, and ``wkv_up`` too for the absorbed
+    decode, which reads it in float32."""
+    import dataclasses
+
+    from repro_torch.distributed import spmd
+    lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // lay.n_model)
+    cast = ("wq_down", "wq_up", "wkv_down", "wo") \
+        + (() if absorbed else ("wkv_up",))
+    a = spmd.gather_tree(lay, {k: params[k] for k in cast}, dtype=dtype,
+                         keep=_KEEP)
+    b = spmd.gather_tree(lay, {k: v for k, v in params.items()
+                               if k not in cast}, keep=_KEEP)
+    return lcfg, [{**x, **y} for x, y in zip(a, b)]
+
+
+def mesh_full(lay, cfg: ModelConfig, params: dict, xn: list, *,
+              q_block: int = 512, kv_block: int = 1024,
+              fill: tuple | None = None):
+    """`fwd_full` of one (B_g, T, D) tensor a batch group on the mesh of
+    ``lay`` (`splits`): each model shard computes its H / M heads (the
+    shared latent on every shard) and the shards' ``wo`` partials are
+    summed. Returns (one output a group, with ``fill`` = (max_len, cache
+    dtype) the latent cache as blocks per `cache_shardings`: batch over
+    the groups, the sequence over ``model`` where it divides; else
+    None)."""
+    from repro_torch.distributed import spmd
+    lcfg, w = _shard(lay, cfg, params, xn[0].dtype)
+    xs = spmd.replicate(lay, xn)
+    outs = [fwd_full(lcfg, w[i], xs[i], q_block=q_block, kv_block=kv_block,
+                     return_latent=fill is not None)
+            for i in lay.positions()]
+    if fill is None:
+        return spmd.model_sum(lay, outs), None
+    h = spmd.model_sum(lay, [o[0] for o in outs])
+    caches = [fill_cache(cfg, *outs[i][1], fill[0], fill[1])
+              for i in lay.owners()]
+    return h, spmd.place_state(lay, caches)
+
+
+def mesh_decode(lay, cfg: ModelConfig, params: dict, xn: list,
+                cache: MLACache):
+    """One decode step (`fwd_decode_absorbed` where ``cfg.mla_absorbed``,
+    else `fwd_decode`) on the mesh of ``lay`` (`splits`): each group's
+    owner writes the token's latent into the block that holds its
+    position, each shard attends with its heads over its group's cache
+    (gathered from the blocks) and the ``wo`` partials are summed.
+    Returns (one output a group, the cache)."""
+    from repro_torch.distributed import spmd
+    dtype = xn[0].dtype
+    pos = int(cache.pos)
+    absorbed = cfg.mla_absorbed
+    lcfg, w = _shard(lay, cfg, params, dtype, absorbed=absorbed)
+    xs = spmd.replicate(lay, xn)
+    q = [_decode_q(lcfg, w[i], xs[i], pos) for i in lay.positions()]
+    for g, i in enumerate(lay.owners()):
+        c_new, kr_new = _decode_latent(lcfg, w[i], xs[i], pos)
+        spmd.write_rows(lay, cache.c_kv, g, c_new.to(cache.c_kv.dtype),
+                        dim=1, index=pos)
+        spmd.write_rows(lay, cache.k_rope, g,
+                        kr_new.to(cache.k_rope.dtype), dim=1, index=pos)
+    parts = []
+    for i in lay.positions():
+        g, dev = i // lay.n_model, lay.dev(i)
+        parts.append(_attend(lcfg, w[i], *q[i],
+                             spmd.group_rows(lay, cache.c_kv, g, dev),
+                             spmd.group_rows(lay, cache.k_rope, g, dev),
+                             pos, dtype, absorbed=absorbed))
+    return spmd.model_sum(lay, parts), cache._replace(pos=pos + 1)

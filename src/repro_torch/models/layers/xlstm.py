@@ -175,27 +175,39 @@ def _conv_silu(params, x, history=None):
     return F.silu(out + params["conv_b"].to(x.dtype)), xx[:, t:]
 
 
-def _mlstm_qkvg(cfg, params, xn, conv_hist=None):
-    b, t, d = xn.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+def _mlstm_in(params, xn, conv_hist=None):
+    """(up, gate, the conv output cx, the new conv history) of the
+    channels whose columns ``params`` holds."""
     dtype = xn.dtype
-    f32 = torch.float32
     up = xn @ fsdp_use(params["w_up"], "w_up", dtype)
     gate = xn @ fsdp_use(params["w_gate"], "w_gate", dtype)
     cx, new_hist = _conv_silu(params, up, conv_hist)
+    return up, gate, cx, new_hist
+
+
+def _mlstm_qkvg(cfg, params, cx, up, lo: int = 0):
+    """q (pre-scaled), k, v (B,H,T,hd) f32 of the ``cfg.num_heads`` heads
+    whose columns ``params`` holds (heads ``lo`` on of the ``w_if``'s)
+    from the full-width cx and up, and their log gates (B,H,T)."""
+    b, t, _ = cx.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    h_all = params["w_if"].shape[-1] // 2
+    dtype = cx.dtype
+    f32 = torch.float32
     q = (cx @ fsdp_use(params["wq"], "wq", dtype)).reshape(b, t, h, hd)
     k = (cx @ fsdp_use(params["wk"], "wk", dtype)).reshape(b, t, h, hd)
     v = (up @ fsdp_use(params["wv"], "wv", dtype)).reshape(b, t, h, hd)
-    # in the compute dtype, then float32 (the reference's order)
+    # in the compute dtype, then float32 (the reference's order); every
+    # head's gates, then this shard's
     gif = (cx @ params["w_if"].to(dtype) + params["b_if"].to(dtype)).to(f32)
-    log_i = gif[..., :h]
-    log_f = F.logsigmoid(gif[..., h:])
+    log_i = gif[..., :h_all][..., lo:lo + h]
+    log_f = F.logsigmoid(gif[..., h_all:])[..., lo:lo + h]
 
     def tb(x):                                           # (B,H,T,hd) f32
         return x.transpose(1, 2).to(f32)
 
     return (tb(q) * hd ** -0.5, tb(k), tb(v),
-            log_i.transpose(1, 2), log_f.transpose(1, 2), gate, new_hist)
+            log_i.transpose(1, 2), log_f.transpose(1, 2))
 
 
 def mlstm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
@@ -205,7 +217,8 @@ def mlstm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     h, hd = cfg.num_heads, cfg.head_dim
     dtype = x.dtype
     xn = norms.apply("layernorm", params["ln"], x)
-    q, k, v, li, lf, gate, hist = _mlstm_qkvg(cfg, params, xn)
+    up, gate, cx, hist = _mlstm_in(params, xn)
+    q, k, v, li, lf = _mlstm_qkvg(cfg, params, cx, up)
     hs, (c, n, m) = mlstm_chunkwise(q, k, v, li, lf, chunk=min(chunk, t))
     hs = hs.transpose(1, 2).reshape(b, t, h * hd).to(dtype)
     hs = norms.apply("rmsnorm", params["gn"], hs)          # per-channel GN
@@ -237,8 +250,8 @@ def mlstm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     h, hd = cfg.num_heads, cfg.head_dim
     dtype = x.dtype
     xn = norms.apply("layernorm", params["ln"], x)
-    q, k, v, li, lf, gate, hist = _mlstm_qkvg(
-        cfg, params, xn, state.conv.to(dtype))
+    up, gate, cx, hist = _mlstm_in(params, xn, state.conv.to(dtype))
+    q, k, v, li, lf = _mlstm_qkvg(cfg, params, cx, up)
     hs, (c, n, m) = mlstm_recurrent(q, k, v, li, lf,
                                     state=(state.c, state.n, state.m))
     hs = hs.transpose(1, 2).reshape(b, 1, h * hd).to(dtype)
@@ -246,6 +259,188 @@ def mlstm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     out = (hs * F.silu(gate)) @ fsdp_use(params["w_down"], "w_down", dtype)
     return out, MLSTMState(c=c, n=n, m=m, conv=hist.to(state.conv.dtype),
                            pos=state.pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM on a mesh (`distributed.spmd`): whole heads a model shard
+# ---------------------------------------------------------------------------
+
+# the model split each weight keeps: the up / gate / conv channels and
+# the q / k / v heads (columns), the down projection's rows
+_KEEP = {"w_up": (1,), "w_gate": (1,), "conv_w": (1,), "wq": (1,),
+         "wk": (1,), "wv": (1,), "w_down": (0,)}
+_CAST = ("w_up", "w_gate", "conv_w", "wq", "wk", "wv", "w_if", "w_down")
+
+
+def mlstm_splits(lay, cfg: ModelConfig, params: dict) -> bool:
+    """Whether the mLSTM block runs head-split on ``lay``: one shard, or
+    whole heads a model shard (H divisible by M, ``w_up``'s and ``wq``'s
+    columns split over ``model``); else (xlstm-125m's smoke config has 2
+    heads) it runs whole on each batch group's owner, its matrix state's
+    head_dim rows split over ``model`` as `cache_shardings` says."""
+    from repro_torch.distributed import spmd
+    return lay.n_model == 1 or (
+        cfg.num_heads % lay.n_model == 0
+        and spmd.splits_model(params["w_up"], 1)
+        and spmd.splits_model(params["wq"], 1))
+
+
+def _mlstm_shard(lay, cfg: ModelConfig, params: dict, dtype):
+    """(the shard's config, the group owners' layer norms, each
+    position's weights: its channels and heads, ``w_if`` gathered whole,
+    its slices of the replicated ``conv_b`` and ``gn`` scale)."""
+    import dataclasses
+
+    from repro_torch.distributed import spmd
+    m = lay.n_model
+    lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // m)
+    ln = spmd.gather_tree(lay, params["ln"], users=lay.owners())
+    a = spmd.gather_tree(lay, {k: params[k] for k in _CAST}, dtype=dtype,
+                         keep=_KEEP)
+    b = spmd.gather_tree(lay, {k: params[k] for k in ("conv_b", "b_if",
+                                                      "gn")}, keep=_KEEP)
+    w = []
+    for i in lay.positions():
+        p = {**a[i], **b[i]}
+        dl = p["w_up"].shape[-1]
+        sl = slice((i % m) * dl, (i % m + 1) * dl)
+        w.append(dict(p, conv_b=p["conv_b"][..., sl],
+                      gn={"scale": p["gn"]["scale"][..., sl]}))
+    return lcfg, ln, w
+
+
+def _split_rms(lay, w: list, parts: list, eps: float = 1e-6) -> list:
+    """``gn`` (an RMS norm over all H * hd channels) of one channel-split
+    share a position: the shares' sums of squares folded over ``model``
+    into the one statistic, each share scaled by its channels' scale."""
+    from repro_torch.distributed import spmd
+    if lay.n_model == 1:
+        return [norms.apply("rmsnorm", p["gn"], x, eps=eps)
+                for p, x in zip(w, parts)]
+    f32 = torch.float32
+    width = parts[0].shape[-1] * lay.n_model
+    tot = spmd.model_allsum(lay, [torch.sum(torch.square(x.to(f32)), -1,
+                                            keepdim=True) for x in parts])
+    return [(x.to(f32) * torch.rsqrt(s / width + eps)
+             * p["gn"]["scale"].to(f32)).to(x.dtype)
+            for p, x, s in zip(w, parts, tot)]
+
+
+def _mlstm_mesh(lay, cfg, params, xg, cell, hist=None):
+    """The mLSTM block on the mesh: the layer norm on each group's owner,
+    each shard's channels of up / gate / conv, cx and up gathered over
+    ``model`` (q / k read every channel), the shard's heads through
+    ``cell(i, q, k, v, log_i, log_f)`` -> (h (B,H/M,T,hd), state), the
+    ``gn`` statistic folded over ``model``, the ``w_down`` partials
+    summed. Returns (one output a group, each position's cell state, each
+    position's new conv history)."""
+    from repro_torch.distributed import spmd
+    dtype = xg[0].dtype
+    lcfg, ln, w = _mlstm_shard(lay, cfg, params, dtype)
+    xn = [norms.apply("layernorm", ln[g], x) for g, x in enumerate(xg)]
+    xs = spmd.replicate(lay, xn)
+    ins = [_mlstm_in(w[i], xs[i], None if hist is None else hist[i])
+           for i in lay.positions()]
+    cx = spmd.model_gather(lay, [x[2] for x in ins], -1)
+    up = spmd.model_gather(lay, [x[0] for x in ins], -1)
+    hs, states = [], []
+    for i in lay.positions():
+        qkvg = _mlstm_qkvg(lcfg, w[i], cx[i], up[i],
+                           lo=(i % lay.n_model) * lcfg.num_heads)
+        h, st = cell(i, *qkvg)
+        b, _, t, hd = h.shape
+        hs.append(h.transpose(1, 2).reshape(b, t, -1).to(dtype))
+        states.append(st)
+    hs = _split_rms(lay, w, hs)
+    out = spmd.model_sum(lay, [
+        (h * F.silu(x[1])) @ fsdp_use(p["w_down"], "w_down", dtype)
+        for h, x, p in zip(hs, ins, w)])
+    return out, states, [x[3] for x in ins]
+
+
+def _group_cat(lay, parts: list, g: int, dim: int) -> torch.Tensor:
+    """Group ``g``'s positions' shares concatenated along ``dim`` on its
+    owner (no autograd: a cache's replicated leaf)."""
+    m = lay.n_model
+    dev = lay.group_dev(g)
+    return torch.cat([p.to(dev) for p in parts[g * m:(g + 1) * m]], dim)
+
+
+def mesh_mlstm_full(lay, cfg: ModelConfig, params: dict, xg: list, *,
+                    chunk: int = 256, fill: bool = False):
+    """`mlstm_block` of one (B_g, T, D) tensor a batch group on the mesh
+    of ``lay`` (`mlstm_splits`; `_mlstm_mesh`). Returns (one output a
+    group, with ``fill`` the final state as blocks per `cache_shardings`:
+    C and n each shard's heads, m and the conv history whole on each
+    position; else None)."""
+    t = xg[0].shape[1]
+
+    def cell(i, q, k, v, li, lf):
+        return mlstm_chunkwise(q, k, v, li, lf, chunk=min(chunk, t))
+
+    out, states, hists = _mlstm_mesh(lay, cfg, params, xg, cell)
+    if not fill:
+        return out, None
+    f32 = torch.float32
+    if lay.single:
+        (c, n, m), = states
+        return out, MLSTMState(c=c, n=n, m=m, conv=hists[0].to(f32), pos=t)
+    from repro_torch.distributed import spmd
+    c0, n0, _ = states[0]
+    groups = range(lay.n_groups)
+    m_rows = [_group_cat(lay, [s[2] for s in states], g, -1) for g in groups]
+    conv_rows = [_group_cat(lay, hists, g, -1).to(f32) for g in groups]
+    tmpl = MLSTMState(
+        c=torch.empty((c0.shape[0], cfg.num_heads, *c0.shape[2:]),
+                      device="meta"),
+        n=torch.empty((n0.shape[0], cfg.num_heads, n0.shape[2]),
+                      device="meta"), m=m_rows[0], conv=conv_rows[0], pos=t)
+    specs = spmd.state_specs(lay, tmpl)
+    g_rows = c0.shape[0] * lay.n_groups
+    return out, MLSTMState(
+        c=spmd.place_blocks(lay, specs.c, (g_rows, *tmpl.c.shape[1:]),
+                            [s[0] for s in states]),
+        n=spmd.place_blocks(lay, specs.n, (g_rows, *tmpl.n.shape[1:]),
+                            [s[1] for s in states]),
+        m=spmd.place_rows(lay, specs.m, m_rows),
+        conv=spmd.place_rows(lay, specs.conv, conv_rows), pos=t)
+
+
+def mesh_mlstm_decode(lay, cfg: ModelConfig, params: dict, xg: list,
+                      state: MLSTMState):
+    """`mlstm_block_decode` on the mesh of ``lay`` (`mlstm_splits`): each
+    shard steps its heads' C and n blocks in place; m and the conv
+    history, whole on every position, are written back from the shards'
+    shares. Returns (one output a group, the state)."""
+    from repro_torch.distributed import spmd
+    m = lay.n_model
+    hl = cfg.num_heads // m
+    dtype = xg[0].dtype
+
+    def block(leaf, i):
+        return leaf if lay.single else leaf.blocks[lay.coords[i]]
+
+    conv = [block(state.conv, i) for i in lay.positions()]
+    dl = conv[0].shape[-1] // m
+    hist = [conv[i][..., (i % m) * dl:(i % m + 1) * dl].to(dtype)
+            for i in lay.positions()]
+
+    def cell(i, q, k, v, li, lf):
+        j = i % m
+        return mlstm_recurrent(q, k, v, li, lf, state=(
+            block(state.c, i), block(state.n, i),
+            block(state.m, i)[:, j * hl:(j + 1) * hl]))
+
+    out, states, hists = _mlstm_mesh(lay, cfg, params, xg, cell, hist)
+    for i, (c, n, _) in enumerate(states):
+        block(state.c, i).copy_(c)
+        block(state.n, i).copy_(n)
+    for g in range(lay.n_groups):
+        spmd.write_rows(lay, state.m, g,
+                        _group_cat(lay, [s[2] for s in states], g, -1))
+        spmd.write_rows(lay, state.conv, g, _group_cat(lay, hists, g, -1)
+                        .to(state.conv.dtype))
+    return out, state._replace(pos=state.pos + 1)
 
 
 # ---------------------------------------------------------------------------

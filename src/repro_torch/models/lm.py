@@ -31,11 +31,17 @@ every collective of `distributed.spmd` is the identity and the program
 is the one-device program op for op. Activations travel as one tensor a
 batch group (`forward`, `prefill` and `decode_step` take and return such
 a list on a mesh, a tensor on one device); norms run on each group's
-owner, attention, the MLP and the MoE experts on every model shard with
-the shards' partial outputs summed (`attention.mesh_full` /
-`mesh_decode`, `mlp.mesh_apply`, `moe.mesh_apply`). The attention
-decoders run on any mesh; the other mixers on one position
-(`check_mesh_support`, ROADMAP Queue 1 item 5e).
+owner, the mixers, the MLP and the MoE experts on every model shard with
+the shards' partial outputs summed: attention and MLA by whole heads
+(`attention.mesh_full` / `mesh_decode`, `mla.mesh_full` /
+`mesh_decode`), the RG-LRU by channels (`rglru.mesh_full` /
+`mesh_decode`), the mLSTM by whole heads (`xlstm.mesh_mlstm_full` /
+`mesh_mlstm_decode`), `mlp.mesh_apply`, `moe.mesh_apply`. A mixer whose
+heads or channels do not split over the model axis, and the sLSTM (each
+channel's gates read other heads' state), runs whole on each group's
+owner from its gathered weights (`_owner_full` / `_owner_decode`). Every
+config runs on any mesh; the decode caches are blocks per
+`partitioning.cache_shardings`.
 """
 from __future__ import annotations
 
@@ -57,6 +63,13 @@ from repro_torch.models.layers import xlstm
 
 Params = Any
 Cache = Any
+
+
+def _groups(x) -> tuple:
+    """(one tensor a batch group, whether ``x`` was one tensor): a mesh
+    program's activations, or one device's tensor as its one group."""
+    one = isinstance(x, torch.Tensor)
+    return ([x] if one else list(x)), one
 
 
 def _tree_map(fn, tree):
@@ -147,6 +160,15 @@ def _stack_empty(t, n: int):
         out = t.map(lambda b: b.new_empty((n, *b.shape)))
         return Placed(t.mesh, P(None, *t.spec), (n, *t.shape), out.blocks)
     return t.new_empty((n, *t.shape))
+
+
+def _stack(entries: list):
+    """Cache entries of one structure (tensors or `Placed` leaves) stacked
+    on a new leading axis, the ``pos`` of the first."""
+    out = _stacked_map(lambda a: _stack_empty(a, len(entries)), entries[0])
+    for u, c in enumerate(entries):
+        _copy_into(_unit(out, u), c)
+    return out
 
 
 def _copy_into(dst, src) -> None:
@@ -284,8 +306,7 @@ def forward(cfg: ModelConfig, params: Params, x, *,
     ``jax.checkpoint(unit_fn)`` in its scan); the dense prefix and the tail
     are not rematerialised."""
     lay = program_layout(cfg, params)
-    one = isinstance(x, torch.Tensor)
-    xg = [x] if one else list(x)
+    xg, one = _groups(x)
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
     kw = dict(prefix_len=prefix_len, q_block=q_block, kv_block=kv_block)
@@ -327,23 +348,6 @@ def forward(cfg: ModelConfig, params: Params, x, *,
 # the program on a mesh (`distributed.spmd`)
 # ---------------------------------------------------------------------------
 
-MESH_ITEM = "ROADMAP Queue 1 item 5e"
-
-
-def check_mesh_support(cfg: ModelConfig, mesh) -> None:
-    """Raise unless ``cfg``'s model runs on ``mesh`` (None or one position:
-    every model; more: attention decoders, no MLA)."""
-    if mesh is None or mesh.size == 1:
-        return
-    if cfg.family == "audio" or cfg.mla is not None \
-            or set(cfg.layer_kinds()) != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name} on {mesh}: the port places the attention decoders "
-            f"(GQA / MQA attention, dense and MoE feed-forward) on a mesh; "
-            f"MLA, RG-LRU, xLSTM and the encoder-decoder run on one "
-            f"position until {MESH_ITEM}")
-
-
 @functools.lru_cache(maxsize=16)
 def _one_device_layout(dev: torch.device) -> spmd.Layout:
     return spmd.layout(one_device_mesh(dev))
@@ -356,7 +360,6 @@ def program_layout(cfg: ModelConfig, params: Params) -> spmd.Layout:
     must lie on its mesh."""
     leaf = params["embedding"]["embed"]
     if isinstance(leaf, Placed):
-        check_mesh_support(cfg, leaf.mesh)
         lay = spmd.layout(leaf.mesh)
     else:
         lay = _one_device_layout(leaf.device)
@@ -392,8 +395,9 @@ def _mlp(lay, cfg: ModelConfig, params: dict, xg: list, layer_idx: int,
 
 def _mixer_full(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
                 *, q_block: int, kv_block: int, fill: tuple | None):
-    """The mixing half of an MLA, RG-LRU or xLSTM block on one position:
-    (h, the block's decode-cache entry with ``fill``, else None)."""
+    """The mixing half of a block on one batch group's owner, from its
+    gathered weights: (h, the block's decode-cache entry with ``fill``,
+    else None)."""
     cache = None
     if kind == "attn":
         xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
@@ -422,43 +426,125 @@ def _mixer_full(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
 
 def _mixer_decode(cfg: ModelConfig, kind: str, params: dict,
                   x: torch.Tensor, cache):
-    """One decode step of an MLA, RG-LRU or xLSTM mixer on one position,
-    writing into ``cache``: (h, cache)."""
+    """One decode step of a mixer on one batch group's owner: (h, the
+    new entry; an MLA cache is written in place and returned)."""
     if kind == "attn":
         xn = norms.apply(cfg.norm_kind, params["mix_norm"], x)
         decode_fn = mla.fwd_decode_absorbed if cfg.mla_absorbed \
             else mla.fwd_decode
         return decode_fn(cfg, params["mix"], xn, cache, donate=True)
     if kind == "rglru":
-        h, new = rglru_mod.fwd_decode(
+        return rglru_mod.fwd_decode(
             cfg, params["mix"],
             norms.apply(cfg.norm_kind, params["mix_norm"], x), cache)
-    elif kind == "mlstm":
-        h, new = xlstm.mlstm_block_decode(cfg, params["mix"], x, cache)
-    elif kind == "slstm":
-        h, new = xlstm.slstm_block_decode(cfg, params["mix"], x, cache)
-    else:
-        raise ValueError(f"unknown block kind {kind!r}")
-    _copy_into(cache, new)            # the new state into the given buffers
-    return h, cache._replace(pos=new.pos)
+    if kind == "mlstm":
+        return xlstm.mlstm_block_decode(cfg, params["mix"], x, cache)
+    if kind == "slstm":
+        return xlstm.slstm_block_decode(cfg, params["mix"], x, cache)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _split_mixer(lay, cfg: ModelConfig, kind: str, params: dict) -> bool:
+    """Whether a mixer runs split over the model shards (its mesh form)
+    rather than whole on each batch group's owner: MLA by whole heads,
+    the RG-LRU by channels, the mLSTM by whole heads (`*.splits`); the
+    sLSTM never (each channel's gates read other heads' state)."""
+    if kind == "attn":
+        return mla.splits(lay, cfg, params["mix"])
+    if kind == "rglru":
+        return rglru_mod.splits(lay, params["mix"])
+    if kind == "mlstm":
+        return xlstm.mlstm_splits(lay, cfg, params["mix"])
+    return False
+
+
+def _mixing(params: dict) -> dict:
+    """A block's mixing half's parameters (its norm and mixer)."""
+    return {k: v for k, v in params.items() if k in ("mix_norm", "mix")}
+
+
+def _owner_full(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
+                *, q_block: int, kv_block: int, fill: tuple | None):
+    """A mixer whole on each batch group's owner (its weights gathered
+    there): (one output a group, the decode-cache entry placed per
+    `cache_shardings` with ``fill``)."""
+    w = spmd.gather_tree(lay, _mixing(params), users=lay.owners())
+    outs = [_mixer_full(cfg, kind, w[g], x, q_block=q_block,
+                        kv_block=kv_block, fill=fill)
+            for g, x in enumerate(xg)]
+    cache = spmd.place_state(lay, [c for _, c in outs]) \
+        if fill is not None else None
+    return [h for h, _ in outs], cache
+
+
+def _owner_decode(lay, cfg: ModelConfig, kind: str, params: dict,
+                  xg: list, cache):
+    """`_mixer_decode` on each batch group's owner, on its rows of
+    ``cache`` (assembled from the blocks), the new entry written back
+    into the blocks."""
+    w = spmd.gather_tree(lay, _mixing(params), users=lay.owners())
+    h = []
+    for g, x in enumerate(xg):
+        rows = type(cache)(*[spmd.group_rows(lay, v, g)
+                             if isinstance(v, (torch.Tensor, Placed)) else v
+                             for v in cache])
+        out, new = _mixer_decode(cfg, kind, w[g], x, rows)
+        for v, nv in zip(cache, new):
+            if isinstance(v, (torch.Tensor, Placed)):
+                spmd.write_rows(lay, v, g, nv)
+        h.append(out)
+    return h, cache._replace(pos=cache.pos + 1)
+
+
+def _mix_full(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
+              *, prefix_len: int, q_block: int, kv_block: int,
+              fill: tuple | None):
+    """The mixing half of a full-sequence block: (one output a group, the
+    decode-cache entry or None)."""
+    if kind == "attn" and cfg.mla is None:
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        return attention.mesh_full(lay, cfg, params["mix"], xn,
+                                   prefix_len=prefix_len, q_block=q_block,
+                                   kv_block=kv_block, fill=fill)
+    if not _split_mixer(lay, cfg, kind, params):
+        return _owner_full(lay, cfg, kind, params, xg, q_block=q_block,
+                           kv_block=kv_block, fill=fill)
+    if kind == "attn":
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        return mla.mesh_full(lay, cfg, params["mix"], xn, q_block=q_block,
+                             kv_block=kv_block, fill=fill)
+    if kind == "rglru":
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        return rglru_mod.mesh_full(lay, cfg, params["mix"], xn,
+                                   fill=fill is not None)
+    return xlstm.mesh_mlstm_full(lay, cfg, params["mix"], xg,
+                                 fill=fill is not None)
+
+
+def _mix_decode(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
+                cache):
+    """One decode step of a block's mixing half, writing into ``cache``:
+    (one output a group, the cache)."""
+    if kind == "attn" and cfg.mla is None:
+        xn = _norm(lay, cfg, params["mix_norm"], xg)
+        return attention.mesh_decode(lay, cfg, params["mix"], xn, cache)
+    if not _split_mixer(lay, cfg, kind, params):
+        return _owner_decode(lay, cfg, kind, params, xg, cache)
+    if kind == "mlstm":
+        return xlstm.mesh_mlstm_decode(lay, cfg, params["mix"], xg, cache)
+    xn = _norm(lay, cfg, params["mix_norm"], xg)
+    if kind == "attn":
+        return mla.mesh_decode(lay, cfg, params["mix"], xn, cache)
+    return rglru_mod.mesh_decode(lay, cfg, params["mix"], xn, cache)
 
 
 def _block_full(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
                 *, layer_idx: int, prefix_len: int, q_block: int,
                 kv_block: int, fill: tuple | None = None):
     """A full-sequence block: (xg, aux), and the block's decode cache with
-    ``fill`` = (max_len, cache dtype). The mixers beyond GQA / MQA
-    attention run on one position (`check_mesh_support`)."""
-    if kind == "attn" and cfg.mla is None:
-        xn = _norm(lay, cfg, params["mix_norm"], xg)
-        h, cache = attention.mesh_full(lay, cfg, params["mix"], xn,
-                                       prefix_len=prefix_len,
-                                       q_block=q_block, kv_block=kv_block,
-                                       fill=fill)
-    else:
-        h, cache = _mixer_full(cfg, kind, params, xg[0], q_block=q_block,
-                               kv_block=kv_block, fill=fill)
-        h = [h]
+    ``fill`` = (max_len, cache dtype)."""
+    h, cache = _mix_full(lay, cfg, kind, params, xg, prefix_len=prefix_len,
+                         q_block=q_block, kv_block=kv_block, fill=fill)
     xg, aux = _mlp(lay, cfg, params, [x + hh for x, hh in zip(xg, h)],
                    layer_idx)
     return (xg, aux) if fill is None else (xg, aux, cache)
@@ -467,12 +553,7 @@ def _block_full(lay, cfg: ModelConfig, kind: str, params: dict, xg: list,
 def _block_decode(lay, cfg: ModelConfig, kind: str, params: dict,
                   xg: list, cache, *, layer_idx: int):
     """One decode step of a block, writing into ``cache``."""
-    if kind == "attn" and cfg.mla is None:
-        xn = _norm(lay, cfg, params["mix_norm"], xg)
-        h, cache = attention.mesh_decode(lay, cfg, params["mix"], xn, cache)
-    else:
-        h, cache = _mixer_decode(cfg, kind, params, xg[0], cache)
-        h = [h]
+    h, cache = _mix_decode(lay, cfg, kind, params, xg, cache)
     xg, _ = _mlp(lay, cfg, params, [x + hh for x, hh in zip(xg, h)],
                  layer_idx, decode=True)
     return xg, cache
@@ -506,8 +587,7 @@ def prefill(cfg: ModelConfig, params: Params, x, *,
     tensor a batch group on a mesh. Returns (hidden, cache); on a mesh the
     cache's tensors are blocks per `partitioning.cache_shardings`."""
     lay = program_layout(cfg, params)
-    one = isinstance(x, torch.Tensor)
-    xg = [x] if one else list(x)
+    xg, one = _groups(x)
     plan = stack_plan(cfg)
     n_prefix = len(plan.prefix)
     t = xg[0].shape[1]
@@ -554,8 +634,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache, x, *,
     ``donate``: update ``cache``'s buffers in place (they become the
     returned cache's); otherwise ``cache`` is left as it was."""
     lay = program_layout(cfg, params)
-    one = isinstance(x, torch.Tensor)
-    xg = [x] if one else list(x)
+    xg, one = _groups(x)
     if not donate:
         cache = _tree_map(torch.clone, cache)
     plan = stack_plan(cfg)

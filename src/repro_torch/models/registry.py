@@ -85,10 +85,10 @@ def build_model(cfg: ModelConfig, *, q_block: int = 512,
     return build(cfg, q_block, kv_block, remat, torch.device(device))
 
 
-def _on(params, x):
-    """A batch array (numpy or torch) on the parameters' device."""
-    dev = params["embedding"]["embed"].device
-    return torch.as_tensor(x).to(dev)
+def _rows(lay, x) -> list:
+    """A batch array (numpy, torch or placed) as each batch group's rows
+    on its owner (`spmd.rows_of`)."""
+    return [spmd.rows_of(lay, x, g) for g in range(lay.n_groups)]
 
 
 def _generator(key, device: torch.device) -> torch.Generator:
@@ -116,9 +116,6 @@ def _build_lm(cfg: ModelConfig, q_block: int, kv_block: int,
         return lm.init_params(_generator(key, device), cfg,
                               max_positions=_MAX_LEARNED_POS
                               if cfg.learned_pos else 0)
-
-    def _rows(lay, x):
-        return [spmd.rows_of(lay, x, g) for g in range(lay.n_groups)]
 
     def _embed_inputs(params, batch):
         lay = lm.program_layout(cfg, params)
@@ -217,6 +214,9 @@ def _mesh_cross_entropy(lay, parts: list, labels: list, split: bool
 
 def _build_encdec(cfg: ModelConfig, q_block: int, kv_block: int,
                   remat: bool, device: torch.device) -> ModelAPI:
+    """The encoder-decoder API, the mesh program of `_build_lm` on
+    `models.encdec`: the frames and tokens cut into the batch groups'
+    rows, logits and the loss as there."""
     dtype = _compute_dtype(cfg)
 
     def init(key):
@@ -224,33 +224,41 @@ def _build_encdec(cfg: ModelConfig, q_block: int, kv_block: int,
                                   max_positions=_MAX_LEARNED_POS)
 
     def loss(params, batch):
-        enc_out = encdec.encode(cfg, params, _on(params, batch["frames"]),
+        lay = lm.program_layout(cfg, params)
+        enc_out = encdec.encode(cfg, params, _rows(lay, batch["frames"]),
                                 remat=remat)
-        h = encdec.decode_full(cfg, params, _on(params, batch["tokens"]),
+        h = encdec.decode_full(cfg, params, _rows(lay, batch["tokens"]),
                                enc_out, q_block=q_block, kv_block=kv_block,
                                remat=remat)
-        logits = embedding.logits(cfg, params["embedding"], h)
-        ce = cross_entropy(logits, _on(params, batch["labels"]))
+        parts, split = embedding.mesh_logits(lay, cfg, params["embedding"],
+                                             h)
+        ce = _mesh_cross_entropy(lay, parts, _rows(lay, batch["labels"]),
+                                 split)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 
     def prefill_fn(params, batch, *, max_len: int):
-        h, cache = encdec.prefill(cfg, params, _on(params, batch["frames"]),
-                                  _on(params, batch["tokens"]),
+        lay = lm.program_layout(cfg, params)
+        h, cache = encdec.prefill(cfg, params, _rows(lay, batch["frames"]),
+                                  _rows(lay, batch["tokens"]),
                                   max_len=max_len, q_block=q_block,
                                   kv_block=kv_block)
-        logits = embedding.logits(cfg, params["embedding"], h[:, -1:])
-        return logits, cache
+        parts, split = embedding.mesh_logits(lay, cfg, params["embedding"],
+                                             [hh[:, -1:] for hh in h])
+        return embedding.mesh_unshard_logits(lay, parts, split), cache
 
     def decode(params, cache, tokens, *, donate: bool = False):
         """``donate``: update ``cache`` in place (it is the returned
         cache); otherwise ``cache`` is left as it was."""
+        lay = lm.program_layout(cfg, params)
         pos = cache["pos"]
-        x = embedding.embed(cfg, params["embedding"], _on(params, tokens),
-                            positions=torch.tensor([pos]), dtype=dtype)
+        x = embedding.mesh_embed(lay, cfg, params["embedding"],
+                                 _rows(lay, tokens),
+                                 positions=torch.tensor([pos]), dtype=dtype)
         h, cache = encdec.decode_step(cfg, params, cache, x, donate=donate)
-        logits = embedding.logits(cfg, params["embedding"], h)
-        return logits, cache
+        parts, split = embedding.mesh_logits(lay, cfg, params["embedding"],
+                                             h)
+        return embedding.mesh_unshard_logits(lay, parts, split), cache
 
     def init_cache(batch, max_len):
         return encdec.init_cache(cfg, batch, max_len, device=device)

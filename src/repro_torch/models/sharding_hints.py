@@ -5,7 +5,8 @@ sharding of a few activations and of each weight at its point of use,
 under a mesh set by ``activation_sharding(mesh, mode)``. The port has no
 GSPMD: its mesh program (`models.lm` on `distributed.spmd`) places every
 activation itself -- the batch over the (pod, data) groups, the logits'
-vocabulary and the heads / hidden units over the model shards -- and
+vocabulary and the heads / channels / hidden units over the model
+shards -- and
 gathers each weight at its point of use (`spmd.gather`, cast first, then
 gathered over ``data``: the reference's FSDP gather). So here:
 

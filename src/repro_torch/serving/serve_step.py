@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from repro_torch.distributed import partitioning
 from repro_torch.distributed.partitioning import Placed
-from repro_torch.models import lm
 from repro_torch.models.registry import ModelAPI
 
 
@@ -30,7 +29,6 @@ def build_serve_fns(model: ModelAPI, mesh, *, max_len: int):
     (logits, cache)``. With ``donate_cache`` the decode step writes the
     new token into the given cache's buffers (as the reference donates
     them), otherwise it leaves the given cache as it was."""
-    lm.check_mesh_support(model.cfg, mesh)
     multi = mesh is not None and mesh.size > 1
 
     def _check_batch(what, n, batch_size):

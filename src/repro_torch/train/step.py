@@ -30,7 +30,6 @@ import torch
 from repro_torch import _tree
 from repro_torch.distributed import partitioning, spmd
 from repro_torch.distributed.partitioning import NamedSharding, P, Placed
-from repro_torch.models import lm
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim import AdamW, AdamWState
 from repro_torch.optim import compression as comp
@@ -128,7 +127,6 @@ def build_train_step(model: ModelAPI, optimizer: AdamW, mesh, *,
     moments are the given state's tensors, updated in place, and the
     gradients are freed once applied; otherwise the given state is left
     as it was. Both give the same bits."""
-    lm.check_mesh_support(model.cfg, mesh)
     multi = mesh is not None and mesh.size > 1
 
     def grads_of(params, batch):

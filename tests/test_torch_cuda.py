@@ -1421,15 +1421,16 @@ def test_train_step_on_card_matches_cpu(arch, monkeypatch):
     loss and grad_norm within 1e-5 relative, the update criterion
     ||dp_card - dp_cpu|| / ||dp_cpu|| per leaf within 1e-2. Whisper's
     decoder runs in bfloat16 at any compute dtype (the reference's
-    design); its embedding's default dtype is lifted to float32 here, as
+    design); its embedding's default dtype (`embedding.mesh_embed`'s, the
+    decoder's lookup) is lifted to float32 here, as
     `tests/test_torch_train_grads_mixers.py` does against JAX."""
     dev = _card()
     import functools
 
     from repro_torch import _tree
     from repro_torch.models.layers import embedding
-    monkeypatch.setattr(embedding, "embed", functools.partial(
-        embedding.embed, dtype=torch.float32))
+    monkeypatch.setattr(embedding, "mesh_embed", functools.partial(
+        embedding.mesh_embed, dtype=torch.float32))
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models.lm import _tree_map
     from repro_torch.train import TrainState, build_train_step

@@ -724,9 +724,10 @@ def test_remaining_mixers_build_and_serve_on_cpu(arch, kinds):
 
 
 def test_a_mesh_beyond_one_device_is_refused():
-    """A mesh beyond one device is refused only by the mixers that stay on
-    one position (ROADMAP Queue 1 item 5e); an attention decoder serves on
-    it (`tests/test_torch_lm_mesh.py` holds the numbers), and the sharding
+    """A mesh beyond one device is refused by no config any more (the
+    mixers took one with ROADMAP Queue 1 item 5e): an attention decoder
+    and a mixer serve on it (`tests/test_torch_lm_mesh.py` and
+    `tests/test_torch_mixers_mesh.py` hold the numbers), and the sharding
     context takes any mesh."""
     model = build_model(get_smoke_config("olmo-1b"), device="cpu")
     mesh = make_mesh((2, 1), ("data", "model"),
@@ -738,8 +739,10 @@ def test_a_mesh_beyond_one_device_is_refused():
         logits, cache = prefill_for(2)(params, {"tokens": toks})
     assert tuple(logits.shape) == (2, 1, 256) and cache["pos"] == 4
     mixer = build_model(get_smoke_config("minicpm3-4b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        build_serve_fns(mixer, mesh, max_len=8)
+    prefill_for, _ = build_serve_fns(mixer, mesh, max_len=8)
+    with activation_sharding(mesh):
+        logits, cache = prefill_for(2)(mixer.init(0), {"tokens": toks})
+    assert tuple(logits.shape) == (2, 1, 256) and cache["pos"] == 4
     with activation_sharding(one_device_mesh("cpu"), "decode"):
         pass
     with activation_sharding(None):

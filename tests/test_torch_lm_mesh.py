@@ -18,8 +18,8 @@ held at the float32 tolerance of `tests/test_torch_lm.py` (rtol 1e-4, atol
 to neighbouring bfloat16 values). The port's own contracts: meshes
 against its one-device answers (float32 tolerance; bfloat16 at 2e-2,
 5e-2 for MoE), blocks on their positions with their specs' shapes, the
-donated and the kept decode bitwise, and the mixers that stay on one
-position refusing a mesh (ROADMAP Queue 1 item 5e).
+donated and the kept decode bitwise, and the mixers (MLA, RG-LRU, xLSTM,
+the encoder-decoder) taking a mesh.
 """
 import dataclasses
 import functools
@@ -277,12 +277,26 @@ def test_donated_and_kept_decode_agree_bitwise_on_a_mesh():
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b",
                                   "xlstm-125m", "whisper-small"])
 def test_mixers_refuse_a_mesh_citing_item_5e(arch):
-    model = build_model(get_smoke_config(arch), device="meta")
+    """The mixers that once refused a mesh (ROADMAP Queue 1 item 5e, now
+    done) take one: `build_serve_fns` and `build_train_step` accept a
+    (2, 1) mesh, and the prefill serves on its CPU shards, the cache
+    placed on them (`tests/test_torch_mixers_mesh.py` holds the
+    numbers)."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, q_block=8, kv_block=8, device="cpu")
     mesh = _mesh((2, 1))
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        build_serve_fns(model, mesh, max_len=8)
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        build_train_step(model, adamw(1e-3), mesh)
+    prefill_for, _ = build_serve_fns(model, mesh, max_len=8)
+    build_train_step(model, adamw(1e-3), mesh)
+    batch = {"tokens": np.zeros((2, 4), np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = np.zeros((2, cfg.encoder.num_positions,
+                                    cfg.d_model), np.float32)
+    with activation_sharding(mesh):
+        logits, cache = prefill_for(2)(model.init(0), batch)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all()) and cache["pos"] == 4
+    assert all(isinstance(x, part.Placed) or isinstance(x, int)
+               for x in _tree.leaves(cache))
 
 
 def test_a_batch_that_does_not_split_over_the_groups_is_refused():

@@ -5,8 +5,8 @@ and tolerances of `test_torch_train_grads.py`.
 
 Whisper's decoder runs in bfloat16 at any compute dtype in both packages
 (the reference's `encdec.decode_full` embeds the decoder's tokens at
-`embedding.embed`'s default dtype), so its float32 case lifts that
-default to float32 in both packages alike (a wrapper, in the test only)
+`embedding.embed`'s default dtype, the port's at `embedding.mesh_embed`'s),
+so its float32 case lifts that default to float32 in both packages alike (a wrapper, in the test only)
 and is held to the float32 bounds; the model as it is, with its bfloat16
 decoder, is held to the loss at rtol 1e-4 and the gradients at 3e-2 of
 each leaf's largest (bfloat16 rounding, in both packages).
@@ -32,9 +32,12 @@ def test_float32_gradients_match_reference(arch):
 
 
 def test_whisper_float32_gradients_match_reference(monkeypatch):
-    for mod, f32 in ((ref_encdec, jnp.float32), (encdec, torch.float32)):
-        monkeypatch.setattr(mod.embedding, "embed", functools.partial(
-            mod.embedding.embed, dtype=f32))
+    # the port's decoder embeds through `embedding.mesh_embed` (the mesh
+    # program's lookup), at its default dtype
+    for mod, name, f32 in ((ref_encdec, "embed", jnp.float32),
+                           (encdec, "mesh_embed", torch.float32)):
+        monkeypatch.setattr(mod.embedding, name, functools.partial(
+            getattr(mod.embedding, name), dtype=f32))
     check_gradients("whisper-small")
 
 
