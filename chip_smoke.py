@@ -17,7 +17,16 @@ Phases (any failure exits non-zero before the result line is printed):
      Q = 16 (19 words a query); the kernels' launch counts, read around
      exactly those two calls, must be 15 type1 and 1 type2 launches and
      two vocab-major copies (k_vocab_major: K's and K.*M's) per batch and
-     one cdist_kexp_rows launch per 128-row miss chunk;
+     one cdist_kexp_rows launch per 128-row miss chunk. Then batch 2's
+     `query_batch` once more, counted (`_counted_wmd`, the cost model
+     `repro_torch.launch.costmodel`): its flops, fused and eager bytes,
+     each kernel's declared cost (`kernels.costs`) times its counted calls,
+     which must equal the launches read around the call (15 #3, one #4,
+     two copies), and the roofline's dominant term (`roofline.terms`:
+     fp32 67 TFLOP/s, HBM 3.35 TB/s) against the device busy of the same
+     call, and each kernel group's (KERNEL_GROUPS) summed declared cost
+     against its kernels' device time in the same trace: each at most
+     1.05 x (no card beats its roofline);
   4. correctness of what came out: the same batches through the plain
      engine on the same K rows (impl="fused"), through the all-plain route
      (impl="fused", kexp_impl="jnp"), cache on == use_cache=False bitwise,
@@ -35,7 +44,8 @@ Phases (any failure exits non-zero before the result line is printed):
      rerank), one lc_rwmd_bound_batch (tier 1) and one rwmd_bound_batch
      (tier 2) per call, one cdist per 128-row chunk of M misses and one
      cdist_kexp_rows per 128-row chunk of K misses of each K-cache lookup
-     (all read from last_prune_stats and mcache_stats);
+     (all read from last_prune_stats and mcache_stats); then batch 2's
+     pruned per-query call counted as phase 3's (`_counted_wmd`);
   7. correctness of the pruned path: the exhaustive scan == pruned ==
      union, bitwise; the tier toggles (tier0=False, lc_impl=None) give the
      same bits; the pruned answer is the top-k of phase 3's full
@@ -65,7 +75,8 @@ Phases (any failure exits non-zero before the result line is printed):
      `_compare`; `sinkhorn_wmd_converged` for one query (n_iter, delta;
      bitwise the fixed fused loop at that n_iter); the per-query wall
      time, queries/s and the `[idle]` line of one warm `query(r)` (two
-     copies in its trace, no oracle);
+     copies in its trace, no oracle); that `query(r)` counted as phase 3's
+     (`_counted_wmd`: one #5, two copies, 15 #1, one #2);
   9. async serving at paper_5k: a fresh `WMDService(device="cuda",
      cache_capacity=1024, mcache_capacity=1024)` with its defaults, an
      `EngineGuard` with the default `ResiliencePolicy`, a `Tracer`, and
@@ -183,7 +194,15 @@ Phases (any failure exits non-zero before the result line is printed):
      largest |logit|; no WMD kernel launched in the phase; (e) the
      launcher as a subprocess (`python -m repro_torch.launch.serve --arch
      deepseek-moe-16b --batch 4 --prefill-len 64 --decode-steps 32`):
-     exit 0 and both `[serve]` lines.
+     exit 0 and both `[serve]` lines; (g) one bf16 top-k decode step
+     counted on the card (`_phase12_count`): its eager bytes at least
+     `_decode_bytes`' code figure, its fused bytes at most it, its
+     roofline term (bf16 989.4 TFLOP/s, HBM) at most the measured decode
+     ms; the same step lowered on meta (`launch.dryrun.analyze`): its
+     memory_analysis arguments within 1% of the bytes of the card's
+     parameter and cache storages, its temporaries within 25% of what one
+     decode step adds to torch.cuda.memory_allocated at its peak
+     (torch.cuda.max_memory_allocated after a reset).
 
   13. (run after phase 12 has released its parameters) the remaining
      mixers at full width, each freed before the next:
@@ -311,6 +330,15 @@ Phases (any failure exits non-zero before the result line is printed):
      bound and the first moments after step 1 within TOL_MOMENT_INT8 of
      the 1 x 1 run's. (d) No WMD kernel launched.
 
+  17. (after phase 16) the launch tools: `python -m
+     repro_torch.launch.dryrun` on the 16 x 16 production mesh of ``meta``
+     devices for sinkhorn-wmd paper_5k, prod_5m and prod_5m_opt,
+     deepseek-moe-16b decode_32k and olmo-1b train_4k (one process a
+     cell, all at once, on the host's CPU; nothing on the card; a decoder
+     cell counts its two depths one after the other), then
+     `python -m repro_torch.launch.roofline --mesh pod16x16`: every cell
+     ``ok``, its seconds, counts and roofline row printed.
+
 The line before the last is a JSON object with one entry per kernel
 (``launches_by_phase`` has phases 12 to 16's, which must be 0); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -327,8 +355,11 @@ import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
-FP32_FLOPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's peaks and HBM rate, and the roofline's terms, are the
+# roofline tool's (a checkout without the package stops here)
+from repro_torch.launch.roofline import (HBM_BW, PEAK_FLOPS,  # noqa: E402
+                                         PEAK_FLOPS_FP32, terms)
 TOL_ENGINE = dict(rtol=2e-3, atol=1e-5)   # the reference's engine tolerance
 TOL_KERNEL = dict(rtol=1e-4, atol=1e-6)   # same math, sums reassociated
 TOL_SELF_RTOL = 5e-3       # pairs that gather a word's own column: _compare
@@ -375,10 +406,14 @@ def _device_ms(fn, reps: int = 20) -> float:
     return total / 1e3 / reps if total > 0 else float("nan")
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS_FP32
+           ) -> tuple[float, str]:
+    """The least ms the card can take for the work (`roofline.terms`: its
+    memory and compute terms, the fp32 CUDA cores' peak by default) and
+    which term it is."""
+    t = terms(flops, nbytes, peak=peak)
+    return ((t["memory"] * 1e3, "bytes") if t["memory"] >= t["compute"]
+            else (t["compute"] * 1e3, "operations"))
 
 
 def _device_busy(call, marks=(), top=5, groups=()):
@@ -452,6 +487,86 @@ def _idle_line(what, call, copies, *kernels):
            f"vocab-major copies in the trace, expected {copies}")
     _check(marked.get("type2_query_kernel", (0,))[0] == 0,
            f"{what}: the #2 / #4 oracle ran on a serving path")
+
+
+# the declared kernel entries and the names of the kernels they launch in
+# a trace, in groups: entries that launch a kernel of the same name share
+# a group (#5-#7 one tiled loop, #8's dense route #9's walk)
+KERNEL_GROUPS = (
+    ("cost_rows", ("cdist_kexp", "cdist_kexp_rows", "cdist"),
+     ("cost_rows_kernel", "cost_rows_naive_kernel")),
+    ("type1", ("sddmm_spmm_type1", "sddmm_spmm_type1_batch"),
+     ("type1_vm_kernel",)),
+    ("type2", ("sddmm_spmm_type2", "sddmm_spmm_type2_batch"),
+     ("type2_vm_kernel",)),
+    ("vocab_major", ("k_vocab_major",), ("vocab_major_kernel",)),
+    ("rwmd", ("rwmd_bound_batch", "lc_rwmd_bound_batch"),
+     ("rwmd_gather_kernel", "column_min_kernel", "lc_rwmd_bound_kernel")),
+)
+ROOFLINE_SLACK = 1.05      # a counted term above this x the device time: wrong
+
+
+def _counted_wmd(what, call, want=None):
+    """Count one warm ``call`` of a WMD phase (`launch.costmodel.count`)
+    and print its flops, bytes and eager bytes, each kernel's declared cost
+    times its counted calls, and the roofline's dominant term (fp32 peak,
+    HBM rate) against the device busy of the same call (`_device_busy`),
+    the whole call's and each kernel group's (KERNEL_GROUPS: its entries'
+    summed declared cost against its kernels' device time). Fails unless
+    the counted kernel calls are the launches read around the counted call
+    (`_build.launches`) and ``want`` (the phase's launches a call), and
+    unless each term is at most ROOFLINE_SLACK x its device time (no card
+    beats its roofline: a declared cost too high, or a call not counted
+    where its kernel ran, shows here)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import costmodel
+    call()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with costmodel.count() as rec:
+        call()
+        torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    _check(dict(rec.kernels) == launches and want in (None, launches),
+           f"{what}: counted kernel calls {dict(rec.kernels)}, launches "
+           f"{launches}, the phase's launches a call {want}")
+    _, _, busy, largest, marked = _device_busy(
+        call, groups=tuple((label, subs) for label, _, subs in KERNEL_GROUPS))
+    t = terms(rec.flops, rec.bytes, peak=PEAK_FLOPS_FP32)
+    dom, by = _bound(rec.bytes, rec.flops)
+    kernels = ", ".join(
+        f"{k} x{n} = {rec.kernel_sums[k][0]:.4g} B, "
+        f"{rec.kernel_sums[k][1]:.4g} flops"
+        for k, n in sorted(rec.kernels.items()))
+    busy_txt = "not measured" if busy is None else f"{busy:.4f} ms"
+    print(f"[count] {what}: flops {rec.flops:.6g}, bytes {rec.bytes:.6g}, "
+          f"eager bytes {rec.eager_bytes:.6g}; kernels (declared cost x "
+          f"calls, == launches): {kernels}; roofline {dom:.4f} ms ({by}; "
+          f"operations {t['compute'] * 1e3:.4f}, bytes "
+          f"{t['memory'] * 1e3:.4f}) vs device busy {busy_txt} of the same "
+          f"call; counted in {rec.seconds:.2f} s")
+    if busy is None:
+        print(f"[count] {what}: device busy not measured ({largest})")
+        return
+    _check(dom <= ROOFLINE_SLACK * busy, f"{what}: roofline {dom:.4f} ms "
+           f"above {ROOFLINE_SLACK} x the device busy {busy:.4f} ms: the "
+           f"count is wrong")
+    parts = []
+    for label, entries, _ in KERNEL_GROUPS:
+        sums = [rec.kernel_sums[e] for e in entries if e in rec.kernel_sums]
+        if not sums:
+            continue
+        bound, gby = _bound(sum(b for b, _ in sums), sum(f for _, f in sums))
+        n, ms = marked[label]
+        parts.append(f"{label} {bound:.4f} ms ({gby}) vs {ms:.4f} ms x{n} "
+                     f"(ratio {bound / ms if ms else float('nan'):.3f})")
+        _check(n > 0 and bound <= ROOFLINE_SLACK * ms,
+               f"{what}: kernel group {label}: declared roofline "
+               f"{bound:.4f} ms against {ms:.4f} ms of device time in {n} "
+               f"trace entries: the declared cost is wrong")
+    print(f"[count] {what}: each kernel group's declared roofline vs its "
+          f"device time: " + "; ".join(parts))
 
 
 def _shares_word(batch, ell):
@@ -880,7 +995,7 @@ def _phase10(cfg, data, batches, d_rows, lb_rows, svc, svc6, k_top, card):
     _check(st["num_live"] == n and st["gen"] == 1
            and 0 < st["delta_rows"] < n, f"unexpected corpus state {st}")
 
-    live = WMDService.from_live(cfg, data.vecs, lc, device="cuda",
+    live = WMDService.from_live(None, cfg, data.vecs, lc, device="cuda",
                                 cache_capacity=1024, mcache_capacity=1024)
     _check(live.device.type == "cuda" and live.impl == "kernel"
            and live.kexp_impl == "kernel" and live.bound_impl == "kernel"
@@ -1243,7 +1358,7 @@ def _phase11(cfg, data, batches, d_rows, pruned, union1, lb_rows, svc,
     # compaction), a fifth of the docs upserted with their own content
     # (1,000 at paper_5k: the delta)
     lc = LiveCorpus(live_dir, cfg.vocab_size, normalize=False)
-    live41 = WMDService.from_live(cfg, data.vecs, lc, mesh=m41, **kw)
+    live41 = WMDService.from_live(m41, cfg, data.vecs, lc, **kw)
     from repro_torch.core.formats import doc_lists_from_ell
     docs = doc_lists_from_ell(data.ell)
     upserts = cfg.num_docs // 5
@@ -1422,6 +1537,105 @@ def _decode_bytes(params, cache, batch: int, vocab: int, *,
     return (8 * weights + 10 * kv + rest, 2 * weights + 2 * kv + rest)
 
 
+META_MEMORY_TOL = 0.25     # meta temporaries vs the card's step (2x fails)
+META_ARGS_TOL = 0.01       # meta arguments vs the card's parameters + cache
+
+
+def _storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages of the tensors of ``trees``."""
+    seen = {}
+    for tree in trees:
+        for _, x in _named(tree):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _phase12_count(cfg, b, max_len, params, cache, tok, dec, decode_ms,
+                   code_bytes, ideal_bytes):
+    """12(g): one bf16 top-k decode step counted on the card
+    (`launch.costmodel`): its eager bytes at least `_decode_bytes`' code
+    figure (reckoned "at the least"), its fused bytes at most it, its
+    roofline term (bf16 peak, HBM rate) at most the measured decode ms;
+    then the same step lowered on meta (`launch.dryrun.analyze`), its
+    ``memory_analysis`` held against the card in two parts: the arguments
+    against the bytes of the parameters' and the cache's storages (within
+    META_ARGS_TOL), the temporaries against what one decode step adds to
+    the allocated bytes at its peak (torch.cuda.max_memory_allocated
+    after a reset, less torch.cuda.memory_allocated before it; within
+    META_MEMORY_TOL, which a count off by 2x fails). Resets the peak
+    statistics: returns torch.cuda.max_memory_allocated from before."""
+    import torch
+
+    from repro_torch.distributed import partitioning
+    from repro_torch.launch import costmodel, dryrun
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving import build_serve_fns
+    from repro_torch.train.step import _MetaKey
+
+    with costmodel.count() as rec:
+        dec(params, cache, tok)
+        torch.cuda.synchronize()
+    term, by = _bound(rec.bytes, rec.flops, PEAK_FLOPS)
+    print(f"[count] deepseek-moe-16b bf16 top-k decode step (batch {b}): "
+          f"flops {rec.flops:.6g} (matmul {rec.matmul_flops:.6g}), bytes "
+          f"{rec.bytes:.6g}, eager bytes {rec.eager_bytes:.6g} against "
+          f"_decode_bytes' code figure {code_bytes:.6g} and ideal "
+          f"{ideal_bytes:.6g}; roofline {term:.3f} ms ({by}) vs measured "
+          f"{decode_ms:.2f} ms a token; {sum(rec.ops.values())} ops counted "
+          f"in {rec.seconds:.2f} s; no kernel {dict(rec.kernels)}")
+    _check(rec.eager_bytes >= code_bytes, "the eager bytes are under "
+           "_decode_bytes' code figure, reckoned at the least")
+    _check(rec.bytes <= code_bytes, "the fused bytes exceed _decode_bytes' "
+           "code figure")
+    _check(term <= decode_ms, f"the roofline term {term:.3f} ms is above the "
+           f"measured {decode_ms:.2f} ms")
+    _check(not rec.kernels, "a WMD kernel counted in the LM decode step")
+    # what one step adds to the card's allocated bytes at its peak
+    card_args = _storage_bytes(params, cache)
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dec(params, cache, tok)
+    torch.cuda.synchronize()
+    card_temp = torch.cuda.max_memory_allocated() - before
+    del out
+    # the same call lowered on meta, as launch.dryrun lowers a cell
+    model = build_model(cfg, q_block=16, kv_block=16, device="meta")
+    mparams = model.init(_MetaKey())
+    mcache = dryrun._full_cache(model.init_cache(b, max_len), cache["pos"])
+    mesh = one_device_mesh(torch.device("meta"))
+    args = dryrun.position_bytes(
+        (mparams, mcache), (partitioning.param_shardings(mesh, mparams),
+                            partitioning.cache_shardings(mesh, mcache)),
+        mesh)
+    _, mdec = build_serve_fns(model, None, max_len=max_len)
+    mtok = torch.empty(tuple(tok.shape), dtype=tok.dtype, device="meta")
+    got = dryrun.analyze(lambda: mdec(b)(mparams, mcache, mtok),
+                         argument_bytes=args)
+    ma = got["memory_analysis"]
+    r_args = ma["argument_size_in_bytes"] / card_args
+    r_temp = ma["temp_size_in_bytes"] / card_temp
+    print(f"[count] the same step lowered on meta ({got['compile_seconds']:.2f}"
+          f" s): memory_analysis arguments "
+          f"{ma['argument_size_in_bytes'] / 2**30:.4f} GiB vs the card's "
+          f"parameters + cache storages {card_args / 2**30:.4f} GiB (ratio "
+          f"{r_args:.4f}); temporaries {ma['temp_size_in_bytes'] / 2**30:.4f}"
+          f" GiB vs one decode step's peak increase on the card "
+          f"{card_temp / 2**30:.4f} GiB (torch.cuda.max_memory_allocated "
+          f"after a reset - memory_allocated before {before / 2**30:.2f} "
+          f"GiB; ratio {r_temp:.3f}); meta flops "
+          f"{got['jaxpr_cost']['flops']:.6g} == card flops {rec.flops:.6g}: "
+          f"{got['jaxpr_cost']['flops'] == rec.flops}")
+    _check(abs(r_args - 1) <= META_ARGS_TOL, f"meta arguments {r_args:.4f} "
+           f"x the card's, outside {META_ARGS_TOL}")
+    _check(abs(r_temp - 1) <= META_MEMORY_TOL, f"meta temporaries "
+           f"{r_temp:.3f} x the card's step, outside {META_MEMORY_TOL}")
+    return peak_before
+
+
 def _phase12(card):
     """12. The language model on the card (see the module docstring).
     Returns the kernels' launch counts over the phase, read around it."""
@@ -1471,7 +1685,7 @@ def _phase12(card):
         return _greedy_loop(dec, params, logits,
                             _tree_map(torch.clone, cache), steps)
 
-    router_logits = {}
+    router_logits, peak_a = {}, 0
     for router in ("topk", "sinkhorn"):
         rcfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, router=router))
@@ -1527,14 +1741,17 @@ def _phase12(card):
             print(f"[lm] decode step HBM bound: {nbytes / 1e9:.1f} GB the "
                   f"code moves (float32 weights read, their bfloat16 copy "
                   f"written and read at each use) / 3.35e12 B/s = "
-                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.1f} ms, measured "
-                  f"{med:.2f} ms ({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} "
+                  f"{nbytes / HBM_BW * 1e3:.1f} ms, measured "
+                  f"{med:.2f} ms ({nbytes / HBM_BW * 1e3 / med:.2f} "
                   f"of the bound); each weight read once in bfloat16: "
                   f"{ideal / 1e9:.1f} GB, "
-                  f"{ideal / HBM_BYTES_PER_S * 1e3:.1f} ms")
+                  f"{ideal / HBM_BW * 1e3:.1f} ms")
+            peak_a = _phase12_count(rcfg, b, max_len, params, cache, tok,
+                                    dec, med, nbytes, ideal)
         del logits, cache, l1, l2
-    print(f"[lm] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB (torch.cuda.max_memory_allocated, (a))")
+    peak_a = max(peak_a, torch.cuda.max_memory_allocated())
+    print(f"[lm] peak device memory {peak_a / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, (a))")
 
     # -- (d) the Sinkhorn router balances load: the first MoE layer's router
     # logits of the top-k prefill (its input does not depend on the router)
@@ -1880,11 +2097,11 @@ def _phase13_arch(arch):
     nbytes, ideal = _decode_bytes(used, cache, b, cfg.vocab_size,
                                   tied=cfg.tie_embeddings)
     print(f"[mix] {arch}: decode step HBM bound {nbytes / 1e9:.2f} GB the "
-          f"code moves / 3.35e12 B/s = {nbytes / HBM_BYTES_PER_S * 1e3:.2f} "
+          f"code moves / 3.35e12 B/s = {nbytes / HBM_BW * 1e3:.2f} "
           f"ms, measured {med:.2f} ms "
-          f"({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} of the bound); each "
+          f"({nbytes / HBM_BW * 1e3 / med:.2f} of the bound); each "
           f"weight read once in bfloat16: {ideal / 1e9:.2f} GB, "
-          f"{ideal / HBM_BYTES_PER_S * 1e3:.2f} ms")
+          f"{ideal / HBM_BW * 1e3:.2f} ms")
     del logits, cache, l1, l2
 
     # -- (b) decode against prefill, bfloat16 and float32 (and cache)
@@ -2213,15 +2430,15 @@ def _phase14_run(cfg, router):
         del grads
         print(f"[train] {n_params:,} parameters ({TRAIN_LAYERS} layers at "
               f"full width); step HBM bound: {nbytes / 1e9:.1f} GB the code "
-              f"moves / 3.35e12 B/s = {nbytes / HBM_BYTES_PER_S * 1e3:.1f} "
+              f"moves / 3.35e12 B/s = {nbytes / HBM_BW * 1e3:.1f} "
               f"ms, measured {med:.2f} ms "
-              f"({nbytes / HBM_BYTES_PER_S * 1e3 / med:.2f} of the bound); "
+              f"({nbytes / HBM_BW * 1e3 / med:.2f} of the bound); "
               f"bf16 weights and a fused AdamW: {ideal / 1e9:.1f} GB, "
-              f"{ideal / HBM_BYTES_PER_S * 1e3:.1f} ms; the AdamW update "
+              f"{ideal / HBM_BW * 1e3:.1f} ms; the AdamW update "
               f"alone {opt_ms:.2f} ms (CUDA events) against "
-              f"{160 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms for its "
+              f"{160 * n_params / HBM_BW * 1e3:.1f} ms for its "
               f"160 B a parameter, "
-              f"{28 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms fused")
+              f"{28 * n_params / HBM_BW * 1e3:.1f} ms fused")
 
     # -- (b) two steps from one state, through two build_train_step calls
     saved_state = [x.to("cpu", copy=True) for x in _tree.leaves(state)]
@@ -3547,7 +3764,7 @@ def _wmd_phases():
     from repro_torch.data.corpus import make_corpus, zipf_query_stream
     from repro_torch.core import rwmd as rwmd_core
     from repro_torch.core.cascade import min_cost_vectors
-    from repro_torch.kernels import (_build, cdist, kexp, lcrwmd, ops,
+    from repro_torch.kernels import (_build, cdist, costs, kexp, lcrwmd, ops,
                                      sddmm_spmm)
     from repro_torch.kernels import rwmd as krwmd
     from repro_torch.serving import WMDService
@@ -3624,6 +3841,10 @@ def _wmd_phases():
               f"{s['hit_rate']:.3f}")
     print(f"[main] peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
+    _counted_wmd(
+        "phase 3 query_batch, batch 2", lambda: svc.query_batch(batch2),
+        {"sddmm_spmm_type1_batch": cfg.max_iter,
+         "sddmm_spmm_type2_batch": 1, "k_vocab_major": 2})
 
     # -- 4. correctness of the output ----------------------------------------
     for d in (d1, d2):
@@ -3732,6 +3953,8 @@ def _wmd_phases():
                   f"{t['cascade_solves_avoided']:.4f})")
     print(f"[pruned] peak device memory {peak6 / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated, phase 6)")
+    _counted_wmd("phase 6 pruned per_query top_k_batch, batch 2",
+                 lambda: svc6.top_k_batch(batch2, k_top, prune=True))
 
     # -- 7. correctness of the pruned path -------------------------------------
     (idx_p1, d_p1), (idx_p2, d_p2), (idx_u1, d_u1) = (r[1] for r in runs)
@@ -3883,6 +4106,9 @@ def _wmd_phases():
     _idle_line("per-query query(r)", lambda: svc8.query(batch2[0]), 2,
                ("#1", "type1_vm_kernel"), ("#2", "type2_vm_kernel"),
                ("oracle", "type2_query_kernel"))
+    _counted_wmd("phase 8 query(r), batch 2 query 0",
+                 lambda: svc8.query(batch2[0]),
+                 {k: v // nq for k, v in want8.items()})
     del svc8
 
     # -- 9. async serving ------------------------------------------------------
@@ -3922,13 +4148,13 @@ def _wmd_phases():
                 "9": launches9, "10": launches10, "11": launches11}
 
     def record(name, source, replaces, got, want, kernel_fn, plain_fn,
-               nbytes, flops, library_fn=None, plain_reps=3):
+               cost, library_fn=None, plain_reps=3):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         ms = _timed(kernel_fn, 20)
         device_ms = _device_ms(kernel_fn)
         plain_ms = _timed(plain_fn, plain_reps, warmup=1)
         lib_ms = _timed(library_fn, 10) if library_fn else None
-        bound_ms, bound_by = _bound(nbytes, flops)
+        bound_ms, bound_by = _bound(*cost)       # kernels.costs' formula
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": sum(c.get(name, 0) for c in by_phase.values()),
@@ -3946,7 +4172,6 @@ def _wmd_phases():
         return entry
 
     src = "src/repro_torch/kernels/csrc/sddmm_spmm.cu"
-    rows = q * v_r
     # the vocab-major copies (two per stripe set: K's and K.*M's), #3 on
     # K's, #4 on both
     k_vm = sddmm_spmm.k_vocab_major(k_pad)
@@ -3957,7 +4182,7 @@ def _wmd_phases():
                     "src/repro/kernels/sddmm_spmm.py:239", [k_vm], [k_vm_p],
                     lambda: sddmm_spmm.k_vocab_major(k_pad),
                     lambda: sddmm_spmm.k_vocab_major_plain(k_pad),
-                    nbytes=4 * 2 * rows * k_pad.shape[-1], flops=0,
+                    cost=costs.vocab_major(q, v_r, k_pad.shape[-1]),
                     library_fn=lambda: k_pad.transpose(1, 2).contiguous(),
                     plain_reps=10)
     del k_vm_p
@@ -3978,8 +4203,7 @@ def _wmd_phases():
                                                              cols, vals),
                 lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(
                     k_vm, r, u, cols, vals),
-                nbytes=4 * (rows * uniq + rows + 2 * rows * n + 2 * n * nnz),
-                flops=q * nnz_real * (4 * v_r + 1) + rows * n)
+                cost=costs.type1(q, v_r, n, nnz, uniq, nnz_real))
     del x_k, x_p, x_1
     km_vm = sddmm_spmm.k_vocab_major(km_pad)
     d_k = sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)
@@ -4006,8 +4230,7 @@ def _wmd_phases():
                                                              cols, vals),
                 lambda: sddmm_spmm.sddmm_spmm_type2_batch_vm_plain(
                     k_vm, km_vm, u, cols, vals),
-                nbytes=4 * (2 * rows * uniq + rows * n + 2 * n * nnz + q * n),
-                flops=q * nnz_real * (4 * v_r + 1) + 2 * rows * n)
+                cost=costs.type2(q, v_r, n, nnz, uniq, nnz_real))
     # ... and at the per-query rerank's (1, 64) block: query 0's stripes and
     # its 64 nearest docs, the block its rerank solves first (a doc's bits
     # do not depend on its block)
@@ -4028,10 +4251,9 @@ def _wmd_phases():
 
     e4["rerank_ms"] = _timed(rerank_call, 50)
     e4["rerank_device_ms"] = _device_ms(rerank_call)
-    e4["rerank_bound_ms"] = _bound(
-        4 * (2 * v_r * int(torch.unique(cols_r[live_r]).numel())
-             + v_r * 64 + 2 * 64 * nnz + 64),
-        int(live_r.sum()) * (4 * v_r + 1) + 2 * v_r * 64)[0]
+    e4["rerank_bound_ms"] = _bound(*costs.type2(
+        1, v_r, 64, nnz, int(torch.unique(cols_r[live_r]).numel()),
+        int(live_r.sum())))[0]
     print(f"[kernels] sddmm_spmm_type2_batch at the rerank's (1, 64) block: "
           f"{e4['rerank_ms']:.4f} ms (device {e4['rerank_device_ms']:.4f}), "
           f"bound {e4['rerank_bound_ms']:.5f} ms; bitwise the (16, 5000) "
@@ -4076,8 +4298,7 @@ def _wmd_phases():
            "src/repro/kernels/kexp.py:58", [k5, km5], [k5p, km5p],
            lambda: kexp.cdist_kexp(a1, vecs_d, lamb=cfg.lamb),
            lambda: kexp.cdist_kexp_plain(a1, vecs_d, lamb=cfg.lamb),
-           nbytes=4 * (m1 * w + v * w + 2 * m1 * v),
-           flops=2 * m1 * v * w + 2 * (m1 + v) * w + 8 * m1 * v,
+           cost=costs.cost_rows(m1, v, w, 2),
            library_fn=lambda: torch.cdist(a1, vecs_d), plain_reps=10)
     mask_t = torch.from_numpy(mask_p).to(dev)[:, None]
     k1, km1 = ss.pad_k(k5 * mask_t), ss.pad_k(km5 * mask_t)
@@ -4105,8 +4326,7 @@ def _wmd_phases():
                                                        vals),
                 lambda: sddmm_spmm.sddmm_spmm_type1_vm_plain(k1_vm, r1, u1,
                                                              cols, vals),
-                nbytes=4 * (v_r * uniq + v_r + 2 * v_r * n + 2 * n * nnz),
-                flops=nnz_real * (4 * v_r + 1) + v_r * n)
+                cost=costs.type1(1, v_r, n, nnz, uniq, nnz_real))
     # ... with its copy (the reference-layout entry: copy + #1 in one
     # call), the copy alone, and #1 at docs_blk 4, 8, 16
     e1["with_copy_ms"] = _timed(
@@ -4154,8 +4374,7 @@ def _wmd_phases():
                                                        cols, vals),
                 lambda: sddmm_spmm.sddmm_spmm_type2_vm_plain(
                     k1_vm, km1_vm, u1, cols, vals),
-                nbytes=4 * (2 * v_r * uniq + v_r * n + 2 * n * nnz + n),
-                flops=nnz_real * (4 * v_r + 1) + 2 * v_r * n)
+                cost=costs.type2(1, v_r, n, nnz, uniq, nnz_real))
     e2["sha256"] = _sha(d_k)
     # ... with its copies (the reference-layout entry: both copies + #2 in
     # one call), the K.*M copy alone, the oracle, and #2 at docs_blk 4, 8,
@@ -4223,8 +4442,7 @@ def _wmd_phases():
            "src/repro/kernels/kexp.py:93", [k_k, km_k], [k_p, km_p],
            lambda: kexp.cdist_kexp_rows(a, vecs_d, lamb=cfg.lamb),
            lambda: kexp.cdist_kexp_rows_plain(a, vecs_d, lamb=cfg.lamb),
-           nbytes=4 * (m * w + v * w + 2 * m * v),
-           flops=2 * m * v * w + 2 * (m + v) * w + 8 * m * v,
+           cost=costs.cost_rows(m, v, w, 2),
            library_fn=lambda: torch.cdist(a, vecs_d), plain_reps=10)
 
     # cdist (#7): the M rows of the bound tiers, one 128-row miss chunk
@@ -4256,8 +4474,7 @@ def _wmd_phases():
     record("cdist", "src/repro_torch/kernels/csrc/kexp.cu",
            "src/repro/kernels/cdist.py:41", [m_k], [m_p],
            lambda: cdist.cdist(a, vecs_d), lambda: cdist.cdist_plain(a, vecs_d),
-           nbytes=4 * (m * w + v * w + m * v),
-           flops=2 * m * v * w + 2 * (m + v) * w + 4 * m * v,
+           cost=costs.cost_rows(m, v, w, 1),
            library_fn=lambda: torch.cdist(a, vecs_d), plain_reps=10)
     del k_k, km_k, k_p, km_p, m_k, m_p
     # rwmd_bound_batch (#8) at the tier-2 shape: Q = 16, v_r = 32, the 256
@@ -4292,13 +4509,13 @@ def _wmd_phases():
                 "src/repro/kernels/rwmd.py:62", [lb_k], [lb_p],
                 lambda: krwmd.rwmd_bound_batch(m_pad, cols_s, vals_s),
                 lambda: krwmd.rwmd_bound_batch_plain(m_pad, cols_s, vals_s),
-                nbytes=4 * (q * v_r * uniq_s + 2 * cols_s.numel() + q * 256),
-                flops=q * nnz_s * (v_r + 1), plain_reps=10)
+                cost=costs.rwmd(q, v_r, *cols_s.shape, uniq_s, nnz_s),
+                plain_reps=10)
 
     def sector_floor(live_slots):
         """ms to move the Q v_r 32-byte sectors a live slot's column costs
         in the reference layout, at the HBM rate"""
-        return q * v_r * live_slots * 32 / HBM_BYTES_PER_S * 1e3
+        return q * v_r * live_slots * 32 / HBM_BW * 1e3
 
     e8["bound_route"] = route_s
     e8["sector_floor_ms"] = sector_floor(nnz_s)
@@ -4346,9 +4563,8 @@ def _wmd_phases():
     amin_dev = _device_ms(lambda: torch.amin(m_pad, dim=1))
     full_plain_ms = _timed(lambda: rwmd_core.rwmd_bound_batch(
         m_pad, cols_e, vals_e, impl="fused", docs_chunk=bdc), 3, warmup=1)
-    full_bound, full_by = _bound(
-        4 * (q * v_r * uniq_e + 2 * n_e * nnz_e + q * n_e),
-        q * nnz_real_e * (v_r + 1))
+    full_bound, full_by = _bound(*costs.rwmd(q, v_r, n_e, nnz_e, uniq_e,
+                                             nnz_real_e))
     dense_floor = _bound(4 * (q * v_r * vp1 + 2 * vp1 * q
                               + 2 * n_e * nnz_e + q * n_e), 0)[0]
     print(f"[kernels] rwmd_bound_batch at all N = {n_e} (query_batch_bounds, "
@@ -4392,8 +4608,7 @@ def _wmd_phases():
            "src/repro/kernels/lcrwmd.py:60", [lc_k], [lc_p],
            lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e, vals_e),
            lambda: lcrwmd.lc_rwmd_bound_batch_plain(minm, cols_e, vals_e),
-           nbytes=4 * (q * uniq_e + 2 * n_e * nnz_e + q * n_e),
-           flops=2 * q * nnz_real_e,
+           cost=costs.lc_rwmd(q, n_e, nnz_e, uniq_e, nnz_real_e),
            library_fn=lambda: torch.sparse.mm(csr, minm_t), plain_reps=10)
     lc = results[-1]
     dev_lc = _device_ms(lambda: lcrwmd.lc_rwmd_bound_batch(minm, cols_e,
@@ -4416,6 +4631,76 @@ def _wmd_phases():
     return results, card
 
 
+# -- 17. the launch tools: the dry run and the roofline -------------------------
+
+# the cells phase 17 counts on the 16 x 16 production mesh, in the order
+# they are dropped from the end should the phase outgrow its time
+PHASE17_CELLS = (("sinkhorn-wmd", "paper_5k"), ("sinkhorn-wmd", "prod_5m"),
+                 ("sinkhorn-wmd", "prod_5m_opt"),
+                 ("deepseek-moe-16b", "decode_32k"), ("olmo-1b", "train_4k"))
+PHASE17_TIMEOUT_S = 600
+
+
+def _phase17():
+    """17. `python -m repro_torch.launch.dryrun` on pod16x16 for each of
+    PHASE17_CELLS (one process a cell, all started together: meta tensors
+    on the host's CPU, nothing on the card), then `python -m
+    repro_torch.launch.roofline --mesh pod16x16`: every cell must come out
+    ``ok``; each cell's seconds and roofline row printed."""
+    import shutil
+
+    from repro_torch.launch import roofline
+
+    out_dir = ROOT / "experiments" / "dryrun_torch" / "pod16x16"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for arch, shape in PHASE17_CELLS]
+    try:
+        for arch, shape, p in procs:
+            left = max(1.0, PHASE17_TIMEOUT_S - (time.perf_counter() - t0))
+            text, _ = p.communicate(timeout=left)
+            for ln in text.strip().splitlines()[-3:]:
+                print(f"[dryrun] {ln}")
+            _check(p.returncode == 0, f"dryrun {arch} x {shape} exited "
+                   f"{p.returncode}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells_s = time.perf_counter() - t0
+    rl = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                         "--mesh", "pod16x16"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=120)
+    _check(rl.returncode == 0, f"roofline exited {rl.returncode}: "
+           f"{rl.stderr[-2000:]}")
+    for arch, shape in PHASE17_CELLS:
+        with open(out_dir / f"{arch}__{shape}.json") as f:
+            rec = json.load(f)
+        _check(rec.get("status") == "ok", f"dryrun {arch} x {shape}: "
+               f"{rec.get('status')} {rec.get('error', '')}")
+        r = roofline.analyze_cell(rec)
+        ma = rec["memory_analysis"]
+        print(f"[roofline] {arch} x {shape}: counted in "
+              f"{rec['compile_seconds']:.1f} s; flops "
+              f"{rec['jaxpr_cost']['flops']:.6g}, bytes "
+              f"{rec['jaxpr_cost']['bytes']:.6g}, eager bytes "
+              f"{rec['cost_analysis_raw']['bytes accessed']:.6g}, collective "
+              f"bytes {rec['collectives']['total']:.6g}; arguments "
+              f"{ma['argument_size_in_bytes'] / 2**30:.3f} GiB, temporaries "
+              f"{ma['temp_size_in_bytes'] / 2**30:.3f} GiB a position; "
+              f"worst-case ops {rec['worst_case_ops']}; {roofline.row(r)}")
+    print(rl.stdout.strip().splitlines()[0])
+    print(f"[dryrun] phase 17: {len(PHASE17_CELLS)} cells in {cells_s:.1f} s "
+          f"(in parallel), roofline in "
+          f"{time.perf_counter() - t0 - cells_s:.1f} s")
+
+
 def main() -> int:
     import gc
 
@@ -4424,7 +4709,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     results, card = _wmd_phases()
     # -- 12. the language model: phases 1-11's tensors released first ---------
     gc.collect()
@@ -4446,6 +4730,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches16 = _phase16(card)
+    # -- 17. the launch tools (meta, on the host's CPU) ----------------------
+    _phase17()
     for entry in results:
         entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
         entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)

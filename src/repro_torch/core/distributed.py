@@ -25,6 +25,8 @@ collectives are written out:
     deltas (max is exact in any order), so the freeze mask is the same on
     every shard, as the reference's pmax over (model, *doc_axes);
   * the outputs come back on the mesh's first device, in doc order.
+Each reports its bytes to an active count (`repro_torch._count`: an
+all-reduce, the vote an all-reduce, the doc gather an all-gather).
 At S = 1 each doc's reduction is the one-device one, so a (d, 1) mesh is
 bit for bit the one-device program -- except where ``tol > 0`` meets
 ``chunk_placement="solve"`` with chunks smaller than a doc shard: there a
@@ -55,6 +57,7 @@ import torch
 from repro_torch.core import sparse_sinkhorn as ss
 from repro_torch.core.cost_matrix import cdist
 from repro_torch.core.sparse_sinkhorn import pad_k, safe_recip
+from repro_torch._count import collective as _counted
 from repro_torch.launch.mesh import check_placement, on_device, shard_grid
 
 
@@ -210,18 +213,25 @@ def _model_sum(parts: Sequence[torch.Tensor], dev: torch.device
                ) -> torch.Tensor:
     """The model-axis sum: each model shard's partial copied to ``dev``
     (the first model shard's), summed as a left fold in shard order."""
-    acc = parts[0]
-    for p in parts[1:]:
-        acc = acc + p.to(dev)
-    return acc
+    if len(parts) == 1:
+        return parts[0]
+    with _counted("model_axis_sum", "all-reduce", parts[0], len(parts),
+                  len(parts)):
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p.to(dev)
+        return acc
 
 
 def _vote(deltas: Sequence[torch.Tensor]) -> torch.Tensor:
     """The all-shards convergence vote: the max of the per-doc-shard (Q,)
     deltas, on the first one's device (max is exact in any order)."""
     acc = deltas[0]
-    for x in deltas[1:]:
-        acc = torch.maximum(acc, x.to(acc.device))
+    if len(deltas) == 1:
+        return acc
+    with _counted("vote", "all-reduce", acc, len(deltas), len(deltas)):
+        for x in deltas[1:]:
+            acc = torch.maximum(acc, x.to(acc.device))
     return acc
 
 
@@ -231,7 +241,10 @@ def _gather_docs(pieces: Sequence[torch.Tensor], dev: torch.device
     order."""
     if len(pieces) == 1:
         return pieces[0]
-    return torch.cat([p.to(dev) for p in pieces], dim=-1)
+    nbytes = sum(p.numel() * p.element_size() for p in pieces)
+    with _counted("doc_gather", "all-gather", nbytes, len(pieces),
+                  len(pieces)):
+        return torch.cat([p.to(dev) for p in pieces], dim=-1)
 
 
 def _per_device(grid: np.ndarray, fn) -> dict:

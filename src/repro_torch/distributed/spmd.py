@@ -55,6 +55,13 @@ axis replicates live once a group, on the group's first position (its
 On a one-position mesh every collective is the identity on its input: the
 one-device program is the mesh program, op for op.
 
+Each collective reports its bytes and group to an active count
+(`repro_torch._count.collective`; the kinds each maps to are tabled in
+`launch.costmodel`), in its forward and its backward; the ops inside it
+are not counted as compute. ``meta`` blocks hold shapes and no data, so
+`gather` makes each user's tensor and each block's gradient of them by
+shape alone: there is nothing to copy.
+
 Decode caches (no autograd): `state_specs`, `place_rows`, `place_blocks`
 and `place_state` place a cache entry's tensors as blocks per
 `partitioning.cache_shardings` (a cache's ``pos`` stays a Python int);
@@ -66,12 +73,14 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.distributed.partitioning import (P, Placed, _axes,
                                                   block_slices)
+from repro_torch._count import collective as _counted
 
 _F32 = torch.float32
 
@@ -123,6 +132,10 @@ def layout(mesh) -> Layout:
     return _layout(mesh)
 
 
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def fold(parts, dev, dtype):
     """Left fold of ``parts`` (None skipped) in list order on ``dev``,
     accumulated in float32 and cast to ``dtype`` once; None if all are."""
@@ -144,14 +157,21 @@ class _Replicate(torch.autograd.Function):
     def forward(ctx, lay, *xs):
         ctx.lay = lay
         ctx.dtypes = [x.dtype for x in xs]
-        return tuple(x.to(lay.dev(lay.pos(g, m)), copy=True)
-                     for g, x in enumerate(xs) for m in range(lay.n_model))
+        ctx.nbytes = _bytes(xs[0])
+        with _counted("replicate", "all-gather", xs[0], lay.n_model,
+                      lay.size):
+            return tuple(x.to(lay.dev(lay.pos(g, m)), copy=True)
+                         for g, x in enumerate(xs)
+                         for m in range(lay.n_model))
 
     @staticmethod
     def backward(ctx, *gs):
         lay, m = ctx.lay, ctx.lay.n_model
-        return (None, *[fold(gs[g * m:(g + 1) * m], lay.group_dev(g),
-                             ctx.dtypes[g]) for g in range(lay.n_groups)])
+        with _counted("replicate", "reduce-scatter", ctx.nbytes, m,
+                      lay.size):
+            return (None, *[fold(gs[g * m:(g + 1) * m], lay.group_dev(g),
+                                 ctx.dtypes[g])
+                            for g in range(lay.n_groups)])
 
 
 def replicate(lay: Layout, xs: list) -> list:
@@ -165,16 +185,21 @@ class _ModelSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lay, *parts):
         ctx.lay = lay
+        ctx.nbytes = _bytes(parts[0])
         m = lay.n_model
-        return tuple(fold(parts[g * m:(g + 1) * m], lay.group_dev(g),
-                          parts[g * m].dtype) for g in range(lay.n_groups))
+        with _counted("model_sum", "reduce-scatter", parts[0], m, lay.size):
+            return tuple(fold(parts[g * m:(g + 1) * m], lay.group_dev(g),
+                              parts[g * m].dtype)
+                         for g in range(lay.n_groups))
 
     @staticmethod
     def backward(ctx, *gs):
         lay = ctx.lay
-        return (None, *[gs[g].to(lay.dev(lay.pos(g, m)))
-                        for g in range(lay.n_groups)
-                        for m in range(lay.n_model)])
+        with _counted("model_sum", "all-gather", ctx.nbytes, lay.n_model,
+                      lay.size):
+            return (None, *[gs[g].to(lay.dev(lay.pos(g, m)))
+                            for g in range(lay.n_groups)
+                            for m in range(lay.n_model)])
 
 
 def model_sum(lay: Layout, parts: list) -> list:
@@ -190,18 +215,23 @@ class _GatherRows(torch.autograd.Function):
         ctx.lay = lay
         ctx.sizes = [x.shape[0] for x in xs]
         ctx.dtype = xs[0].dtype
-        full = torch.cat([x.to(lay.group_dev(0)) for x in xs])
-        return tuple(full.to(lay.group_dev(g), copy=True)
-                     for g in range(lay.n_groups))
+        ctx.nbytes = sum(_bytes(x) for x in xs)
+        with _counted("gather_rows", "all-gather", ctx.nbytes, lay.n_groups,
+                      lay.n_groups):
+            full = torch.cat([x.to(lay.group_dev(0)) for x in xs])
+            return tuple(full.to(lay.group_dev(g), copy=True)
+                         for g in range(lay.n_groups))
 
     @staticmethod
     def backward(ctx, *gs):
         lay = ctx.lay
         out, lo = [], 0
-        for s, n in enumerate(ctx.sizes):
-            out.append(fold([g[lo:lo + n] if g is not None else None
-                             for g in gs], lay.group_dev(s), ctx.dtype))
-            lo += n
+        with _counted("gather_rows", "reduce-scatter", ctx.nbytes,
+                      lay.n_groups, lay.n_groups):
+            for s, n in enumerate(ctx.sizes):
+                out.append(fold([g[lo:lo + n] if g is not None else None
+                                 for g in gs], lay.group_dev(s), ctx.dtype))
+                lo += n
         return (None, *out)
 
 
@@ -217,13 +247,18 @@ class _BatchFold(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lay, *xs):
         ctx.lay = lay
-        return fold(xs, lay.group_dev(0), xs[0].dtype)
+        ctx.nbytes = _bytes(xs[0])
+        with _counted("batch_fold", "all-reduce", xs[0], lay.n_groups,
+                      lay.n_groups):
+            return fold(xs, lay.group_dev(0), xs[0].dtype)
 
     @staticmethod
     def backward(ctx, g):
         lay = ctx.lay
-        return (None, *[g.to(lay.group_dev(k))
-                        for k in range(lay.n_groups)])
+        with _counted("batch_fold", "all-gather", ctx.nbytes, lay.n_groups,
+                      lay.n_groups):
+            return (None, *[g.to(lay.group_dev(k))
+                            for k in range(lay.n_groups)])
 
 
 def batch_fold(lay: Layout, xs: list) -> torch.Tensor:
@@ -241,19 +276,24 @@ class _ModelGather(torch.autograd.Function):
         ctx.dtype = parts[0].dtype
         ctx.n = parts[0].shape[dim]
         m = lay.n_model
-        return tuple(torch.cat([p.to(lay.dev(i)) for p in parts[g * m:(g + 1)
-                                                            * m]], dim)
-                     for g in range(lay.n_groups)
-                     for i in range(g * m, (g + 1) * m))
+        ctx.nbytes = _bytes(parts[0]) * m
+        with _counted("model_gather", "all-gather", ctx.nbytes, m,
+                      lay.size):
+            return tuple(torch.cat([p.to(lay.dev(i))
+                                    for p in parts[g * m:(g + 1) * m]], dim)
+                         for g in range(lay.n_groups)
+                         for i in range(g * m, (g + 1) * m))
 
     @staticmethod
     def backward(ctx, *gs):
         lay, m, n, dim = ctx.lay, ctx.lay.n_model, ctx.n, ctx.dim
-        return (None, None, *[
-            fold([None if gs[g * m + k] is None
-                  else gs[g * m + k].narrow(dim, j * n, n)
-                  for k in range(m)], lay.dev(g * m + j), ctx.dtype)
-            for g in range(lay.n_groups) for j in range(m)])
+        with _counted("model_gather", "reduce-scatter", ctx.nbytes, m,
+                      lay.size):
+            return (None, None, *[
+                fold([None if gs[g * m + k] is None
+                      else gs[g * m + k].narrow(dim, j * n, n)
+                      for k in range(m)], lay.dev(g * m + j), ctx.dtype)
+                for g in range(lay.n_groups) for j in range(m)])
 
 
 def model_gather(lay: Layout, parts: list, dim: int) -> list:
@@ -274,21 +314,26 @@ class _ModelSumScatter(torch.autograd.Function):
         n = parts[0].shape[dim] // m
         ctx.piece = parts[0].narrow(dim, 0, n).shape
         ctx.dtype = parts[0].dtype
-        return tuple(fold([parts[g * m + k].narrow(dim, j * n, n)
-                           for k in range(m)], lay.dev(g * m + j),
-                          parts[0].dtype)
-                     for g in range(lay.n_groups) for j in range(m))
+        ctx.nbytes = _bytes(parts[0])
+        with _counted("model_sum_scatter", "reduce-scatter", parts[0], m,
+                      lay.size):
+            return tuple(fold([parts[g * m + k].narrow(dim, j * n, n)
+                               for k in range(m)], lay.dev(g * m + j),
+                              parts[0].dtype)
+                         for g in range(lay.n_groups) for j in range(m))
 
     @staticmethod
     def backward(ctx, *gs):
         lay, m = ctx.lay, ctx.lay.n_model
-        gs = [torch.zeros(ctx.piece, dtype=ctx.dtype, device=lay.dev(i))
-              if x is None else x
-              for i, x in enumerate(gs)]
-        return (None, None, *[
-            torch.cat([gs[g * m + j].to(lay.dev(g * m + k))
-                       for j in range(m)], ctx.dim)
-            for g in range(lay.n_groups) for k in range(m)])
+        with _counted("model_sum_scatter", "all-gather", ctx.nbytes, m,
+                      lay.size):
+            gs = [torch.zeros(ctx.piece, dtype=ctx.dtype, device=lay.dev(i))
+                  if x is None else x
+                  for i, x in enumerate(gs)]
+            return (None, None, *[
+                torch.cat([gs[g * m + j].to(lay.dev(g * m + k))
+                           for j in range(m)], ctx.dim)
+                for g in range(lay.n_groups) for k in range(m)])
 
 
 def model_sum_scatter(lay: Layout, parts: list, dim: int) -> list:
@@ -326,13 +371,18 @@ def max_over_model(lay: Layout, parts: list) -> list:
 # weights
 # ---------------------------------------------------------------------------
 
-def _use_plan(leaf: Placed, keep: tuple, users: list, lay: Layout):
-    """For each user position: (device, shape, [(source position, slices
-    of the user's tensor)]). The user's tensor is the leaf's region under
-    the use spec (the leaf's spec with only the ``model`` entries of the
-    dims in ``keep`` left; a user reads the blocks of the positions that
-    share its coordinates on every axis the gathered dims do not name)."""
-    mesh, spec, shape = leaf.mesh, leaf.spec, leaf.shape
+@functools.lru_cache(maxsize=4096)
+def _use_plan(lay: Layout, spec, shape: tuple, keep: tuple, users: tuple):
+    """(plan, own) of a leaf of ``spec`` and logical ``shape`` on
+    ``lay``'s mesh. The plan, for each user position: (device, shape,
+    [(source position, slices of the user's tensor)]). The user's tensor
+    is the leaf's region under the use spec (the leaf's spec with only the
+    ``model`` entries of the dims in ``keep`` left; a user reads the blocks
+    of the positions that share its coordinates on every axis the gathered
+    dims do not name). ``own``: each user's tensor is its own whole block
+    (nothing to gather). Cached: a mesh program gathers the same leaves
+    every step."""
+    mesh = lay.mesh
     names = mesh.axis_names
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     use = tuple(e if (d in keep and _axes(e) == ("model",)) else None
@@ -359,31 +409,54 @@ def _use_plan(leaf: Placed, keep: tuple, users: list, lay: Layout):
             sl = tuple(slice(b.start - r.start, b.stop - r.start)
                        for b, r in zip(bsl, region))
             pieces.append((lay.index[src], sl))
-        plan.append((lay.dev(u), ushape, pieces))
-    return plan
+        plan.append((lay.dev(u), ushape, tuple(pieces)))
+    own = all(len(p) == 1 and p[0][0] == u
+              and all(s == slice(0, n) for s, n in zip(p[0][1], ushape))
+              for u, (_, ushape, p) in zip(users, plan)) \
+        and len(set(users)) == len(users)
+    return tuple(plan), own
+
+
+def _use_bytes(plan, dtype) -> tuple[float, int]:
+    """(bytes of one user's tensor, blocks a user assembles) of a plan."""
+    _, shape, pieces = plan[0]
+    return math.prod(shape) * dtype.itemsize, len(pieces)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, plan, *blocks):
         ctx.plan = plan
-        ctx.src = [(b.device, b.dtype) for b in blocks]
-        outs = []
-        for dev, shape, pieces in plan:
-            out = torch.empty(shape, dtype=blocks[0].dtype, device=dev)
-            for src, sl in pieces:
-                out[sl] = blocks[src].to(dev)
-            outs.append(out)
-        return tuple(outs)
+        ctx.src = [(b.device, b.dtype, b.shape) for b in blocks]
+        ctx.meta = blocks[0].device.type == "meta"
+        nbytes, group = _use_bytes(plan, blocks[0].dtype)
+        with _counted("gather", "all-gather", nbytes, group, len(plan)):
+            outs = []
+            for dev, shape, pieces in plan:
+                out = torch.empty(shape, dtype=blocks[0].dtype, device=dev)
+                if not ctx.meta:
+                    for src, sl in pieces:
+                        out[sl] = blocks[src].to(dev)
+                outs.append(out)
+            return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        readers = [[] for _ in ctx.src]
-        for g, (_, _, pieces) in zip(gs, ctx.plan):
-            for src, sl in pieces:
-                readers[src].append(None if g is None else g[sl])
-        return (None, *[fold(r, dev, dt) if r else None
-                              for r, (dev, dt) in zip(readers, ctx.src)])
+        nbytes, group = _use_bytes(ctx.plan, ctx.src[0][1])
+        with _counted("gather", "reduce-scatter", nbytes, group,
+                      len(ctx.plan)):
+            readers = [[] for _ in ctx.src]
+            for g, (_, _, pieces) in zip(gs, ctx.plan):
+                for src, sl in pieces:
+                    readers[src].append(None if g is None else
+                                        g if ctx.meta else g[sl])
+            if ctx.meta:                 # shapes only: nothing to sum
+                return (None, *[
+                    torch.empty(shape, dtype=dt, device=dev)
+                    if any(x is not None for x in r) else None
+                    for r, (dev, dt, shape) in zip(readers, ctx.src)])
+            return (None, *[fold(r, dev, dt) if r else None
+                            for r, (dev, dt, _) in zip(readers, ctx.src)])
 
 
 def gather(lay: Layout, leaf, *, dtype=None, keep: tuple = (),
@@ -401,11 +474,9 @@ def gather(lay: Layout, leaf, *, dtype=None, keep: tuple = (),
     blocks = [leaf.blocks[c] for c in lay.coords]
     if dtype is not None:
         blocks = [b.to(dtype) for b in blocks]
-    plan = _use_plan(leaf, keep, users, lay)
-    if all(len(p) == 1 and p[0][0] == u
-           and all(s == slice(0, n) for s, n in zip(p[0][1], shape))
-           for u, (_, shape, p) in zip(users, plan)) \
-            and len(set(users)) == len(users):
+    plan, own = _use_plan(lay, P(*leaf.spec), tuple(leaf.shape),
+                          tuple(keep), tuple(users))
+    if own:
         return [blocks[u] for u in users]        # each user's own block
     return list(_Gather.apply(plan, *blocks))
 
@@ -439,7 +510,13 @@ def replica_sum(leaf: Placed, grads: dict) -> dict:
     for group in leaf.replica_sets():
         dev = leaf.blocks[group[0]].device
         parts = [grads[c] for c in group]
-        tot = fold(parts, dev, _F32) if len(group) > 1 else parts[0]
+        if len(group) > 1:
+            with _counted("replica_sum", "all-reduce",
+                          leaf.blocks[group[0]].numel() * 4, len(group),
+                          len(group)):
+                tot = fold(parts, dev, _F32)
+        else:
+            tot = parts[0]
         if tot is None:
             tot = torch.zeros_like(leaf.blocks[group[0]], dtype=_F32)
         for c in group:

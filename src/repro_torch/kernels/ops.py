@@ -24,6 +24,12 @@ never win the min), and an all-pad filler query's +inf bounds are
 finite-ized to 0 here, on both devices (its engine distance is exactly 0,
 so a 0 bound can never prune it).
 
+Each entry that launches one kernel declares its cost
+(`repro_torch._count.declared`, the formulas of `kernels.costs`): under an
+active count a call adds it once, whichever route runs, and nothing
+inside the entry is counted; the composite entries (the reference-layout
+``sddmm_spmm_*``, ``sddmm_spmm_chunked``) count the entries they call.
+
 Every entry that carries a reference name takes the reference's keywords
 with its defaults (``v_tile=512``, ``rows_blk=8``, ``q_blk=None``) and
 refuses what the reference's padding refuses (a non-int, zero or a
@@ -36,13 +42,46 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cdist as _cdist
+from repro_torch.kernels import costs as _costs
 from repro_torch.kernels import kexp as _kexp
 from repro_torch.kernels import lcrwmd as _lcrwmd
 from repro_torch.kernels import rwmd as _rwmd
 from repro_torch.kernels import sddmm_spmm as _sddmm_spmm
 from repro_torch.kernels._pad import check_tile
+from repro_torch._count import declared
 
 
+def _type1_cost(k_vm, r_sel, u, cols, vals, **_):
+    q = 1 if u.dim() == 2 else u.shape[0]
+    vp1 = k_vm.shape[-2]
+    return _costs.type1(q, u.shape[-2], u.shape[-1], cols.shape[1],
+                        *_costs.slots(cols, vals, vp1))
+
+
+def _type2_cost(k_vm, km_vm, u, cols, vals, **_):
+    q = 1 if u.dim() == 2 else u.shape[0]
+    vp1 = k_vm.shape[-2]
+    return _costs.type2(q, u.shape[-2], u.shape[-1], cols.shape[1],
+                        *_costs.slots(cols, vals, vp1))
+
+
+def _rows_cost(outputs):
+    return lambda a, b, **_: _costs.cost_rows(a.shape[0], b.shape[0],
+                                              a.shape[1], outputs)
+
+
+def _rwmd_cost(m_pad, cols, vals, **_):
+    q, v_r, vp1 = m_pad.shape
+    return _costs.rwmd(q, v_r, cols.shape[0], cols.shape[1],
+                       *_costs.slots(cols, vals, vp1))
+
+
+def _lc_cost(minm, cols, vals, **_):
+    return _costs.lc_rwmd(minm.shape[0], cols.shape[0], cols.shape[1],
+                          *_costs.slots(cols, vals, minm.shape[1]))
+
+
+@declared("sddmm_spmm_type1", _type1_cost)
 def sddmm_spmm_type1_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
                         u: torch.Tensor, cols: torch.Tensor,
                         vals: torch.Tensor, *,
@@ -70,6 +109,7 @@ def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
                                cols, vals, docs_blk=docs_blk)
 
 
+@declared("sddmm_spmm_type2", _type2_cost)
 def sddmm_spmm_type2_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
                         u: torch.Tensor, cols: torch.Tensor,
                         vals: torch.Tensor, *,
@@ -116,6 +156,8 @@ def sddmm_spmm_chunked(k_chunks: torch.Tensor, r_sel: torch.Tensor,
     return x / r_sel[:, None]
 
 
+@declared("k_vocab_major", lambda k_pad: _costs.vocab_major(
+    *k_pad.shape))
 def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
     """The vocab-major copy (Q, V+1, v_r) of K (or K.*M) stripes
     (Q, v_r, V+1) that the ``*_vm`` entry points read: a caller that runs
@@ -126,6 +168,7 @@ def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
     return _sddmm_spmm.k_vocab_major_plain(k_pad)
 
 
+@declared("sddmm_spmm_type1_batch", _type1_cost)
 def sddmm_spmm_type1_batch_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
                               u: torch.Tensor, cols: torch.Tensor,
                               vals: torch.Tensor, *,
@@ -155,6 +198,7 @@ def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
                                      vals, docs_blk=docs_blk)
 
 
+@declared("sddmm_spmm_type2_batch", _type2_cost)
 def sddmm_spmm_type2_batch_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
                               u: torch.Tensor, cols: torch.Tensor,
                               vals: torch.Tensor, *,
@@ -184,6 +228,7 @@ def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
                                      docs_blk=docs_blk)
 
 
+@declared("cdist_kexp", _rows_cost(2))
 def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
                v_tile: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused precompute of one query's stripe: a (v_r, w) query words,
@@ -194,6 +239,7 @@ def cdist_kexp(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
     return _kexp.cdist_kexp_plain(a, b, lamb=lamb)
 
 
+@declared("cdist_kexp_rows", _rows_cost(2))
 def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
                     rows_blk: int = 8, v_tile: int = 512
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -207,6 +253,7 @@ def cdist_kexp_rows(a: torch.Tensor, b: torch.Tensor, *, lamb: float,
     return _kexp.cdist_kexp_rows_plain(a, b, lamb=lamb)
 
 
+@declared("cdist", _rows_cost(1))
 def cdist(a: torch.Tensor, b: torch.Tensor, *, v_tile: int = 512,
           squared: bool = False) -> torch.Tensor:
     """Euclidean cost rows a (m, w) against b (V, w) -> (m, V) (the M-row
@@ -221,6 +268,7 @@ def _finite(lb: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(lb), lb, 0.0)
 
 
+@declared("rwmd_bound_batch", _rwmd_cost)
 def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
                      vals: torch.Tensor, *,
                      docs_blk: int = _rwmd.BOUND_DOCS_BLK,
@@ -239,6 +287,7 @@ def rwmd_bound_batch(m_pad: torch.Tensor, cols: torch.Tensor,
     return _finite(_rwmd.rwmd_bound_batch_plain(m_pad, cols, vals))
 
 
+@declared("lc_rwmd_bound_batch", _lc_cost)
 def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
                         vals: torch.Tensor, *, docs_blk: int | None = None,
                         q_blk: int | None = None) -> torch.Tensor:

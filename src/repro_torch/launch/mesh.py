@@ -7,6 +7,12 @@ position. One Python process owns every position and runs the shards in
 lockstep (`core.distributed`), the collectives written as device-to-device
 copies and fixed-order sums.
 
+A dry run (`launch.dryrun`) builds meshes of ``meta:i`` devices: card i
+of a production mesh, holding shapes and no data. A meta tensor reports no
+index, so it lies on every meta position (`check_placement`); positions
+stay distinct devices, so nothing is shared between them as logical
+shards of one card share it.
+
 A position's device may repeat: ``make_mesh((4, 1), ("data", "model"),
 devices=[torch.device("cuda:0")] * 4)`` puts four logical shards on one
 card (the port's counterpart of the reference's forced host device
@@ -159,6 +165,13 @@ def on_device(dev: torch.device):
     return _CURRENT
 
 
+def _lies_on(t: torch.Tensor, dev: torch.device) -> bool:
+    """A tensor on a position's device; a meta tensor (no index) on any
+    meta position."""
+    return t.device == dev or (t.device.type == dev.type == "meta"
+                               and t.device.index is None)
+
+
 def check_placement(grid: np.ndarray, blocks, what: str) -> None:
     """Raise unless every per-shard tensor lies on its position's device.
 
@@ -170,16 +183,16 @@ def check_placement(grid: np.ndarray, blocks, what: str) -> None:
     if isinstance(blocks, dict):
         for (s, dev), val in blocks.items():
             for t in (val if isinstance(val, tuple) else (val,)):
-                if t.device != dev:
+                if not _lies_on(t, dev):
                     wrong.append(f"shard {s} for {dev}: on {t.device}")
     elif isinstance(blocks, np.ndarray):
         for pos in np.ndindex(grid.shape):
-            if blocks[pos].device != grid[pos]:
+            if not _lies_on(blocks[pos], grid[pos]):
                 wrong.append(f"{pos}: on {blocks[pos].device}, "
                              f"position on {grid[pos]}")
     else:
         for s, t in enumerate(blocks):
-            if t.device != grid[0, s]:
+            if not _lies_on(t, grid[0, s]):
                 wrong.append(f"model shard {s}: on {t.device}, position on "
                              f"{grid[0, s]}")
     if wrong:

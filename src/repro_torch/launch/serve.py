@@ -233,7 +233,7 @@ def main(argv=None):
         else:
             print(f"[serve-wmd] live corpus recovered: "
                   f"{live.num_live} docs, gen {live.gen} at {live_dir}")
-        svc = WMDService.from_live(cfg, data.vecs, live, mesh=mesh,
+        svc = WMDService.from_live(mesh, cfg, data.vecs, live,
                                    impl=args.impl, tol=args.tol)
     else:
         svc = WMDService(cfg=cfg, vecs=data.vecs, ell=data.ell, mesh=mesh,

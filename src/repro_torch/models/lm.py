@@ -559,6 +559,38 @@ def _block_decode(lay, cfg: ModelConfig, kind: str, params: dict,
     return xg, cache
 
 
+def apply_block_full(cfg: ModelConfig, kind: str, params: dict,
+                     x: torch.Tensor, *, layer_idx: int, prefix_len: int = 0,
+                     q_block: int, kv_block: int):
+    """Full-sequence block on one device. Returns (x, aux_loss)."""
+    xg, aux = _block_full(_one_device_layout(x.device), cfg, kind, params,
+                          [x], layer_idx=layer_idx, prefix_len=prefix_len,
+                          q_block=q_block, kv_block=kv_block)
+    return xg[0], aux
+
+
+def apply_block_decode(cfg: ModelConfig, kind: str, params: dict,
+                       x: torch.Tensor, cache, *, layer_idx: int):
+    """One decode step of a block on one device, writing into ``cache``.
+    Returns (x, cache)."""
+    xg, cache = _block_decode(_one_device_layout(x.device), cfg, kind,
+                              params, [x], cache, layer_idx=layer_idx)
+    return xg[0], cache
+
+
+def apply_block_prefill(cfg: ModelConfig, kind: str, params: dict,
+                        x: torch.Tensor, *, layer_idx: int, max_len: int,
+                        prefix_len: int = 0, q_block: int, kv_block: int,
+                        cache_dtype=torch.bfloat16):
+    """Full-sequence block on one device that also emits its decode-cache
+    entry. Returns (x, aux_loss, cache)."""
+    xg, aux, cache = _block_full(
+        _one_device_layout(x.device), cfg, kind, params, [x],
+        layer_idx=layer_idx, prefix_len=prefix_len, q_block=q_block,
+        kv_block=kv_block, fill=(max_len, cache_dtype))
+    return xg[0], aux, cache
+
+
 # ---------------------------------------------------------------------------
 # caches: same prefix/units/tail structure
 # ---------------------------------------------------------------------------

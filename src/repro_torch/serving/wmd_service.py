@@ -195,16 +195,18 @@ class WMDService:
         return cls(cfg=cfg, vecs=state.vecs, ell=state.ell, **kw)
 
     @classmethod
-    def from_live(cls, cfg, vecs, live, **kw) -> "WMDService":
-        """Build a service over a mutable `data.live_corpus.LiveCorpus`.
+    def from_live(cls, mesh, cfg, vecs, live, **kw) -> "WMDService":
+        """Build a service over a mutable `data.live_corpus.LiveCorpus`,
+        on ``mesh`` (None: one device, ``device`` in ``kw``), the
+        reference's argument order.
 
         The corpus's base segment becomes the service ELL; the delta
         segment (and the tombstone gather map) is refreshed lazily before
         every live dispatch (`_refresh_live`). ``add_docs`` /
         ``remove_docs`` / ``compact`` then mutate the corpus through the
-        service under the engine lock. ``device``, ``mesh`` and the other
-        knobs go in ``kw``, as for the constructor."""
-        return cls(cfg=cfg, vecs=vecs, live=live, **kw)
+        service under the engine lock. ``device`` and the other knobs go
+        in ``kw``, as for the constructor."""
+        return cls(mesh=mesh, cfg=cfg, vecs=vecs, live=live, **kw)
 
     def __post_init__(self):
         if self.live is not None:

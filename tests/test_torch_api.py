@@ -6,15 +6,21 @@
   the reference's order; a name the port lacks must be listed in
   `NOT_PORTED` with the ROADMAP Queue 1 item that ports it, and must
   really be absent.
+* The launch tools, `models.lm`, the language model's layers,
+  `models.{registry,sharding_hints}` and `serving.serve_step` have each
+  public name of the reference's module, with its parameters; the
+  `WMDService` classmethods take the reference's.
 * Every `ops` entry and every `kernels/*.py` kernel entry takes the
   reference's tiling keywords (``v_tile``, ``rows_blk``, ``q_blk``,
   ``interpret``) with the reference's defaults; passing them changes no
   bit, and a value the reference refuses is refused.
 """
 import ast
+import dataclasses
 import importlib
 import importlib.util
 import inspect
+import os
 import pathlib
 
 import numpy as np
@@ -251,6 +257,94 @@ def test_training_modules_have_every_reference_name(module):
             _params_extend(item, got[name], name)
         else:
             assert got[name] == item, name
+
+
+# names the launch tools, the language model's modules and the serving
+# steps define beyond the reference's: the count's machinery, the dry
+# run's meta mesh and placement bytes, the roofline's fp32 peak, terms
+# and row; the mesh program's forms (`models.lm`, the layers in
+# `models.layers`) and its pieces; `sharding_hints.current`
+LAUNCH_LM_EXTRAS = {
+    "launch.costmodel": {"Recording", "count", "record"},
+    "launch.dryrun": {"count_cell", "meta_mesh", "position_bytes"},
+    "launch.roofline": {"PEAK_FLOPS_FP32", "peak_flops", "row", "terms"},
+    "models.lm": {"program_layout", "remat_call"},
+    "models.layers.attention": {"mesh_full", "mesh_decode", "mesh_plan",
+                                "mesh_cross_kv", "mesh_cross_decode",
+                                "decode_qkv", "decode_attend"},
+    "models.layers.moe": {"mesh_apply", "capacity", "dispatch", "experts",
+                          "combine"},
+    "models.layers.mlp": {"mesh_apply"},
+    "models.layers.embedding": {"mesh_embed", "mesh_logits",
+                                "mesh_unshard_logits", "shard_rows",
+                                "finish_embed"},
+    "models.sharding_hints": {"current"},
+}
+# constants whose values differ by design: the H100's peaks, HBM and
+# NVLink rates, and the port's own output directories
+DIFFERENT_VALUES = {"launch.roofline": {"PEAK_FLOPS", "HBM_BW", "LINK_BW",
+                                        "OUT_DIR"},
+                    "launch.dryrun": {"OUT_DIR"}}
+
+
+def _reference_module(module):
+    """The reference's module; `launch.dryrun` sets XLA_FLAGS at import
+    (512 host devices), which is put back before any JAX backend starts."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{module}")
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
+@pytest.mark.parametrize("module", [
+    "launch.costmodel", "launch.dryrun", "launch.roofline", "models.lm",
+    "models.layers.attention", "models.layers.moe", "models.layers.mlp",
+    "models.layers.embedding", "models.layers.norms", "models.layers.rope",
+    "models.registry", "models.sharding_hints", "serving.serve_step"])
+def test_launch_and_lm_modules_have_every_reference_name(module):
+    """Each public name of the reference's launch tools, language-model
+    modules and serving steps is in the port's (plus `LAUNCH_LM_EXTRAS`);
+    functions take the reference's parameters in its order (then
+    keyword-only ones; ``main`` adds ``argv=None``), NamedTuples have its
+    fields, dataclasses its fields, constants its values (but
+    `DIFFERENT_VALUES`)."""
+    ref = _reference_module(module)
+    port = importlib.import_module(f"repro_torch.{module}")
+    want, got = _public(ref), _public(port)
+    assert sorted(want) == sorted(set(got) - LAUNCH_LM_EXTRAS.get(module,
+                                                                  set()))
+    for name, item in want.items():
+        if hasattr(item, "_fields"):
+            assert got[name]._fields == item._fields, name
+        elif dataclasses.is_dataclass(item):
+            assert [f.name for f in dataclasses.fields(got[name])] == \
+                [f.name for f in dataclasses.fields(item)], name
+            for meth in ("__add__", "__mul__"):
+                assert hasattr(got[name], meth) == hasattr(item, meth)
+        elif inspect.isfunction(item):
+            _params_extend(item, got[name], name)
+        elif name not in DIFFERENT_VALUES.get(module, ()):
+            assert got[name] == item, name
+
+
+def test_wmd_service_classmethods_take_the_reference_parameters():
+    """Each classmethod of the reference's `WMDService` (``from_live``:
+    mesh first) takes the same parameters, in order, in the port."""
+    from repro.serving import WMDService as Ref
+    from repro_torch.serving import WMDService
+    found = 0
+    for name, raw in vars(Ref).items():
+        if isinstance(raw, classmethod):
+            found += 1
+            mine = inspect.getattr_static(WMDService, name)
+            assert isinstance(mine, classmethod), name
+            assert list(inspect.signature(mine.__func__).parameters) == \
+                list(inspect.signature(raw.__func__).parameters), name
+    assert found
 
 
 def _reference_imports():

@@ -579,7 +579,7 @@ def test_writer_lane_resolves_with_not_implemented(wmd_services, tmp_path):
     lc = LiveCorpus(str(tmp_path / "live"), svc.ell.num_vocab,
                     normalize=False)
     lc.add_docs(range(len(docs)), docs)
-    live = WMDService.from_live(svc.cfg, svc.vecs, lc, device="cpu")
+    live = WMDService.from_live(None, svc.cfg, svc.vecs, lc, device="cpu")
     with live.async_service(window_ms=NEVER_MS, max_batch=4) as co:
         before = co.submit(qs[0])
         add = co.submit_add_docs([40], [docs[3]])

@@ -1073,7 +1073,7 @@ def _live_stack(dev, layout, tmp_path):
         lc.add_docs(rest, [docs[i] for i in rest])
     if layout == "wide_delta":
         assert lc.delta_ell.nnz_max > lc.base_ell.nnz_max
-    live = WMDService.from_live(svc.cfg, svc.vecs, lc, device=dev,
+    live = WMDService.from_live(None, svc.cfg, svc.vecs, lc, device=dev,
                                 cache_capacity=256, mcache_capacity=256,
                                 prune_chunk=16)
     return live, svc, rs

@@ -59,8 +59,8 @@ def _histories(pkg):
         LC, Inj, Crash = LiveCorpus, CrashInjector, InjectedCrash
 
         def live_service(lc):
-            return WMDService.from_live(_cfg(WMDConfig), _corpus()[0], lc,
-                                        device="cpu", **SVC_KW)
+            return WMDService.from_live(None, _cfg(WMDConfig), _corpus()[0],
+                                        lc, device="cpu", **SVC_KW)
     vecs, ell, rs = _corpus()
     docs, v = tf.doc_lists_from_ell(ell), vecs.shape[0]
 
@@ -121,8 +121,8 @@ def _live(path_docs=None, **kw):
     lc = LiveCorpus(tempfile.mkdtemp(prefix="live-port-"), vecs.shape[0],
                     normalize=False)
     lc.add_docs(range(len(docs)), docs)
-    return WMDService.from_live(_cfg(WMDConfig), vecs, lc, device="cpu",
-                                **{**SVC_KW, **kw})
+    return WMDService.from_live(None, _cfg(WMDConfig), vecs, lc,
+                                device="cpu", **{**SVC_KW, **kw})
 
 
 def test_live_histories_are_bitwise_the_static_service():

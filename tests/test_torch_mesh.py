@@ -591,7 +591,8 @@ def test_live_service_on_a_mesh():
         lc.add_docs(range(N // 2), docs[:N // 2])
         lc.compact()
         lc.add_docs(range(N // 2, N), docs[N // 2:])
-        return WMDService.from_live(_cfg(), vecs, lc, **SVC_KW, **kw)
+        return WMDService.from_live(kw.pop("mesh", None), _cfg(), vecs, lc,
+                                    **SVC_KW, **kw)
 
     one, m41, m22 = (live(device="cpu"), live(mesh=_mesh((4, 1))),
                      live(mesh=_mesh((2, 2))))
