@@ -165,8 +165,10 @@ Phases (any failure exits non-zero before the result line is printed):
      the K copy beside #3, #4 also at the per-query rerank's (1, 64) block,
      #1 with its copy and #2 with its two, both at docs_blk 4, 8 and 16,
      and #9 beside `torch.sparse.mm`), with its time (CUDA events), its
-     device time (the profiler's), the plain version's time, a library
-     yardstick where one exists, and the bound: the larger of the bytes
+     device time (`_device_ms`: CUDA events around launches queued behind
+     a spin kernel; #3's within 5% of its time a launch in a traced loop
+     of 15), the plain version's time, a library yardstick where one
+     exists, and the bound: the larger of the bytes
      the function must move over 3.35 TB/s and its fp32 operations over
      67 TFLOP/s (H100 SXM data sheet, 700 W).
 
@@ -204,38 +206,10 @@ Phases (any failure exits non-zero before the result line is printed):
      decode step adds to torch.cuda.memory_allocated at its peak
      (torch.cuda.max_memory_allocated after a reset).
 
-  13. (run after phase 12 has released its parameters) the remaining
-     mixers at full width, each freed before the next:
-     `recurrentgemma-9b` (RG-LRU + local attention, d_model 4096; cut to
-     one pattern unit of its 38 layers), `minicpm3-4b` (multi-head latent
-     attention, 62 layers), `whisper-small` (encoder-decoder, cut to 2 + 2
-     of its 12 + 12 layers, 1,500 frames) and `xlstm-125m` (mLSTM + sLSTM,
-     12 layers; `_SERVE_CUT`: phase 16(a) serves the two cut ones at their
-     published depths); parameters made on the card
-     from a `torch.Generator` seeded 0; phase 12's traffic (batch 4,
-     prefill 64, 32 greedy decode steps, q_block = kv_block = 16; whisper
-     with (4, 1500, 768) frames from the same numpy seed) through
-     `build_model` and `serving.build_serve_fns`. Each: (a) two decode
-     loops from one cache, one donated and one not, bitwise equal, and the
-     cache of the loop without donation unchanged; prefill ms and decode ms
-     a token (CUDA events, median), the traced decode step's `[idle]` line,
-     its HBM bound (`_decode_bytes`), peak memory and seconds; (b) decoding
-     8 tokens one by one gives the prefill's logits on the extended
-     sequence, in bfloat16 and in float32 compute and cache: argmax equal,
-     relative error under 2e-2; (c) the card against the CPU at full width
-     and reduced depth (one pattern unit of recurrentgemma, 2 layers of
-     minicpm3, 2 + 2 of whisper, all 12 of xlstm) from one numpy tree: the
-     prefill logits and a decode step from the CPU's cache within 2e-2
-     (bfloat16) and 1e-4 (float32) of the largest |logit| (whisper's
-     decoder prefill runs in bfloat16 at either compute dtype, as the
-     reference's: its prefill logits 2e-2, its encoder output 1e-4); (d)
-     minicpm3 only: `mla.fwd_decode_absorbed` against `mla.fwd_decode` at
-     full width in float32, max abs difference within 2e-5. No WMD kernel
-     is launched in the phase; (f) the launcher as a subprocess
-     (`--arch whisper-small --decode-steps 8`): exit 0 and both `[serve]`
-     lines.
+  13. the remaining mixers on one card: its checks run in phase 16(a)'s
+     1 x 1 runs, on the same parameters (listed there).
 
-  14. (run after phase 13 has released its parameters) language-model
+  14. (run after phase 12 has released its parameters) language-model
      training: `deepseek-moe-16b` at full width (d_model 2048, 64 routed
      experts top-6 + 2 shared, vocab 102,400) with its depth cut to 4
      layers (dense layer 0 + 3 stacked MoE units, 2,267,039,744 float32
@@ -264,7 +238,8 @@ Phases (any failure exits non-zero before the result line is printed):
      run ends, its loss falls, the temporary directories are gone. (e) No
      WMD kernel launched. (f) The training launcher as a subprocess twice
      on one ``--ckpt-dir`` (`--arch deepseek-moe-16b --smoke`): exit 0,
-     the second prints ``restoring step 4``.
+     the second prints ``restoring step 4`` (run beside phase 18, as are
+     15(e) and 16(e): `_Lane`).
 
   15. (run after phase 14 has released its state) the language-model
      mesh, on a (2, 2) ("data", "model") mesh of logical shards of
@@ -304,45 +279,107 @@ Phases (any failure exits non-zero before the result line is printed):
      deepseek-moe-16b ``--smoke``; train gemma-2b ``--smoke`` twice on one
      ``--ckpt-dir``, the second resuming).
 
-  16. (run after phase 15 has released its tensors) the mixers on the
-     mesh, on phase 15's (2, 2) logical shards of `cuda:0`: (a)
-     `recurrentgemma-9b`, `minicpm3-4b`, `whisper-small` and `xlstm-125m`
-     as published (full width, full depth), one at a time, phase 15(a)'s
-     traffic (batch 4, 64 prompt tokens of numpy seed 0, 8 decode steps
-     fed the 1 x 1 run's greedy tokens; whisper with (4, 1500, 768) frames
-     of the same seed), 1 x 1 first, then the same parameters moved onto
-     the mesh, bfloat16 and float32 compute (a float32 run makes a float32
-     cache and lifts whisper's bfloat16 decoder embedding to float32,
-     `_Float32Run`): the mesh's prefill and every decode step within 1e-4
-     of the largest |logit| with equal greedy tokens in float32, within
+  16. (run after phase 15 has released its tensors) the remaining mixers,
+     on one card and on the mesh: (a) `recurrentgemma-9b` (RG-LRU + local
+     attention, d_model 4096; 8 of its 38 layers: two pattern units and
+     its tail), `minicpm3-4b` (multi-head latent attention; 8 of its 62
+     layers), `whisper-small` (encoder-decoder, 12 + 12 layers, 1,500
+     frames) and `xlstm-125m` (mLSTM + sLSTM, 12 layers), all at full
+     width (`_SERVE_CUT`), one at a time, parameters made on
+     the card from a `torch.Generator` seeded 0; phase 12's traffic (batch
+     4, 64 prompt tokens of numpy seed 0, q_block = kv_block = 16; whisper
+     with (4, 1500, 768) frames of the same seed) through `build_model` and
+     `serving.build_serve_fns`. First phase 13's checks on 1 x 1: (a) two
+     greedy decode loops of 32 steps from one cache, one donated and one
+     not, bitwise equal, the cache of the loop without donation unchanged,
+     finite logits, tokens in range; prefill ms and decode ms a token (CUDA
+     events, median), the decode step's HBM bound (`_decode_bytes`); these
+     loops are also this phase's 1 x 1 bfloat16 run (its greedy feed and
+     logits, its traced decode step); (b) decoding 8 tokens one by one
+     gives the prefill's logits on the extended sequence, in bfloat16 and
+     in float32 compute and cache: argmax equal, relative error under 2e-2
+     (bfloat16: `_bf16_bound`); (d) minicpm3 only:
+     `mla.fwd_decode_absorbed` against `mla.fwd_decode` at full width in
+     float32, max abs difference within 2e-5. Then the 1 x 1 float32 run
+     and the same parameters moved onto phase 15's (2, 2) logical shards
+     of `cuda:0`, bfloat16 and float32 compute (a float32 run makes a
+     float32 cache and lifts whisper's bfloat16 decoder embedding to
+     float32, `_Float32Run`), 8 decode steps fed the 1 x 1 run's greedy
+     tokens: the mesh's prefill and every decode step within 1e-4 of the
+     largest |logit| with equal greedy tokens in float32, within
      `_bf16_bound` in bfloat16; a kept and a donated decode loop bitwise
      equal on both layouts; prefill and decode ms, each layout's traced
-     bfloat16 decode step (`[idle]`) and peak memory. (b) One float32 step
-     of each at full width, batch 8 x 128 (minicpm3-4b cut to 1 layer and
-     recurrentgemma-9b to one pattern unit of 3, the others whole): the
-     mesh against the 1 x 1 step from one state (loss and grad_norm within
-     1e-5 relative, the first moments within TOL_TRAIN_GRAD of each leaf's
-     largest and the update criterion within phase 14's TOL_TRAIN_UPDATE;
-     xlstm-125m's moments within TOL_MOMENT_XLSTM and its update criterion
-     reported, `_UPDATE_REPORTED`), two mesh steps from one state bitwise.
-     (c) An xlstm-125m step on a (2, 1, 2) pod mesh with grad compression,
-     twice: pod replicas bitwise equal after each, losses within (b)'s
-     bound and the first moments after step 1 within TOL_MOMENT_INT8 of
-     the 1 x 1 run's. (d) No WMD kernel launched.
+     bfloat16 decode step (`[idle]`) and peak memory. Last, phase 13's (c):
+     the card against the CPU at full width and reduced depth (one pattern
+     unit of recurrentgemma, 2 layers of minicpm3, 2 + 2 of whisper, all
+     12 of xlstm) from one numpy tree: the prefill logits and a decode
+     step from the CPU's cache within 2e-2 (bfloat16) and 1e-4 (float32)
+     of the largest |logit| (whisper's decoder prefill runs in bfloat16 at
+     either compute dtype, as the reference's: its prefill logits 2e-2,
+     its encoder output 1e-4). (b) One float32 step of each at full width,
+     batch 8 x 128 (minicpm3-4b cut to 1 layer and recurrentgemma-9b to
+     one pattern unit of 3, the others whole): the mesh against the 1 x 1
+     step from one state (loss and grad_norm within 1e-5 relative, the
+     first moments within TOL_TRAIN_GRAD of each leaf's largest and the
+     update criterion within phase 14's TOL_TRAIN_UPDATE; xlstm-125m's
+     moments within TOL_MOMENT_XLSTM and its update criterion reported,
+     `_UPDATE_REPORTED`), two mesh steps from one state bitwise. (c) An
+     xlstm-125m step on a (2, 1, 2) pod mesh with grad compression, twice:
+     pod replicas bitwise equal after each, losses within (b)'s bound and
+     the first moments after step 1 within TOL_MOMENT_INT8 of the 1 x 1
+     run's. (d) No WMD kernel launched. (e) Phase 13's (f): the serving
+     launcher as a subprocess (`--arch whisper-small --decode-steps 8`):
+     exit 0 and both `[serve]` lines.
 
-  17. (after phase 16) the launch tools: `python -m
+  17. (from phase 15 on) the launch tools: `python -m
      repro_torch.launch.dryrun` on the 16 x 16 production mesh of ``meta``
      devices for sinkhorn-wmd paper_5k, prod_5m and prod_5m_opt,
      deepseek-moe-16b decode_32k and olmo-1b train_4k (one process a
      cell, all at once, on the host's CPU; nothing on the card; a decoder
      cell counts its two depths one after the other), then
      `python -m repro_torch.launch.roofline --mesh pod16x16`: every cell
-     ``ok``, its seconds, counts and roofline row printed.
+     ``ok``, its seconds, counts and roofline row printed. The cells count
+     while phases 15, 16 and 18 run on the card; the roofline runs after
+     phase 18.
+
+  18. (after phase 16, beside phase 17's cells and the launchers of
+     phases 14-16, each lane of them in new processes one after the
+     other, `_Lane`) the port's four examples
+     on the card, each `main(argv)` in this process at its defaults
+     (``--device cuda``), its printed lines echoed as ``[ex <name>]``, the
+     kernels' launches read around each call: (a) `examples/
+     torch_quickstart.py` (V 8,000, w 300, N 256, 15 iterations): the
+     dense and the sparse solver within the engines' rtol 2e-3, launches
+     exactly 2 x (15 #1, one #2, two copies): the warm and the timed
+     solve; (b) `torch_doc_retrieval.py` (3 queries, 200 iterations, the
+     converged loop up to 500 at tol 1e-4 on the plain contractions):
+     launches exactly 3 x (200 #1, one #2, two copies); (c)
+     `torch_wmd_query_service.py` in each mode of SERVICE_MODES (the
+     default, ``--batch-queries``, ``--docs-chunk 128 --batch-queries``,
+     ``--zipf-stream``, ``--coalesce``, ``--top-k 8 --prune``,
+     ``--offline 64 --top-k 8 --prune``, ``--devices 4 --batch-queries``):
+     each returns, on the card's kernels, the two pruned modes' bitwise
+     asserts against `top_k_scan_batch` hold, the default mode launches
+     exactly one #5, two copies, 15 #1 and one #2 a `top_k` call, the
+     batched modes 15 #3 and one #4 a dispatch (a `query_batch` call),
+     mesh position and doc chunk, and the modes together launch all nine
+     kernels and the copies; beside them, ``--offline 16 --cache-dir D``
+     twice on one new temporary directory, each in a new process (a
+     `_Lane`): the first builds,
+     the second reports 0 builds ("compiles") and loads the libraries;
+     (d) `torch_train_moe_sinkhorn.py` (the ~100M MoE: 8 layers, d_model
+     512, 8 experts top-2, vocab 16,384; batch 8 x 256) for 20 steps with
+     each router, each on a new temporary ``--ckpt-dir`` (removed after):
+     finite losses, the last below the first, no kernel launched.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches_by_phase`` has phases 12 to 16's, which must be 0); the last
-line is ``{"ok": true, "device": {...}}``.
+(``launches_by_phase`` has phases 12, 14, 15 and 16's, which must be 0,
+and phase 18's); a ``[phases]`` line before it gives each phase's
+seconds (phase 18's with and without the launchers beside it) and the
+script's; the last line is ``{"ok": true, "device":
+{...}}``.
 """
+import contextlib
 import hashlib
 import json
 import math
@@ -354,6 +391,7 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # the H100 SXM's peaks and HBM rate, and the roofline's terms, are the
@@ -363,6 +401,7 @@ from repro_torch.launch.roofline import (HBM_BW, PEAK_FLOPS,  # noqa: E402
 TOL_ENGINE = dict(rtol=2e-3, atol=1e-5)   # the reference's engine tolerance
 TOL_KERNEL = dict(rtol=1e-4, atol=1e-6)   # same math, sums reassociated
 TOL_SELF_RTOL = 5e-3       # pairs that gather a word's own column: _compare
+DEVICE_MS_TOL = 0.05       # `_device_ms` vs a launch's traced time (#3)
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -386,24 +425,41 @@ def _timed(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# the device spins this many cycles (about 50 ms) before `_device_ms`'s
+# calls, so the host queues them all before the first one runs
+SPIN_CYCLES = 100_000_000
+
+
 def _device_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds per call: the summed device time of every kernel
-    and copy that ``reps`` calls launch, from a torch.profiler trace, over
-    ``reps``. Unlike `_timed`, it leaves out the host time between launches
-    that a small kernel's CUDA-event time holds when the host, not the
-    device, sets the pace. NaN when the trace holds no device time."""
+    """Device milliseconds per call: CUDA events around ``reps`` calls that
+    the host queues behind a spin kernel (`torch.cuda._sleep`), so that the
+    device runs them back to back. Unlike `_timed`, it leaves out the host
+    time between launches that a small kernel's CUDA-event time holds when
+    the host, not the device, sets the pace. A torch.profiler trace's
+    summed device events would say the same, but traces on the card drop
+    a varying share of their events (on an H100, 15 back-to-back #3
+    launches traced 21 times in one long process showed 0 to 15 of them,
+    `scripts/trace_drops.py`), so no sum of a trace is read as a device
+    time. Fails if the host took
+    longer to queue the calls than the device spun."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps if total > 0 else float("nan")
+    spin, start, stop = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    _check(host_ms < spin_ms, f"the host took {host_ms:.2f} ms to queue "
+           f"{reps} calls, the device spun {spin_ms:.2f} ms: it waited")
+    return start.elapsed_time(stop) / reps
 
 
 def _bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS_FP32
@@ -425,10 +481,16 @@ def _device_busy(call, marks=(), top=5, groups=()):
     holds one of its substrings and none of an earlier group's, "other"
     the rest) from the device events of the trace (kernels and copies, one
     stream, no overlap); the device ms is None, with the reason in place of
-    the entries, when the trace holds no device time."""
+    the entries, when the trace holds no device time. A trace may drop
+    its first device events (`_device_ms`): each begins with TRACE_PROLOGUE
+    spin kernels, left out of the reading, and the call is traced again,
+    up to TRACE_TRIES times, while its trace holds fewer hand-kernel
+    events than it launched hand kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
 
     def timed_call():
         torch.cuda.synchronize()
@@ -439,12 +501,21 @@ def _device_busy(call, marks=(), top=5, groups=()):
 
     wall = timed_call()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall_prof = timed_call()
-        dev = [(e.self_device_time_total / 1e3, e.key, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        for _ in range(TRACE_TRIES):
+            before = sum(_build.launches.values())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(TRACE_PROLOGUE):
+                    torch.cuda._sleep(1)
+                wall_prof = timed_call()
+            launched = sum(_build.launches.values()) - before
+            dev = [(e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+            if sum(c for _, k, c in dev
+                   if any(h in k for h in HAND_KERNELS)) >= launched:
+                break
     except Exception as e:                  # a measurement, not the path
         return wall, float("nan"), None, f"profiler failed: {e!r}", {}
     busy = sum(ms for ms, _, _ in dev)
@@ -504,6 +575,14 @@ KERNEL_GROUPS = (
      ("rwmd_gather_kernel", "column_min_kernel", "lc_rwmd_bound_kernel")),
 )
 ROOFLINE_SLACK = 1.05      # a counted term above this x the device time: wrong
+# the hand kernels' names in a trace (a launch runs one, #8's dense route
+# two), and how often `_device_busy` traces a call that holds fewer; the
+# spin kernels each of its traces begins with (a trace on the card has
+# dropped up to its first 15 device events, `scripts/trace_drops.py`)
+TRACE_TRIES = 5
+TRACE_PROLOGUE = 64
+HAND_KERNELS = tuple(k for _, _, subs in KERNEL_GROUPS for k in subs) + (
+    "type2_query_kernel",)
 
 
 def _counted_wmd(what, call, want=None):
@@ -1909,19 +1988,29 @@ def _phase12(card):
     return launches
 
 
-# the remaining mixers (phase 13): each config at full width, one at a time
+# the mixers (phase 16(a), which runs phase 13's checks in its 1 x 1 runs):
+# each config at full width, one at a time
 MIXER_ARCHS = ("recurrentgemma-9b", "minicpm3-4b", "whisper-small",
                "xlstm-125m")
-# (c)'s depth: one pattern unit, 2 layers, 2 + 2, all 12
+# (a)'s depth: recurrentgemma-9b two pattern units and its tail of two
+# RG-LRU layers (of 38), minicpm3-4b 8 of its 62 layers (the decode loops
+# are host-bound, so their seconds go with the depth), whisper-small and
+# xlstm-125m whole (at 4 + 4 layers whisper's float32 decode, against its
+# prefill's bfloat16 decoder, picked another argmax in one of 4 rows at
+# relative error 0.0079: ROADMAP Queue 3)
+_SERVE_CUT = {"recurrentgemma-9b": dict(num_layers=8),
+              "minicpm3-4b": dict(num_layers=8),
+              "whisper-small": {}, "xlstm-125m": {}}
+# (c)'s depth (the card against the CPU): one pattern unit, 2 layers,
+# 2 + 2, all 12
 _REDUCED = {"recurrentgemma-9b": dict(num_layers=3),
             "minicpm3-4b": dict(num_layers=2),
             "whisper-small": dict(num_layers=2, encoder_layers=2),
             "xlstm-125m": {}}
-# (a), (b) and (d)'s depth: recurrentgemma-9b and whisper-small cut as in
-# (c) (phase 16(a) serves them at their published depths), the others
-# as published
-_SERVE_CUT = {"recurrentgemma-9b": _REDUCED["recurrentgemma-9b"],
-              "whisper-small": _REDUCED["whisper-small"]}
+SERVE_B, SERVE_T = 4, 64      # phase 12's traffic: batch 4, 64 prompt tokens
+SERVE_STEPS = 32              # (a)'s greedy decode steps a loop
+MESH_STEPS = 8                # the mesh runs' decode steps
+MLA_ATOL = 2e-5               # the reference's, `tests/test_layers.py:171`
 
 
 def _cut(cfg, cut: dict):
@@ -1932,7 +2021,6 @@ def _cut(cfg, cut: dict):
         cut["encoder"] = dataclasses.replace(
             cfg.encoder, num_layers=cut.pop("encoder_layers"))
     return dataclasses.replace(cfg, **cut)
-MLA_ATOL = 2e-5               # the reference's, `tests/test_layers.py:171`
 
 
 def _greedy_loop(dec, params, logits, cache, steps):
@@ -1994,55 +2082,23 @@ def _f32_prefill(cfg, params, batch, max_len):
     return embedding.logits(cfg, params["embedding"], h[:, -1:]), cache
 
 
-def _phase13_arch(arch):
-    """One config of phase 13 (see the module docstring): its checks and
-    measurements, every tensor freed on return."""
-    import dataclasses
-    import gc
-
+def _mixer_greedy(arch, cfg, params, batch, max_len):
+    """Phase 13's (a) on the 1 x 1 layout: prefill, then two greedy decode
+    loops of SERVE_STEPS from one cache, one donated and one not, bitwise
+    equal, the cache of the loop without donation unchanged; prefill and
+    decode ms, the decode step's HBM bound. Returns 16(a)'s 1 x 1 bfloat16
+    run (prefill logits and the first MESH_STEPS decode logits on the
+    host, prefill ms, decode ms a token), its greedy feed (the first
+    MESH_STEPS tokens fed) and its traced decode step (`_launch_count`)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.models import build_model, encdec
-    from repro_torch.models.layers import mla
-    from repro_torch.models.lm import _leaves, _tree_map, _unit, stack_plan
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _leaves, _tree_map
     from repro_torch.serving import build_serve_fns
 
-    t_arch = time.perf_counter()
-    dev = torch.device("cuda")
-    cfg = _cut(get_config(arch), _SERVE_CUT.get(arch, {}))
-    b, t, steps = 4, 64, 32                  # the reference launcher's
-    max_len = t + steps
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
-        np.int32)}
-    if cfg.family == "audio":
-        batch["frames"] = rng.normal(size=(
-            b, cfg.encoder.num_positions, cfg.d_model)).astype(np.float32)
-    kinds = ("encoder-decoder, " + f"{cfg.encoder.num_layers} + "
-             f"{cfg.num_layers} layers, {cfg.encoder.num_positions} frames"
-             if cfg.family == "audio" else
-             f"{cfg.num_layers} layers, units of {stack_plan(cfg).unit} x "
-             f"{stack_plan(cfg).n_units} + tail {stack_plan(cfg).tail}")
-    print(f"[mix] {arch}: {kinds}, d_model {cfg.d_model}, {cfg.num_heads} "
-          f"heads (kv {cfg.num_kv_heads}), vocab {cfg.vocab_size}"
-          f"{', MLA' if cfg.mla is not None else ''}; batch {b}, prefill "
-          f"{t}, {steps} decode steps, q_block = kv_block = 16; "
-          + ("depth cut (`_SERVE_CUT`; phase 16(a) serves the published "
-             "depth)" if arch in _SERVE_CUT else "no depth cut"))
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    b, t, steps = SERVE_B, SERVE_T, SERVE_STEPS
     model = build_model(cfg, q_block=16, kv_block=16)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for _, x in _named(params))
-    print(f"[mix] {arch}: {n_params:,} parameters, "
-          f"{4 * n_params / 1e9:.2f} GB float32, made on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    # -- (a) serve: prefill, then two decode loops from one cache
     prefill_for, decode_for = build_serve_fns(model, None, max_len=max_len)
     prefill = prefill_for(b)
     dec, dec_kept = decode_for(b), decode_for(b, donate_cache=False)
@@ -2077,17 +2133,9 @@ def _phase13_arch(arch):
           f"without donation is bitwise the donated one ({steps} steps of "
           f"logits and tokens) and left its cache as it was; tokens "
           f"{t1[0, :8].tolist()}...")
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    wall, wall_prof, busy, largest, _ = _device_busy(
-        lambda: dec(params, cache, tok))
-    if busy is None:
-        print(f"[idle] decode step ({arch}): {wall:.2f} ms wall; device "
-              f"time not measured ({largest})")
-    else:
-        print(f"[idle] decode step ({arch}): {wall:.2f} ms wall "
-              f"({wall_prof:.2f} ms under the profiler), device busy "
-              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; largest "
-              f"device entries: {largest}")
+    tok0 = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    feed = torch.cat([tok0, t1[:, :MESH_STEPS - 1]], 1)
+    report = _launch_count(lambda: dec_kept(params, cache, tok0))
     # the decode step reads the decoder's weights (not the encoder's) and
     # one row of a learned position table
     used = params if cfg.family != "audio" else {
@@ -2102,9 +2150,22 @@ def _phase13_arch(arch):
           f"({nbytes / HBM_BW * 1e3 / med:.2f} of the bound); each "
           f"weight read once in bfloat16: {ideal / 1e9:.2f} GB, "
           f"{ideal / HBM_BW * 1e3:.2f} ms")
-    del logits, cache, l1, l2
+    run = (logits.float().cpu(), l2[:, :MESH_STEPS].float().cpu(),
+           prefill_ms, med)
+    return run, feed, report
 
-    # -- (b) decode against prefill, bfloat16 and float32 (and cache)
+
+def _mixer_decode_vs_prefill(arch, cfg, params, batch):
+    """Phase 13's (b): decoding 8 tokens one by one gives the prefill's
+    logits on the extended sequence, bfloat16 and float32 compute (and
+    cache): argmax equal, relative error within its bound."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    b, t = SERVE_B, SERVE_T
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (b, t)).astype(np.int32)
     s1 = t - 8
@@ -2140,41 +2201,58 @@ def _phase13_arch(arch):
         _check(rel < bound, f"{arch} ({dtype}): decode vs prefill relative "
                f"error {rel}")
 
-    # -- (d) MLA: the absorbed decode (the served one) against the naive
-    if cfg.mla is not None:
-        c32 = dataclasses.replace(cfg, compute_dtype="float32")
-        p0 = _unit(params["units"], 0)[0]["mix"]
-        g = torch.Generator(device=dev).manual_seed(3)
-        x = torch.randn(b, t, cfg.d_model, generator=g, device=dev)
-        _, (c_kv, k_rope) = mla.fwd_full(c32, p0, x, q_block=16,
-                                         kv_block=16, return_latent=True)
-        mc = mla.fill_cache(c32, c_kv, k_rope, max_len, torch.float32)
-        worst, top = 0.0, 0.0
-        for _ in range(4):
-            x1 = torch.randn(b, 1, cfg.d_model, generator=g, device=dev)
-            o_n, mc_n = mla.fwd_decode(c32, p0, x1, mc)
-            o_a, _ = mla.fwd_decode_absorbed(c32, p0, x1, mc)
-            worst = max(worst, float((o_a - o_n).abs().max()))
-            top = max(top, float(o_n.abs().max()))
-            mc = mc_n
-        print(f"[mix] {arch}: MLA absorbed vs naive decode, float32, layer "
-              f"0 at full width ({cfg.num_heads} heads, kv_lora "
-              f"{cfg.mla.kv_lora_rank}, 4 steps after {t} tokens): max abs "
-              f"difference {worst:.3g} (bound {MLA_ATOL:g}; "
-              f"max |naive| {top:.3f})")
-        _check(worst <= MLA_ATOL, f"{arch}: absorbed vs naive decode "
-               f"{worst} > {MLA_ATOL}")
-        del x, mc, mc_n, c_kv, k_rope
-    print(f"[mix] {arch}: peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated, (a), (b)"
-          f"{', (d)' if cfg.mla is not None else ''})")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    # -- (c) the card against the CPU at full width and reduced depth, from
-    # one numpy tree: prefill logits and a decode step from one cache
+def _mixer_mla(arch, cfg, params, max_len):
+    """Phase 13's (d): MLA's absorbed decode (the served one) against the
+    naive one, float32, layer 0 at full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import mla
+    from repro_torch.models.lm import _unit
+
+    b, t, dev = SERVE_B, SERVE_T, torch.device("cuda")
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p0 = _unit(params["units"], 0)[0]["mix"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(b, t, cfg.d_model, generator=g, device=dev)
+    _, (c_kv, k_rope) = mla.fwd_full(c32, p0, x, q_block=16, kv_block=16,
+                                     return_latent=True)
+    mc = mla.fill_cache(c32, c_kv, k_rope, max_len, torch.float32)
+    worst, top = 0.0, 0.0
+    for _ in range(4):
+        x1 = torch.randn(b, 1, cfg.d_model, generator=g, device=dev)
+        o_n, mc_n = mla.fwd_decode(c32, p0, x1, mc)
+        o_a, _ = mla.fwd_decode_absorbed(c32, p0, x1, mc)
+        worst = max(worst, float((o_a - o_n).abs().max()))
+        top = max(top, float(o_n.abs().max()))
+        mc = mc_n
+    print(f"[mix] {arch}: MLA absorbed vs naive decode, float32, layer "
+          f"0 at full width ({cfg.num_heads} heads, kv_lora "
+          f"{cfg.mla.kv_lora_rank}, 4 steps after {t} tokens): max abs "
+          f"difference {worst:.3g} (bound {MLA_ATOL:g}; "
+          f"max |naive| {top:.3f})")
+    _check(worst <= MLA_ATOL, f"{arch}: absorbed vs naive decode "
+           f"{worst} > {MLA_ATOL}")
+
+
+def _mixer_card_vs_cpu(arch, cfg, batch, max_len):
+    """Phase 13's (c): the card against the CPU at full width and reduced
+    depth (`_REDUCED`), from one numpy tree: the prefill logits and a
+    decode step from the CPU's cache, bfloat16 and float32 compute."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.lm import _tree_map
+
+    dev = torch.device("cuda")
+    b = SERVE_B
     cfg_r = _cut(cfg, _REDUCED[arch])
     t0 = time.perf_counter()
     tree = _tree_map(lambda x: x.numpy(),
@@ -2235,43 +2313,17 @@ def _phase13_arch(arch):
     del tree, p_cpu, p_gpu
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[mix] {arch}: {time.perf_counter() - t_arch:.1f} s")
 
 
-def _phase13():
-    """13. The remaining mixers on the card (see the module docstring).
-    Returns the kernels' launch counts over the phase, read around it."""
-    from repro_torch.kernels import _build
-
-    t_phase = time.perf_counter()
-    _build.reset_launches()
-    for arch in MIXER_ARCHS:
-        _phase13_arch(arch)
-    launches = dict(_build.launches)
-    print(f"[mix] kernel launches over phase 13: {launches or 'none'} (the "
-          f"mixers run no hand-written kernel)")
-    _check(sum(launches.values()) == 0, "phase 13 launched a WMD kernel")
-
-    # -- (f) the launcher, as a subprocess, on the encoder-decoder (the
-    # launcher's one new batch field, the frames)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "whisper-small", "--decode-steps", "8"]
-    t0 = time.perf_counter()
-    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("[serve]")]
-    for ln in lines:
-        print(f"[mix launcher] {ln}")
-    _check(run.returncode == 0, f"the launcher exited {run.returncode}: "
-           f"{run.stderr[-2000:]}")
-    _check(any("prefill" in ln for ln in lines)
-           and any("decode steps" in ln for ln in lines),
-           "the launcher did not print both [serve] lines")
-    print(f"[mix launcher] {' '.join(cmd[2:])}: exit 0 in "
-          f"{time.perf_counter() - t0:.1f} s")
-    print(f"[mix] phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+def _mixer_launcher():
+    """Phase 13's (f): the serving launcher as a subprocess on the
+    encoder-decoder (the launcher's one new batch field, the frames):
+    exit 0 and both `[serve]` lines. Its spec for `_Lane` (run beside
+    phase 18)."""
+    return [("[mix launcher]", [sys.executable, "-m",
+                                "repro_torch.launch.serve", "--arch",
+                                "whisper-small", "--decode-steps", "8"],
+             "[serve]", ("prefill", "decode steps"))]
 
 
 # -- 14. language-model training -------------------------------------------
@@ -2440,22 +2492,20 @@ def _phase14_run(cfg, router):
               f"160 B a parameter, "
               f"{28 * n_params / HBM_BW * 1e3:.1f} ms fused")
 
-    # -- (b) two steps from one state, through two build_train_step calls
-    saved_state = [x.to("cpu", copy=True) for x in _tree.leaves(state)]
+    # -- (b) two steps from one state, through two build_train_step calls,
+    # each donated on its own copy on the card (two states and one step's
+    # temporaries: about 68 GiB at depth 4)
+    torch.cuda.empty_cache()
+    twin = _tree.tree_map(torch.clone, state)
     s1, m1 = build_train_step(model, opt, mesh)(state, batch)
-    h1 = [x.to("cpu", copy=True) for x in _tree.leaves(s1)]
-    m1 = {k: v.to("cpu", copy=True) for k, v in m1.items()}
-    del s1
-    with torch.no_grad():
-        for x, h in zip(_tree.leaves(state), saved_state, strict=True):
-            x.copy_(h)
-    del saved_state
-    s2, m2 = build_train_step(model, opt, mesh)(state, batch)
-    same = all(torch.equal(h, x.to("cpu"))
-               for h, x in zip(h1, _tree.leaves(s2), strict=True))
-    same_m = all(torch.equal(m1[k], m2[k].to("cpu")) for k in m1)
+    s2, m2 = build_train_step(model, opt, mesh)(twin, batch)
+    h1 = _tree.leaves(s1)
+    same = all(torch.equal(a, b)
+               for a, b in zip(h1, _tree.leaves(s2), strict=True))
+    same_m = all(torch.equal(m1[k], m2[k]) for k in m1)
     _check(same and same_m, f"{router}: two steps from one state differ "
            f"(state {same}, metrics {same_m})")
+    del twin, s2
     print(f"[train] {router}: two steps from one state (two "
           f"build_train_step calls, donated) bitwise equal: {len(h1)} "
           f"tensors (parameters, moments, step) and the metrics "
@@ -2677,29 +2727,15 @@ def _phase14_restart():
 
 
 def _phase14_launcher():
-    """(f) the training launcher twice on one --ckpt-dir."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.pop("REPRO_FAILED_ONCE", None)
-    with tempfile.TemporaryDirectory() as td:
-        for steps, want in ((4, None), (6, "restoring step 4")):
-            cmd = [sys.executable, "-m", "repro_torch.launch.train",
-                   "--arch", TRAIN_ARCH, "--smoke", "--steps", str(steps),
-                   "--ckpt-every", "2", "--batch", "2", "--seq-len", "32",
-                   "--ckpt-dir", td]
-            t0 = time.perf_counter()
-            run = subprocess.run(cmd, cwd=ROOT, env=env,
-                                 capture_output=True, text=True, timeout=600)
-            lines = [ln for ln in run.stdout.splitlines()
-                     if ln.startswith("[train")]
-            for ln in lines:
-                print(f"[train launcher] {ln}")
-            _check(run.returncode == 0, f"the training launcher exited "
-                   f"{run.returncode}: {run.stderr[-2000:]}")
-            _check(any(ln.startswith("[train] done") for ln in lines)
-                   and (want is None or any(want in ln for ln in lines)),
-                   f"the training launcher's lines: {lines}")
-            print(f"[train launcher] {' '.join(cmd[2:-2])}: exit 0 in "
-                  f"{time.perf_counter() - t0:.1f} s")
+    """(f) the training launcher twice on one --ckpt-dir, the second
+    resuming: its specs for `_Lane` (run beside phase 18)."""
+    return [("[train launcher]",
+             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+              TRAIN_ARCH, "--smoke", "--steps", str(steps), "--ckpt-every",
+              "2", "--batch", "2", "--seq-len", "32", "--ckpt-dir", "{tmp}"],
+             "[train", wants)
+            for steps, wants in ((4, ("[train] done",)),
+                                 (6, ("[train] done", "restoring step 4")))]
 
 
 def _phase14():
@@ -2736,7 +2772,6 @@ def _phase14():
     print(f"[train] kernel launches over phase 14: {launches or 'none'} "
           f"(training runs no hand-written kernel)")
     _check(sum(launches.values()) == 0, "phase 14 launched a WMD kernel")
-    _phase14_launcher()
     print(f"[train] phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -3286,34 +3321,23 @@ def _phase15_checkpoint():
 
 
 def _phase15_launchers():
-    """(e) both launchers as subprocesses on --devices 4 --mesh 2x2."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.pop("REPRO_FAILED_ONCE", None)
+    """(e) both launchers as subprocesses on --devices 4 --mesh 2x2: the
+    serving launcher, and the training launcher twice on one --ckpt-dir,
+    the second resuming. Their specs for two `_Lane`s (run beside phase
+    18)."""
     mesh = ["--devices", "4", "--mesh", "2x2"]
-    with tempfile.TemporaryDirectory() as td:
-        cmds = [([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                  "deepseek-moe-16b", "--smoke", *mesh], "[serve]",
-                 "decode steps"),
-                *[([sys.executable, "-m", "repro_torch.launch.train",
-                    "--arch", "gemma-2b", "--smoke", "--steps", str(steps),
-                    "--ckpt-every", "2", "--batch", "4", "--seq-len", "32",
-                    "--ckpt-dir", td, *mesh], "[train", want)
-                  for steps, want in ((2, "[train] done"),
-                                      (4, "restoring step 2"))]]
-        for cmd, prefix, want in cmds:
-            t0 = time.perf_counter()
-            run = subprocess.run(cmd, cwd=ROOT, env=env,
-                                 capture_output=True, text=True, timeout=600)
-            lines = [ln for ln in run.stdout.splitlines()
-                     if ln.startswith(prefix)]
-            for ln in lines:
-                print(f"[mesh launcher] {ln}")
-            _check(run.returncode == 0, f"{cmd[2]} exited {run.returncode}:"
-                   f" {run.stderr[-2000:]}")
-            _check(any(want in ln for ln in lines),
-                   f"{cmd[2]}: no line with {want!r}: {lines}")
-            print(f"[mesh launcher] {' '.join(cmd[2:])}: exit 0 in "
-                  f"{time.perf_counter() - t0:.1f} s")
+    serve = [("[mesh launcher]",
+              [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "deepseek-moe-16b", "--smoke", *mesh], "[serve]",
+              ("decode steps",))]
+    train = [("[mesh launcher]",
+              [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "gemma-2b", "--smoke", "--steps", str(steps), "--ckpt-every",
+               "2", "--batch", "4", "--seq-len", "32", "--ckpt-dir", "{tmp}",
+               *mesh], "[train", (want,))
+             for steps, want in ((2, "[train] done"),
+                                 (4, "restoring step 2"))]
+    return [serve, train]
 
 
 def _phase15():
@@ -3341,7 +3365,6 @@ def _phase15():
     print(f"[mesh] kernel launches over phase 15: {launches or 'none'} (the "
           f"language-model mesh runs no hand-written kernel)")
     _check(sum(launches.values()) == 0, "phase 15 launched a WMD kernel")
-    _phase15_launchers()
     print(f"[mesh] phase 15: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -3438,8 +3461,13 @@ class _Float32Run:
 
 
 def _phase16_serve_arch(arch, mesh, card):
-    """(a) One config as published, 1 x 1 then the same parameters moved
-    onto the mesh, bfloat16 and float32 compute."""
+    """(a) One config at full width and `_SERVE_CUT`'s depth: phase 13's
+    checks on the 1 x 1 layout
+    ((a) two greedy decode loops, which give the 1 x 1 bfloat16 run; (b)
+    decode against prefill; (d) MLA's absorbed decode), the 1 x 1 float32
+    run, then the same parameters moved onto the mesh, bfloat16 and
+    float32 compute, against the 1 x 1 runs; last, phase 13's (c): the
+    card against the CPU at reduced depth."""
     import dataclasses
     import gc
 
@@ -3449,23 +3477,47 @@ def _phase16_serve_arch(arch, mesh, card):
     from repro_torch.configs import get_config
     from repro_torch.distributed import partitioning
     from repro_torch.models import build_model
-    from repro_torch.models.lm import _tree_map
+    from repro_torch.models.lm import _tree_map, stack_plan
     from repro_torch.models.sharding_hints import activation_sharding
     from repro_torch.serving import build_serve_fns
 
     t_arch = time.perf_counter()
-    cfg = get_config(arch)
-    b, t, steps = 4, 64, 8
-    max_len = t + steps
+    cfg = _cut(get_config(arch), _SERVE_CUT[arch])
+    b, t, steps = SERVE_B, SERVE_T, MESH_STEPS
+    max_len = t + SERVE_STEPS
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
         np.int32)}
     if cfg.family == "audio":
         batch["frames"] = rng.normal(size=(
             b, cfg.encoder.num_positions, cfg.d_model)).astype(np.float32)
+    kinds = ("encoder-decoder, " + f"{cfg.encoder.num_layers} + "
+             f"{cfg.num_layers} layers, {cfg.encoder.num_positions} frames"
+             if cfg.family == "audio" else
+             f"{cfg.num_layers} layers, units of {stack_plan(cfg).unit} x "
+             f"{stack_plan(cfg).n_units} + tail {stack_plan(cfg).tail}")
+    print(f"[mix] {arch}: {kinds}, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads (kv {cfg.num_kv_heads}), vocab {cfg.vocab_size}"
+          f"{', MLA' if cfg.mla is not None else ''}; batch {b}, prefill "
+          f"{t}, {SERVE_STEPS} decode steps (the mesh runs {steps}), "
+          f"q_block = kv_block = 16; "
+          f"{'depth cut (`_SERVE_CUT`)' if _SERVE_CUT[arch] else 'whole'}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(device="cuda")
                                    .manual_seed(0))
-    feeds, report, peak = {}, {}, {}
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in _named(params))
+    print(f"[mix] {arch}: {n_params:,} parameters, "
+          f"{4 * n_params / 1e9:.2f} GB float32, made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs, peak = {}, {}
+    runs[("1x1", "bfloat16")], feed, traced = _mixer_greedy(
+        arch, cfg, params, batch, max_len)
+    feeds, report = {"bfloat16": feed}, {1: traced}
+    _mixer_decode_vs_prefill(arch, cfg, params, batch)
+    if cfg.mla is not None:
+        _mixer_mla(arch, cfg, params, max_len)
 
     def serve(c, p, m):
         model = build_model(c, q_block=16, kv_block=16)
@@ -3503,7 +3555,7 @@ def _phase16_serve_arch(arch, mesh, card):
             if key == "bfloat16":
                 tok = feed[:, :1]
                 with activation_sharding(m, "decode"):
-                    report[1 if m is None else m.size] = _launch_count(
+                    report[m.size] = _launch_count(
                         lambda: decode_for(b, donate_cache=False)(
                             p, cache, tok))
         del cache
@@ -3511,10 +3563,7 @@ def _phase16_serve_arch(arch, mesh, card):
 
     cfgs = {d: dataclasses.replace(cfg, compute_dtype=d)
             for d in ("bfloat16", "float32")}
-    runs = {}
-    torch.cuda.reset_peak_memory_stats()
-    for d, c in cfgs.items():
-        runs[("1x1", d)] = serve(c, params, None)
+    runs[("1x1", "float32")] = serve(cfgs["float32"], params, None)
     peak[1] = torch.cuda.max_memory_allocated() / 2**30
     placed = partitioning.shard(params,
                                 partitioning.param_shardings(mesh, params))
@@ -3556,9 +3605,14 @@ def _phase16_serve_arch(arch, mesh, card):
                   f"share {idle:.3f}, {n} device entries; largest: "
                   f"{largest}")
     print(f"[mesh16] (a) {arch}: peak device memory {peak[mesh.size]:.2f} "
-          f"GiB on the mesh [1 x 1 {peak[1]:.2f}] "
-          f"(torch.cuda.max_memory_allocated); the model's own bfloat16 "
-          f"error {own:.3g}; {time.perf_counter() - t_arch:.1f} s")
+          f"GiB on the mesh [1 x 1 {peak[1]:.2f}, phase 13's checks and "
+          f"the float32 run included] (torch.cuda.max_memory_allocated); "
+          f"the model's own bfloat16 error {own:.3g}")
+    del runs, feeds, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mixer_card_vs_cpu(arch, cfg, batch, max_len)
+    print(f"[mix] {arch}: {time.perf_counter() - t_arch:.1f} s")
 
 
 def _phase16_train(mesh):
@@ -3742,8 +3796,8 @@ def _phase16(card):
         print(f"[mesh16] {what}: {time.perf_counter() - t0:.1f} s")
     launches = dict(_build.launches)
     print(f"[mesh16] (d) kernel launches over phase 16: "
-          f"{launches or 'none'} (the mixers on the mesh run no "
-          f"hand-written kernel)")
+          f"{launches or 'none'} (the mixers, on 1 x 1 and on the mesh, run "
+          f"no hand-written kernel)")
     _check(sum(launches.values()) == 0, "phase 16 launched a WMD kernel")
     print(f"[mesh16] phase 16: {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -4204,6 +4258,22 @@ def _wmd_phases():
                 lambda: sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(
                     k_vm, r, u, cols, vals),
                 cost=costs.type1(q, v_r, n, nnz, uniq, nnz_real))
+    # the device-ms reading (20 calls in one trace) against #3's traced
+    # time a launch in a loop of the main path's max_iter launches
+    _, _, busy3, why3, marked3 = _device_busy(
+        lambda: [sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, u, cols, vals)
+                 for _ in range(cfg.max_iter)], marks=("type1_vm_kernel",))
+    _check(busy3 is not None, f"#3's loop traced no device time ({why3})")
+    n3, ms3 = marked3["type1_vm_kernel"]
+    _check(n3 > 0, "#3's loop traced no #3")
+    rel3 = abs(e3["device_ms"] - ms3 / n3) / (ms3 / n3)
+    print(f"[kernels] sddmm_spmm_type1_batch (#3): device ms "
+          f"{e3['device_ms']:.4f} (`_device_ms`) against {ms3 / n3:.4f} ms "
+          f"a launch traced in a loop of {cfg.max_iter} launches ({n3} in "
+          f"the trace): {rel3:.3%} apart (bound {DEVICE_MS_TOL:.0%})")
+    _check(rel3 <= DEVICE_MS_TOL,
+           f"#3's device ms {e3['device_ms']} is {rel3:.3%} from its traced "
+           f"{ms3 / n3} ms a launch ({n3} launches traced)")
     del x_k, x_p, x_1
     km_vm = sddmm_spmm.k_vocab_major(km_pad)
     d_k = sddmm_spmm.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)
@@ -4624,7 +4694,7 @@ def _wmd_phases():
           f"layout made outside (minm vocab-major, as min_cost_vectors "
           f"makes it; minm.T): CUDA events {lc['ms']:.4f} vs "
           f"{lc['library_ms']:.4f} ms ({lc['library_ms'] / lc['ms']:.2f}x); "
-          f"device time (profiler) {dev_lc:.4f} vs {dev_lib:.4f} ms "
+          f"device time {dev_lc:.4f} vs {dev_lib:.4f} ms "
           f"({dev_lib / dev_lc:.2f}x); on a row-major minm (the copy in the "
           f"call) {ms_rm:.4f} ms events, {dev_rm:.4f} ms device")
 
@@ -4641,38 +4711,48 @@ PHASE17_CELLS = (("sinkhorn-wmd", "paper_5k"), ("sinkhorn-wmd", "prod_5m"),
 PHASE17_TIMEOUT_S = 600
 
 
-def _phase17():
+def _phase17_start():
     """17. `python -m repro_torch.launch.dryrun` on pod16x16 for each of
-    PHASE17_CELLS (one process a cell, all started together: meta tensors
-    on the host's CPU, nothing on the card), then `python -m
-    repro_torch.launch.roofline --mesh pod16x16`: every cell must come out
-    ``ok``; each cell's seconds and roofline row printed."""
+    PHASE17_CELLS, one process a cell, all started together (meta tensors
+    on the host's CPU, nothing on the card), each writing to a temporary
+    file: the processes, which `_phase17_finish` waits for after phase 18
+    (they count while phases 15, 16 and 18 use the card)."""
     import shutil
 
+    shutil.rmtree(ROOT / "experiments" / "dryrun_torch" / "pod16x16",
+                  ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in PHASE17_CELLS:
+        out = tempfile.TemporaryFile("w+")
+        procs.append((arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT, text=True), out))
+    return time.perf_counter(), procs
+
+
+def _phase17_finish(started):
+    """17 (cont.). Wait for the dry-run cells of `_phase17_start` (killing
+    any left on a failure), then `python -m repro_torch.launch.roofline
+    --mesh pod16x16`: every cell must come out ``ok``; each cell's seconds
+    and roofline row printed."""
     from repro_torch.launch import roofline
 
+    t0, procs = started
     out_dir = ROOT / "experiments" / "dryrun_torch" / "pod16x16"
-    shutil.rmtree(out_dir, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    procs = [(arch, shape, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True))
-        for arch, shape in PHASE17_CELLS]
     try:
-        for arch, shape, p in procs:
+        for arch, shape, p, out in procs:
             left = max(1.0, PHASE17_TIMEOUT_S - (time.perf_counter() - t0))
-            text, _ = p.communicate(timeout=left)
-            for ln in text.strip().splitlines()[-3:]:
+            p.wait(timeout=left)
+            out.seek(0)
+            for ln in out.read().strip().splitlines()[-3:]:
                 print(f"[dryrun] {ln}")
             _check(p.returncode == 0, f"dryrun {arch} x {shape} exited "
                    f"{p.returncode}")
     finally:
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        _stop(procs)
     cells_s = time.perf_counter() - t0
     rl = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
                          "--mesh", "pod16x16"], cwd=ROOT, env=env,
@@ -4696,9 +4776,295 @@ def _phase17():
               f"{ma['temp_size_in_bytes'] / 2**30:.3f} GiB a position; "
               f"worst-case ops {rec['worst_case_ops']}; {roofline.row(r)}")
     print(rl.stdout.strip().splitlines()[0])
-    print(f"[dryrun] phase 17: {len(PHASE17_CELLS)} cells in {cells_s:.1f} s "
-          f"(in parallel), roofline in "
+    print(f"[dryrun] phase 17: {len(PHASE17_CELLS)} cells in parallel, "
+          f"beside phases 15, 16 and 18, read {cells_s:.1f} s after they "
+          f"started (each one's seconds above), roofline in "
           f"{time.perf_counter() - t0 - cells_s:.1f} s")
+
+
+def _stop(procs):
+    """Kill and reap each of ``procs`` ((arch, shape, Popen, its output
+    file)) still running, and close the files."""
+    for _, _, p, out in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+
+
+class _Lane:
+    """Commands run one after the other, each in a new process, on a
+    thread beside this process's work: the launchers of phases 14-16 and
+    18(c)'s ``--cache-dir`` runs, all beside phase 18's in-process runs.
+    A spec is (tag, argument list, the prefix of the output lines kept,
+    the strings some kept line must hold); ``{tmp}`` in an argument is
+    the lane's temporary directory, which `stop` removes."""
+
+    TIMEOUT_S = 600               # a command's
+
+    def __init__(self, specs):
+        import threading
+
+        self.tmp = tempfile.mkdtemp(prefix="chip-smoke-")
+        self.specs = [(tag, [a.replace("{tmp}", self.tmp) for a in cmd],
+                       prefix, wants) for tag, cmd, prefix, wants in specs]
+        self.runs, self.error, self.proc = [], None, None
+        self.stopped = False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop("REPRO_FAILED_ONCE", None)
+        try:
+            for _, cmd, _, _ in self.specs:
+                if self.stopped:
+                    return
+                t0 = time.perf_counter()
+                self.proc = subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+                out, err = self.proc.communicate(timeout=self.TIMEOUT_S)
+                self.runs.append((self.proc.returncode, out, err[-2000:],
+                                  time.perf_counter() - t0))
+        except Exception as e:                # reported by `finish`
+            self.error = repr(e)
+            if self.proc is not None:
+                self.proc.kill()
+
+    def finish(self):
+        """Wait for the commands, echo each one's kept lines under its
+        tag, and check that each exited 0 with its strings; the lane is
+        stopped either way. Returns [(returncode, stdout, stderr's tail,
+        seconds)]."""
+        self.thread.join(timeout=self.TIMEOUT_S * len(self.specs))
+        try:
+            _check(not self.thread.is_alive() and self.error is None
+                   and len(self.runs) == len(self.specs),
+                   f"{self.specs[0][0]}: {self.error or 'not done'}")
+            for (tag, cmd, prefix, wants), (rc, out, err, secs) in zip(
+                    self.specs, self.runs):
+                lines = [ln for ln in out.splitlines()
+                         if ln.startswith(prefix)]
+                for ln in lines:
+                    print(f"{tag} {ln}")
+                shown = " ".join(cmd[2:]).replace(self.tmp, "<tmp>")
+                _check(rc == 0, f"{tag} {shown} exited {rc}: {err}")
+                for want in wants:
+                    _check(any(want in ln for ln in lines),
+                           f"{tag} {shown}: no line with {want!r}: {lines}")
+                print(f"{tag} {shown}: exit 0 in {secs:.1f} s")
+        finally:
+            self.stop()
+        return self.runs
+
+    def stop(self):
+        """Kill the command running, run none after it, and remove the
+        temporary directory."""
+        import shutil
+
+        self.stopped = True
+        p = self.proc
+        if p is not None and p.poll() is None:
+            p.kill()
+        self.thread.join(timeout=60)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _launcher_lanes():
+    """The launchers of phases 14-16 (each lane's commands one after the
+    other, the lanes side by side), started beside phase 18."""
+    return [_Lane(specs) for specs in (_phase14_launcher(),
+                                       *_phase15_launchers(),
+                                       _mixer_launcher())]
+
+
+# -- 18. the port's examples on the card ------------------------------------
+
+# (c): the service example's modes, each once at the example's defaults
+SERVICE_MODES = (("default", []),
+                 ("batch-queries", ["--batch-queries"]),
+                 ("docs-chunk", ["--docs-chunk", "128", "--batch-queries"]),
+                 ("zipf-stream", ["--zipf-stream"]),
+                 ("coalesce", ["--coalesce"]),
+                 ("top-k-prune", ["--top-k", "8", "--prune"]),
+                 ("offline-top-k-prune", ["--offline", "64", "--top-k", "8",
+                                          "--prune"]),
+                 ("devices-4", ["--devices", "4", "--batch-queries"]))
+EXAMPLE_TRAIN_STEPS = 20       # (d): the train example's steps a router
+NINE = ("sddmm_spmm_type1", "sddmm_spmm_type2", "sddmm_spmm_type1_batch",
+        "sddmm_spmm_type2_batch", "cdist_kexp", "cdist_kexp_rows", "cdist",
+        "rwmd_bound_batch", "lc_rwmd_bound_batch")
+
+
+def _example(name):
+    """The port's example ``examples/torch_<name>.py`` as a fresh module
+    (its `main(argv)` not run)."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(name, argv, total):
+    """``main(argv)`` of the port's example ``name`` in this process, its
+    printed lines echoed as ``[ex <name>]``. Returns (its return value,
+    the kernels' launches read around the call, the service's
+    `query_batch` calls: the batched dispatches); the launches are added
+    to ``total``."""
+    import io
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving import WMDService
+
+    buf, calls = io.StringIO(), [0]
+    plain_call = WMDService.query_batch
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return plain_call(self, *a, **kw)
+
+    t0 = time.perf_counter()
+    WMDService.query_batch = counted
+    _build.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = _example(name).main(argv)
+        torch.cuda.synchronize()
+    finally:
+        WMDService.query_batch = plain_call
+        for ln in buf.getvalue().splitlines():
+            print(f"[ex {name}] {ln}")
+    launches = dict(_build.launches)
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    print(f"[ex {name}] {' '.join(argv) or '(defaults)'}: "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches or 'none'}")
+    return out, launches, calls[0]
+
+
+def _cache_dir_runs():
+    """(c)'s ``--offline 16 --cache-dir D`` twice on the lane's new
+    temporary directory, each in a new process: its specs for `_Lane`."""
+    cmd = [sys.executable, str(ROOT / "examples" /
+                               "torch_wmd_query_service.py"),
+           "--offline", "16", "--cache-dir", "{tmp}"]
+    return [("[examples] (c)", cmd, "warmup:", ("warmup:",))] * 2
+
+
+def _phase18():
+    """18. The port's four examples on the card, each `main(argv)` in this
+    process at its defaults (``--device cuda``), the launches read around
+    each call (module docstring). Returns the kernels' launches over the
+    phase."""
+    import math
+    import re
+
+    t_phase = time.perf_counter()
+    total = {}
+    # (c)'s two cache-dir processes run beside the in-process runs
+    cached = _Lane(_cache_dir_runs())
+    try:
+        # -- (a) quickstart: a warm and a timed sparse solve
+        out, got, _ = _run_example("quickstart", [], total)
+        want = {"sddmm_spmm_type1": 30, "sddmm_spmm_type2": 2,
+                "k_vocab_major": 4}
+        _check(out["rel_diff"] <= TOL_ENGINE["rtol"],
+               f"(a) quickstart: dense vs sparse {out['rel_diff']}")
+        _check(got == want, f"(a) quickstart launches {got} != {want}")
+        print(f"[examples] (a) quickstart: max rel diff {out['rel_diff']:.3g}"
+              f" (bound {TOL_ENGINE['rtol']:g}); launches {got} == 2 x (15 "
+              f"#1, one #2, two copies)")
+
+        # -- (b) doc_retrieval: 3 queries, a 200-iteration solve each
+        out, got, _ = _run_example("doc_retrieval", [], total)
+        want = {"sddmm_spmm_type1": 600, "sddmm_spmm_type2": 3,
+                "k_vocab_major": 6}
+        _check(got == want, f"(b) doc_retrieval launches {got} != {want} "
+               f"(the converged loop must launch none)")
+        _check(all(0 < q["n_iter"] <= 500 for q in out),
+               f"(b) converged n_iter {[q['n_iter'] for q in out]}")
+        print(f"[examples] (b) doc_retrieval: launches {got} == 3 x (200 "
+              f"#1, one #2, two copies); converged in "
+              f"{[q['n_iter'] for q in out]} iterations")
+
+        # -- (c) the service, each mode once
+        seen = {}
+        for mode, argv in SERVICE_MODES:
+            out, got, n_disp = _run_example("wmd_query_service", argv,
+                                            total)
+            svc = out["svc"]
+            _check(svc.device.type == "cuda" and svc.impl == "kernel",
+                   f"(c) {mode}: the service is not on the card's kernels")
+            for k, n in got.items():
+                seen[k] = seen.get(k, 0) + n
+            if mode == "default":
+                q = len(out["top"])
+                want = {"cdist_kexp": q, "k_vocab_major": 2 * q,
+                        "sddmm_spmm_type1": 15 * q, "sddmm_spmm_type2": q}
+                _check(got == want, f"(c) default launches {got} != {want}")
+            elif "--batch-queries" in argv or mode in ("zipf-stream",
+                                                       "coalesce"):
+                # a launch a mesh position and doc chunk (`--docs-chunk`
+                # blocks each position's docs)
+                blocks = svc.mesh.size * (math.ceil(
+                    svc._cols_d[0, 0].shape[0] / svc.docs_chunk)
+                    if svc.docs_chunk else 1)
+                n1 = got.get("sddmm_spmm_type1_batch", 0)
+                n2 = got.get("sddmm_spmm_type2_batch", 0)
+                _check(n_disp > 0 and n1 == 15 * n_disp * blocks
+                       and n2 == n_disp * blocks,
+                       f"(c) {mode}: {n1} #3 and {n2} #4 for {n_disp} "
+                       f"dispatches of {blocks} blocks")
+                print(f"[examples] (c) {mode}: {n_disp} dispatches of "
+                      f"{blocks} block(s) (mesh positions x doc chunks): 15 "
+                      f"#3 and one #4 each")
+            if mode.endswith("prune"):
+                _check(out.get("exact") is True,
+                       f"(c) {mode}: not bitwise the exact scan")
+        missing = [k for k in NINE + ("k_vocab_major",) if not seen.get(k)]
+        _check(not missing, f"(c) the service's modes launched no {missing}")
+        print(f"[examples] (c) the service's {len(SERVICE_MODES)} modes "
+              f"launched all nine kernels and the copies: {seen}")
+        # -- (d) the train example, 20 steps a router, no hand-written kernel
+        for router in ("sinkhorn", "topk"):
+            with tempfile.TemporaryDirectory() as tmp:
+                out, got, _ = _run_example(
+                    "train_moe_sinkhorn",
+                    ["--steps", str(EXAMPLE_TRAIN_STEPS), "--router", router,
+                     "--ckpt-dir", os.path.join(tmp, "ckpt")], total)
+            losses = [h["loss"] for h in out["history"]]
+            _check(len(losses) == EXAMPLE_TRAIN_STEPS
+                   and all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0],
+                   f"(d) {router}: losses {losses}")
+            _check(not got, f"(d) {router}: the LM launched {got}")
+            print(f"[examples] (d) {router}: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f} over {len(losses)} steps, "
+                  f"{sum(h['sec'] for h in out['history']):.1f} s of steps; "
+                  f"the checkpoint directory removed")
+        # -- (c) the two --cache-dir runs, which ran beside the rest
+        warmups = []
+        for i, (rc, text, err, _) in enumerate(cached.finish()):
+            m = re.search(r"warmup: (\d+) shapes, (\d+) compiles .*?(\d+) "
+                          r"persisted-cache hits", text)
+            _check(rc == 0 and m is not None, f"(c) --cache-dir run {i + 1} "
+                   f"exited {rc}: {err}")
+            warmups.append((int(m.group(2)), int(m.group(3))))
+        _check(warmups[0][0] > 0 and warmups[1][0] == 0
+               and warmups[1][1] > 0,
+               f"(c) --cache-dir: (compiles, loads) {warmups}; the second "
+               f"run must build nothing")
+    finally:
+        cached.stop()
+
+    print(f"[examples] phase 18: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
 
 
 def main() -> int:
@@ -4709,35 +5075,53 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    results, card = _wmd_phases()
-    # -- 12. the language model: phases 1-11's tensors released first ---------
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches12 = _phase12(card)
-    # -- 13. the remaining mixers: phase 12's parameters released first -------
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches13 = _phase13()
-    # -- 14. training: phase 13's parameters released first -----------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches14 = _phase14()
-    # -- 15. the language-model mesh: phase 14's state released first -------
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches15 = _phase15()
-    # -- 16. the mixers on the mesh: phase 15's tensors released first -------
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches16 = _phase16(card)
-    # -- 17. the launch tools (meta, on the host's CPU) ----------------------
-    _phase17()
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[label] = round(time.perf_counter() - t0, 1)
+
+    results, card = timed("1-11, 5", _wmd_phases)
+    launches = {}
+    # phases 12, 14, 15 and 16 (each after the last has released its
+    # tensors: phase 13's checks run in 16(a)), phase 17's dry-run cells
+    # counting on the host's CPU from phase 15 on; then phase 18 on the
+    # card beside the launchers of phases 14-16
+    started, lanes = None, []
+    try:
+        for label, fn, args in (("12", _phase12, (card,)),
+                                ("14", _phase14, ()), ("15", _phase15, ()),
+                                ("16", _phase16, (card,))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            if label == "15":
+                t17 = time.perf_counter()
+                started = _phase17_start()
+            launches[label] = timed(label, fn, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t18 = time.perf_counter()
+        lanes = _launcher_lanes()
+        launches["18"] = timed("18", _phase18)
+        for lane in lanes:
+            lane.finish()
+        seconds["18 and the launchers of 14-16"] = round(
+            time.perf_counter() - t18, 1)
+        _phase17_finish(started)
+        seconds["17 (beside 15-18)"] = round(time.perf_counter() - t17, 1)
+    finally:
+        for lane in lanes:
+            lane.stop()
+        if started is not None:
+            _stop(started[1])
     for entry in results:
-        entry["launches_by_phase"]["12"] = launches12.get(entry["name"], 0)
-        entry["launches_by_phase"]["13"] = launches13.get(entry["name"], 0)
-        entry["launches_by_phase"]["14"] = launches14.get(entry["name"], 0)
-        entry["launches_by_phase"]["15"] = launches15.get(entry["name"], 0)
-        entry["launches_by_phase"]["16"] = launches16.get(entry["name"], 0)
+        for label, counts in launches.items():
+            entry["launches_by_phase"][label] = counts.get(entry["name"], 0)
+    print(f"[phases] seconds: {seconds}; the script: "
+          f"{time.perf_counter() - T_START:.1f} s")
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"

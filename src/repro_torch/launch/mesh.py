@@ -132,6 +132,30 @@ def one_device_mesh(device) -> Mesh:
     return make_mesh((1, 1), ("data", "model"), devices=[device])
 
 
+def resolve_device(name) -> torch.device:
+    """``name`` (a launcher's or an example's ``--device``) as a torch
+    device; a card that is not there raises: nothing falls back to the
+    CPU unless the caller asks for it."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs an NVIDIA GPU; pass "
+                           "--device cpu for the plain PyTorch versions")
+    return dev
+
+
+def logical_devices(device="cuda", n: int = 0) -> list[torch.device]:
+    """``n`` logical devices of ``device``'s type, for a mesh: placed
+    round-robin on the visible cards (several shards on one card where
+    ``n`` exceeds them), or ``n`` times the CPU; ``n = 0``: one a visible
+    card (the CPU: one). Raises as `resolve_device` does."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        return [torch.device("cuda", i % visible)
+                for i in range(n or visible)]
+    return [dev] * (n or 1)
+
+
 def shard_grid(mesh: Mesh, doc_axes: Sequence[str] = ("data",),
                model_axis: str = "model") -> np.ndarray:
     """The (D, S) object array of devices of a mesh program: position

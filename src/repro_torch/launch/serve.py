@@ -290,7 +290,7 @@ def _serve_lm(args, ap):
 
     from repro_torch.configs import arch_ids, get_config, get_smoke_config
     from repro_torch.distributed import partitioning
-    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.launch.mesh import one_device_mesh, resolve_device
     from repro_torch.models import build_model
     from repro_torch.models.sharding_hints import activation_sharding
     from repro_torch.serving import build_serve_fns
@@ -299,7 +299,7 @@ def _serve_lm(args, ap):
         ap.error(f"--arch {args.arch!r}: one of sinkhorn-wmd, "
                  f"{', '.join(arch_ids())}")
     mesh = _mesh(args, ap) if (args.devices or args.mesh) \
-        else one_device_mesh(_device(args.device))
+        else one_device_mesh(resolve_device(args.device))
     dev = mesh.device()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, q_block=16, kv_block=16, device=dev)
@@ -347,35 +347,19 @@ def _serve_lm(args, ap):
           f"({dt / max(args.decode_steps, 1) * 1e3:.2f} ms/tok) on {dev}")
 
 
-def _device(name):
-    """``--device`` as a torch device; a card that is not there raises."""
-    import torch
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs an NVIDIA GPU; pass "
-                           "--device cpu for the plain PyTorch versions")
-    return dev
-
-
 def _mesh(args, ap):
     """The service's mesh from ``--device``, ``--devices`` and ``--mesh``
     (see the module docstring)."""
-    import torch
-
-    from repro_torch.launch.mesh import make_mesh
-    dev = _device(args.device)
+    from repro_torch.launch.mesh import (logical_devices, make_mesh,
+                                         resolve_device)
+    dev = resolve_device(args.device)
     if dev.index is not None:
         if args.devices or args.mesh:
             ap.error(f"--device {args.device} names one device; --devices "
                      f"and --mesh take the device type alone")
         return make_mesh((1, 1), ("data", "model"), devices=[dev])
-    if dev.type == "cuda":
-        visible = torch.cuda.device_count()
-        n = args.devices or visible
-        devices = [torch.device("cuda", i % visible) for i in range(n)]
-    else:
-        n = args.devices or 1
-        devices = [dev] * n
+    devices = logical_devices(dev, args.devices)
+    n = len(devices)
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.lower().split("x"))
         if len(shape) not in (2, 3):

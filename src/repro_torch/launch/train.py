@@ -55,8 +55,8 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch.mesh import one_device_mesh
-    from repro_torch.launch.serve import _device, _mesh
+    from repro_torch.launch.mesh import one_device_mesh, resolve_device
+    from repro_torch.launch.serve import _mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import Trainer
@@ -67,7 +67,7 @@ def main(argv=None):
             cfg, moe=dataclasses.replace(cfg.moe, router=args.router))
 
     mesh = _mesh(args, ap) if (args.devices or args.mesh) \
-        else one_device_mesh(_device(args.device))
+        else one_device_mesh(resolve_device(args.device))
     dev = mesh.device()
     print(f"[train] arch={cfg.name} devices={mesh.size} "
           f"mesh={dict(mesh.shape)} on {dev}")

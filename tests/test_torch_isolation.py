@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch` (nor `chip_smoke.py`)
-imports jax or anything of the JAX package `repro`."""
+"""The port stands alone: no module of `repro_torch` (nor `chip_smoke.py`,
+nor the port's examples `examples/torch_*.py`) imports jax or anything of
+the JAX package `repro`."""
 import ast
 import pathlib
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _banned(name: str) -> bool:
@@ -38,35 +40,67 @@ def test_no_banned_import_statement(path):
         assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
-def test_every_module_imports_with_jax_and_repro_blocked():
-    """Import every module in a fresh interpreter whose import system
-    refuses ``jax``, ``jax.*``, ``repro`` and ``repro.*`` (exactly those:
-    ``repro_torch`` must pass)."""
-    mods = [_module_name(p) for p in sorted(PKG.rglob("*.py"))]
-    code = textwrap.dedent(f"""
-        import importlib, importlib.abc, sys
+_BLOCKER = textwrap.dedent("""
+    import importlib, importlib.abc, importlib.util, sys
 
-        class Block(importlib.abc.MetaPathFinder):
-            def find_spec(self, name, path=None, target=None):
-                top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
-                    raise ImportError("blocked: " + name)
-                return None
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError("blocked: " + name)
+            return None
 
-        sys.meta_path.insert(0, Block())
-        for m in {mods!r}:
-            importlib.import_module(m)
-        leaked = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "repro")]
-        assert not leaked, leaked
-        print("OK", len({mods!r}))
-    """)
+    sys.meta_path.insert(0, Block())
+""")
+_NO_LEAK = textwrap.dedent("""
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not leaked, leaked
+    print("OK")
+""")
+
+
+def _run_blocked(body: str) -> None:
+    """Run ``body`` in a fresh interpreter whose import system refuses
+    ``jax``, ``jax.*``, ``repro`` and ``repro.*`` (exactly those:
+    ``repro_torch`` must pass); fail if it raises or leaves one of them
+    loaded."""
+    code = _BLOCKER + textwrap.dedent(body) + _NO_LEAK
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    """Import every module with the JAX package blocked (`_run_blocked`)."""
+    mods = [_module_name(p) for p in sorted(PKG.rglob("*.py"))]
+    _run_blocked(f"""
+        for m in {mods!r}:
+            importlib.import_module(m)
+    """)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_every_example_loads_with_jax_and_repro_blocked(path):
+    """Each port example loads (its imports run, its `main` does not) with
+    the JAX package blocked (`_run_blocked`)."""
+    _run_blocked(f"""
+        spec = importlib.util.spec_from_file_location("example",
+                                                      {str(path)!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        assert callable(mod.main)
+    """)
+
+
+def test_examples_are_found():
+    """The port's four examples are among the checked sources."""
+    assert [p.name for p in EXAMPLES] == [
+        "torch_doc_retrieval.py", "torch_quickstart.py",
+        "torch_train_moe_sinkhorn.py", "torch_wmd_query_service.py"]
 
 
 def test_blocker_is_exact():
