@@ -937,10 +937,15 @@ class QueryCoalescer:
             rung = None
             if self._guard is not None and self._guard.dispatch_log:
                 rung = self._guard.dispatch_log[-1][1]
-            pre_s = float(info.get("precompute_s", 0.0)) \
-                if err is None and not is_write else 0.0
-            solve_s = float(info.get("solve_s", 0.0)) \
-                if err is None and not is_write else 0.0
+            # the engine's phases where they ran: an engine that reports a
+            # phase's seconds without its start (precompute_t0 / solve_t0,
+            # on this clock) gets no child for it
+            phase = {}
+            if err is None and not is_write:
+                for ph in ("precompute", "solve"):
+                    s, at = info.get(f"{ph}_s"), info.get(f"{ph}_t0")
+                    if s and at is not None:
+                        phase[ph] = (float(at), float(at) + float(s))
             status = ("failed" if err is not None
                       else "degraded" if degraded is not None else "ok")
             for rq in batch:
@@ -949,13 +954,13 @@ class QueryCoalescer:
                     batch=len(batch), rung=rung,
                     hit_rate=info.get("hit_rate"),
                     tier=(degraded.tier if degraded is not None else None))
-                if pre_s:
+                if "precompute" in phase:
                     self._tracer.add_span(
-                        rq.seq, "precompute", t0, t0 + pre_s,
+                        rq.seq, "precompute", *phase["precompute"],
                         hits=info.get("hits"), misses=info.get("misses"))
-                if solve_s:
+                if "solve" in phase:
                     self._tracer.add_span(
-                        rq.seq, "solve", t0 + pre_s, t0 + pre_s + solve_s,
+                        rq.seq, "solve", *phase["solve"],
                         n_iter=getattr(getattr(self.svc, "cfg", None),
                                        "max_iter", None),
                         bound_s=prune.get("bound_s"),

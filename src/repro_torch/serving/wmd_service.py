@@ -112,11 +112,16 @@ Observability: ``cache_stats`` / ``mcache_stats`` (cumulative),
 ``cache_resident`` / ``mcache_resident``, ``last_batch_stats``
 (``precompute_s`` / ``solve_s`` phase split and the batch's hit_rate on the
 stripes route; ``solve_s`` with ``phases_separable=False`` on the legacy
-route) and ``last_prune_stats`` (the reference's fields: solves, programs,
-``bound_s`` / ``rerank_s``, the per-tier funnel ``tiers``; and
-``kcache_misses``, the K-row misses of each K-cache lookup of the call, in
-order, from which a run can count the miss-row launches). Host times are
-taken after a device synchronize.
+route; each phase's start on ``time.monotonic`` beside it, as
+``precompute_t0`` / ``solve_t0``) and ``last_prune_stats`` (the
+reference's fields: solves, programs, ``bound_s`` / ``rerank_s``, the
+per-tier funnel ``tiers``; and ``kcache_misses``, the K-row misses of each
+K-cache lookup of the call, in order, from which a run can count the
+miss-row launches). Host times are taken after a device synchronize.
+``tracer`` (default the no-op ``NULL_TRACER``; bind a
+`repro_torch.obs.Tracer` at any time) records each `query_batch` /
+`top_k_batch` / `top_k_scan_batch` call as one span tree of its host
+steps, on the tracer's clock (docs/observability.md lists the steps).
 """
 from __future__ import annotations
 
@@ -145,6 +150,7 @@ from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
 from repro_torch.launch.mesh import (check_placement, one_device_mesh,
                                      shard_grid)
+from repro_torch.obs.trace import NULL_TRACER
 
 
 def _serialized(fn):
@@ -155,6 +161,24 @@ def _serialized(fn):
         with self._engine_lock:
             return fn(self, *args, **kwargs)
     return wrapper
+
+
+def _engine_call(op: str):
+    """A batch entry point: serialized like `_serialized` and, with a tracer
+    on, recorded as one span tree of the call's steps. The outermost such
+    call opens the tree (seq ``batch-<n>``, attrs ``op``, ``q``, ``q_pad``,
+    ``route``) and closes it once, ``failed`` with the exception's type
+    name if it raises; the calls nested in it (one at a time, under the
+    lock) add their steps to the same tree."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, rs, *args, **kwargs):
+            with self._engine_lock:
+                if not self.tracer.enabled or self._tree is not None:
+                    return fn(self, rs, *args, **kwargs)
+                return self._traced_call(op, fn, rs, args, kwargs)
+        return wrapper
+    return deco
 
 
 # sentinel: "use the service's docs_chunk" (None already means unchunked)
@@ -265,6 +289,12 @@ class WMDService:
         self.last_batch_stats: dict = {}
         self.last_prune_stats: dict = {}
         self._engine_lock = threading.RLock()
+        # step spans of the batch entry points (late-bindable, like the
+        # coalescer's and the live corpus's tracer); the open tree's seq
+        self.tracer = NULL_TRACER
+        self._tree: str | None = None
+        self._route: str | None = None
+        self._trees = 0
         # live async front-ends (async_service); weak so a shut-down
         # coalescer the caller dropped doesn't accumulate on the service
         self._coalescers: weakref.WeakSet = weakref.WeakSet()
@@ -332,6 +362,49 @@ class WMDService:
         for dev in set(self._grid.flat):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+
+    # -- step spans -----------------------------------------------------------
+    #
+    # With ``tracer`` on, a batch entry point records its host path step by
+    # step (validate, select_pad, kcache, km_guard, solve, d2h,
+    # distance_guard, ...; see docs/observability.md) in one tree on the
+    # tracer's clock. A step reads the clock before and after its work, so
+    # what lies between steps stays the root's own time. Off, a step costs a
+    # None check: no clock read, no attrs.
+
+    def _traced_call(self, op: str, fn, rs, args, kwargs):
+        tr = self.tracer
+        self._trees += 1
+        seq = f"batch-{self._trees}"
+        q = len(rs)
+        tr.begin_request(seq, op=op, q=q,
+                         q_pad=formats.next_pow2(q) if q else 0)
+        self._tree, self._route = seq, None
+        end = {}
+        try:
+            return fn(self, rs, *args, **kwargs)
+        except BaseException as e:
+            end = {"status": "failed", "reason": type(e).__name__}
+            raise
+        finally:
+            self._tree = None
+            tr.end_request(seq, route=self._route, **end)
+
+    def _now(self) -> float | None:
+        """The tracer's clock while a step tree is open, else None."""
+        return self.tracer.now() if self._tree is not None else None
+
+    def _step(self, name: str, t0: float, **attrs) -> float:
+        """Close step ``name`` of the open tree, begun at ``t0``, now;
+        returns now, where a next step may start."""
+        t1 = self.tracer.now()
+        self.tracer.add_span(self._tree, name, t0, t1, **attrs)
+        return t1
+
+    def _validate_attrs(self, rs) -> dict:
+        return {"queries": len(rs),
+                "bytes": sum(np.asarray(r).nbytes for r in rs)
+                if self.guards else 0}
 
     # -- async front-end ------------------------------------------------------
 
@@ -449,22 +522,34 @@ class WMDService:
         if q == 0 or n_live == 0:
             self.last_batch_stats = {}
             return np.zeros((q, n_live), np.float32)
+        t = self._now()
         self._validate_queries(rs)
+        if t is not None:
+            self._route = "live"
+            t = self._step("validate", t, **self._validate_attrs(rs))
         sel_b, r_b, mask_b = self._padded_query_batch(rs)
+        r_d = torch.from_numpy(r_b).to(self.device)
+        if t is not None:
+            t = self._step("select_pad", t, pad_rows=sel_b.shape[0] - q)
         self._kcache.ensure_lamb(self.cfg.lamb)
         use = use_cache is not False
-        t0 = time.perf_counter()
+        pre_t0 = time.monotonic()
         k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
                                                          use_cache=use)
         self._sync()
-        t_pre = time.perf_counter() - t0
+        pre_t1 = time.monotonic()
+        if t is not None:
+            t = self._step("kcache", t, hits=info["hits"],
+                           misses=info["misses"], unique=info["unique"])
         self._check_km(km_s, mask_b)
+        if t is not None:
+            self._step("km_guard", t)
         impl = impl or self.impl
         fn = self._stripe_fn(impl, None)
-        r_d = torch.from_numpy(r_b).to(self.device)
         out = np.empty((q, n_live), np.float32)
         segments = 0
-        t0 = time.perf_counter()
+        solve_t0 = time.monotonic()
+        t = self._now()
         vm = self._vm(k_s, km_s, impl)   # one set, both segments
         for seg_id, (cols_d, vals_d) in enumerate(
                 ((self._cols_d, self._vals_d),
@@ -473,13 +558,25 @@ class WMDService:
             if not pick.any():
                 continue
             d_seg = fn(k_s, km_s, r_d, cols_d, vals_d, vm=vm)[:q]
+            if t is not None:
+                self._sync()
+                t = self._step("solve", t, iters=self.cfg.max_iter,
+                               segment=seg_id)
             out[:, pick] = d_seg.cpu().numpy()[:, self._live_row[pick]]
+            if t is not None:
+                t = self._step("d2h", t, bytes=d_seg.nelement()
+                               * d_seg.element_size())
             segments += 1
-        t_solve = time.perf_counter() - t0
-        self.last_batch_stats = {"precompute_s": t_pre, "solve_s": t_solve,
-                                 "segments": segments, **info}
+        solve_t1 = time.monotonic()
+        self.last_batch_stats = {
+            "precompute_t0": pre_t0, "precompute_s": pre_t1 - pre_t0,
+            "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
+            "segments": segments, **info}
+        t = self._now()
         self._check_result(out, what="live query_batch distances",
                            empty_doc_mask=self._live_empty)
+        if t is not None:
+            self._step("distance_guard", t)
         return out
 
     def _bounds_live(self, rs: Sequence[np.ndarray]) -> np.ndarray:
@@ -672,7 +769,7 @@ class WMDService:
         self._check_result(wmd, what="query distances")
         return wmd
 
-    @_serialized
+    @_engine_call("query_batch")
     def query_batch(self, rs: Sequence[np.ndarray],
                     impl: str | None = None,
                     docs_chunk=_UNSET,
@@ -694,43 +791,78 @@ class WMDService:
                                           use_cache=use_cache)
         if len(rs) == 0:
             return np.zeros((0, self.ell.num_docs), np.float32)
+        q = len(rs)
+        t = self._now()
         self._validate_queries(rs)
+        if t is not None:
+            t = self._step("validate", t, **self._validate_attrs(rs))
         # an armed underflow gate routes through the stripes engine so the
         # K*M pre-check sees the assembled rows (off at shipped lambdas)
         risk = self._underflow_risk()
         sel_b, r_b, mask_b = self._padded_query_batch(rs)
-        q = len(rs)
         dc = self.docs_chunk if docs_chunk is _UNSET else (docs_chunk or None)
         r_d = torch.from_numpy(r_b).to(self.device)
+        if t is not None:
+            self._step("select_pad", t, pad_rows=sel_b.shape[0] - q)
         if use_cache is None and self.cache_capacity == 0 and not risk:
             fn = self._batch_fn(impl or self.impl, dc)
-            t0 = time.perf_counter()
+            solve_t0 = time.monotonic()
+            t = self._now()
             vecs_sel = self._vecs_d[torch.from_numpy(
                 sel_b.astype(np.int64)).to(self.device)]
             wmd = fn(vecs_sel, r_d, torch.from_numpy(mask_b).to(self.device),
-                     self._vecs_sh, self._cols_d, self._vals_d)
-            wmd = wmd[:q].cpu().numpy()
+                     self._vecs_sh, self._cols_d, self._vals_d)[:q]
+            if t is not None:
+                self._route = "legacy_fused"
+                self._sync()
+                t = self._step("solve", t, iters=self.cfg.max_iter)
+            wmd = wmd.cpu().numpy()
+            solve_t1 = time.monotonic()
+            if t is not None:
+                self._step("d2h", t, bytes=wmd.nbytes)
             self.last_batch_stats = {
-                "solve_s": time.perf_counter() - t0,
+                "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
                 "phases_separable": False, "route": "legacy_fused"}
+            t = self._now()
             self._check_result(wmd, what="query_batch distances")
+            if t is not None:
+                self._step("distance_guard", t)
             return wmd
         fn = self._stripe_fn(impl or self.impl, dc)
+        t = self._now()
         self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
         use = use_cache is not False              # False = transient baseline
-        t0 = time.perf_counter()
+        pre_t0 = time.monotonic()
         k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
                                                          use_cache=use)
         self._sync()
-        t_pre = time.perf_counter() - t0
+        pre_t1 = time.monotonic()
+        if t is not None:
+            self._route = "stripes" if use else "transient"
+            t = self._step("kcache", t, hits=info["hits"],
+                           misses=info["misses"], unique=info["unique"])
         self._check_km(km_s, mask_b)
-        t0 = time.perf_counter()
+        if t is not None:
+            self._step("km_guard", t)
+        solve_t0 = time.monotonic()
+        t = self._now()
         wmd = fn(k_s, km_s, r_d, self._cols_d, self._vals_d)[:q]
+        if t is not None:
+            # the copy below waits for the device anyway: a sync while
+            # tracing splits the program from the copy and moves no bit
+            self._sync()
+            t = self._step("solve", t, iters=self.cfg.max_iter)
         wmd = wmd.cpu().numpy()
-        t_solve = time.perf_counter() - t0
-        self.last_batch_stats = {"precompute_s": t_pre, "solve_s": t_solve,
-                                 **info}
+        solve_t1 = time.monotonic()
+        if t is not None:
+            self._step("d2h", t, bytes=wmd.nbytes)
+        self.last_batch_stats = {
+            "precompute_t0": pre_t0, "precompute_s": pre_t1 - pre_t0,
+            "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0, **info}
+        t = self._now()
         self._check_result(wmd, what="query_batch distances")
+        if t is not None:
+            self._step("distance_guard", t)
         return wmd
 
     def query_batch_sequential(self, rs: Sequence[np.ndarray]) -> np.ndarray:
@@ -788,6 +920,7 @@ class WMDService:
             idx = self._live_ids[idx]      # positions -> real doc ids
         return idx, dist
 
+    @_engine_call("top_k_batch")
     def top_k_batch(self, rs: Sequence[np.ndarray], k: int = 10, *,
                     prune: bool = False, rerank: str = "per_query",
                     **kw) -> tuple[np.ndarray, np.ndarray]:
@@ -824,12 +957,16 @@ class WMDService:
                 return self._top_k_union(rs, k, **kw)
             return self._top_k_pruned(rs, k, exhaustive=False, **kw)
         d = self.query_batch(rs, **kw)
+        t = self._now()
         idx = self._top_k(d, k)
         dist = np.take_along_axis(d, idx, axis=-1)
         if self.live is not None and idx.size:
             idx = self._live_ids[idx]      # positions -> real doc ids
+        if t is not None:
+            self._step("host_topk", t, k=k)
         return idx, dist
 
+    @_engine_call("top_k_scan_batch")
     def top_k_scan_batch(self, rs: Sequence[np.ndarray], k: int = 10,
                          **kw) -> tuple[np.ndarray, np.ndarray]:
         """The pruned path's exactness oracle: solve EVERY doc through the
@@ -883,33 +1020,33 @@ class WMDService:
         qp = sel_b.shape[0]
         combined = np.zeros((qp, n), np.float32)
         if self.tier0:
-            t0 = time.perf_counter()
+            t0 = time.monotonic()
             g, m = self._base_centroids()
             b = cascade_core.centroid_bound_batch(
                 *(torch.from_numpy(x).to(self.device)
                   for x in (sel_b, r_b, mask_b)),
                 self._vecs_d, g, m).cpu().numpy()
             tiers.append({"tier": "centroid", "bounds": b,
-                          "seconds": time.perf_counter() - t0})
+                          "seconds": time.monotonic() - t0})
             combined = np.maximum(combined, b)
         if self.lc_impl is not None or self.tier2_cap != 0:
             m_pad, _ = self._mcache.m_stripes_for_batch(
                 sel_b, mask_b, use_cache=use_cache)
         if self.lc_impl is not None:
-            t0 = time.perf_counter()
+            t0 = time.monotonic()
             minm = cascade_core.min_cost_vectors(m_pad)
             b = cascade_core.lc_rwmd_bound_batch(
                 minm, self._ell_cols_d, self._ell_vals_d,
                 impl=self.lc_impl,
                 docs_chunk=self.bound_docs_chunk).cpu().numpy()
             tiers.append({"tier": "lc_rwmd", "bounds": b,
-                          "seconds": time.perf_counter() - t0})
+                          "seconds": time.monotonic() - t0})
             combined = np.maximum(combined, b)
         t2 = (4 * self._rerank_chunk if self.tier2_cap is None
               else self.tier2_cap)
         t2 = min(t2, n)
         if t2 > 0:
-            t0 = time.perf_counter()
+            t0 = time.monotonic()
             key = combined.min(axis=0)
             subset = np.sort(np.argsort(key, kind="stable")[:t2])
             sub_t = torch.from_numpy(subset).to(self.device)
@@ -919,7 +1056,7 @@ class WMDService:
             b = np.zeros_like(combined)
             b[:, subset] = lb2
             tiers.append({"tier": "rwmd", "bounds": b,
-                          "seconds": time.perf_counter() - t0})
+                          "seconds": time.monotonic() - t0})
             combined = np.maximum(combined, b)
         return combined, tiers
 
@@ -978,12 +1115,42 @@ class WMDService:
     def _prune_setup(self, rs, prune_chunk, prune_margin):
         """Shared prologue of the pruned paths: (chunk, margin, q, sel_b,
         r_b, mask_b)."""
+        t = self._now()
         self._validate_queries(rs)
+        if t is not None:
+            t = self._step("validate", t, **self._validate_attrs(rs))
         chunk = (self._rerank_chunk if prune_chunk is None
                  else self._chunk_for(prune_chunk))
         margin = self.prune_margin if prune_margin is None else prune_margin
         sel_b, r_b, mask_b = self._padded_query_batch(rs)
+        if t is not None:
+            self._step("select_pad", t, pad_rows=sel_b.shape[0] - len(rs))
         return chunk, margin, len(rs), sel_b, r_b, mask_b
+
+    def _traced_bounds(self, sel_b, r_b, mask_b, use: bool):
+        """`_cascade_bounds` as the ``bounds`` step (attrs: each tier's
+        seconds); returns (combined, tiers, t0, t1), the step's times on
+        the phase clock."""
+        t = self._now()
+        t0 = time.monotonic()
+        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
+                                               use_cache=use)
+        t1 = time.monotonic()
+        if t is not None:
+            self._step("bounds", t, **{f"{x['tier']}_s": x["seconds"]
+                                       for x in tiers})
+        return combined, tiers, t0, t1
+
+    def _traced_record_prune(self, *args) -> None:
+        """`_record_prune` as the ``funnel`` step (attrs: the cascade's
+        survivors after each tier, known only once the rerank has set the
+        final thresholds)."""
+        t = self._now()
+        self._record_prune(*args)
+        if t is not None:
+            self._step("funnel", t, **{
+                f"{x['tier']}_survivors": x["cascade_survivors"]
+                for x in self.last_prune_stats["tiers"]})
 
     @_serialized
     def _top_k_pruned(self, rs: Sequence[np.ndarray], k: int, *,
@@ -1000,15 +1167,15 @@ class WMDService:
         if len(rs) == 0:
             return (np.zeros((0, k_eff), np.int64),
                     np.zeros((0, k_eff), np.float32))
+        if self._tree is not None:
+            self._route = "scan" if exhaustive else "pruned"
         chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
             rs, prune_chunk, prune_margin)
         use = use_cache is not False
-        t0 = time.perf_counter()
-        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
-                                               use_cache=use)
+        combined, tiers, b_t0, b_t1 = self._traced_bounds(sel_b, r_b,
+                                                          mask_b, use)
         bounds = combined[:q]
-        t_bound = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        r_t0 = time.monotonic()
         docs = np.arange(n)
         idx_out, d_out, solves, programs, hits, k_misses = \
             self._rerank_per_query(sel_b, r_b, mask_b, bounds, docs, docs,
@@ -1016,17 +1183,22 @@ class WMDService:
                                    chunk=chunk, margin=margin,
                                    exhaustive=exhaustive,
                                    impl=impl or self.impl, use=use)
-        t_rerank = time.perf_counter() - t0
-        self._record_prune(q, n, k_eff, chunk, margin, exhaustive,
-                           "per_query", solves, programs, t_bound, t_rerank,
-                           tiers, d_out, k_misses)
+        r_t1 = time.monotonic()
+        self._traced_record_prune(q, n, k_eff, chunk, margin, exhaustive,
+                                  "per_query", solves, programs,
+                                  b_t1 - b_t0, r_t1 - r_t0, tiers, d_out,
+                                  k_misses)
         total = hits + sum(k_misses)
         self.last_batch_stats = {
             "hit_rate": hits / total if total else 0.0,
-            "precompute_s": t_bound, "solve_s": t_rerank,
+            "precompute_t0": b_t0, "precompute_s": b_t1 - b_t0,
+            "solve_t0": r_t0, "solve_s": r_t1 - r_t0,
         }
+        t = self._now()
         self._check_result(d_out, what="top_k distances",
                            empty_doc_mask=self._empty_doc_mask[idx_out])
+        if t is not None:
+            self._step("distance_guard", t)
         return idx_out, d_out
 
     def _rerank_per_query(self, sel_b, r_b, mask_b, bounds, bpos, brow,
@@ -1058,12 +1230,23 @@ class WMDService:
         k_misses = []
         r_d = torch.from_numpy(r_b).to(self.device)
         for i in range(q):
+            t = self._now()
             k_s, km_s, info = self._kcache.stripes_for_batch(
                 sel_b[i:i + 1], mask_b[i:i + 1], use_cache=use)
+            if t is not None:
+                t = self._step("kcache", t, hits=info["hits"],
+                               misses=info["misses"], unique=info["unique"])
             self._check_km(km_s, mask_b[i:i + 1])
-            vm = self._vm(k_s, km_s, impl)     # once a query stripe
+            if t is not None:
+                t = self._step("km_guard", t)
             hits += info["hits"]
             k_misses.append(info["misses"])
+            lb = bounds[i][brow]            # bounds per position in bpos
+            order = np.argsort(lb, kind="stable")      # ascending bounds
+            if t is not None:
+                t = self._step("order", t)
+                topk_s, programs0, solves0 = 0.0, programs, solves
+            vm = self._vm(k_s, km_s, impl)     # once a query stripe
             r_q = r_d[i:i + 1]
             solved_d = np.full(n_pos, np.inf, np.float32)
             n_solved = 0
@@ -1077,8 +1260,6 @@ class WMDService:
                 if n_solved >= k_eff:
                     cur = self._top_k(solved_d, k_eff)
                     threshold = float(solved_d[cur[-1]])
-            lb = bounds[i][brow]            # bounds per position in bpos
-            order = np.argsort(lb, kind="stable")      # ascending bounds
             pos = 0
             while pos < bpos.size:
                 block = order[pos:pos + chunk]
@@ -1096,11 +1277,19 @@ class WMDService:
                 n_solved += block.size
                 pos += block.size
                 if n_solved >= k_eff:
+                    ts = self._now()
                     cur = self._top_k(solved_d, k_eff)
                     threshold = float(solved_d[cur[-1]])
+                    if ts is not None:
+                        topk_s += self.tracer.now() - ts
             sel = self._top_k(solved_d, k_eff)
             idx_out[i] = sel
             d_out[i] = solved_d[sel]
+            if t is not None:
+                # one span over the query's blocks: a span a block would
+                # crowd the tracer's ring
+                self._step("rerank", t, blocks=programs - programs0,
+                           solves=solves - solves0, topk_s=topk_s)
         return idx_out, d_out, solves, programs, hits, k_misses
 
     def _record_prune(self, q, n, k_eff, chunk, margin, exhaustive, rerank,
@@ -1138,8 +1327,10 @@ class WMDService:
         Only ``rerank="union"`` (whose shared block schedule does not span
         segments) routes here."""
         self._prune_fallbacks.inc()
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         ids, dist = self.top_k_batch(rs, k, impl=impl, use_cache=use_cache)
+        if self._tree is not None:
+            self._route = "live_full_scan"
         q, k_eff = ids.shape
         n = self._live_ids.size
         self.last_prune_stats = {
@@ -1147,7 +1338,7 @@ class WMDService:
             "exhaustive": True, "rerank": "live_full_scan",
             "exact_solves": q * n, "scan_solves": q * n,
             "solves_avoided": 0.0, "rerank_programs": 0,
-            "bound_s": 0.0, "rerank_s": time.perf_counter() - t0,
+            "bound_s": 0.0, "rerank_s": time.monotonic() - t0,
         }
         return ids, dist
 
@@ -1181,35 +1372,40 @@ class WMDService:
         if q == 0 or n_live == 0:
             return (np.zeros((q, k_eff), np.int64),
                     np.zeros((q, k_eff), np.float32))
+        if self._tree is not None:
+            self._route = "live_scan" if exhaustive else "live_pruned"
         chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
             rs, prune_chunk, prune_margin)
         use = use_cache is not False
-        t0 = time.perf_counter()
-        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
-                                               use_cache=use)
+        combined, tiers, b_t0, b_t1 = self._traced_bounds(sel_b, r_b,
+                                                          mask_b, use)
         bounds = combined[:q]               # columns: base-segment rows
-        t_bound = time.perf_counter() - t0
         bpos = np.nonzero(self._live_seg == 0)[0]   # live base positions
         dpos = np.nonzero(self._live_seg == 1)[0]   # live delta positions
-        t0 = time.perf_counter()
+        r_t0 = time.monotonic()
         idx_out, d_out, solves, programs, hits, k_misses = \
             self._rerank_per_query(sel_b, r_b, mask_b, bounds, bpos,
                                    self._live_row[bpos], dpos, n_live,
                                    k_eff=k_eff, chunk=chunk, margin=margin,
                                    exhaustive=exhaustive,
                                    impl=impl or self.impl, use=use)
-        t_rerank = time.perf_counter() - t0
-        self._record_prune(q, n_live, k_eff, chunk, margin, exhaustive,
-                           "live_pruned", solves + q * int(dpos.size),
-                           programs, t_bound, t_rerank, tiers, d_out,
-                           k_misses)
+        r_t1 = time.monotonic()
+        self._traced_record_prune(q, n_live, k_eff, chunk, margin,
+                                  exhaustive, "live_pruned",
+                                  solves + q * int(dpos.size), programs,
+                                  b_t1 - b_t0, r_t1 - r_t0, tiers, d_out,
+                                  k_misses)
         self.last_prune_stats["delta_docs"] = int(dpos.size)
+        t = self._now()
         self._check_result(d_out, what="top_k distances",
                            empty_doc_mask=self._live_empty[idx_out])
+        if t is not None:
+            self._step("distance_guard", t)
         total = hits + sum(k_misses)
         self.last_batch_stats = {
             "hit_rate": hits / total if total else 0.0,
-            "precompute_s": t_bound, "solve_s": t_rerank,
+            "precompute_t0": b_t0, "precompute_s": b_t1 - b_t0,
+            "solve_t0": r_t0, "solve_s": r_t1 - r_t0,
         }
         ids = self._live_ids[idx_out] if idx_out.size else idx_out
         return ids, d_out
@@ -1238,14 +1434,15 @@ class WMDService:
         if len(rs) == 0:
             return (np.zeros((0, k_eff), np.int64),
                     np.zeros((0, k_eff), np.float32))
+        if self._tree is not None:
+            self._route = "union"
         chunk, margin, q, sel_b, r_b, mask_b = self._prune_setup(
             rs, prune_chunk, prune_margin)
         use = use_cache is not False
-        t0 = time.perf_counter()
-        combined, tiers = self._cascade_bounds(sel_b, r_b, mask_b,
-                                               use_cache=use)
+        combined, tiers, b_t0, b_t1 = self._traced_bounds(sel_b, r_b,
+                                                          mask_b, use)
         lb = combined[:q]                                     # (q, N)
-        t_bound = time.perf_counter() - t0
+        t = self._now()
         self._kcache.ensure_lamb(self.cfg.lamb)   # lambda-invalidation
         impl = impl or self.impl
         fn = self._stripe_fn(impl, None)
@@ -1253,7 +1450,13 @@ class WMDService:
         # whole batch (rows are bit-reproducible either way)
         k_s, km_s, info = self._kcache.stripes_for_batch(sel_b, mask_b,
                                                          use_cache=use)
+        if t is not None:
+            t = self._step("kcache", t, hits=info["hits"],
+                           misses=info["misses"], unique=info["unique"])
         self._check_km(km_s, mask_b)
+        if t is not None:
+            t = self._step("km_guard", t)
+            topk_s = 0.0
         vm = self._vm(k_s, km_s, impl)
         r_all = torch.from_numpy(r_b).to(self.device)        # (Q_pow2, v_r)
         min_lb = lb.min(axis=0)                   # union visit order key
@@ -1262,7 +1465,7 @@ class WMDService:
         thresholds = np.full(q, np.inf, np.float32)
         n_solved = 0
         programs = 0
-        t0 = time.perf_counter()
+        r_t0 = time.monotonic()
         while True:
             if n_solved >= k_eff:
                 need = unsolved & (lb * (1.0 - margin)
@@ -1281,26 +1484,39 @@ class WMDService:
             programs += 1
             n_solved += block.size
             if n_solved >= k_eff:
+                ts = self._now()
                 for i in range(q):
                     cur = self._top_k(solved_d[i], k_eff)
                     thresholds[i] = solved_d[i][cur[-1]]
-        t_rerank = time.perf_counter() - t0
+                if ts is not None:
+                    topk_s += self.tracer.now() - ts
+        r_t1 = time.monotonic()
+        solves = q * (n - int(unsolved.sum()))
+        if t is not None:
+            t = self._step("rerank", t, blocks=programs, solves=solves,
+                           topk_s=topk_s)
         idx_out = np.empty((q, k_eff), np.int64)
         d_out = np.empty((q, k_eff), np.float32)
         for i in range(q):
             sel = self._top_k(solved_d[i], k_eff)
             idx_out[i] = sel
             d_out[i] = solved_d[i][sel]
-        solves = q * (n - int(unsolved.sum()))
-        self._record_prune(q, n, k_eff, chunk, margin, False, "union",
-                           solves, programs, t_bound, t_rerank, tiers,
-                           d_out, [info["misses"]])
+        if t is not None:
+            self._step("host_topk", t, k=k_eff)
+        self._traced_record_prune(q, n, k_eff, chunk, margin, False, "union",
+                                  solves, programs, b_t1 - b_t0,
+                                  r_t1 - r_t0, tiers, d_out,
+                                  [info["misses"]])
         self.last_batch_stats = {
             "hit_rate": info.get("hit_rate", 0.0),
-            "precompute_s": t_bound, "solve_s": t_rerank,
+            "precompute_t0": b_t0, "precompute_s": b_t1 - b_t0,
+            "solve_t0": r_t0, "solve_s": r_t1 - r_t0,
         }
+        t = self._now()
         self._check_result(d_out, what="top_k distances",
                            empty_doc_mask=self._empty_doc_mask[idx_out])
+        if t is not None:
+            self._step("distance_guard", t)
         return idx_out, d_out
 
     # -- degraded tier: bound-only answers ------------------------------------
@@ -1313,11 +1529,12 @@ class WMDService:
         (see `core.rwmd`). On a live service: (Q, num_live) bounds, one
         min-SDDMM per non-empty segment (`_bounds_live`)."""
         if self.live is not None:
-            t0 = time.perf_counter()
+            t0 = time.monotonic()
             lb = self._bounds_live(rs)
+            t1 = time.monotonic()
             self.last_batch_stats = {
-                "precompute_s": time.perf_counter() - t0, "solve_s": 0.0,
-                "degraded": True}
+                "precompute_t0": t0, "precompute_s": t1 - t0,
+                "solve_t0": t1, "solve_s": 0.0, "degraded": True}
             if self.guards and lb.size:
                 _guards.check_finite(lb, "rwmd bounds", lamb=self.cfg.lamb)
             return lb
@@ -1326,11 +1543,12 @@ class WMDService:
         self._validate_queries(rs)
         q = len(rs)
         sel_b, _, mask_b = self._padded_query_batch(rs)
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         lb = self._bounds_for_batch(sel_b, mask_b)[:q]
-        t_bound = time.perf_counter() - t0
-        self.last_batch_stats = {"precompute_s": t_bound, "solve_s": 0.0,
-                                 "degraded": True}
+        t1 = time.monotonic()
+        self.last_batch_stats = {
+            "precompute_t0": t0, "precompute_s": t1 - t0,
+            "solve_t0": t1, "solve_s": 0.0, "degraded": True}
         if self.guards:
             _guards.check_finite(lb, "rwmd bounds", lamb=self.cfg.lamb)
         return lb
