@@ -155,7 +155,12 @@ Phases (any failure exits non-zero before the result line is printed):
      against #1 on each of the 16 queries, #4 against #2 on each, #1
      against #3 at Q = 1, #2 against #4 at Q = 1 and against its
      reference-layout oracle `sddmm_spmm_type2_naive` (the sha256 of #2's
-     output printed), #5 against #6's rows, #5, #6 and #7 bitwise
+     output printed); #3, #4, #1 and #2 reading the iterate x
+     (``from_x``, the Sinkhorn loops' route) bitwise against `safe_recip`,
+     the kernel on u and the divide by r, at the batch's shape and at a
+     65,536-doc slice of the prod_5m corpus (`_fused_iterate_check`:
+     x seeded with 0, values below 1e-30, -1, +inf, NaN and 1e38, four pad
+     docs exactly 0, both spellings' device ms); #5 against #6's rows, #5, #6 and #7 bitwise
      against their one-thread-an-output oracle `cost_rows_naive` (the
      sha256 of #6's and #5's outputs printed), own words exactly M = 0,
      K = 1, #9 against #8 and #8's two routes against each other (the
@@ -646,6 +651,111 @@ def _counted_wmd(what, call, want=None):
                f"trace entries: the declared cost is wrong")
     print(f"[count] {what}: each kernel group's declared roofline vs its "
           f"device time: " + "; ".join(parts))
+
+
+# the 65,536-doc slice of the prod_5m corpus that phase 5's check of the
+# kernels reading the iterate runs on
+PROD_SLICE_DOCS = 65_536
+
+
+def _prod_slice(dev):
+    """(cols, vals) of a ``PROD_SLICE_DOCS``-doc corpus of
+    `configs.sinkhorn_wmd.config("prod_5m")` (`data.corpus.make_corpus`'s
+    statistics, seed 1), on ``dev``."""
+    import torch
+    from repro_torch.configs.sinkhorn_wmd import config
+    from repro_torch.data.corpus import make_corpus
+    cfg = config("prod_5m")
+    ell = make_corpus(vocab_size=cfg.vocab_size, embed_dim=cfg.embed_dim,
+                      num_docs=PROD_SLICE_DOCS, num_queries=0, seed=1).ell
+    return (torch.from_numpy(ell.cols).to(dev),
+            torch.from_numpy(ell.vals).to(dev))
+
+
+def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
+    """#3, #4, #1 and #2 reading the iterate (``from_x``) against the
+    element-wise spelling they replace on the card: `safe_recip`, the
+    kernel on u with r = 1, then the divide by r; bitwise, compared as
+    int32 bits so that NaN matches NaN. x (Q, v_r, N) is seeded with 0,
+    values below TINY (a subnormal among them), a negative, +inf, NaN and
+    1e38 (whose reciprocal is subnormal); four pad docs (every slot the pad
+    id, val 0) with x = 0 are appended and must come out exactly 0. r is
+    the batch's (not 1). Returns the device ms (`_device_ms`) of #3 and #4
+    reading x, of the same launches on u, and of the element-wise spelling
+    (the passes and the launch on u)."""
+    import torch
+    from repro_torch.kernels import sddmm_spmm as k
+    q, v_r, n = x.shape
+    vp1 = k_vm.shape[1]
+    pad = 4
+    cols = torch.cat([cols, torch.full((pad, cols.shape[1]), vp1 - 1,
+                                       dtype=cols.dtype, device=cols.device)])
+    vals = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))])
+    x = torch.cat([x, x.new_zeros((q, v_r, pad))], dim=2).contiguous()
+    g = torch.Generator(device=x.device)
+    g.manual_seed(31)
+    special = torch.tensor([0.0, 1e-35, 1e-45, -1.0, float("inf"),
+                            float("nan"), 1e38, 0.0], device=x.device)
+    at = torch.randint(0, q * v_r * n, (4096,), generator=g,
+                       device=x.device)
+    flat = x.view(-1)
+    flat[at] = special[torch.arange(at.numel(), device=x.device)
+                       % special.numel()]
+    x[:, :, n:] = 0.0             # a NaN u would give a pad doc's <u, 0> NaN
+    ones = torch.ones_like(r)
+    u = k.safe_recip(x)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def same(a, b, msg):
+        _check(torch.equal(bits(a), bits(b)), f"{what}: {msg}")
+
+    x3 = k.sddmm_spmm_type1_batch_vm(k_vm, r, x, cols, vals, from_x=True)
+    x3_in = k.sddmm_spmm_type1_batch_vm(k_vm, ones, x, cols, vals,
+                                        from_x=True)
+    x3_u = k.sddmm_spmm_type1_batch_vm(k_vm, ones, u, cols, vals)
+    d4 = k.sddmm_spmm_type2_batch_vm(k_vm, km_vm, x, cols, vals,
+                                     from_x=True)
+    d4_u = k.sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals)
+    x1 = k.sddmm_spmm_type1_vm(k_vm[0], r[0], x[0], cols, vals, from_x=True)
+    d2 = k.sddmm_spmm_type2_vm(k_vm[0], km_vm[0], x[0], cols, vals,
+                               from_x=True)
+    torch.cuda.synchronize()
+    same(x3, x3_u / r[:, :, None], "#3 reading x with r is not safe_recip, "
+         "#3 with r = 1, then / r")
+    same(x3_in, x3_u, "#3 reading x is not safe_recip then #3 (r = 1)")
+    same(d4, d4_u, "#4 reading x is not safe_recip then #4")
+    same(x1, x3[0], "#1 reading x is not #3 reading x at Q = 1")
+    same(d2, d4[0], "#2 reading x is not #4 reading x at Q = 1")
+    _check(bool((x3[:, :, n:] == 0).all()) and bool((d4[:, n:] == 0).all()),
+           f"{what}: a pad doc with x = 0 is not exactly 0")
+    n_nan = int(torch.isnan(x3).any(dim=1).sum())
+    print(f"[kernels] {what}: #3, #4, #1 and #2 reading the iterate == "
+          f"safe_recip + the kernel on u (+ / r), bitwise, on Q {q}, v_r "
+          f"{v_r}, N {n} + {pad} pad docs, with x seeded with 0, <1e-30, "
+          f"-1, +inf, NaN and 1e38 ({n_nan} (query, doc) columns NaN out); "
+          f"pad docs exactly 0")
+    out = {
+        "type1_fused": _device_ms(lambda: k.sddmm_spmm_type1_batch_vm(
+            k_vm, r, x, cols, vals, from_x=True)),
+        "type1_on_u": _device_ms(lambda: k.sddmm_spmm_type1_batch_vm(
+            k_vm, ones, u, cols, vals)),
+        "type1_passes": _device_ms(lambda: k.sddmm_spmm_type1_batch_vm(
+            k_vm, ones, k.safe_recip(x), cols, vals) / r[:, :, None]),
+        "type2_fused": _device_ms(lambda: k.sddmm_spmm_type2_batch_vm(
+            k_vm, km_vm, x, cols, vals, from_x=True)),
+        "type2_on_u": _device_ms(lambda: k.sddmm_spmm_type2_batch_vm(
+            k_vm, km_vm, u, cols, vals)),
+        "type2_passes": _device_ms(lambda: k.sddmm_spmm_type2_batch_vm(
+            k_vm, km_vm, k.safe_recip(x), cols, vals)),
+    }
+    print(f"[kernels] {what}: device ms, #3 reading x "
+          f"{out['type1_fused']:.4f}, on u {out['type1_on_u']:.4f}, "
+          f"safe_recip + #3 + / r {out['type1_passes']:.4f}; #4 reading x "
+          f"{out['type2_fused']:.4f}, on u {out['type2_on_u']:.4f}, "
+          f"safe_recip + #4 {out['type2_passes']:.4f}")
+    return out
 
 
 def _shares_word(batch, ell):
@@ -4336,6 +4446,19 @@ def _wmd_phases():
           f"(events; device "
           f"{cfg.max_iter * e3['device_ms'] + e4['device_ms'] + dev_pair:.4f}"
           f" ms, the pair of copies {dev_pair:.4f})")
+    # the kernels reading the iterate (the Sinkhorn loops' route), at this
+    # shape and at a 65,536-doc slice of the prod_5m corpus
+    e3["fused_device_ms"] = _fused_iterate_check(
+        "paper_5k", k_vm, km_vm, r, cols, vals, x)
+    cols_s, vals_s = _prod_slice(dev)
+    x_s = torch.full((q, v_r, cols_s.shape[0]), 1.0 / v_r, device=dev)
+    for _ in range(3):                        # a realistic iterate
+        x_s = sddmm_spmm.sddmm_spmm_type1_batch_vm(k_vm, r, x_s, cols_s,
+                                                   vals_s, from_x=True)
+    e3["fused_device_ms_prod_slice"] = _fused_iterate_check(
+        f"prod_5m's {cols_s.shape[0]:,}-doc slice", k_vm, km_vm, r,
+        cols_s, vals_s, x_s)
+    del cols_s, vals_s, x_s
     del d_k, d_p, d_2, d_o, d_r, k_s, km_s, x, u, k_vm, km_vm, k_vm1, km_vm1
     # the per-query kernels (#5, #1, #2) at batch 1 query 0's shapes: its
     # v_r = 32 stripe (pad rows masked) and a realistic iterate

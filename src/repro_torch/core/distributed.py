@@ -36,6 +36,13 @@ S > 1 a doc's slots split over the stripes and the sum differs by
 rounding. Doc shards on one device share one vocab-major copy (and one K
 stripe, in the per-query program) per model shard.
 
+The programs hand the contractions the iterate x itself (``from_x``),
+which form u = 1 / max(x, TINY) from it (the kernel route's kernels as
+they load it), and on one model shard type1 applies the 1/r row scale in
+its epilogue (`_row_scale`): on the kernel route no element-wise pass runs
+over the (Q, v_r, N) iterate, and the bits are those of `safe_recip`
+before the contraction and the divide by r after it.
+
 Query padding is exact and mask-based: pad rows carry r = 1 and an
 all-zero K row (`pad_query` + the row mask in `masked_k` /
 `masked_k_batch`), so they contribute exactly zero to every w, x and WMD.
@@ -260,33 +267,48 @@ def _per_device(grid: np.ndarray, fn) -> dict:
     return out
 
 
-def _plan(grid, d, st, ones, cols_d, vals_d, lo=0, hi=None) -> list:
+def _plan(grid, d, st, r_in, cols_d, vals_d, lo=0, hi=None) -> list:
     """What doc shard ``d``'s contractions read, one entry a model shard:
-    (device, k_pad, km_pad, ones_r, type1, type2, cols, vals), the ELL
-    rows ``lo:hi``. Made once a solve, not once an iteration."""
+    (device, k_pad, km_pad, r, type1, type2, cols, vals), with r the row
+    scale type1 divides by on that device (``r_in``, `_row_scale`) and the
+    ELL rows ``lo:hi``. Made once a solve, not once an iteration."""
     out = []
     for s in range(grid.shape[1]):
         dev = grid[d, s]
         k_pad, km_pad, type1, type2 = st[(s, dev)]
-        out.append((dev, k_pad, km_pad, ones[dev], type1, type2,
+        out.append((dev, k_pad, km_pad, r_in[dev], type1, type2,
                     cols_d[d, s][lo:hi], vals_d[d, s][lo:hi]))
     return out
 
 
-def _contract(plan, home: torch.device, u: torch.Tensor, call
+def _row_scale(grid, r_sel: torch.Tensor):
+    """(r_in, scale_in): the r type1 divides by on each device, and whether
+    that is the row scale itself. On one model shard (``scale_in``) type1
+    takes the real r and divides by it in its epilogue: acc / 1 / r ==
+    acc / r, so the bits are those of the row scale after the sum. With
+    several model shards the row scale must follow the model-axis sum:
+    type1 takes ones and the program divides by r after `_model_sum`, as
+    the reference does."""
+    scale_in = grid.shape[1] == 1
+    r_in = {dev: r_sel.to(dev) if scale_in else
+            torch.ones_like(r_sel, device=dev) for dev in set(grid.flat)}
+    return r_in, scale_in
+
+
+def _contract(plan, home: torch.device, x: torch.Tensor, call
               ) -> torch.Tensor:
-    """One doc shard's contraction: ``call(entry, u)`` for each model
-    shard's ``plan`` entry, on the shard's device with ``u`` copied there,
-    then the model-axis sum on ``home`` (the doc shard's first device, the
-    current one)."""
+    """One doc shard's contraction: ``call(entry, x)`` for each model
+    shard's ``plan`` entry, on the shard's device with the iterate ``x``
+    copied there, then the model-axis sum on ``home`` (the doc shard's
+    first device, the current one)."""
     parts = []
     for entry in plan:
         dev = entry[0]
         if dev == home:
-            parts.append(call(entry, u))
+            parts.append(call(entry, x))
         else:
             with on_device(dev):
-                parts.append(call(entry, u.to(dev)))
+                parts.append(call(entry, x.to(dev)))
     return _model_sum(parts, home)
 
 
@@ -299,7 +321,8 @@ def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
     (model shard, device), ``max_iter`` type1 contractions and the type2
     distance, each followed by one model-axis sum. As in the reference,
     type1 runs with r = 1 and the 1/r row scale follows the sum; acc / 1 is
-    exact, so on one shard this is bitwise the same as dividing inside.
+    exact, so on one shard this is bitwise the same as dividing inside,
+    which type1 does there (`_row_scale`); the contractions read x itself.
     Returns (N,) on ``grid[0, 0]``."""
     impl = "kernel" if use_kernel else "fused"
     n_doc = grid.shape[0]
@@ -313,8 +336,7 @@ def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
         return (k_pad, km_pad, *ss.query_contractions(impl, k_pad, km_pad))
 
     st = _per_device(grid, stripe)
-    ones = {dev: torch.ones_like(r_sel, device=dev)
-            for dev in set(grid.flat)}
+    r_in, scale_in = _row_scale(grid, r_sel)
     r_col = {dev: r_sel.to(dev)[:, None] for dev in set(homes)}
     v_r = r_sel.shape[0]
     xs = []
@@ -322,7 +344,7 @@ def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
         with on_device(home):
             xs.append(torch.full((v_r, cols_d[d, 0].shape[0]), 1.0 / v_r,
                                  dtype=torch.float32, device=home))
-    plans = [_plan(grid, d, st, ones, cols_d, vals_d) for d in range(n_doc)]
+    plans = [_plan(grid, d, st, r_in, cols_d, vals_d) for d in range(n_doc)]
     if check:
         check_placement(grid, cols_d, "ELL cols")
         check_placement(grid, vals_d, "ELL vals")
@@ -330,23 +352,23 @@ def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
                         "query stripes")
         check_placement(grid[:, :1], _one_column(xs), "iterates")
 
-    def type1(entry, u):
-        _, k_pad, _, ones_r, t1, _, cols, vals = entry
-        return t1(k_pad, ones_r, u, cols, vals)
+    def type1(entry, x):
+        _, k_pad, _, r_e, t1, _, cols, vals = entry
+        return t1(k_pad, r_e, x, cols, vals, from_x=True)
 
-    def type2(entry, u):
+    def type2(entry, x):
         _, k_pad, km_pad, _, _, t2, cols, vals = entry
-        return t2(k_pad, km_pad, u, cols, vals)
+        return t2(k_pad, km_pad, x, cols, vals, from_x=True)
 
     for _ in range(max_iter):
         for d, home in enumerate(homes):
             with on_device(home):
-                xs[d] = _contract(plans[d], home, safe_recip(xs[d]),
-                                  type1) / r_col[home]
+                y = _contract(plans[d], home, xs[d], type1)
+                xs[d] = y if scale_in else y / r_col[home]
     out = []
     for d, home in enumerate(homes):
         with on_device(home):
-            out.append(_contract(plans[d], home, safe_recip(xs[d]), type2))
+            out.append(_contract(plans[d], home, xs[d], type2))
     return _gather_docs(out, grid[0, 0])
 
 
@@ -415,7 +437,9 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
     contractions each (model shard, device) pair runs. One model-axis sum
     of the type1 partials an iteration and one of the distances; with
     ``tol`` one vote an iteration. As in the reference, type1 runs with
-    r = 1 and the 1/r row scale follows the sum.
+    r = 1 and the 1/r row scale follows the sum, except on one model shard,
+    where type1 divides by r itself with the same bits (`_row_scale`); the
+    contractions read the iterate x itself.
 
     ``chunk_placement="solve"`` runs the chunk loop outside the Sinkhorn
     loop: the doc shards solve their c-th chunks together (the reference's
@@ -433,8 +457,7 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
     homes = list(grid[:, 0])
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
     r_col = {dev: r_sel.to(dev)[:, :, None] for dev in set(homes)}
-    ones = {dev: torch.ones_like(r_sel, device=dev)
-            for dev in set(grid.flat)}
+    r_in, scale_in = _row_scale(grid, r_sel)
     n_d = [cols_d[d, 0].shape[0] for d in range(n_doc)]
     if check:
         check_placement(grid, cols_d, "ELL cols")
@@ -442,13 +465,15 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
         check_placement(grid, {k: v[:2] for k, v in st.items()},
                         "K / K.*M stripes")
 
-    def type1(entry, u):
-        _, k_pad, _, ones_r, t1, _, cols, vals = entry
-        return t1(k_pad, ones_r, u, cols, vals, docs_chunk=iter_chunk)
+    def type1(entry, x):
+        _, k_pad, _, r_e, t1, _, cols, vals = entry
+        return t1(k_pad, r_e, x, cols, vals, docs_chunk=iter_chunk,
+                  from_x=True)
 
-    def type2(entry, u):
+    def type2(entry, x):
         _, k_pad, km_pad, _, _, t2, cols, vals = entry
-        return t2(k_pad, km_pad, u, cols, vals, docs_chunk=iter_chunk)
+        return t2(k_pad, km_pad, x, cols, vals, docs_chunk=iter_chunk,
+                  from_x=True)
 
     def solve(spans):
         """One lockstep solve of the doc ranges ``spans`` [(d, lo, hi)]."""
@@ -460,15 +485,15 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
         if check:
             check_placement(grid[[d for d, _, _ in spans], :1],
                             _one_column(x0), "iterates")
-        plans = [(homes[d], _plan(grid, d, st, ones, cols_d, vals_d, lo, hi))
+        plans = [(homes[d], _plan(grid, d, st, r_in, cols_d, vals_d, lo, hi))
                  for d, lo, hi in spans]
 
         def iteration(xs):
             out = []
             for (home, plan), x in zip(plans, xs):
                 with on_device(home):
-                    out.append(_contract(plan, home, safe_recip(x), type1)
-                               / r_col[home])
+                    y = _contract(plan, home, x, type1)
+                    out.append(y if scale_in else y / r_col[home])
             return out
 
         if tol:
@@ -485,7 +510,7 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
         wmd = []
         for (home, plan), x in zip(plans, xs):
             with on_device(home):
-                wmd.append(_contract(plan, home, safe_recip(x), type2))
+                wmd.append(_contract(plan, home, x, type2))
         return wmd, n_iter.to(first), delta.to(first)
 
     if chunk_placement == "solve" and docs_chunk and docs_chunk < max(n_d):

@@ -50,19 +50,12 @@ import torch
 from repro_torch.core.cost_matrix import cdist
 from repro_torch.core.sinkhorn import SinkhornPrecompute, precompute
 from repro_torch.kernels._pad import pad_axis
-from repro_torch.kernels.sddmm_spmm import slot_combine, slot_dots
+# the reciprocal guard u = 1 / max(x, TINY) lives beside the kernels, which
+# form it themselves when they read the iterate (``from_x``)
+from repro_torch.kernels.sddmm_spmm import (TINY, safe_recip,  # noqa: F401
+                                            slot_combine, slot_dots)
 
 _IMPLS = ("fused", "unfused", "kernel")
-
-# Reciprocal guard: K = exp(-lamb*M) underflows f32 for far word pairs, and
-# the u = 1/x nonlinearity amplifies it to inf*0 = nan. Clamping the
-# denominator at TINY is exact for healthy values and replaces inf by a huge
-# finite number otherwise.
-TINY = 1e-30
-
-
-def safe_recip(x: torch.Tensor) -> torch.Tensor:
-    return 1.0 / torch.clamp(x, min=TINY)
 
 
 def pad_k(k: torch.Tensor) -> torch.Tensor:
@@ -134,13 +127,17 @@ def spmm_batch(kor_pad, v, cols):
 
 
 def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
-                           docs_chunk: int | None = None) -> torch.Tensor:
+                           docs_chunk: int | None = None,
+                           from_x: bool = False) -> torch.Tensor:
     """Batched fused iteration body: (Q, v_r, N) <- one gather, two
     contractions (`kernels.sddmm_spmm.slot_dots` / `slot_combine`: a
     (q, doc) cell's bits do not depend on Q).
 
     k_pad (Q, v_r, V+1), r_sel (Q, v_r), u (Q, v_r, N), cols/vals (N, nnz).
+    ``from_x``: u is the iterate x, and u = `safe_recip`(x) first.
     """
+    u = safe_recip(u) if from_x else u
+
     def chunk(u_c, cols_c, vals_c):
         kg = gather_k_batch(k_pad, cols_c)           # the ONLY gather
         w = slot_dots(kg, u_c)
@@ -154,9 +151,13 @@ def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, *,
-                           docs_chunk: int | None = None) -> torch.Tensor:
+                           docs_chunk: int | None = None,
+                           from_x: bool = False) -> torch.Tensor:
     """Batched fused final distance: (Q, N) WMD, reduced as
-    sum_k v * <(K.*M) col, u> (the reference's order)."""
+    sum_k v * <(K.*M) col, u> (the reference's order). ``from_x`` as in
+    `sddmm_spmm_type1_batch`."""
+    u = safe_recip(u) if from_x else u
+
     def chunk(u_c, cols_c, vals_c):
         kg = gather_k_batch(k_pad, cols_c)
         kmg = gather_k_batch(km_pad, cols_c)
@@ -188,66 +189,81 @@ def spmm(kor_pad, v, cols):
     return spmm_batch(kor_pad[None], v[None], cols)[0]
 
 
-def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals) -> torch.Tensor:
+def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
+                     from_x: bool = False) -> torch.Tensor:
     """Fused iteration body of one query: one gather feeds both
     contractions. k_pad (v_r, V+1), r_sel (v_r,), u (v_r, N) -> (v_r, N)."""
     return sddmm_spmm_type1_batch(k_pad[None], r_sel[None], u[None], cols,
-                                  vals)[0]
+                                  vals, from_x=from_x)[0]
 
 
-def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals) -> torch.Tensor:
+def sddmm_spmm_type2(k_pad, km_pad, u, cols, vals, *,
+                     from_x: bool = False) -> torch.Tensor:
     """Fused final distance of one query: (N,) WMD."""
     return sddmm_spmm_type2_batch(k_pad[None], km_pad[None], u[None], cols,
-                                  vals)[0]
+                                  vals, from_x=from_x)[0]
 
 
-def _type1_unfused(k_pad, r_sel, u, cols, vals) -> torch.Tensor:
+def _type1_unfused(k_pad, r_sel, u, cols, vals, *, from_x=False
+                   ) -> torch.Tensor:
     # independent gathers: the paper's pre-fusion baseline
-    v = sddmm(k_pad, u, cols, vals)
+    v = sddmm(k_pad, safe_recip(u) if from_x else u, cols, vals)
     return spmm(k_pad / r_sel[:, None], v, cols)
 
 
-def _unfused_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None):
+def _unfused_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None,
+                   from_x=False):
     del docs_chunk  # the baseline stays deliberately unblocked
-    v = sddmm_batch(k_pad, u, cols, vals)
+    v = sddmm_batch(k_pad, safe_recip(u) if from_x else u, cols, vals)
     return spmm_batch(k_pad / r_sel[..., None], v, cols)
 
 
-def _unfused_final_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None):
+def _unfused_final_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None,
+                         from_x=False):
     # the unfused baseline shares the fused final distance, unblocked
     del docs_chunk
-    return sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals)
+    return sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals,
+                                  from_x=from_x)
 
 
 def _kernel_type1_batch(k_pad, r_sel, u, cols, vals, *, docs_chunk=None,
-                        k_vm=None):
+                        k_vm=None, from_x=False):
     # the kernel's native cache blocking IS its doc tile: docs_chunk maps
     # onto docs_blk instead of an outer loop (None/0 = default tile). k_vm:
     # the vocab-major copy of k_pad (`batched_contractions` makes it once
-    # per stripe set); without it this call makes its own.
+    # per stripe set); without it this call makes its own. from_x: u is
+    # the iterate x (`kernels.ops`)
     from repro_torch.kernels import ops
     kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
     if k_vm is None:
-        return ops.sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, **kw)
-    return ops.sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, **kw)
+        return ops.sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals,
+                                          from_x=from_x, **kw)
+    return ops.sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals,
+                                         from_x=from_x, **kw)
 
 
 def _kernel_type2_batch(k_pad, km_pad, u, cols, vals, *, docs_chunk=None,
-                        vm=None):
+                        vm=None, from_x=False):
     # vm: the vocab-major copies (k_vm, km_vm) of k_pad and km_pad
     # (`batched_contractions`); without them this call makes its own
     from repro_torch.kernels import ops
     kw = {} if not docs_chunk else {"docs_blk": docs_chunk}
     if vm is None:
-        return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals, **kw)
-    return ops.sddmm_spmm_type2_batch_vm(*vm, u, cols, vals, **kw)
+        return ops.sddmm_spmm_type2_batch(k_pad, km_pad, u, cols, vals,
+                                          from_x=from_x, **kw)
+    return ops.sddmm_spmm_type2_batch_vm(*vm, u, cols, vals, from_x=from_x,
+                                         **kw)
 
 
 def _resolve_impl(kind: str, impl: str, batched: bool = True):
     """The ONE impl dispatch table, shared by the single-query and batched
     solvers (and `core.distributed`). kind: "type1" (signature (k_pad,
     r_sel, u, cols, vals)) or "type2" ((k_pad, km_pad, u, cols, vals));
-    the batched ones also accept ``docs_chunk=``."""
+    the batched ones also accept ``docs_chunk=``. The batched ones and the
+    plain impls' single-query ones take ``from_x=True`` too (as do
+    `query_contractions`' kernel pair): u is then the iterate x, and u =
+    `safe_recip`(x) is formed inside, the kernel route's as the kernel
+    loads it."""
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if impl == "kernel":
@@ -309,11 +325,13 @@ def query_contractions(impl: str, k_pad: torch.Tensor,
     from repro_torch.kernels import ops
     k_vm, km_vm = (c[0] for c in vocab_major_pair(k_pad[None], km_pad[None]))
 
-    def type1_on_copy(k_pad, r_sel, u, cols, vals):
-        return ops.sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals)
+    def type1_on_copy(k_pad, r_sel, u, cols, vals, *, from_x=False):
+        return ops.sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals,
+                                       from_x=from_x)
 
-    def type2_on_copies(k_pad, km_pad, u, cols, vals):
-        return ops.sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals)
+    def type2_on_copies(k_pad, km_pad, u, cols, vals, *, from_x=False):
+        return ops.sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals,
+                                       from_x=from_x)
 
     return type1_on_copy, type2_on_copies
 

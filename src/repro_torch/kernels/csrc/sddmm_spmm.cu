@@ -66,6 +66,25 @@
 // w = 0 and v = val / 1e-30 times a zero column) come out as exact zeros.
 // Compiled without --use_fast_math: IEEE division is part of that
 // contract.
+//
+// Reading the iterate (from_x, the Sinkhorn loops' route). The four serving
+// entries take a from_x flag. With it set, their u argument is the iterate
+// x itself, and `load_u` forms u = 1 / max(x, 1e-30) for the document's
+// rows as it loads them, so the loop runs no element-wise pass over the
+// (Q, v_r, N) iterate. The bits are those of the element-wise spelling
+// (`safe_recip`: clamp, reciprocal and a scale by 1 before each launch; a
+// divide by r after each type1):
+//   * the max keeps a NaN, as torch.clamp does;
+//   * PyTorch's `1.0 / t` is reciprocal(t) * 1.0: one IEEE division, then
+//     an exact product;
+//   * type1's epilogue already divides by r. On one model shard the program
+//     passes the real r, and acc / 1 / r == acc / r. On several shards it
+//     passes ones, and the row scale follows the model-axis sum as before.
+// The flag is a template parameter. Cleared, every kernel is the code it
+// was, instruction for instruction. The Python wrappers count each launch
+// with the flag set (`reads_x` in kernels/sddmm_spmm.py); WMDService
+// reports a batch's count as last_batch_stats["fused_launches"] and as the
+// `fused` attribute of its `solve` span.
 
 #include <cuda_runtime.h>
 
@@ -112,7 +131,16 @@ __device__ __forceinline__ void slot_accumulate(float (&acc)[R],
   for (int t = 0; t < R; ++t) acc[t] = __fmaf_rn(col[t], v, acc[t]);
 }
 
-template <int R>
+// u = 1 / max(x, TINY), bitwise the program's `safe_recip`: the max keeps a
+// NaN as torch.clamp does (fmaxf would drop it), and `1.0 / t` in PyTorch
+// is reciprocal(t) * 1.0, one IEEE division and an exact product
+__device__ __forceinline__ float recip_x(float x) {
+  return __fdiv_rn(1.0f, x < kTiny ? kTiny : x);
+}
+
+// the document's u column into registers; kFromX: uq holds the iterate x
+// and u is formed from it here (pad rows beyond v_r stay exact zeros)
+template <int R, bool kFromX = false>
 __device__ __forceinline__ void load_u(float (&uj)[R], float (&acc)[R],
                                        const float* __restrict__ uq, int v_r,
                                        int n, int j) {
@@ -120,7 +148,10 @@ __device__ __forceinline__ void load_u(float (&uj)[R], float (&acc)[R],
 #pragma unroll
   for (int t = 0; t < R; ++t) {
     const int i = lane + t * kWarp;
-    uj[t] = i < v_r ? uq[(size_t)i * n + j] : 0.f;
+    if constexpr (kFromX)
+      uj[t] = i < v_r ? recip_x(uq[(size_t)i * n + j]) : 0.f;
+    else
+      uj[t] = i < v_r ? uq[(size_t)i * n + j] : 0.f;
     acc[t] = 0.f;
   }
 }
@@ -231,7 +262,8 @@ __host__ __device__ constexpr int log2i(int x) {
 // computing slot g's v, and the G columns (K's for type1, K.*M's for
 // type2) folded into acc in slot order. Pointers are the query's own:
 // kq / kmq (vp1, v_r), rq (v_r), uq (v_r, n), outq x (v_r, n) or wmd (n).
-template <int R, bool kType2>
+// kFromX: uq is the iterate x, and u = `recip_x`(x) is formed in `load_u`.
+template <int R, bool kType2, bool kFromX>
 __device__ __forceinline__ void vm_doc_tile(
     const float* __restrict__ kq, const float* __restrict__ kmq,
     const float* __restrict__ rq, const float* __restrict__ uq,
@@ -247,7 +279,7 @@ __device__ __forceinline__ void vm_doc_tile(
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   for (int j = j0 + warp; j < j_end; j += warps) {
     float uj[R], acc[R];
-    load_u<R>(uj, acc, uq, v_r, n, j);
+    load_u<R, kFromX>(uj, acc, uq, v_r, n, j);
     const int* cj = cols + (size_t)j * nnz;
     const float* vj = vals + (size_t)j * nnz;
     for (int s0 = 0; s0 < nnz; s0 += kWarp) {
@@ -302,12 +334,12 @@ __device__ __forceinline__ void vm_doc_tile(
 
 // #3 (and #1 at Q = 1), the type1 grid (ceil(N / docs_blk), Q) on the
 // vocab-major copy of K: block (tile, q) walks query q's documents of its
-// tile.
-template <int R>
+// tile. kFromX: u holds the iterate x (`load_u`).
+template <int R, bool kFromX>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
 type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
                 const float* __restrict__ r,     // (Q, v_r)
-                const float* __restrict__ u,     // (Q, v_r, N)
+                const float* __restrict__ u,     // (Q, v_r, N): u, or x
                 const int* __restrict__ cols,    // (N, nnz)
                 const float* __restrict__ vals,  // (N, nnz)
                 float* __restrict__ x,           // (Q, v_r, N)
@@ -317,19 +349,19 @@ type1_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
   const size_t q = blockIdx.y;
   const int warp = threadIdx.x / kWarp;
   const int j0 = blockIdx.x * docs_blk;
-  vm_doc_tile<R, false>(kvm + q * vp1 * v_r, nullptr, r + q * v_r,
-                        u + q * v_r * n, cols, vals, x + q * v_r * n,
-                        s_col[warp], s_val[warp], v_r, n, nnz, j0,
-                        min(j0 + docs_blk, n));
+  vm_doc_tile<R, false, kFromX>(kvm + q * vp1 * v_r, nullptr, r + q * v_r,
+                                u + q * v_r * n, cols, vals, x + q * v_r * n,
+                                s_col[warp], s_val[warp], v_r, n, nnz, j0,
+                                min(j0 + docs_blk, n));
 }
 
 // #4 (and #2 at Q = 1), the type2 grid (ceil(N / docs_blk), Q) on the
-// vocab-major copies of K and K.*M.
-template <int R>
+// vocab-major copies of K and K.*M. kFromX: u holds the iterate x.
+template <int R, bool kFromX>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp)
 type2_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
                 const float* __restrict__ kmvm,  // (Q, vp1, v_r)
-                const float* __restrict__ u,     // (Q, v_r, N)
+                const float* __restrict__ u,     // (Q, v_r, N): u, or x
                 const int* __restrict__ cols,    // (N, nnz)
                 const float* __restrict__ vals,  // (N, nnz)
                 float* __restrict__ wmd,         // (Q, N)
@@ -340,9 +372,10 @@ type2_vm_kernel(const float* __restrict__ kvm,   // (Q, vp1, v_r)
   const size_t stripe = (size_t)vp1 * v_r;
   const int warp = threadIdx.x / kWarp;
   const int j0 = blockIdx.x * docs_blk;
-  vm_doc_tile<R, true>(kvm + q * stripe, kmvm + q * stripe, nullptr,
-                       u + q * v_r * n, cols, vals, wmd + q * n, s_col[warp],
-                       s_val[warp], v_r, n, nnz, j0, min(j0 + docs_blk, n));
+  vm_doc_tile<R, true, kFromX>(kvm + q * stripe, kmvm + q * stripe, nullptr,
+                               u + q * v_r * n, cols, vals, wmd + q * n,
+                               s_col[warp], s_val[warp], v_r, n, nnz, j0,
+                               min(j0 + docs_blk, n));
 }
 
 // (B, rows, cols) -> (B, cols, rows) through 32 x 32 tiles in shared
@@ -401,14 +434,26 @@ int by_rows(int v_r, Launch launch) {
   return (int)cudaGetLastError();
 }
 
+// by_rows, and the kFromX instance: launch(rows, from_x) with both as
+// std::integral_constant
+template <typename Launch>
+int by_rows_from_x(int v_r, int from_x, Launch launch) {
+  return by_rows(v_r, [&](auto rows) {
+    if (from_x)
+      launch(rows, std::true_type{});
+    else
+      launch(rows, std::false_type{});
+  });
+}
+
 int launch_type1_vm(const void* kvm, const void* r, const void* u,
                     const void* cols, const void* vals, void* x, int q,
                     int v_r, int vp1, int n, int nnz, int docs_blk,
-                    void* stream) {
+                    int from_x, void* stream) {
   if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
   const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
-  return by_rows(v_r, [&](auto rows) {
-    type1_vm_kernel<decltype(rows)::value>
+  return by_rows_from_x(v_r, from_x, [&](auto rows, auto fx) {
+    type1_vm_kernel<decltype(rows)::value, decltype(fx)::value>
         <<<grid, block, 0, (cudaStream_t)stream>>>(
             (const float*)kvm, (const float*)r, (const float*)u,
             (const int*)cols, (const float*)vals, (float*)x, v_r, vp1, n,
@@ -419,11 +464,11 @@ int launch_type1_vm(const void* kvm, const void* r, const void* u,
 int launch_type2_vm(const void* kvm, const void* kmvm, const void* u,
                     const void* cols, const void* vals, void* wmd, int q,
                     int v_r, int vp1, int n, int nnz, int docs_blk,
-                    void* stream) {
+                    int from_x, void* stream) {
   if (bad_shape(q, v_r, n, docs_blk)) return (int)cudaErrorInvalidValue;
   const dim3 grid = tile_grid(n, docs_blk, q), block = tile_block(docs_blk);
-  return by_rows(v_r, [&](auto rows) {
-    type2_vm_kernel<decltype(rows)::value>
+  return by_rows_from_x(v_r, from_x, [&](auto rows, auto fx) {
+    type2_vm_kernel<decltype(rows)::value, decltype(fx)::value>
         <<<grid, block, 0, (cudaStream_t)stream>>>(
             (const float*)kvm, (const float*)kmvm, (const float*)u,
             (const int*)cols, (const float*)vals, (float*)wmd, v_r, vp1, n,
@@ -433,14 +478,19 @@ int launch_type2_vm(const void* kvm, const void* kmvm, const void* u,
 
 }  // namespace
 
+// The four serving entries take from_x last before the stream: 0, u is
+// the Sinkhorn u; 1, u holds the iterate x, and the kernel forms
+// u = 1 / max(x, TINY) as it loads it (`recip_x`).
+
 // #3 on the vocab-major copy kvm (Q, V+1, v_r).
 extern "C" int sddmm_spmm_type1_batch(const void* kvm, const void* r,
                                       const void* u, const void* cols,
                                       const void* vals, void* x, int q,
                                       int v_r, int vp1, int n, int nnz,
-                                      int docs_blk, void* stream) {
+                                      int docs_blk, int from_x,
+                                      void* stream) {
   return launch_type1_vm(kvm, r, u, cols, vals, x, q, v_r, vp1, n, nnz,
-                         docs_blk, stream);
+                         docs_blk, from_x, stream);
 }
 
 // #1: #3's kernel at Q = 1 on one query's vocab-major copy kvm (V+1, v_r),
@@ -449,9 +499,9 @@ extern "C" int sddmm_spmm_type1_batch(const void* kvm, const void* r,
 extern "C" int sddmm_spmm_type1(const void* kvm, const void* r, const void* u,
                                 const void* cols, const void* vals, void* x,
                                 int v_r, int vp1, int n, int nnz,
-                                int docs_blk, void* stream) {
+                                int docs_blk, int from_x, void* stream) {
   return launch_type1_vm(kvm, r, u, cols, vals, x, 1, v_r, vp1, n, nnz,
-                         docs_blk, stream);
+                         docs_blk, from_x, stream);
 }
 
 // #4 on the vocab-major copies kvm, kmvm (Q, V+1, v_r).
@@ -459,9 +509,10 @@ extern "C" int sddmm_spmm_type2_batch(const void* kvm, const void* kmvm,
                                       const void* u, const void* cols,
                                       const void* vals, void* wmd, int q,
                                       int v_r, int vp1, int n, int nnz,
-                                      int docs_blk, void* stream) {
+                                      int docs_blk, int from_x,
+                                      void* stream) {
   return launch_type2_vm(kvm, kmvm, u, cols, vals, wmd, q, v_r, vp1, n, nnz,
-                         docs_blk, stream);
+                         docs_blk, from_x, stream);
 }
 
 // #2: #4's kernel at Q = 1 on one query's vocab-major copies kvm, kmvm
@@ -471,9 +522,9 @@ extern "C" int sddmm_spmm_type2(const void* kvm, const void* kmvm,
                                 const void* u, const void* cols,
                                 const void* vals, void* wmd, int v_r,
                                 int vp1, int n, int nnz, int docs_blk,
-                                void* stream) {
+                                int from_x, void* stream) {
   return launch_type2_vm(kvm, kmvm, u, cols, vals, wmd, 1, v_r, vp1, n, nnz,
-                         docs_blk, stream);
+                         docs_blk, from_x, stream);
 }
 
 // The oracle of #2 and #4: one query's reference-layout stripes k, km

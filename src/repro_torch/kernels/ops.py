@@ -51,18 +51,29 @@ from repro_torch.kernels._pad import check_tile
 from repro_torch._count import declared
 
 
-def _type1_cost(k_vm, r_sel, u, cols, vals, **_):
-    q = 1 if u.dim() == 2 else u.shape[0]
-    vp1 = k_vm.shape[-2]
-    return _costs.type1(q, u.shape[-2], u.shape[-1], cols.shape[1],
-                        *_costs.slots(cols, vals, vp1))
+def _with_recip(got, u, from_x: bool):
+    # from_x: one reciprocal a (row, doc) inside the kernel
+    if got is None or not from_x:
+        return got
+    return got[0], got[1] + u.numel()
 
 
-def _type2_cost(k_vm, km_vm, u, cols, vals, **_):
+def _type1_cost(k_vm, r_sel, u, cols, vals, from_x=False, **_):
     q = 1 if u.dim() == 2 else u.shape[0]
     vp1 = k_vm.shape[-2]
-    return _costs.type2(q, u.shape[-2], u.shape[-1], cols.shape[1],
-                        *_costs.slots(cols, vals, vp1))
+    return _with_recip(_costs.type1(q, u.shape[-2], u.shape[-1],
+                                    cols.shape[1],
+                                    *_costs.slots(cols, vals, vp1)),
+                       u, from_x)
+
+
+def _type2_cost(k_vm, km_vm, u, cols, vals, from_x=False, **_):
+    q = 1 if u.dim() == 2 else u.shape[0]
+    vp1 = k_vm.shape[-2]
+    return _with_recip(_costs.type2(q, u.shape[-2], u.shape[-1],
+                                    cols.shape[1],
+                                    *_costs.slots(cols, vals, vp1)),
+                       u, from_x)
 
 
 def _rows_cost(outputs):
@@ -85,16 +96,19 @@ def _lc_cost(minm, cols, vals, **_):
 def sddmm_spmm_type1_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
                         u: torch.Tensor, cols: torch.Tensor,
                         vals: torch.Tensor, *,
-                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
-                        ) -> torch.Tensor:
+                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK,
+                        from_x: bool = False) -> torch.Tensor:
     """Fused Sinkhorn iteration body of one query on its vocab-major copy
     k_vm (V+1, v_r) (`k_vocab_major` of the stripe); otherwise
-    `sddmm_spmm_type1`, bit for bit."""
+    `sddmm_spmm_type1`, bit for bit. ``from_x``: u is the iterate x, and
+    the kernel forms `safe_recip`(x) itself (the same bits)."""
     if k_vm.is_cuda:
         return _sddmm_spmm.sddmm_spmm_type1_vm(
             k_vm.contiguous(), r_sel.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals)
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk,
+            from_x=from_x)
+    return _sddmm_spmm.sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals,
+                                                 from_x=from_x)
 
 
 def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
@@ -113,16 +127,18 @@ def sddmm_spmm_type1(k_pad: torch.Tensor, r_sel: torch.Tensor,
 def sddmm_spmm_type2_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
                         u: torch.Tensor, cols: torch.Tensor,
                         vals: torch.Tensor, *,
-                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK
-                        ) -> torch.Tensor:
+                        docs_blk: int = _sddmm_spmm.QUERY_DOCS_BLK,
+                        from_x: bool = False) -> torch.Tensor:
     """Fused final distance of one query on its vocab-major copies k_vm,
     km_vm (V+1, v_r) (`k_vocab_major` of the stripes); otherwise
-    `sddmm_spmm_type2`, bit for bit."""
+    `sddmm_spmm_type2`, bit for bit. ``from_x``: u is the iterate x."""
     if k_vm.is_cuda:
         return _sddmm_spmm.sddmm_spmm_type2_vm(
             k_vm.contiguous(), km_vm.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
-    return _sddmm_spmm.sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals)
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk,
+            from_x=from_x)
+    return _sddmm_spmm.sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals,
+                                                 from_x=from_x)
 
 
 def sddmm_spmm_type2(k_pad: torch.Tensor, km_pad: torch.Tensor,
@@ -171,61 +187,67 @@ def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
 @declared("sddmm_spmm_type1_batch", _type1_cost)
 def sddmm_spmm_type1_batch_vm(k_vm: torch.Tensor, r_sel: torch.Tensor,
                               u: torch.Tensor, cols: torch.Tensor,
-                              vals: torch.Tensor, *,
-                              docs_blk: int = 8) -> torch.Tensor:
+                              vals: torch.Tensor, *, docs_blk: int = 8,
+                              from_x: bool = False) -> torch.Tensor:
     """Batched fused iteration body on the vocab-major copy k_vm
     (Q, V+1, v_r) of `k_vocab_major`; otherwise `sddmm_spmm_type1_batch`,
-    bit for bit."""
+    bit for bit. ``from_x``: u is the iterate x, and the kernel forms
+    `safe_recip`(x) itself (the same bits)."""
     if k_vm.is_cuda:
         return _sddmm_spmm.sddmm_spmm_type1_batch_vm(
             k_vm.contiguous(), r_sel.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk,
+            from_x=from_x)
     return _sddmm_spmm.sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols,
-                                                       vals)
+                                                       vals, from_x=from_x)
 
 
 def sddmm_spmm_type1_batch(k_pad: torch.Tensor, r_sel: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
                            vals: torch.Tensor, *, docs_blk: int = 8,
-                           q_blk: int | None = None) -> torch.Tensor:
+                           q_blk: int | None = None,
+                           from_x: bool = False) -> torch.Tensor:
     """Batched fused iteration body: k_pad (Q, v_r, V+1), r_sel (Q, v_r),
     u (Q, v_r, N), cols/vals (N, nnz) -> x (Q, v_r, N). ``docs_blk`` is the
     kernel's doc tile (results do not depend on it). Makes the vocab-major
     copy of k_pad for this one call: loops take `k_vocab_major` once and
-    call `sddmm_spmm_type1_batch_vm`."""
+    call `sddmm_spmm_type1_batch_vm`. ``from_x``: u is the iterate x."""
     check_tile("sddmm_spmm_type1_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type1_batch_vm(k_vocab_major(k_pad), r_sel, u, cols,
-                                     vals, docs_blk=docs_blk)
+                                     vals, docs_blk=docs_blk, from_x=from_x)
 
 
 @declared("sddmm_spmm_type2_batch", _type2_cost)
 def sddmm_spmm_type2_batch_vm(k_vm: torch.Tensor, km_vm: torch.Tensor,
                               u: torch.Tensor, cols: torch.Tensor,
-                              vals: torch.Tensor, *,
-                              docs_blk: int = 8) -> torch.Tensor:
+                              vals: torch.Tensor, *, docs_blk: int = 8,
+                              from_x: bool = False) -> torch.Tensor:
     """Batched fused final distance on the vocab-major copies k_vm, km_vm
     (Q, V+1, v_r) of `k_vocab_major`; otherwise `sddmm_spmm_type2_batch`,
-    bit for bit."""
+    bit for bit. ``from_x``: u is the iterate x."""
     if k_vm.is_cuda:
         return _sddmm_spmm.sddmm_spmm_type2_batch_vm(
             k_vm.contiguous(), km_vm.contiguous(), u.contiguous(),
-            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk)
+            cols.contiguous(), vals.contiguous(), docs_blk=docs_blk,
+            from_x=from_x)
     return _sddmm_spmm.sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols,
-                                                       vals)
+                                                       vals, from_x=from_x)
 
 
 def sddmm_spmm_type2_batch(k_pad: torch.Tensor, km_pad: torch.Tensor,
                            u: torch.Tensor, cols: torch.Tensor,
                            vals: torch.Tensor, *, docs_blk: int = 8,
-                           q_blk: int | None = None) -> torch.Tensor:
+                           q_blk: int | None = None,
+                           from_x: bool = False) -> torch.Tensor:
     """Batched fused final distance: k_pad, km_pad (Q, v_r, V+1), u
     (Q, v_r, N), cols/vals (N, nnz) -> (Q, N) WMD. Makes the vocab-major
     copies of k_pad and km_pad for this one call: loops take
-    `k_vocab_major` of each once and call `sddmm_spmm_type2_batch_vm`."""
+    `k_vocab_major` of each once and call `sddmm_spmm_type2_batch_vm`.
+    ``from_x``: u is the iterate x."""
     check_tile("sddmm_spmm_type2_batch", "q_blk", q_blk, optional=True)
     return sddmm_spmm_type2_batch_vm(k_vocab_major(k_pad),
                                      k_vocab_major(km_pad), u, cols, vals,
-                                     docs_blk=docs_blk)
+                                     docs_blk=docs_blk, from_x=from_x)
 
 
 @declared("cdist_kexp", _rows_cost(2))

@@ -12,8 +12,12 @@ doc j and ELL slot s:
     acc += (K.*M)[q, :, cols[j, s]] * v        (type2)
 
 type1 returns x[q, :, j] = acc / r[q, :]; type2 returns wmd[q, j] =
-<u[q, :, j], acc>. The functions without ``_plain`` launch the CUDA kernels
-in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
+<u[q, :, j], acc>. The ``*_vm`` entry points and their plain versions take
+``from_x``: their u argument is then the Sinkhorn iterate x, and u =
+`safe_recip`(x) is formed from it inside (the kernels as they load it), with
+the same bits as the element-wise pass; ``reads_x`` counts those calls by
+entry name, on the card and off it. The functions without ``_plain``
+launch the CUDA kernels in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
 
   * the ``*_vm`` entry points read K (and K.*M) vocab-major, (Q, V+1, v_r),
     the copies `k_vocab_major` makes once per stripe set (a column is then
@@ -42,6 +46,7 @@ in neither package.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -49,7 +54,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._pad import check_tile
 
-TINY = 1e-30  # see core.sparse_sinkhorn.safe_recip
+# Reciprocal guard: K = exp(-lamb*M) underflows f32 for far word pairs, and
+# the u = 1/x nonlinearity amplifies it to inf*0 = nan. Clamping the
+# denominator at TINY is exact for healthy values and replaces inf by a huge
+# finite number otherwise.
+TINY = 1e-30
+
+
+def safe_recip(x: torch.Tensor) -> torch.Tensor:
+    """u = 1 / max(x, TINY), a NaN kept (torch.clamp keeps it)."""
+    return 1.0 / torch.clamp(x, min=TINY)
+
+
+# type1 / type2 calls that read the iterate x (``from_x``), by entry name: a
+# CUDA entry counts its launch, a plain version the call that forms u from x
+reads_x: collections.Counter = collections.Counter()
+
+
+def reads_x_total() -> int:
+    """All the calls ``reads_x`` has counted."""
+    return sum(reads_x.values())
+
 
 # v_r rows a warp can hold (4 per lane); the kernels refuse larger buckets
 MAX_V_R = 128
@@ -103,10 +128,22 @@ def k_vocab_major_plain(k_pad: torch.Tensor) -> torch.Tensor:
     return k_pad.transpose(1, 2).contiguous()
 
 
-def sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols, vals):
+def _u(name: str, u, from_x: bool):
+    """u, or (``from_x``) `safe_recip` of the iterate x, counted under
+    ``name`` in ``reads_x``."""
+    if not from_x:
+        return u
+    reads_x[name] += 1
+    return safe_recip(u)
+
+
+def sddmm_spmm_type1_batch_vm_plain(k_vm, r_sel, u, cols, vals, *,
+                                    from_x: bool = False):
     """Plain version of #3 on the vocab-major copy k_vm (Q, V+1, v_r):
-    gathers ``k_vm[:, cols]``, bitwise the reference layout's `_gather`."""
-    return _type1_from_gather(k_vm[:, cols], r_sel, u, vals)
+    gathers ``k_vm[:, cols]``, bitwise the reference layout's `_gather`.
+    ``from_x``: u is the iterate x."""
+    return _type1_from_gather(k_vm[:, cols], r_sel,
+                              _u("sddmm_spmm_type1_batch", u, from_x), vals)
 
 
 def _type2_from_gather(kg, kmg, u, vals):
@@ -122,11 +159,13 @@ def sddmm_spmm_type2_batch_plain(k_pad, km_pad, u, cols, vals):
                               vals)
 
 
-def sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols, vals):
+def sddmm_spmm_type2_batch_vm_plain(k_vm, km_vm, u, cols, vals, *,
+                                    from_x: bool = False):
     """Plain version of #4 on the vocab-major copies k_vm, km_vm
     (Q, V+1, v_r): bitwise the reference layout's
-    `sddmm_spmm_type2_batch_plain`."""
-    return _type2_from_gather(k_vm[:, cols], km_vm[:, cols], u, vals)
+    `sddmm_spmm_type2_batch_plain`. ``from_x``: u is the iterate x."""
+    return _type2_from_gather(k_vm[:, cols], km_vm[:, cols],
+                              _u("sddmm_spmm_type2_batch", u, from_x), vals)
 
 
 def sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals):
@@ -135,9 +174,11 @@ def sddmm_spmm_type1_plain(k_pad, r_sel, u, cols, vals):
                                         cols, vals)[0]
 
 
-def sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals):
+def sddmm_spmm_type1_vm_plain(k_vm, r_sel, u, cols, vals, *,
+                              from_x: bool = False):
     """Plain version of #1 on one query's vocab-major copy k_vm (V+1, v_r):
     `sddmm_spmm_type1_batch_vm_plain` at Q = 1."""
+    u = _u("sddmm_spmm_type1", u, from_x)
     return sddmm_spmm_type1_batch_vm_plain(k_vm[None], r_sel[None], u[None],
                                            cols, vals)[0]
 
@@ -148,9 +189,11 @@ def sddmm_spmm_type2_plain(k_pad, km_pad, u, cols, vals):
                                         cols, vals)[0]
 
 
-def sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals):
+def sddmm_spmm_type2_vm_plain(k_vm, km_vm, u, cols, vals, *,
+                              from_x: bool = False):
     """Plain version of #2 on one query's vocab-major copies k_vm, km_vm
     (V+1, v_r): `sddmm_spmm_type2_batch_vm_plain` at Q = 1."""
+    u = _u("sddmm_spmm_type2", u, from_x)
     return sddmm_spmm_type2_batch_vm_plain(k_vm[None], km_vm[None], u[None],
                                            cols, vals)[0]
 
@@ -188,14 +231,20 @@ def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"{name}: docs_blk must be positive, got {docs_blk}")
 
 
-def _launch(name: str, ptrs, *sizes) -> None:
+def _launch(name: str, ptrs, *sizes, from_x: bool | None = None) -> None:
     """Launch ``name`` on 6 pointers and the int sizes: (q,) v_r, vp1, n,
-    nnz, docs_blk (the single-query entry points take no q)."""
+    nnz, docs_blk (the single-query entry points take no q), then
+    ``from_x`` as an int where the entry takes it (the four serving
+    entries; not the oracle), a set one counted in ``reads_x``."""
+    if from_x is not None:
+        sizes = (*sizes, int(from_x))
     fn = _build.function("sddmm_spmm", name,
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(sizes)
                          + [ctypes.c_void_p])
     stream = torch.cuda.current_stream().cuda_stream
     _build.check_launch(name, fn(*ptrs, *sizes, stream))
+    if from_x:
+        reads_x[name] += 1
 
 
 def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
@@ -223,11 +272,12 @@ def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
 
 
 def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
-                              docs_blk: int = 8) -> torch.Tensor:
+                              docs_blk: int = 8,
+                              from_x: bool = False) -> torch.Tensor:
     """CUDA type1 kernel (#3) on the vocab-major copy k_vm (Q, V+1, v_r)
     with the zero pad row V, r_sel (Q, v_r), u (Q, v_r, N), cols int32 /
     vals f32 (N, nnz) with every col in [0, V]. Returns x (Q, v_r, N).
-    ``docs_blk`` documents per block."""
+    ``docs_blk`` documents per block; ``from_x``: u is the iterate x."""
     name = "sddmm_spmm_type1_batch"
     _check(name, {"k_vm": k_vm, "r_sel": r_sel, "u": u, "cols": cols,
                   "vals": vals}, k_vm, u, cols, docs_blk, vocab_major=True)
@@ -239,7 +289,8 @@ def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
     if q and n:
         _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
-                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk)
+                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
+                from_x=from_x)
     return x
 
 
@@ -254,11 +305,13 @@ def sddmm_spmm_type1_batch(k_pad, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals, *,
-                              docs_blk: int = 8) -> torch.Tensor:
+                              docs_blk: int = 8,
+                              from_x: bool = False) -> torch.Tensor:
     """CUDA type2 kernel (#4) on the vocab-major copies k_vm, km_vm
     (Q, V+1, v_r) of K and K.*M with the zero pad row V, u (Q, v_r, N),
     cols int32 / vals f32 (N, nnz) with every col in [0, V]: the fused final
-    distance, wmd (Q, N). ``docs_blk`` documents per block."""
+    distance, wmd (Q, N). ``docs_blk`` documents per block; ``from_x``: u
+    is the iterate x."""
     name = "sddmm_spmm_type2_batch"
     _check(name, {"k_vm": k_vm, "km_vm": km_vm, "u": u, "cols": cols,
                   "vals": vals}, k_vm, u, cols, docs_blk, vocab_major=True)
@@ -270,7 +323,8 @@ def sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals, *,
     if q and n:
         _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
-                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk)
+                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
+                from_x=from_x)
     return wmd
 
 
@@ -292,10 +346,12 @@ def _one_query(name: str, u: torch.Tensor) -> None:
 
 
 def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
-                        docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+                        docs_blk: int = QUERY_DOCS_BLK,
+                        from_x: bool = False) -> torch.Tensor:
     """CUDA single-query type1 kernel (#1) on one query's vocab-major copy
     k_vm (V+1, v_r), r_sel (v_r,), u (v_r, N), cols int32 / vals f32
-    (N, nnz) -> x (v_r, N): #3's kernel at Q = 1, counted as #1."""
+    (N, nnz) -> x (v_r, N): #3's kernel at Q = 1, counted as #1.
+    ``from_x``: u is the iterate x."""
     name = "sddmm_spmm_type1"
     _one_query(name, u)
     _check(name, {"k_vm": k_vm, "r_sel": r_sel, "u": u, "cols": cols,
@@ -309,7 +365,7 @@ def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
     if n:
         _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
-                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk)
+                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk, from_x=from_x)
     return x
 
 
@@ -323,10 +379,12 @@ def sddmm_spmm_type1(k_pad, r_sel, u, cols, vals, *,
 
 
 def sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals, *,
-                        docs_blk: int = QUERY_DOCS_BLK) -> torch.Tensor:
+                        docs_blk: int = QUERY_DOCS_BLK,
+                        from_x: bool = False) -> torch.Tensor:
     """CUDA single-query type2 kernel (#2) on one query's vocab-major
     copies k_vm, km_vm (V+1, v_r) of K and K.*M, u (v_r, N), cols int32 /
-    vals f32 (N, nnz) -> wmd (N,): #4's kernel at Q = 1, counted as #2."""
+    vals f32 (N, nnz) -> wmd (N,): #4's kernel at Q = 1, counted as #2.
+    ``from_x``: u is the iterate x."""
     name = "sddmm_spmm_type2"
     _one_query(name, u)
     _check(name, {"k_vm": k_vm, "km_vm": km_vm, "u": u, "cols": cols,
@@ -340,7 +398,7 @@ def sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals, *,
     if n:
         _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
                        cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
-                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk)
+                v_r, k_vm.shape[0], n, cols.shape[1], docs_blk, from_x=from_x)
     return wmd
 
 

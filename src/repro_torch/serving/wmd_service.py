@@ -113,7 +113,10 @@ Observability: ``cache_stats`` / ``mcache_stats`` (cumulative),
 (``precompute_s`` / ``solve_s`` phase split and the batch's hit_rate on the
 stripes route; ``solve_s`` with ``phases_separable=False`` on the legacy
 route; each phase's start on ``time.monotonic`` beside it, as
-``precompute_t0`` / ``solve_t0``) and ``last_prune_stats`` (the
+``precompute_t0`` / ``solve_t0``; on the bulk routes ``fused_launches``,
+the batch's type1 / type2 launches that read the Sinkhorn iterate x
+directly, ``max_iter + 1`` a program position on the kernel route and 0
+on the plain impls) and ``last_prune_stats`` (the
 reference's fields: solves, programs, ``bound_s`` / ``rerank_s``, the
 per-tier funnel ``tiers``; and ``kcache_misses``, the K-row misses of each
 K-cache lookup of the call, in order, from which a run can count the
@@ -148,6 +151,7 @@ from repro_torch.core.distributed import (build_wmd_batch_fn,
                                           vocab_major_stripes)
 from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
+from repro_torch.kernels.sddmm_spmm import reads_x_total
 from repro_torch.launch.mesh import (check_placement, one_device_mesh,
                                      shard_grid)
 from repro_torch.obs.trace import NULL_TRACER
@@ -551,17 +555,21 @@ class WMDService:
         solve_t0 = time.monotonic()
         t = self._now()
         vm = self._vm(k_s, km_s, impl)   # one set, both segments
+        fused = 0
         for seg_id, (cols_d, vals_d) in enumerate(
                 ((self._cols_d, self._vals_d),
                  (self._dcols_d, self._dvals_d))):
             pick = self._live_seg == seg_id
             if not pick.any():
                 continue
+            n0 = reads_x_total()
             d_seg = fn(k_s, km_s, r_d, cols_d, vals_d, vm=vm)[:q]
+            seg_fused = reads_x_total() - n0
+            fused += seg_fused
             if t is not None:
                 self._sync()
                 t = self._step("solve", t, iters=self.cfg.max_iter,
-                               segment=seg_id)
+                               segment=seg_id, fused=seg_fused)
             out[:, pick] = d_seg.cpu().numpy()[:, self._live_row[pick]]
             if t is not None:
                 t = self._step("d2h", t, bytes=d_seg.nelement()
@@ -571,7 +579,7 @@ class WMDService:
         self.last_batch_stats = {
             "precompute_t0": pre_t0, "precompute_s": pre_t1 - pre_t0,
             "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
-            "segments": segments, **info}
+            "segments": segments, "fused_launches": fused, **info}
         t = self._now()
         self._check_result(out, what="live query_batch distances",
                            empty_doc_mask=self._live_empty)
@@ -810,19 +818,23 @@ class WMDService:
             t = self._now()
             vecs_sel = self._vecs_d[torch.from_numpy(
                 sel_b.astype(np.int64)).to(self.device)]
+            n0 = reads_x_total()
             wmd = fn(vecs_sel, r_d, torch.from_numpy(mask_b).to(self.device),
                      self._vecs_sh, self._cols_d, self._vals_d)[:q]
+            fused = reads_x_total() - n0
             if t is not None:
                 self._route = "legacy_fused"
                 self._sync()
-                t = self._step("solve", t, iters=self.cfg.max_iter)
+                t = self._step("solve", t, iters=self.cfg.max_iter,
+                               fused=fused)
             wmd = wmd.cpu().numpy()
             solve_t1 = time.monotonic()
             if t is not None:
                 self._step("d2h", t, bytes=wmd.nbytes)
             self.last_batch_stats = {
                 "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
-                "phases_separable": False, "route": "legacy_fused"}
+                "phases_separable": False, "route": "legacy_fused",
+                "fused_launches": fused}
             t = self._now()
             self._check_result(wmd, what="query_batch distances")
             if t is not None:
@@ -846,19 +858,22 @@ class WMDService:
             self._step("km_guard", t)
         solve_t0 = time.monotonic()
         t = self._now()
+        n0 = reads_x_total()
         wmd = fn(k_s, km_s, r_d, self._cols_d, self._vals_d)[:q]
+        fused = reads_x_total() - n0
         if t is not None:
             # the copy below waits for the device anyway: a sync while
             # tracing splits the program from the copy and moves no bit
             self._sync()
-            t = self._step("solve", t, iters=self.cfg.max_iter)
+            t = self._step("solve", t, iters=self.cfg.max_iter, fused=fused)
         wmd = wmd.cpu().numpy()
         solve_t1 = time.monotonic()
         if t is not None:
             self._step("d2h", t, bytes=wmd.nbytes)
         self.last_batch_stats = {
             "precompute_t0": pre_t0, "precompute_s": pre_t1 - pre_t0,
-            "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0, **info}
+            "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
+            "fused_launches": fused, **info}
         t = self._now()
         self._check_result(wmd, what="query_batch distances")
         if t is not None:
