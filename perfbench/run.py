@@ -11,6 +11,12 @@ the run also traces a stretch of the window and reports the cell's
 per-layer metrics instead of its end-to-end ones. The last line of
 standard output is the result, as JSON.
 
+A cell file with a ``"mesh"`` (``{"shape": [D, S], "axes": ["data",
+"model"]}``, `cells.check_mesh`) lays the service out on that mesh of the
+cell's ``chips`` cards; corpus, queries and the reference stay on its first
+card. Memory, busy time and the solve's device time are read on each card
+(`Cards`, `perfbench.devtime`).
+
 Needs an NVIDIA GPU: without one it exits with status 2 and prints no
 result. It refuses to print a result if the process has loaded JAX or the
 JAX package.
@@ -56,29 +62,72 @@ def _config(cfg: dict):
                      lamb=cfg["lamb"], max_iter=cfg["max_iter"])
 
 
-class Cuda:
-    """The card's calls, skipped on a CPU run (the tests)."""
+class Cards:
+    """The run's distinct cards (logical shards of one card are one card),
+    whose calls are skipped on a CPU run (the tests)."""
 
-    def __init__(self, device):
+    def __init__(self, devices):
         import torch
+
+        from perfbench.devtime import cards_of
         self.torch = torch
-        self.on = torch.device(device).type == "cuda"
+        self.cards = cards_of(devices)
+        self.on = self.cards[0].type == "cuda"
 
     def sync(self) -> None:
         if self.on:
-            self.torch.cuda.synchronize()
+            for c in self.cards:
+                self.torch.cuda.synchronize(c)
 
-    def peak(self) -> int:
-        return int(self.torch.cuda.max_memory_allocated()) if self.on else 0
+    def peaks(self) -> list[int]:
+        """Each card's peak of allocated bytes (0 on the CPU)."""
+        return [int(self.torch.cuda.max_memory_allocated(c)) if self.on
+                else 0 for c in self.cards]
+
+    def empty_cache(self) -> None:
+        if self.on:
+            for c in self.cards:
+                with self.torch.cuda.device(c):
+                    self.torch.cuda.empty_cache()
+
+
+def _card_works(data, cfg: dict, tr: dict, doc_devices, device) -> list:
+    """(`work.solve_work`, distinct words) of one batch on each card, for
+    the doc shards it holds (``doc_devices``: each doc shard's device, in
+    doc order); counted on ``device``."""
+    import torch
+
+    from perfbench import work
+    vocab = cfg["vocab_size"]
+    held: dict = {}
+    for (lo, hi), dev in zip(work.doc_shards(cfg["num_docs"],
+                                             len(doc_devices)), doc_devices):
+        held.setdefault(torch.device(dev), []).append((lo, hi))
+    out = []
+    for ranges in held.values():
+        counts = sum(torch.bincount(torch.from_numpy(data.cols[lo:hi].ravel())
+                                    .to(device, torch.int64),
+                                    minlength=vocab + 1)
+                     for lo, hi in ranges)
+        distinct = int((counts[:vocab] > 0).sum())
+        out.append((work.solve_work(
+            words=[tr["query_words"]] * tr["batch"],
+            num_docs=sum(hi - lo for lo, hi in ranges),
+            nnz=sum(int(data.lengths[lo:hi].sum()) for lo, hi in ranges),
+            distinct_words=distinct, max_iter=cfg["max_iter"]), distinct))
+    return out
 
 
 def run_cell(cell, *, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", fault=None, control: str | None = None
-             ) -> tuple[dict, list]:
+             device: str = "cuda", devices=None, fault=None,
+             control: str | None = None) -> tuple[dict, list]:
     """Run ``cell`` (a `cells.Cell`); returns (result, checks) where checks
-    are (name, value, limit). ``fault(svc)``, for tests, breaks the
-    service after its set-up. ``control`` (a `reference` precision) adds
-    the control's numbers on the same sample as ``result["control"]``."""
+    are (name, value, limit). A cell without a mesh runs on ``device``; one
+    with a mesh on ``devices``, row major over its shape (None: the first
+    ``chips`` visible cards, distinct; tests pass logical shards of one
+    device). ``fault(svc)``, for tests, breaks the service after its
+    set-up. ``control`` (a `reference` precision) adds the control's
+    numbers on the same sample as ``result["control"]``."""
     import numpy as np
     import torch
 
@@ -86,10 +135,23 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
     from perfbench import loops, work
     from repro_torch.core.formats import EllDocs
     from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving.wmd_service import WMDService
 
     cfg, tr, spec = cell.config, cell.traffic, cell.spec
-    cu = Cuda(device)
+    if cell.mesh is None:
+        if devices is not None:
+            raise ValueError(f"{cell.name} has no mesh to lay on devices")
+        mesh, place, doc_devices = None, {"device": device}, [device]
+        cu = Cards([device])
+    else:
+        mesh = make_mesh(*cell.mesh, devices=devices)
+        device = mesh.device()
+        place = {"mesh": mesh}
+        # each doc shard's first device (model shard 0), in doc order
+        doc_devices = list(mesh.devices.reshape(-1, mesh.shape["model"])
+                           [:, 0])
+        cu = Cards(list(mesh.devices.flat))
     rng = np.random.default_rng(int(seed) % (1 << 64))
 
     # -- set-up -------------------------------------------------------------
@@ -112,9 +174,10 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
     svc = WMDService(cfg=_config(cfg), vecs=data.vecs,
                      ell=EllDocs(cols=data.cols, vals=data.vals,
                                  num_vocab=cfg["vocab_size"]),
-                     device=device, **spec.get("service", {}))
+                     **place, **spec.get("service", {}))
     cu.sync()
-    log(f"[setup] install: {time.monotonic() - t:.3f} s")
+    log(f"[setup] install: {time.monotonic() - t:.3f} s"
+        + ("" if mesh is None else f" on {mesh!r}"))
     t = time.monotonic()
     vocab = cfg["vocab_size"]
     warm_rows = corpus.DenseRows(max(tr.get("warm_batches", [1])
@@ -151,7 +214,7 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
         spans.attach(svc)
         stretch_s = min(float(tr.get("trace_seconds", 2.0)), seconds / 2)
         stretch_at = (seconds - stretch_s) / 2
-        stretch = devtime.Stretch() if cu.on else None
+        stretch = devtime.Stretch(cu.cards) if cu.on else None
         if stretch is not None:
             log(f"[trace] profiler warmed before the window: "
                 f"{stretch.warm():.3f} s")
@@ -220,7 +283,9 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
     if stretch is not None and stretch.t1 is None and stretch.t0 is not None:
         stretch.stop()
         launches0[0] = sum(_build.launches.values()) - launches0[0]
-    peak = cu.peak()
+    peaks = cu.peaks()
+    log(f"[window] peak device memory by card: "
+        + ", ".join(f"{c} {p}" for c, p in zip(cu.cards, peaks)))
     kc1 = svc.cache_stats
     m["kcache"] = (kc1.hit_rows - kc0[0], kc1.miss_rows - kc0[1])
 
@@ -228,24 +293,23 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
     breakdown = None
     dev_extra = {}
     if trace:
-        if spans.last_solve is not None and tr["loop"] == "closed" and cu.on:
+        # a vocabulary split over model shards has no count (`work`)
+        if spans.last_solve is not None and tr["loop"] == "closed" \
+                and cu.on and (mesh is None or mesh.shape["model"] == 1):
             fn, a, kw = spans.last_solve
             dev_s = devtime.device_ms(lambda: fn(*a, **kw),
-                                      reps=int(tr.get("solve_reps", 3))) / 1e3
-            counts = torch.bincount(torch.from_numpy(data.cols.ravel())
-                                    .to(device, torch.int64),
-                                    minlength=vocab + 1)
-            distinct = int((counts[:vocab] > 0).sum())
-            w = work.solve_work(words=[tr["query_words"]] * tr["batch"],
-                                num_docs=cfg["num_docs"], nnz=nnz,
-                                distinct_words=distinct,
-                                max_iter=cfg["max_iter"])
-            least, by = work.least_seconds(w)
+                                      reps=int(tr.get("solve_reps", 3)),
+                                      cards=cu.cards) / 1e3
+            works = _card_works(data, cfg, tr, doc_devices, device)
+            least, by, i = work.slowest([w for w, _ in works])
+            w, distinct = works[i]
             m["solve"] = {"device_s": dev_s, "least_s": least}
             log(f"[trace] solve of one batch: device {dev_s * 1e3:.4f} ms "
                 f"(CUDA events behind a spin), least {least * 1e3:.4f} ms "
                 f"by {by} ({w['flops']:.6e} operations, {w['bytes']:.6e} "
-                f"bytes, {distinct} distinct words)")
+                f"bytes, {distinct} distinct words"
+                + (")" if len(works) == 1 else
+                   f" on the slowest of {len(works)} cards)"))
         if stretch is not None and stretch.t1 is not None:
             hand = devtime.kernel_names(
                 ROOT / "src" / "repro_torch" / "kernels" / "csrc")
@@ -258,16 +322,20 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
                 f"{rd['hand_kernel_events']}")
             breakdown = {"device_ops": rd["device_ops"],
                          "idle_gaps": rd["idle_gaps"]}
-            dev_extra = {"busy_s": rd["busy_s"], "window_s": rd["window_s"]}
+            dev_extra = {"busy_s": rd["busy_s"], "window_s": rd["window_s"],
+                         "busy_s_by_card": rd["busy_s_by_card"]}
             log(f"[trace] device busy {rd['busy_s']:.6f} s of "
                 f"{rd['window_s']:.6f} s; idle share "
-                f"{1 - rd['busy_s'] / rd['window_s']:.6f}")
+                f"{1 - rd['busy_s'] / rd['window_s']:.6f}"
+                + ("" if len(cu.cards) == 1 else
+                   f"; by card {rd['busy_s_by_card']}")
+                + (f"; {rd['events_off_cards']} events on other cards"
+                   if rd["events_off_cards"] else ""))
 
     # -- free the program's state, then the comparison ----------------------
     del svc, co, spans
     gc.collect()
-    if cu.on:
-        torch.cuda.empty_cache()
+    cu.empty_cache()
     t = time.monotonic()
     limits = spec["limits"]
     if tr["loop"] == "closed":
@@ -304,10 +372,10 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool,
         "correct": bool(correct), "attempted": int(attempted),
         "failed": int(failed), "metrics": metrics,
         "device": {"platform": "gpu" if cu.on else "cpu",
-                   "kind": (torch.cuda.get_device_name(0) if cu.on
-                            else "cpu"),
-                   "count": cell.chips, "memory_peak_bytes": peak,
-                   **dev_extra},
+                   "kind": (torch.cuda.get_device_name(cu.cards[0])
+                            if cu.on else "cpu"),
+                   "count": len(cu.cards), "memory_peak_bytes": max(peaks),
+                   "memory_peak_bytes_by_card": peaks, **dev_extra},
     }
     if breakdown is not None:
         result["breakdown"] = breakdown

@@ -97,18 +97,9 @@ def program_spans(trees) -> list[tuple[str, float, float]]:
 
 def idle_gaps(stretch) -> list[tuple[float, float]]:
     """The stretch's idle gaps, as `devtime.read_stretch` finds them."""
-    from perfbench.devtime import merge
-    t0, t1 = stretch.t0, stretch.t1
-    busy = merge((max(s, t0), min(e, t1))
-                 for _, s, e in stretch.device_events())
-    gaps, prev = [], t0
-    for s, e in busy:
-        if s > prev:
-            gaps.append((prev, s))
-        prev = max(prev, e)
-    if t1 > prev:
-        gaps.append((prev, t1))
-    return gaps
+    from perfbench.devtime import busy_and_gaps
+    return busy_and_gaps(stretch.device_events(), stretch.card_ids,
+                         stretch.t0, stretch.t1)[1]
 
 
 def label(gaps, spans) -> list[str]:
@@ -153,7 +144,7 @@ def solve_cover(events, trees, kernel: str = "type1_vm_kernel"
                     if s["name"] == "solve")
     starts = [a for a, _ in solves]
     seen = held = 0
-    for name, s, e in events:
+    for name, s, e, _ in events:
         if kernel not in name:
             continue
         seen += 1

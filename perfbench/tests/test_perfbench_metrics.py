@@ -59,8 +59,12 @@ def test_readers_of_missing_readings_return_nothing():
 
 
 class _FakeStretch:
-    def __init__(self, t0, t1, events):
-        self.t0, self.t1, self._events = t0, t1, events
+    """A traced stretch on ``card_ids``; an event without a card index lies
+    on card 0."""
+
+    def __init__(self, t0, t1, events, card_ids=(0,)):
+        self.t0, self.t1, self.card_ids = t0, t1, list(card_ids)
+        self._events = [e if len(e) == 4 else (*e, 0) for e in events]
 
     def device_events(self):
         return sorted(self._events, key=lambda e: e[1])

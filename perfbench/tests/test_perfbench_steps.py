@@ -99,7 +99,7 @@ def test_solve_cover_counts_type1_events_inside_solve_spans():
            ("type1_vm_kernel<1>", 1.019, 1.021),     # ends past its solve
            ("type2_vm_kernel<1>", 0.033, 0.034),
            ("type1_vm_kernel<1>", 1.5, 1.6)]
-    assert steps.solve_cover(evs, TREES) == (2, 4)
+    assert steps.solve_cover([(*e, 0) for e in evs], TREES) == (2, 4)
 
 
 def test_record_cost_is_measured():

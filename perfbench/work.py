@@ -20,6 +20,18 @@ of v real words:
   * the distance: at every nonzero slot, v multiply-adds for K^T u, one
     divide, v multiply-adds for (K .* M) v and one multiply-add of u
     folded in per word; at every (word, doc), one reciprocal.
+
+On a mesh that shards the documents, each card solves the doc shards it
+holds (contiguous docs in doc order, as `doc_shards` splits them) for
+every query: a card's work is the count above for its docs, their
+nonzeros and the distinct words they use (a card reads only the K columns
+of its own docs), and the batch's least time is its slowest card's at one
+H100's peaks (`slowest`). With one doc shard, or every shard on one card,
+that is the whole problem's count. A mesh that also splits the vocabulary
+over model shards gets no count here (each card would hold part of every
+document's words, and the split sum would have to be counted too), so the
+harness takes no solve reading there and ``solve_roofline`` reads
+nothing.
 """
 from __future__ import annotations
 
@@ -51,3 +63,23 @@ def least_seconds(work: dict) -> tuple[float, str]:
     t_c = work["flops"] / PEAK_FLOPS_FP32
     t_m = work["bytes"] / PEAK_BYTES_S
     return (t_c, "operations") if t_c >= t_m else (t_m, "bytes")
+
+
+def doc_shards(num_docs: int, parts: int) -> list[tuple[int, int]]:
+    """Contiguous (lo, hi) doc ranges of ``parts`` doc shards, in order,
+    the first ``num_docs % parts`` one doc larger (the service's split,
+    `repro_torch.core.distributed.shard_docs`)."""
+    out, lo = [], 0
+    for i in range(parts):
+        hi = lo + num_docs // parts + (i < num_docs % parts)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def slowest(works: list[dict]) -> tuple[float, str, int]:
+    """`least_seconds` of the card whose work (one `solve_work` a card)
+    takes longest, and its index: the batch ends when that card does."""
+    times = [least_seconds(w) for w in works]
+    i = max(range(len(times)), key=lambda j: times[j][0])
+    return (*times[i], i)
