@@ -27,6 +27,11 @@ collectives are written out:
   * the outputs come back on the mesh's first device, in doc order.
 Each reports its bytes to an active count (`repro_torch._count`: an
 all-reduce, the vote an all-reduce, the doc gather an all-gather).
+Every copy a program makes from one device to another goes through `_to`,
+which adds the bytes of those between distinct cards to ``peer_copies``
+(by what was copied: stripes, queries, r, iterate, partials, vote,
+distances, and the doc-sharded program's embeddings and docs; a caller
+takes `peer_bytes_total` around a call).
 At S = 1 each doc's reduction is the one-device one, so a (d, 1) mesh is
 bit for bit the one-device program -- except where ``tol > 0`` meets
 ``chunk_placement="solve"`` with chunks smaller than a doc shard: there a
@@ -56,6 +61,7 @@ those the batched kernel route gives the same query.
 """
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import numpy as np
@@ -216,6 +222,31 @@ def shard_wmd_inputs(mesh, vecs, cols_b: np.ndarray, vals_b: np.ndarray, *,
     return vecs_d, cols_d, vals_d
 
 
+# -- copies between cards -------------------------------------------------------
+
+# bytes the programs have copied between distinct cards, by what was copied
+peer_copies: collections.Counter = collections.Counter()
+
+
+def peer_bytes_total() -> int:
+    """All the bytes ``peer_copies`` has counted."""
+    return sum(peer_copies.values())
+
+
+def _between_cards(src: torch.device, dst: torch.device) -> bool:
+    """A copy from ``src`` to ``dst`` crosses between two distinct cards
+    (logical shards of one card, and the CPU, copy nothing)."""
+    return src.type == dst.type == "cuda" and src.index != dst.index
+
+
+def _to(t: torch.Tensor, dev: torch.device, what: str) -> torch.Tensor:
+    """``t`` on ``dev``; a copy between two distinct cards adds its bytes
+    to ``peer_copies[what]`` (on the host, with no sync)."""
+    if _between_cards(t.device, dev):
+        peer_copies[what] += t.nbytes
+    return t.to(dev)
+
+
 def _model_sum(parts: Sequence[torch.Tensor], dev: torch.device
                ) -> torch.Tensor:
     """The model-axis sum: each model shard's partial copied to ``dev``
@@ -226,7 +257,7 @@ def _model_sum(parts: Sequence[torch.Tensor], dev: torch.device
                   len(parts)):
         acc = parts[0]
         for p in parts[1:]:
-            acc = acc + p.to(dev)
+            acc = acc + _to(p, dev, "partials")
         return acc
 
 
@@ -238,7 +269,7 @@ def _vote(deltas: Sequence[torch.Tensor]) -> torch.Tensor:
         return acc
     with _counted("vote", "all-reduce", acc, len(deltas), len(deltas)):
         for x in deltas[1:]:
-            acc = torch.maximum(acc, x.to(acc.device))
+            acc = torch.maximum(acc, _to(x, acc.device, "vote"))
     return acc
 
 
@@ -251,7 +282,8 @@ def _gather_docs(pieces: Sequence[torch.Tensor], dev: torch.device
     nbytes = sum(p.numel() * p.element_size() for p in pieces)
     with _counted("doc_gather", "all-gather", nbytes, len(pieces),
                   len(pieces)):
-        return torch.cat([p.to(dev) for p in pieces], dim=-1)
+        return torch.cat([_to(p, dev, "distances") for p in pieces],
+                         dim=-1)
 
 
 def _per_device(grid: np.ndarray, fn) -> dict:
@@ -290,7 +322,7 @@ def _row_scale(grid, r_sel: torch.Tensor):
     type1 takes ones and the program divides by r after `_model_sum`, as
     the reference does."""
     scale_in = grid.shape[1] == 1
-    r_in = {dev: r_sel.to(dev) if scale_in else
+    r_in = {dev: _to(r_sel, dev, "r") if scale_in else
             torch.ones_like(r_sel, device=dev) for dev in set(grid.flat)}
     return r_in, scale_in
 
@@ -308,7 +340,7 @@ def _contract(plan, home: torch.device, x: torch.Tensor, call
             parts.append(call(entry, x))
         else:
             with on_device(dev):
-                parts.append(call(entry, x.to(dev)))
+                parts.append(call(entry, _to(x, dev, "iterate")))
     return _model_sum(parts, home)
 
 
@@ -329,15 +361,15 @@ def _solve(grid, vecs_sel, r_sel, row_mask, vecs_d, cols_d, vals_d, *,
     homes = list(grid[:, 0])
 
     def stripe(s, dev):
-        k, km = masked_k(vecs_sel.to(dev), vecs_d[_first_on(grid, s, dev),
-                                                  s],
-                         lamb, row_mask.to(dev), kexp_impl)
+        k, km = masked_k(_to(vecs_sel, dev, "queries"),
+                         vecs_d[_first_on(grid, s, dev), s], lamb,
+                         _to(row_mask, dev, "queries"), kexp_impl)
         k_pad, km_pad = pad_k(k), pad_k(km)
         return (k_pad, km_pad, *ss.query_contractions(impl, k_pad, km_pad))
 
     st = _per_device(grid, stripe)
     r_in, scale_in = _row_scale(grid, r_sel)
-    r_col = {dev: r_sel.to(dev)[:, None] for dev in set(homes)}
+    r_col = {dev: _to(r_sel, dev, "r")[:, None] for dev in set(homes)}
     v_r = r_sel.shape[0]
     xs = []
     for d, home in enumerate(homes):
@@ -456,7 +488,7 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
     first = grid[0, 0]
     homes = list(grid[:, 0])
     iter_chunk = docs_chunk if chunk_placement == "iteration" else None
-    r_col = {dev: r_sel.to(dev)[:, :, None] for dev in set(homes)}
+    r_col = {dev: _to(r_sel, dev, "r")[:, :, None] for dev in set(homes)}
     r_in, scale_in = _row_scale(grid, r_sel)
     n_d = [cols_d[d, 0].shape[0] for d in range(n_doc)]
     if check:
@@ -511,7 +543,7 @@ def _batched_solve(grid, st, r_sel, cols_d, vals_d, *, max_iter: int,
         for (home, plan), x in zip(plans, xs):
             with on_device(home):
                 wmd.append(_contract(plan, home, x, type2))
-        return wmd, n_iter.to(first), delta.to(first)
+        return wmd, _to(n_iter, first, "vote"), _to(delta, first, "vote")
 
     if chunk_placement == "solve" and docs_chunk and docs_chunk < max(n_d):
         pieces = [[] for _ in range(n_doc)]
@@ -573,9 +605,9 @@ def build_wmd_batch_fn(mesh=None, *, lamb: float, max_iter: int,
         grid = grid_for(vecs_sel.device)
 
         def stripes(s, dev):
-            k, km = masked_k_batch(vecs_sel.to(dev),
+            k, km = masked_k_batch(_to(vecs_sel, dev, "queries"),
                                    vecs[_first_on(grid, s, dev), s], lamb,
-                                   row_mask.to(dev))
+                                   _to(row_mask, dev, "queries"))
             return pad_k(k), pad_k(km)
 
         out = _batched_solve(
@@ -617,15 +649,15 @@ def build_wmd_batch_fn_stripes(mesh=None, *, max_iter: int,
         if mesh is None:
             cols_b, vals_b = _one(cols_b[0]), _one(vals_b[0])
         grid = grid_for(k_b[0].device)
-        if vm is None:
-            vm = _vocab_major(grid, k_b, km_b, impl)
         if not checked:
             check_placement(grid, list(k_b), "K stripes")
             check_placement(grid, list(km_b), "K.*M stripes")
-            if vm is not None:
-                check_placement(grid, vm, "vocab-major copies")
-        st = _contractions(
-            grid, impl, lambda s, dev: (k_b[s].to(dev), km_b[s].to(dev)), vm)
+        placed = _placed(grid, k_b, km_b)
+        if vm is None and impl == "kernel":
+            vm = _vocab_major(grid, placed)
+        if not checked and vm is not None:
+            check_placement(grid, vm, "vocab-major copies")
+        st = _contractions(grid, impl, lambda s, dev: placed[(s, dev)], vm)
         out = _batched_solve(
             grid, st, r_sel, cols_b, vals_b, max_iter=max_iter,
             docs_chunk=docs_chunk, chunk_placement=chunk_placement, tol=tol,
@@ -636,11 +668,18 @@ def build_wmd_batch_fn_stripes(mesh=None, *, max_iter: int,
     return fn
 
 
-def _vocab_major(grid, k_b, km_b, impl: str):
-    if impl != "kernel":
-        return None
+def _placed(grid, k_b, km_b) -> dict:
+    """{(model shard, device): (k, km)}: each model shard's stripes copied
+    once to each device its doc shards use (none where they lie there)."""
+    return _per_device(grid, lambda s, dev: (_to(k_b[s], dev, "stripes"),
+                                             _to(km_b[s], dev, "stripes")))
+
+
+def _vocab_major(grid, placed: dict) -> dict:
+    """The kernel route's vocab-major copies of the `_placed` stripes, on
+    their devices."""
     return _per_device(grid, lambda s, dev: ss.vocab_major_pair(
-        k_b[s].to(dev), km_b[s].to(dev)))
+        *placed[(s, dev)]))
 
 
 def vocab_major_stripes(k_b, km_b, impl: str, mesh=None, *,
@@ -653,8 +692,10 @@ def vocab_major_stripes(k_b, km_b, impl: str, mesh=None, *,
     one device share it), of the model shards' stripes ``k_b[s]``,
     ``km_b[s]``. Without a mesh: the one pair, keyed (0, the stripes'
     device)."""
-    return _vocab_major(_grids(mesh, doc_axes, model_axis)(k_b[0].device),
-                        k_b, km_b, impl)
+    if impl != "kernel":
+        return None
+    grid = _grids(mesh, doc_axes, model_axis)(k_b[0].device)
+    return _vocab_major(grid, _placed(grid, k_b, km_b))
 
 
 # -- the doc-sharded program --------------------------------------------------
@@ -679,10 +720,11 @@ def build_wmd_fn_docsharded(mesh, *, lamb: float, max_iter: int,
     def fn(vecs_sel, r_sel, row_mask, vecs, cols, vals):
         def stripe(dev):
             with on_device(dev):
-                k, km = masked_k(vecs_sel.to(dev), vecs.to(dev), lamb,
-                                 row_mask.to(dev), "jnp")
+                k, km = masked_k(_to(vecs_sel, dev, "queries"),
+                                 _to(vecs, dev, "embeddings"), lamb,
+                                 _to(row_mask, dev, "queries"), "jnp")
                 k_pad, km_pad = pad_k(k), pad_k(km)
-                return (k_pad, km_pad, r_sel.to(dev),
+                return (k_pad, km_pad, _to(r_sel, dev, "r"),
                         *ss.query_contractions(impl, k_pad, km_pad))
 
         st = {dev: stripe(dev) for dev in dict.fromkeys(devs)}
@@ -691,7 +733,8 @@ def build_wmd_fn_docsharded(mesh, *, lamb: float, max_iter: int,
                                                    len(devs))):
             k_pad, km_pad, r_d, type1, type2 = st[dev]
             with on_device(dev):
-                cols_p, vals_p = cols[lo:hi].to(dev), vals[lo:hi].to(dev)
+                cols_p = _to(cols[lo:hi], dev, "docs")
+                vals_p = _to(vals[lo:hi], dev, "docs")
                 x = torch.full((r_d.shape[0], hi - lo), 1.0 / r_d.shape[0],
                                dtype=torch.float32, device=dev)
                 for _ in range(max_iter):

@@ -12,6 +12,12 @@ unchanged one is reused. Nothing is built at import: the first launch (or
 reciprocals would break the exact-zero contracts of the pad conventions
 (``v = val / 1e-30`` times a zero K column must give exactly 0).
 
+A launch takes its stream from `stream`, which first holds every tensor
+operand to the current card (`check_devices`): with peer access on, a
+kernel launched on one card with another card's pointers reads them over
+the link between the cards, so its results come out right, only slowly,
+and nothing but this check shows it.
+
 ``launches`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
 main path went through. ``builds`` counts what `build` did: ``compiles``
@@ -149,6 +155,26 @@ def function(source: str, name: str, argtypes: list):
         fn.restype = ctypes.c_int
         _fns[(source, name)] = fn
     return fn
+
+
+def check_devices(name: str, devices, current: int) -> None:
+    """Raise unless each of ``devices`` (one an operand of a launch of
+    ``name``, in argument order) is card ``current``."""
+    off = [f"operand {i} on cuda:{d.index}" for i, d in enumerate(devices)
+           if d.index != current]
+    if off:
+        raise RuntimeError(f"CUDA kernel {name} launched on cuda:{current} "
+                           f"with {', '.join(off)}: make the operands' card "
+                           f"current first (launch.mesh.on_device)")
+
+
+def stream(name: str, *tensors) -> int:
+    """The current CUDA stream's handle for a launch of ``name`` on
+    ``tensors``, once `check_devices` holds them to the current card."""
+    import torch
+    check_devices(name, [t.device for t in tensors],
+                  torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
 
 
 def check_launch(name: str, err: int) -> None:

@@ -49,6 +49,6 @@ def cdist(a: torch.Tensor, b: torch.Tensor, *, v_tile: int = 512,
     if m and v:
         fn = _build.function("kexp", "cdist_rows", _ARGTYPES)
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, v, w,
-                 int(squared), torch.cuda.current_stream().cuda_stream)
+                 int(squared), _build.stream(name, a, b, out))
         _build.check_launch(name, err)
     return out

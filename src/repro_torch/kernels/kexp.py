@@ -75,7 +75,7 @@ def _kexp(name: str, a: torch.Tensor, b: torch.Tensor,
     if m and v:
         fn = _build.function("kexp", name, _ARGTYPES)
         err = fn(a.data_ptr(), b.data_ptr(), k.data_ptr(), km.data_ptr(),
-                 m, v, w, float(lamb), torch.cuda.current_stream().cuda_stream)
+                 m, v, w, float(lamb), _build.stream(name, a, b, k, km))
         _build.check_launch(name, err)
     return k, km
 
@@ -124,7 +124,7 @@ def cost_rows_naive(a: torch.Tensor, b: torch.Tensor, *, epilogue: str,
         fn = _build.function("kexp", name, _NAIVE_ARGTYPES)
         err = fn(a.data_ptr(), b.data_ptr(), out[0].data_ptr(),
                  out[-1].data_ptr(), m, v, w, EPILOGUES[epilogue],
-                 float(lamb), torch.cuda.current_stream().cuda_stream)
+                 float(lamb), _build.stream(name, a, b, *out))
         _build.check_launch(name, err)
     return tuple(out)
 

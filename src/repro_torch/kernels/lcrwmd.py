@@ -65,5 +65,5 @@ def lc_rwmd_bound_batch(minm: torch.Tensor, cols: torch.Tensor,
         _build.check_launch(name, fn(
             minm_vm.data_ptr(), cols.data_ptr(), vals.data_ptr(),
             lb.data_ptr(), q, n, nnz, docs_blk,
-            torch.cuda.current_stream().cuda_stream))
+            _build.stream(name, minm_vm, cols, vals, lb)))
     return lb

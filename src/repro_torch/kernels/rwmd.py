@@ -143,7 +143,8 @@ def rwmd_bound_batch_route(m_pad: torch.Tensor, cols: torch.Tensor,
         err = fn(m_pad.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                  lb.data_ptr(), None if minm_vm is None else
                  minm_vm.data_ptr(), q, v_r, vp1, n, nnz, docs_blk,
-                 torch.cuda.current_stream().cuda_stream)
+                 _build.stream(name, *(t for t in (m_pad, cols, vals, lb,
+                                                   minm_vm) if t is not None)))
         _build.check_launch(name, err)
     return lb
 
@@ -187,5 +188,5 @@ def column_min(m_pad: torch.Tensor) -> torch.Tensor:
                              + [ctypes.c_void_p])
         _build.check_launch(name, fn(
             m_pad.data_ptr(), minm_vm.data_ptr(), q, v_r, vp1,
-            torch.cuda.current_stream().cuda_stream))
+            _build.stream(name, m_pad, minm_vm)))
     return minm_vm.T

@@ -231,18 +231,19 @@ def _check(name: str, tensors: dict, k_pad: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"{name}: docs_blk must be positive, got {docs_blk}")
 
 
-def _launch(name: str, ptrs, *sizes, from_x: bool | None = None) -> None:
-    """Launch ``name`` on 6 pointers and the int sizes: (q,) v_r, vp1, n,
-    nnz, docs_blk (the single-query entry points take no q), then
-    ``from_x`` as an int where the entry takes it (the four serving
-    entries; not the oracle), a set one counted in ``reads_x``."""
+def _launch(name: str, tensors, *sizes, from_x: bool | None = None) -> None:
+    """Launch ``name`` on 6 tensors (their pointers) and the int sizes:
+    (q,) v_r, vp1, n, nnz, docs_blk (the single-query entry points take no
+    q), then ``from_x`` as an int where the entry takes it (the four
+    serving entries; not the oracle), a set one counted in ``reads_x``."""
     if from_x is not None:
         sizes = (*sizes, int(from_x))
     fn = _build.function("sddmm_spmm", name,
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(sizes)
                          + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream().cuda_stream
-    _build.check_launch(name, fn(*ptrs, *sizes, stream))
+    stream = _build.stream(name, *tensors)
+    _build.check_launch(name, fn(*(t.data_ptr() for t in tensors), *sizes,
+                                 stream))
     if from_x:
         reads_x[name] += 1
 
@@ -267,7 +268,7 @@ def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
                              + [ctypes.c_void_p])
         _build.check_launch(name, fn(
             k_pad.data_ptr(), k_vm.data_ptr(), q, v_r, vp1,
-            torch.cuda.current_stream().cuda_stream))
+            _build.stream(name, k_pad, k_vm)))
     return k_vm
 
 
@@ -287,8 +288,7 @@ def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
                          f"{tuple(vals.shape)} shape mismatch")
     x = torch.empty_like(u)
     if q and n:
-        _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
-                       cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
+        _launch(name, (k_vm, r_sel, u, cols, vals, x),
                 q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
                 from_x=from_x)
     return x
@@ -321,8 +321,7 @@ def sddmm_spmm_type2_batch_vm(k_vm, km_vm, u, cols, vals, *,
                          f"{tuple(vals.shape)} shape mismatch")
     wmd = torch.empty((q, n), dtype=torch.float32, device=u.device)
     if q and n:
-        _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
-                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+        _launch(name, (k_vm, km_vm, u, cols, vals, wmd),
                 q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
                 from_x=from_x)
     return wmd
@@ -363,8 +362,7 @@ def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
                          f"{tuple(vals.shape)} shape mismatch")
     x = torch.empty_like(u)
     if n:
-        _launch(name, (k_vm.data_ptr(), r_sel.data_ptr(), u.data_ptr(),
-                       cols.data_ptr(), vals.data_ptr(), x.data_ptr()),
+        _launch(name, (k_vm, r_sel, u, cols, vals, x),
                 v_r, k_vm.shape[0], n, cols.shape[1], docs_blk, from_x=from_x)
     return x
 
@@ -396,8 +394,7 @@ def sddmm_spmm_type2_vm(k_vm, km_vm, u, cols, vals, *,
                          f"{tuple(vals.shape)} shape mismatch")
     wmd = torch.empty((n,), dtype=torch.float32, device=u.device)
     if n:
-        _launch(name, (k_vm.data_ptr(), km_vm.data_ptr(), u.data_ptr(),
-                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+        _launch(name, (k_vm, km_vm, u, cols, vals, wmd),
                 v_r, k_vm.shape[0], n, cols.shape[1], docs_blk, from_x=from_x)
     return wmd
 
@@ -428,7 +425,6 @@ def sddmm_spmm_type2_naive(k_pad, km_pad, u, cols, vals, *,
                          f"{tuple(vals.shape)} shape mismatch")
     wmd = torch.empty((n,), dtype=torch.float32, device=u.device)
     if n:
-        _launch(name, (k_pad.data_ptr(), km_pad.data_ptr(), u.data_ptr(),
-                       cols.data_ptr(), vals.data_ptr(), wmd.data_ptr()),
+        _launch(name, (k_pad, km_pad, u, cols, vals, wmd),
                 v_r, k_pad.shape[1], n, cols.shape[1], docs_blk)
     return wmd

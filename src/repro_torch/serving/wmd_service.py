@@ -116,15 +116,26 @@ route; each phase's start on ``time.monotonic`` beside it, as
 ``precompute_t0`` / ``solve_t0``; on the bulk routes ``fused_launches``,
 the batch's type1 / type2 launches that read the Sinkhorn iterate x
 directly, ``max_iter + 1`` a program position on the kernel route and 0
-on the plain impls) and ``last_prune_stats`` (the
+on the plain impls; on query_batch's two routes of a static corpus
+``peer_bytes``, below) and ``last_prune_stats`` (the
 reference's fields: solves, programs, ``bound_s`` / ``rerank_s``, the
 per-tier funnel ``tiers``; and ``kcache_misses``, the K-row misses of each
 K-cache lookup of the call, in order, from which a run can count the
 miss-row launches). Host times are taken after a device synchronize.
+``wmd_peer_copy_bytes_total`` (a counter of ``metrics``) adds up, over
+those query_batch calls, the bytes each program call copies between
+distinct cards of the mesh: the K and K.*M stripes (or, on the legacy
+route, the query rows) out to each card that holds doc shards, the row
+scales, with a model axis the iterates' model-axis sums, and the
+distances gathered back on the first card (counted on the host, with no
+sync, where the program copies them: `core.distributed.peer_copies`; 0 on
+one card, logical shards of one card included).
 ``tracer`` (default the no-op ``NULL_TRACER``; bind a
 `repro_torch.obs.Tracer` at any time) records each `query_batch` /
 `top_k_batch` / `top_k_scan_batch` call as one span tree of its host
-steps, on the tracer's clock (docs/observability.md lists the steps).
+steps, on the tracer's clock (docs/observability.md lists the steps);
+query_batch's ``solve`` step carries ``cards`` (the mesh's distinct
+devices) and the call's ``peer_bytes``.
 """
 from __future__ import annotations
 
@@ -146,38 +157,42 @@ from repro_torch.core import rwmd as rwmd_core
 from repro_torch.core.distributed import (build_wmd_batch_fn,
                                           build_wmd_batch_fn_stripes,
                                           build_wmd_fn, pad_query,
-                                          pad_query_batch, shard_docs,
+                                          pad_query_batch,
+                                          peer_bytes_total, shard_docs,
                                           shard_wmd_inputs,
                                           vocab_major_stripes)
 from repro_torch.core.kcache import KCache, MCache
 from repro_torch.core.sinkhorn import select_query
 from repro_torch.kernels.sddmm_spmm import reads_x_total
-from repro_torch.launch.mesh import (check_placement, one_device_mesh,
-                                     shard_grid)
+from repro_torch.launch.mesh import (check_placement, on_device,
+                                     one_device_mesh, shard_grid)
 from repro_torch.obs.trace import NULL_TRACER
 
 
 def _serialized(fn):
     """Serialize an engine entry point on the service's reentrant lock (the
-    K cache mutates a host slot map and device buffers)."""
+    K cache mutates a host slot map and device buffers), with the service's
+    first card current: the kernels it launches outside the mesh programs
+    (the K and M caches, the bound tiers) read tensors that lie there."""
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
-        with self._engine_lock:
+        with self._engine_lock, on_device(self.device):
             return fn(self, *args, **kwargs)
     return wrapper
 
 
 def _engine_call(op: str):
-    """A batch entry point: serialized like `_serialized` and, with a tracer
-    on, recorded as one span tree of the call's steps. The outermost such
-    call opens the tree (seq ``batch-<n>``, attrs ``op``, ``q``, ``q_pad``,
-    ``route``) and closes it once, ``failed`` with the exception's type
-    name if it raises; the calls nested in it (one at a time, under the
-    lock) add their steps to the same tree."""
+    """A batch entry point: serialized, on the first card, like
+    `_serialized` and, with a tracer on, recorded as one span tree of the
+    call's steps. The outermost such call opens the tree (seq
+    ``batch-<n>``, attrs ``op``, ``q``, ``q_pad``, ``route``) and closes it
+    once, ``failed`` with the exception's type name if it raises; the calls
+    nested in it (one at a time, under the lock) add their steps to the
+    same tree."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, rs, *args, **kwargs):
-            with self._engine_lock:
+            with self._engine_lock, on_device(self.device):
                 if not self.tracer.enabled or self._tree is not None:
                     return fn(self, rs, *args, **kwargs)
                 return self._traced_call(op, fn, rs, args, kwargs)
@@ -255,6 +270,8 @@ class WMDService:
                                if a in self.mesh.axis_names)
         self._grid = shard_grid(self.mesh, self._doc_axes)
         self._doc_shards, self._model_shards = self._grid.shape
+        # distinct devices (logical shards of one card are one card)
+        self._cards = len(set(self.mesh.devices.flat))
         self._vecs_d = torch.as_tensor(self.vecs, dtype=torch.float32,
                                        device=self.device).contiguous()
         vecs_np = self._vecs_d.cpu().numpy()
@@ -278,6 +295,10 @@ class WMDService:
                               device=self.device,
                               rows_bucket=self.cache_rows_bucket,
                               kexp_impl=self.kexp_impl, metrics=self.metrics)
+        # the bytes query_batch's programs copy between distinct cards
+        self._peer_bytes = self.metrics.counter(
+            "wmd_peer_copy_bytes_total",
+            "bytes query_batch copied between distinct cards")
         # any pruned dispatch that silently degrades to an exact full scan
         # must be countable, not just visible in last_prune_stats
         self._prune_fallbacks = self.metrics.counter(
@@ -361,6 +382,14 @@ class WMDService:
         """`vocab_major_stripes` of a stripe set, on this service's mesh."""
         return vocab_major_stripes(k_s, km_s, impl, self.mesh,
                                    doc_axes=self._doc_axes)
+
+    def _count_peer_bytes(self, p0: int) -> int:
+        """The bytes a program call copied between distinct cards since
+        `core.distributed.peer_bytes_total` read ``p0``, added to
+        ``wmd_peer_copy_bytes_total``."""
+        peer = peer_bytes_total() - p0
+        self._peer_bytes.inc(peer)
+        return peer
 
     def _sync(self) -> None:
         for dev in set(self._grid.flat):
@@ -818,15 +847,18 @@ class WMDService:
             t = self._now()
             vecs_sel = self._vecs_d[torch.from_numpy(
                 sel_b.astype(np.int64)).to(self.device)]
-            n0 = reads_x_total()
-            wmd = fn(vecs_sel, r_d, torch.from_numpy(mask_b).to(self.device),
-                     self._vecs_sh, self._cols_d, self._vals_d)[:q]
+            mask_d = torch.from_numpy(mask_b).to(self.device)
+            n0, p0 = reads_x_total(), peer_bytes_total()
+            wmd = fn(vecs_sel, r_d, mask_d, self._vecs_sh, self._cols_d,
+                     self._vals_d)[:q]
             fused = reads_x_total() - n0
+            peer = self._count_peer_bytes(p0)
             if t is not None:
                 self._route = "legacy_fused"
                 self._sync()
                 t = self._step("solve", t, iters=self.cfg.max_iter,
-                               fused=fused)
+                               fused=fused, cards=self._cards,
+                               peer_bytes=peer)
             wmd = wmd.cpu().numpy()
             solve_t1 = time.monotonic()
             if t is not None:
@@ -834,7 +866,7 @@ class WMDService:
             self.last_batch_stats = {
                 "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
                 "phases_separable": False, "route": "legacy_fused",
-                "fused_launches": fused}
+                "fused_launches": fused, "peer_bytes": peer}
             t = self._now()
             self._check_result(wmd, what="query_batch distances")
             if t is not None:
@@ -858,14 +890,16 @@ class WMDService:
             self._step("km_guard", t)
         solve_t0 = time.monotonic()
         t = self._now()
-        n0 = reads_x_total()
+        n0, p0 = reads_x_total(), peer_bytes_total()
         wmd = fn(k_s, km_s, r_d, self._cols_d, self._vals_d)[:q]
         fused = reads_x_total() - n0
+        peer = self._count_peer_bytes(p0)
         if t is not None:
             # the copy below waits for the device anyway: a sync while
             # tracing splits the program from the copy and moves no bit
             self._sync()
-            t = self._step("solve", t, iters=self.cfg.max_iter, fused=fused)
+            t = self._step("solve", t, iters=self.cfg.max_iter, fused=fused,
+                           cards=self._cards, peer_bytes=peer)
         wmd = wmd.cpu().numpy()
         solve_t1 = time.monotonic()
         if t is not None:
@@ -873,7 +907,7 @@ class WMDService:
         self.last_batch_stats = {
             "precompute_t0": pre_t0, "precompute_s": pre_t1 - pre_t0,
             "solve_t0": solve_t0, "solve_s": solve_t1 - solve_t0,
-            "fused_launches": fused, **info}
+            "fused_launches": fused, "peer_bytes": peer, **info}
         t = self._now()
         self._check_result(wmd, what="query_batch distances")
         if t is not None:
