@@ -17,7 +17,9 @@ Phases (any failure exits non-zero before the result line is printed):
      Q = 16 (19 words a query); the kernels' launch counts, read around
      exactly those two calls, must be 15 type1 and 1 type2 launches and
      two vocab-major copies (k_vocab_major: K's and K.*M's) per batch and
-     one cdist_kexp_rows launch per 128-row miss chunk. Then batch 2's
+     one cdist_kexp_rows launch per 128-row miss chunk, all 30 #3
+     launches on the query-group tile (`sddmm_spmm.tile_launches`) and
+     each batch's ``fused_launches`` 16. Then batch 2's
      `query_batch` once more, counted (`_counted_wmd`, the cost model
      `repro_torch.launch.costmodel`): its flops, fused and eager bytes,
      each kernel's declared cost (`kernels.costs`) times its counted calls,
@@ -68,7 +70,8 @@ Phases (any failure exits non-zero before the result line is printed):
      exactly those calls, must be one cdist_kexp, two k_vocab_major (the
      query's K and K.*M stripes), 15 sddmm_spmm_type1 and one
      sddmm_spmm_type2 a query and nothing else (so never the #2 / #4
-     oracle `sddmm_spmm_type2_naive`); `query(r)` must equal phase 3's
+     oracle `sddmm_spmm_type2_naive`), every #1 on the warp tile (no
+     query-group launch); `query(r)` must equal phase 3's
      `query_batch` rows bitwise on all 32 queries (and top_k
      their top-k); the all-plain per-query service (impl "fused",
      kexp_impl "jnp") and the dense oracle on the 64-doc slice by
@@ -160,8 +163,10 @@ Phases (any failure exits non-zero before the result line is printed):
      the kernel on u and the divide by r, at the batch's shape and at a
      65,536-doc slice of the prod_5m corpus (`_fused_iterate_check`:
      x seeded with 0, values below 1e-30, -1, +inf, NaN and 1e38, four pad
-     docs exactly 0, both spellings' device ms); #5 against #6's rows, #5, #6 and #7 bitwise
-     against their one-thread-an-output oracle `cost_rows_naive` (the
+     docs exactly 0, #3 on its query-group tile bitwise #3 on the warp tile
+     (`sddmm_spmm_type1_batch_warp`), the device ms of both spellings and
+     of #3 on both tiles, at the batch's Q and at Q 2-4); #5 against
+     #6's rows, #5, #6 and #7 bitwise against their one-thread-an-output oracle `cost_rows_naive` (the
      sha256 of #6's and #5's outputs printed), own words exactly M = 0,
      K = 1, #9 against #8 and #8's two routes against each other (the
      gather route at tier 2's 256 docs, the dense route at all N, each
@@ -680,9 +685,13 @@ def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
     values below TINY (a subnormal among them), a negative, +inf, NaN and
     1e38 (whose reciprocal is subnormal); four pad docs (every slot the pad
     id, val 0) with x = 0 are appended and must come out exactly 0. r is
-    the batch's (not 1). Returns the device ms (`_device_ms`) of #3 and #4
-    reading x, of the same launches on u, and of the element-wise spelling
-    (the passes and the launch on u)."""
+    the batch's (not 1). #3 runs on the query-group tile (v_r 32, Q >= 3,
+    `sddmm_spmm.type1_tile`) and must equal #3 on the warp tile
+    (`sddmm_spmm_type1_batch_warp`) bit for bit. Returns the device ms
+    (`_device_ms`) of #3 and #4 reading x, of #3 reading x on the warp
+    tile, of the same launches on u, of the element-wise spelling (the
+    passes and the launch on u), and of #3 reading x on both tiles at
+    Q 2, 3 and 4 (the batch's first queries, bitwise alike)."""
     import torch
     from repro_torch.kernels import sddmm_spmm as k
     q, v_r, n = x.shape
@@ -712,6 +721,8 @@ def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
         _check(torch.equal(bits(a), bits(b)), f"{what}: {msg}")
 
     x3 = k.sddmm_spmm_type1_batch_vm(k_vm, r, x, cols, vals, from_x=True)
+    x3_w = k.sddmm_spmm_type1_batch_warp(k_vm, r, x, cols, vals,
+                                         from_x=True)
     x3_in = k.sddmm_spmm_type1_batch_vm(k_vm, ones, x, cols, vals,
                                         from_x=True)
     x3_u = k.sddmm_spmm_type1_batch_vm(k_vm, ones, u, cols, vals)
@@ -725,6 +736,8 @@ def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
     same(x3, x3_u / r[:, :, None], "#3 reading x with r is not safe_recip, "
          "#3 with r = 1, then / r")
     same(x3_in, x3_u, "#3 reading x is not safe_recip then #3 (r = 1)")
+    same(x3, x3_w, f"#3 on the {k.type1_tile(q, v_r)} tile is not #3 on the "
+         f"warp tile")
     same(d4, d4_u, "#4 reading x is not safe_recip then #4")
     same(x1, x3[0], "#1 reading x is not #3 reading x at Q = 1")
     same(d2, d4[0], "#2 reading x is not #4 reading x at Q = 1")
@@ -732,12 +745,15 @@ def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
            f"{what}: a pad doc with x = 0 is not exactly 0")
     n_nan = int(torch.isnan(x3).any(dim=1).sum())
     print(f"[kernels] {what}: #3, #4, #1 and #2 reading the iterate == "
-          f"safe_recip + the kernel on u (+ / r), bitwise, on Q {q}, v_r "
+          f"safe_recip + the kernel on u (+ / r), #3 == #3 on the warp tile, "
+          f"bitwise, on Q {q}, v_r "
           f"{v_r}, N {n} + {pad} pad docs, with x seeded with 0, <1e-30, "
           f"-1, +inf, NaN and 1e38 ({n_nan} (query, doc) columns NaN out); "
           f"pad docs exactly 0")
     out = {
         "type1_fused": _device_ms(lambda: k.sddmm_spmm_type1_batch_vm(
+            k_vm, r, x, cols, vals, from_x=True)),
+        "type1_warp": _device_ms(lambda: k.sddmm_spmm_type1_batch_warp(
             k_vm, r, x, cols, vals, from_x=True)),
         "type1_on_u": _device_ms(lambda: k.sddmm_spmm_type1_batch_vm(
             k_vm, ones, u, cols, vals)),
@@ -751,10 +767,26 @@ def _fused_iterate_check(what, k_vm, km_vm, r, cols, vals, x) -> dict:
             k_vm, km_vm, k.safe_recip(x), cols, vals)),
     }
     print(f"[kernels] {what}: device ms, #3 reading x "
-          f"{out['type1_fused']:.4f}, on u {out['type1_on_u']:.4f}, "
+          f"{out['type1_fused']:.4f} ({k.type1_tile(q, v_r)} tile; the warp "
+          f"tile {out['type1_warp']:.4f}), on u {out['type1_on_u']:.4f}, "
           f"safe_recip + #3 + / r {out['type1_passes']:.4f}; #4 reading x "
           f"{out['type2_fused']:.4f}, on u {out['type2_on_u']:.4f}, "
           f"safe_recip + #4 {out['type2_passes']:.4f}")
+    # the smallest batches the rule gives the query-group tile: the first
+    # queries of the same launch, on both tiles
+    for qs in (2, 3, 4):
+        args = (k_vm[:qs], r[:qs], x[:qs], cols, vals)
+        tile = k.type1_tile(qs, v_r)
+        same(k.sddmm_spmm_type1_batch_vm(*args, from_x=True),
+             k.sddmm_spmm_type1_batch_warp(*args, from_x=True),
+             f"#3 on the {tile} tile at Q {qs} is not the warp tile")
+        out[f"type1_q{qs}"] = _device_ms(
+            lambda: k.sddmm_spmm_type1_batch_vm(*args, from_x=True))
+        out[f"type1_q{qs}_warp"] = _device_ms(
+            lambda: k.sddmm_spmm_type1_batch_warp(*args, from_x=True))
+        print(f"[kernels] {what}: device ms, #3 reading x at Q {qs} "
+              f"{out[f'type1_q{qs}']:.4f} ({tile} tile, bitwise the warp "
+              f"tile's), the warp tile {out[f'type1_q{qs}_warp']:.4f}")
     return out
 
 
@@ -3980,6 +4012,7 @@ def _wmd_phases():
            and svc.kexp_impl == "kernel", "service defaults changed")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    tiles0 = dict(sddmm_spmm.tile_launches)
     t0 = time.perf_counter()
     d1 = svc.query_batch(batch1)
     t1 = time.perf_counter()
@@ -3997,6 +4030,16 @@ def _wmd_phases():
     print(f"[main] launches {launches}, expected {want}")
     _check(launches == want, f"launch counts {launches} != {want}")
     _check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    # Q 16 at v_r 32: every #3 on the query-group tile
+    tiles3 = {t: n - tiles0.get(t, 0)
+              for t, n in sddmm_spmm.tile_launches.items()
+              if n != tiles0.get(t, 0)}
+    _check(tiles3 == {"group": 2 * cfg.max_iter},
+           f"#3 launches of the two batches by tile {tiles3}, expected "
+           f"{{'group': {2 * cfg.max_iter}}}")
+    fused3 = [s["fused_launches"] for s in (stats1, stats2)]
+    _check(fused3 == [cfg.max_iter + 1] * 2,
+           f"fused launches a batch {fused3}, expected {cfg.max_iter + 1}")
     for i, (s, dt) in enumerate(((stats1, t1 - t0), (stats2, t2 - t1))):
         print(f"[main] batch {i + 1}: Q=16 in {dt * 1e3:.1f} ms "
               f"({16 / dt:.1f} queries/s); precompute_s "
@@ -4206,6 +4249,7 @@ def _wmd_phases():
            "per-query service defaults changed")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    tiles0 = dict(sddmm_spmm.tile_launches)
     top1, times1 = [], []
     for r in batch1:
         t0 = time.perf_counter()
@@ -4224,6 +4268,11 @@ def _wmd_phases():
     print(f"[per-query] launches {launches8}, expected {want8}")
     _check(launches8 == want8, f"per-query launch counts {launches8} != "
            f"{want8}")
+    tiles8 = {t: n - tiles0.get(t, 0)
+              for t, n in sddmm_spmm.tile_launches.items()}
+    _check(tiles8.get("group", 0) == 0
+           and tiles8.get("warp", 0) == cfg.max_iter * nq,
+           f"per-query #1 launches by tile {tiles8}: all on the warp tile")
     warm = times1[1:]
     print(f"[per-query] top_k(r, {k_top}), batch 1: first query "
           f"{times1[0] * 1e3:.2f} ms; the other {len(warm)}: mean "

@@ -34,9 +34,19 @@
 //    G dots summed at once by a reduce-scatter that pairs lanes as
 //    `warp_sum` does (the same bits, 9 shuffles instead of 40 at G = 8),
 //    one division a lane group, and the G columns folded into acc strictly
-//    in slot order. Every serving kernel runs it: #3 and #1
-//    (`type1_vm_kernel`, #1 at Q = 1 through its own entry), #4 and #2
-//    (`type2_vm_kernel`, #2 at Q = 1 through its own entry).
+//    in slot order. Every serving kernel runs it: #3 where the query-group
+//    tile does not, and #1 (`type1_vm_kernel`, #1 at Q = 1 through its own
+//    entry), #4 and #2 (`type2_vm_kernel`, #2 at Q = 1 through its own
+//    entry).
+//  * `group_doc_tile`, the query-group tile, runs #3 at v_r = 32 and
+//    Q >= 3 (`type1_vm_kernel_grouped`; the wrapper's `type1_tile` chooses
+//    by shape): four queries of one document a warp, eight lanes and four
+//    rows a lane each. The document's live slots are staged once for the
+//    four queries, a slot's column is one 16-byte load a lane, and of
+//    warp_sum's five levels three cross lanes (shared by the four
+//    (query, doc) pairs) and two are adds inside a lane: the same bits as
+//    the warp tile, which #3's entry takes at any shape when asked for one
+//    query a warp (the test-only wrapper `sddmm_spmm_type1_batch_warp`).
 //  * `type2_query_kernel` reads K and K.*M in the reference layout
 //    (v_r, V+1): a column is v_r floats at stride V+1, one 32-byte sector
 //    per lane (8x the useful bytes), one slot at a time. It is the oracle
@@ -50,7 +60,14 @@
 // vocab-major tiles move 1/8 of its sectors (the touched K columns are
 // about 3.4 MB a query at paper_5k, L2-resident); what is left is the issue
 // rate of their per-slot instructions and the latency of each warp's
-// chain, which the slots in flight and the reduce-scatter shorten. The copy
+// chain, which the slots in flight and the reduce-scatter shorten. #3 took
+// the same ~1.9-2.0 ns a (query, doc) pair with its ELL in L2 (5,000 docs)
+// and in HBM (65,536 and 1,310,720 docs): the SM's instructions a slot, not
+// the memory, set its pace. On the warp tile a slot cost about 17 warp
+// instructions a pair, 2 of them useful multiply-adds, and five dependent
+// shuffle levels; the query-group tile shares the three cross-lane levels,
+// the slot list and the division among four pairs and takes 0.50-0.61 of
+// the warp tile's time at v_r 32, Q 16 (PERF.md §6). The copy
 // moves a whole stripe set once (205 MB read and written for K at Q = 16):
 // a tiled transpose at the HBM rate. At Q = 1 (one query's 12.8 MB
 // stripes, resident in the 50 MB L2) the work is too small to fill the
@@ -60,7 +77,7 @@
 // Exactness: every output element is one warp's fixed-order sum, with no
 // atomics and no dependence on docs_blk or on other documents, so the
 // port's bitwise contracts (chunked == unchunked, cache on == off) hold,
-// #3 equals #1 and #4 equals #2 query by query, and both tiles give the
+// #3 equals #1 and #4 equals #2 query by query, and every tile gives the
 // same bits. Pad slots (vals == 0) are skipped: they add exactly +0. Pad
 // query rows (all-zero K, r = 1) and Q-filler queries (all-zero K, so
 // w = 0 and v = val / 1e-30 times a zero column) come out as exact zeros.
@@ -84,7 +101,8 @@
 // was, instruction for instruction. The Python wrappers count each launch
 // with the flag set (`reads_x` in kernels/sddmm_spmm.py); WMDService
 // reports a batch's count as last_batch_stats["fused_launches"] and as the
-// `fused` attribute of its `solve` span.
+// `fused` attribute of its `solve` span. They count #3's and #1's launches
+// by tile too (`tile_launches`).
 
 #include <cuda_runtime.h>
 
@@ -332,6 +350,186 @@ __device__ __forceinline__ void vm_doc_tile(
   }
 }
 
+// The query-group tile of #3, at v_r = 32 only: kGroupQ = 4 queries
+// q0 .. q0 + 3 of one document a warp, L = 8 lanes a query, lane l of group
+// g holding rows 4 l .. 4 l + 3 of query q0 + g. The warp stages its
+// document's live slots as `vm_doc_tile` does, once for all four groups,
+// and walks the list kGroupSlots = 4 slots at a time: each slot's column is
+// one 16-byte load a lane, which fills each query's 128-byte line. Row
+// i = 4 l + t, so warp_sum's levels at rows 16, 8 and 4 apart pair lanes
+// l ^ 4, l ^ 2 and l ^ 1 of the group: the first two run as a
+// reduce-scatter over the 4 slots, as in `warp_sum_scatter`, the third as
+// warp_sum's butterfly, so lanes 2 s and 2 s + 1 end with slot s's sums of
+// their 4 rows. The levels 2 and 1 are then adds inside the lane, in that
+// order: every slot's w has warp_sum's bits. One division a lane gives its
+// slot's v, one shuffle of width 8 hands slot s's v to all four groups at
+// once, and the 4 columns are folded into acc in slot order. A group past Q
+// (the last group of a Q not a multiple of 4) reads query Q - 1 and stores
+// nothing. kvm (Q, vp1, 32) 16-byte aligned, r (Q, 32), u and x (Q, 32,
+// n); kFromX: u holds the iterate x.
+//
+// Four slots a step and at least kGroupMinBlocks blocks an SM (48
+// registers a thread) came out fastest of 2 or 4 queries a warp, 2, 4 or 8
+// slots a step and 1 to 8 blocks an SM on an H100 (PERF.md §6): the
+// tile waits on each step's chain, and more warps hide it better than more
+// slots in flight.
+constexpr int kGroupQ = 4;
+constexpr int kGroupSlots = 4;
+constexpr int kGroupMinBlocks = 5;
+
+// a lane's four rows of a column, one 16-byte load
+__device__ __forceinline__ void load_rows(float (&col)[kGroupQ],
+                                          const float* __restrict__ p) {
+  const float4 c = *reinterpret_cast<const float4*>(p);
+  col[0] = c.x, col[1] = c.y, col[2] = c.z, col[3] = c.w;
+}
+
+// The G slots' sums over a group's lanes, levels D, D/2, ..., 1 lanes
+// apart (rows P D, ..., P apart), M the slots a lane still carries: while
+// M > 1 the upper lane of a pair keeps the upper half of them, as in
+// warp_sum_scatter, then both lanes of a pair add the same two values, as
+// warp_sum does. Lane l ends with slot l / (L / G)'s P row sums in p[0].
+// Template recursion keeps every index a constant.
+template <int D, int M, int G, int P>
+__device__ __forceinline__ void group_scatter(float (&p)[G][P], int l) {
+  if constexpr (D > 0) {
+    if constexpr (M > 1) {
+      const bool upper = l & D;
+#pragma unroll
+      for (int g = 0; g < M / 2; ++g) {
+#pragma unroll
+        for (int t = 0; t < P; ++t) {
+          const float keep = upper ? p[g + M / 2][t] : p[g][t];
+          const float send = upper ? p[g][t] : p[g + M / 2][t];
+          p[g][t] = keep + __shfl_xor_sync(kFull, send, D);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < P; ++t)
+        p[0][t] += __shfl_xor_sync(kFull, p[0][t], D);
+    }
+    group_scatter<D / 2, (M > 1 ? M / 2 : 1), G, P>(p, l);
+  }
+}
+
+// The levels H, H/2, ..., 1 rows apart inside a lane: s[0] ends with the
+// sum of the lane's rows
+template <int H, int P>
+__device__ __forceinline__ void lane_sum(float (&s)[P]) {
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int t = 0; t < H; ++t) s[t] += s[t + H];
+    lane_sum<H / 2, P>(s);
+  }
+}
+
+template <bool kFromX>
+__device__ __forceinline__ void group_doc_tile(
+    const float* __restrict__ kvm, const float* __restrict__ r,
+    const float* __restrict__ u, const int* __restrict__ cols,
+    const float* __restrict__ vals, float* __restrict__ x, int* sc,
+    float* sv, int q, int q0, int vp1, int n, int nnz, int j0, int j_end) {
+  constexpr int P = kGroupQ;                 // queries a warp, rows a lane
+  constexpr int G = kGroupSlots;             // slots a step
+  constexpr int L = kWarp / P;               // lanes a query
+  constexpr int kShift = log2i(L / G);       // l >> kShift: the lane's slot
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int l = lane % L;
+  const int qg = q0 + lane / L;
+  const bool real = qg < q;
+  const size_t qq = real ? qg : q - 1;
+  const float* kq = kvm + qq * vp1 * kWarp + P * l;
+  const float* rq = r + qq * kWarp + P * l;
+  const float* uq = u + (qq * kWarp + P * l) * n;
+  float* xq = x + (qq * kWarp + P * l) * n;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  for (int j = j0 + warp; j < j_end; j += warps) {
+    const int* cj = cols + (size_t)j * nnz;
+    const float* vj = vals + (size_t)j * nnz;
+    // the first stage's slots are on their way while u is formed, and each
+    // next stage's while the warp walks this one
+    int c_next = lane < nnz ? cj[lane] : 0;
+    float val_next = lane < nnz ? vj[lane] : 0.f;
+    float uj[P], acc[P];
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      const float ut = uq[(size_t)t * n + j];
+      uj[t] = kFromX ? recip_x(ut) : ut;
+      acc[t] = 0.f;
+    }
+    for (int s0 = 0; s0 < nnz; s0 += kWarp) {
+      const int c = c_next;
+      const float val = val_next;
+      const int s = s0 + kWarp + lane;
+      c_next = s < nnz ? cj[s] : 0;
+      val_next = s < nnz ? vj[s] : 0.f;
+      const unsigned live = __ballot_sync(kFull, val != 0.f);
+      const int count = __popc(live);
+      if (val != 0.f) {
+        const int at = __popc(live & below);
+        sc[at] = c;
+        sv[at] = val;
+      }
+      __syncwarp();
+      for (int k = 0; k < count; k += G) {
+        float col[G][P], p[G][P];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (k + g < count) {
+            load_rows(col[g], kq + (size_t)sc[k + g] * kWarp);
+          } else {
+#pragma unroll
+            for (int t = 0; t < P; ++t) col[g][t] = 0.f;
+          }
+          // slot_dot_part's product, row by row: an fma with +0
+#pragma unroll
+          for (int t = 0; t < P; ++t)
+            p[g][t] = __fmaf_rn(col[g][t], uj[t], 0.f);
+        }
+        group_scatter<L / 2, G, G, P>(p, l);  // rows 16, ..., P apart
+        lane_sum<P / 2, P>(p[0]);             // rows P / 2, ..., 1 apart
+        const int mine = k + (l >> kShift);
+        const float v_mine = mine < count ? slot_v(sv[mine], p[0][0]) : 0.f;
+        // a slot past the list has a zero column and v = 0: fma(0, 0, acc)
+        // is acc, bit for bit (acc is never -0), so no test is needed
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          slot_accumulate<P>(acc, col[g],
+                             __shfl_sync(kFull, v_mine, g << kShift, L));
+      }
+      __syncwarp();                          // the next stage overwrites
+    }
+    if (real) {
+#pragma unroll
+      for (int t = 0; t < P; ++t)
+        xq[(size_t)t * n + j] = __fdiv_rn(acc[t], rq[t]);
+    }
+  }
+}
+
+// #3 on the query-group tile, the grid (ceil(N / docs_blk), ceil(Q / 4)):
+// block (tile, group) walks queries 4 group .. 4 group + 3 of its tile.
+template <bool kFromX>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kGroupMinBlocks)
+type1_vm_kernel_grouped(const float* __restrict__ kvm,   // (Q, vp1, 32)
+                        const float* __restrict__ r,     // (Q, 32)
+                        const float* __restrict__ u,     // (Q, 32, N)
+                        const int* __restrict__ cols,    // (N, nnz)
+                        const float* __restrict__ vals,  // (N, nnz)
+                        float* __restrict__ x,           // (Q, 32, N)
+                        int q, int vp1, int n, int nnz, int docs_blk) {
+  __shared__ int s_col[kMaxWarpsPerBlock][kWarp];
+  __shared__ float s_val[kMaxWarpsPerBlock][kWarp];
+  const int warp = threadIdx.x / kWarp;
+  const int j0 = blockIdx.x * docs_blk;
+  group_doc_tile<kFromX>(kvm, r, u, cols, vals, x, s_col[warp], s_val[warp],
+                         q, blockIdx.y * kGroupQ, vp1, n, nnz, j0,
+                         min(j0 + docs_blk, n));
+}
+
 // #3 (and #1 at Q = 1), the type1 grid (ceil(N / docs_blk), Q) on the
 // vocab-major copy of K: block (tile, q) walks query q's documents of its
 // tile. kFromX: u holds the iterate x (`load_u`).
@@ -461,6 +659,31 @@ int launch_type1_vm(const void* kvm, const void* r, const void* u,
   });
 }
 
+// #3 on the query-group tile: v_r 32, kvm 16-byte aligned (the kernel
+// loads a lane's rows as one vector)
+int launch_type1_grouped(const void* kvm, const void* r, const void* u,
+                         const void* cols, const void* vals, void* x, int q,
+                         int v_r, int vp1, int n, int nnz, int docs_blk,
+                         int from_x, void* stream) {
+  if (bad_shape(q, v_r, n, docs_blk) || v_r != kWarp ||
+      reinterpret_cast<size_t>(kvm) % sizeof(float4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(n, docs_blk, (q + kGroupQ - 1) / kGroupQ);
+  const dim3 block = tile_block(docs_blk);
+  auto launch = [&](auto fx) {
+    type1_vm_kernel_grouped<decltype(fx)::value>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)kvm, (const float*)r, (const float*)u,
+            (const int*)cols, (const float*)vals, (float*)x, q, vp1, n, nnz,
+            docs_blk);
+  };
+  if (from_x)
+    launch(std::true_type{});
+  else
+    launch(std::false_type{});
+  return (int)cudaGetLastError();
+}
+
 int launch_type2_vm(const void* kvm, const void* kmvm, const void* u,
                     const void* cols, const void* vals, void* wmd, int q,
                     int v_r, int vp1, int n, int nnz, int docs_blk,
@@ -482,15 +705,21 @@ int launch_type2_vm(const void* kvm, const void* kmvm, const void* u,
 // the Sinkhorn u; 1, u holds the iterate x, and the kernel forms
 // u = 1 / max(x, TINY) as it loads it (`recip_x`).
 
-// #3 on the vocab-major copy kvm (Q, V+1, v_r).
+// #3 on the vocab-major copy kvm (Q, V+1, v_r), on the doc tile the
+// wrapper chose by shape (`type1_tile` in kernels/sddmm_spmm.py): queries
+// 1, the warp tile; 4, the query-group tile (v_r 32 only).
 extern "C" int sddmm_spmm_type1_batch(const void* kvm, const void* r,
                                       const void* u, const void* cols,
                                       const void* vals, void* x, int q,
                                       int v_r, int vp1, int n, int nnz,
-                                      int docs_blk, int from_x,
+                                      int docs_blk, int queries, int from_x,
                                       void* stream) {
-  return launch_type1_vm(kvm, r, u, cols, vals, x, q, v_r, vp1, n, nnz,
-                         docs_blk, from_x, stream);
+  if (queries == 1)
+    return launch_type1_vm(kvm, r, u, cols, vals, x, q, v_r, vp1, n, nnz,
+                           docs_blk, from_x, stream);
+  if (queries != kGroupQ) return (int)cudaErrorInvalidValue;
+  return launch_type1_grouped(kvm, r, u, cols, vals, x, q, v_r, vp1, n, nnz,
+                              docs_blk, from_x, stream);
 }
 
 // #1: #3's kernel at Q = 1 on one query's vocab-major copy kvm (V+1, v_r),

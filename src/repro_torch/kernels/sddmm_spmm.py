@@ -26,7 +26,12 @@ launch the CUDA kernels in ``csrc/sddmm_spmm.cu`` (CUDA tensors only):
     and ``sddmm_spmm_type2_vm`` (#2) on one query's (V+1, v_r) copies, #3's
     and #4's kernels at Q = 1. The reference layout's entries of the same
     names without ``_vm`` are the copies and the kernel in one call. #4 is
-    #2 query by query, and #1 is #3 at Q = 1, bit for bit;
+    #2 query by query, and #1 is #3 at Q = 1, bit for bit. #3 runs on one
+    of two doc tiles, chosen by `type1_tile` from the shape alone and
+    counted in ``tile_launches``: four queries of one document a warp at
+    v_r 32 and Q >= 3, one (query, doc) pair a warp otherwise; the two
+    give the same bits, and ``sddmm_spmm_type1_batch_warp`` (test-only)
+    launches #3's entry on the second at any shape;
   * ``sddmm_spmm_type2_naive`` is their oracle: one query's
     reference-layout stripes (v_r, V+1), one slot at a time, the same
     per-slot step (a kernel of its own, which no serving path calls).
@@ -78,6 +83,26 @@ def reads_x_total() -> int:
 
 # v_r rows a warp can hold (4 per lane); the kernels refuse larger buckets
 MAX_V_R = 128
+
+# #3's doc tiles (`type1_tile`), by the queries one warp works on: "warp",
+# one (query, doc) pair a warp at any v_r; "group", GROUP_QUERIES queries of
+# one document a warp at v_r 32, the same bits with fewer shuffles a slot
+GROUP_QUERIES = 4
+TILE_QUERIES = {"warp": 1, "group": GROUP_QUERIES}
+
+# type1 launches (#3 and #1) by doc tile
+tile_launches: collections.Counter = collections.Counter()
+
+
+def type1_tile(q: int, v_r: int) -> str:
+    """#3's doc tile for Q queries at v_r: "group" at v_r 32 and Q >= 3,
+    "warp" otherwise (Q 1 and 2, v_r 64 and 128, the tests' small v_r).
+    A function of the shape alone; both tiles give the same bits. At Q 2
+    half a group warp idles: on an H100 it took 0.0332 ms of device time
+    against the warp tile's 0.0311 at 5,000 docs (0.2288 against 0.2577
+    at 65,536); at Q 3 0.0333 against 0.0403 (0.2384 against 0.3778)."""
+    return "group" if v_r == 32 and q >= 3 else "warp"
+
 
 # #1's and #2's doc tile: at Q = 1 (N = 5,000, v_r = 32, H100) docs_blk 4
 # took 0.0199-0.0207 ms of device time a #1 launch against 0.0209-0.0213 at
@@ -272,25 +297,59 @@ def k_vocab_major(k_pad: torch.Tensor) -> torch.Tensor:
     return k_vm
 
 
-def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
-                              docs_blk: int = 8,
-                              from_x: bool = False) -> torch.Tensor:
-    """CUDA type1 kernel (#3) on the vocab-major copy k_vm (Q, V+1, v_r)
-    with the zero pad row V, r_sel (Q, v_r), u (Q, v_r, N), cols int32 /
-    vals f32 (N, nnz) with every col in [0, V]. Returns x (Q, v_r, N).
-    ``docs_blk`` documents per block; ``from_x``: u is the iterate x."""
-    name = "sddmm_spmm_type1_batch"
+def _type1_batch_shape(name, k_vm, r_sel, u, cols, vals, docs_blk):
+    """#3's checks (`_check`, r_sel and vals against the shape): (Q, v_r,
+    N)."""
     _check(name, {"k_vm": k_vm, "r_sel": r_sel, "u": u, "cols": cols,
                   "vals": vals}, k_vm, u, cols, docs_blk, vocab_major=True)
     q, v_r, n = u.shape
     if r_sel.shape != (q, v_r) or vals.shape != cols.shape:
         raise ValueError(f"{name}: r_sel {tuple(r_sel.shape)} / vals "
                          f"{tuple(vals.shape)} shape mismatch")
+    return q, v_r, n
+
+
+def sddmm_spmm_type1_batch_vm(k_vm, r_sel, u, cols, vals, *,
+                              docs_blk: int = 8,
+                              from_x: bool = False) -> torch.Tensor:
+    """CUDA type1 kernel (#3) on the vocab-major copy k_vm (Q, V+1, v_r)
+    with the zero pad row V, r_sel (Q, v_r), u (Q, v_r, N), cols int32 /
+    vals f32 (N, nnz) with every col in [0, V]. Returns x (Q, v_r, N).
+    ``docs_blk`` documents per block; ``from_x``: u is the iterate x. The
+    doc tile is `type1_tile`'s, counted in ``tile_launches``."""
+    name = "sddmm_spmm_type1_batch"
+    q, v_r, n = _type1_batch_shape(name, k_vm, r_sel, u, cols, vals,
+                                   docs_blk)
+    tile = type1_tile(q, v_r)
+    if tile == "group" and k_vm.data_ptr() % 16:
+        raise ValueError(f"{name}: the query-group tile loads k_vm 16 bytes "
+                         f"at a time; k_vm at {k_vm.data_ptr():#x} is not "
+                         f"16-byte aligned")
     x = torch.empty_like(u)
     if q and n:
         _launch(name, (k_vm, r_sel, u, cols, vals, x),
                 q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
-                from_x=from_x)
+                TILE_QUERIES[tile], from_x=from_x)
+        tile_launches[tile] += 1
+    return x
+
+
+def sddmm_spmm_type1_batch_warp(k_vm, r_sel, u, cols, vals, *,
+                                docs_blk: int = 8,
+                                from_x: bool = False) -> torch.Tensor:
+    """#3 on the warp tile at any shape (CUDA; the arguments of
+    `sddmm_spmm_type1_batch_vm`), through #3's own entry: the tests and
+    chip_smoke.py hold the query-group tile to it bitwise. No serving path
+    calls it."""
+    name = "sddmm_spmm_type1_batch"
+    q, v_r, n = _type1_batch_shape("sddmm_spmm_type1_batch_warp", k_vm,
+                                   r_sel, u, cols, vals, docs_blk)
+    x = torch.empty_like(u)
+    if q and n:
+        _launch(name, (k_vm, r_sel, u, cols, vals, x),
+                q, v_r, k_vm.shape[1], n, cols.shape[1], docs_blk,
+                TILE_QUERIES["warp"], from_x=from_x)
+        tile_launches["warp"] += 1
     return x
 
 
@@ -364,6 +423,7 @@ def sddmm_spmm_type1_vm(k_vm, r_sel, u, cols, vals, *,
     if n:
         _launch(name, (k_vm, r_sel, u, cols, vals, x),
                 v_r, k_vm.shape[0], n, cols.shape[1], docs_blk, from_x=from_x)
+        tile_launches["warp"] += 1
     return x
 
 
